@@ -9,7 +9,8 @@ is). The layout mirrors ``aec_tpu`` so every module has a named counterpart:
   block frequency-domain Kalman canceller (``aec_tpu/linear``);
 - ``aec_tpu_torch.ops``      — the GRU recurrence (``aec_tpu/ops/gru.py``);
 - ``aec_tpu_torch.models``   — LittleNet as an ``nn.Module``;
-- ``aec_tpu_torch.pipeline`` — the two-stage composition;
+- ``aec_tpu_torch.pipeline`` — the two-stage composition and the streaming
+  (frame-in / frame-out) runtime;
 - ``aec_tpu_torch.kernels``  — hand-written CUDA C++ kernels for sm_90a, each
   beside its plain PyTorch version. A CUDA tensor goes through the kernel
   (or the call raises); a CPU tensor takes the plain version.
@@ -30,6 +31,13 @@ def __getattr__(name):
         "little_net_apply": ("aec_tpu_torch.models.little_net", "little_net_apply"),
         "erb_filterbank": ("aec_tpu_torch.dsp.erb", "erb_filterbank"),
         "load_npz": ("aec_tpu_torch.utils.weights", "load_npz"),
+        **{n: ("aec_tpu_torch.pipeline.streaming", n) for n in (
+            "stream_init", "stream_step", "stream_flush", "stream_init_batched",
+            "stream_step_batched", "stream_run")},
+        **{n: ("aec_tpu_torch.kernels.serving", n) for n in (
+            "serving_init", "serving_step_fused", "serving_step_plain",
+            "serving_state_from_stream", "serving_state_to_stream",
+            "serving_reset_streams", "serving_erle")},
     }
     if name in lazy:
         import importlib

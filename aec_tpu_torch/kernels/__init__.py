@@ -3,10 +3,13 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
 
 - ``kalman``  — K1, batched Kalman stage 1 (``csrc/kalman_batched.cu``);
 - ``stage2``  — K2, batched LittleNet stage 2 (``csrc/stage2.cu``);
+- ``serving`` — K3, the streaming serving step for S live streams, state in
+  place (``csrc/serving.cu``), with the serving state and its migrations;
+- ``two_stage`` — K4, both stages in one launch (``csrc/two_stage.cu``);
 - ``consts``  — their constant DFT bases, fp32, cached per device;
 - ``_build``  — ``nvcc`` at first use, ctypes binding, error checks.
 
-``csrc/bl_common.cuh`` holds the per-step device code both kernels share.
+``csrc/bl_common.cuh`` holds the per-step device code the kernels share.
 A wrapper launches its kernel for a CUDA tensor (or raises) and takes the
 plain version for a CPU tensor; each counts its launches in ``.launches``.
 """

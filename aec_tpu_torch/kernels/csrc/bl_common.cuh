@@ -5,8 +5,9 @@
 // are CTA-wide functions: every thread of a kThreads-thread block calls them,
 // the state lives in the block's shared memory, and they end with
 // __syncthreads(). The batched kernels (kalman_batched.cu, stage2.cu) call
-// them once per block / frame, and a kernel that composes both stages in one
-// launch can call them back to back on the same shared state.
+// them once per block / frame; two_stage_block_step calls them back to back
+// on one CTA's shared state for the kernels that run both stages in one
+// launch (two_stage.cu, serving.cu).
 //
 // Every product is plain fp32 (FFMA): the TPU kernels' bf16 hi/lo splits and
 // separate Nyquist column existed for the bf16 matrix unit and are not needed
@@ -226,21 +227,35 @@ struct Stage2Weights {
   const float* __restrict__ inv_env;    // (kBlock) inverse interior OLA envelope
 };
 
-struct Stage2Smem {
+// What recurs from frame to frame.
+struct Stage2State {
   float lin[kFrame], far[kFrame];  // [previous block || current block]
-  float spec[2 * kRi];             // lin spectrum, far spectrum
-  float mag[2 * kBins];            // |lin|, |far|
+  float h[kBands];                 // GRU state
+  float tail[kBlock];              // OLA tail
+};
+
+// Work vectors of one frame. Dead between frames, except that the caller
+// reads `mask` and `out` right after the step; so a kernel that also runs
+// stage 1 may lay them over stage 1's per-step scratch (TwoStageSmem).
+struct Stage2Scratch {
+  float spec[2 * kRi];  // lin spectrum, far spectrum
+  float mag[2 * kBins];  // |lin|, |far|
   float part[kSlices * 2 * kBands];
-  float me[kBands], fe[kBands], h[kBands];
+  float me[kBands], fe[kBands];
   float xp[3 * kBands], hp[3 * kBands];
   float l1[kBands], mask[kBands];
   float y[kRi];  // gain-weighted lin spectrum
-  float tail[kBlock], out[kBlock];
+  float out[kBlock];
+};
+
+struct Stage2Smem {
+  Stage2State st;
+  Stage2Scratch sc;
 };
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
-__device__ inline void stage2_init(Stage2Smem& s) {
+__device__ inline void stage2_init(Stage2State& s) {
   for (int i = threadIdx.x; i < kFrame; i += kThreads) { s.lin[i] = 0.f; s.far[i] = 0.f; }
   for (int i = threadIdx.x; i < kBlock; i += kThreads) s.tail[i] = 0.f;
   for (int i = threadIdx.x; i < kBands; i += kThreads) s.h[i] = 0.f;
@@ -249,10 +264,14 @@ __device__ inline void stage2_init(Stage2Smem& s) {
 
 // One LittleNet frame (equations: aec_tpu/models/little_net.py and
 // pipeline/streaming.py). Before the call s.lin[kBlock:] / s.far[kBlock:]
-// hold the current blocks; after it s.mask holds this frame's mask and s.out
+// hold the current blocks; after it x.mask holds this frame's mask and x.out
 // the output block this frame completes (the previous one, by OLA).
-__device__ inline void stage2_frame_step(Stage2Smem& s, const Stage2Weights& w,
-                                         bool gain_norm) {
+// off_lin / off_far are subtracted from the whole analysis frames (the
+// causal pseudo-norm scalars, bl_common.py:484-490); s.lin / s.far keep the
+// raw blocks, so the next frame subtracts its own, newer scalars.
+__device__ inline void stage2_frame_step(Stage2State& s, Stage2Scratch& x,
+                                         const Stage2Weights& w, bool gain_norm,
+                                         float off_lin = 0.f, float off_far = 0.f) {
   const int tid = threadIdx.x;
 
   // 1. windowed analysis DFT of both frames (one basis read for the two)
@@ -261,11 +280,11 @@ __device__ inline void stage2_frame_step(Stage2Smem& s, const Stage2Weights& w,
 #pragma unroll 8
     for (int n = 0; n < kFrame; ++n) {
       const float b = w.analysis[n * kRi + tid];
-      al = fmaf(s.lin[n], b, al);
-      af = fmaf(s.far[n], b, af);
+      al = fmaf(s.lin[n] - off_lin, b, al);
+      af = fmaf(s.far[n] - off_far, b, af);
     }
-    s.spec[tid] = al;
-    s.spec[kRi + tid] = af;
+    x.spec[tid] = al;
+    x.spec[kRi + tid] = af;
   }
   __syncthreads();
 
@@ -276,8 +295,8 @@ __device__ inline void stage2_frame_step(Stage2Smem& s, const Stage2Weights& w,
   }
   for (int i = tid; i < 2 * kBins; i += kThreads) {
     const int which = i / kBins, k = i - which * kBins;
-    const float re = s.spec[which * kRi + k], im = s.spec[which * kRi + kBins + k];
-    s.mag[i] = sqrtf(re * re + im * im + 1e-9f);
+    const float re = x.spec[which * kRi + k], im = x.spec[which * kRi + kBins + k];
+    x.mag[i] = sqrtf(re * re + im * im + 1e-9f);
   }
   __syncthreads();
 
@@ -287,39 +306,39 @@ __device__ inline void stage2_frame_step(Stage2Smem& s, const Stage2Weights& w,
     const int which = o / kBands, e = o - which * kBands;
     float acc = 0.f;
     for (int k = g; k < kBins; k += kSlices)
-      acc = fmaf(s.mag[which * kBins + k], w.erb[k * kBands + e], acc);
-    s.part[g * 2 * kBands + o] = acc;
+      acc = fmaf(x.mag[which * kBins + k], w.erb[k * kBands + e], acc);
+    x.part[g * 2 * kBands + o] = acc;
   }
   __syncthreads();
   if (tid < 2 * kBands) {
     float acc = 0.f;
 #pragma unroll
-    for (int g = 0; g < kSlices; ++g) acc += s.part[g * 2 * kBands + tid];
-    if (tid < kBands) s.me[tid] = acc;
-    else s.fe[tid - kBands] = acc;
+    for (int g = 0; g < kSlices; ++g) acc += x.part[g * 2 * kBands + tid];
+    if (tid < kBands) x.me[tid] = acc;
+    else x.fe[tid - kBands] = acc;
   }
   __syncthreads();
 
   // 4. GRU input projection of [me || |me - fe|] and hidden projection
   if (tid < 3 * kBands) {
     float acc = 0.f;
-    for (int i = 0; i < kBands; ++i) acc = fmaf(w.w_ih_t[i * 3 * kBands + tid], s.me[i], acc);
+    for (int i = 0; i < kBands; ++i) acc = fmaf(w.w_ih_t[i * 3 * kBands + tid], x.me[i], acc);
     for (int i = 0; i < kBands; ++i)
-      acc = fmaf(w.w_ih_t[(kBands + i) * 3 * kBands + tid], fabsf(s.me[i] - s.fe[i]), acc);
-    s.xp[tid] = acc + w.b_ih[tid];
+      acc = fmaf(w.w_ih_t[(kBands + i) * 3 * kBands + tid], fabsf(x.me[i] - x.fe[i]), acc);
+    x.xp[tid] = acc + w.b_ih[tid];
   } else if (tid < 6 * kBands) {
     const int r = tid - 3 * kBands;
     float acc = 0.f;
     for (int i = 0; i < kBands; ++i) acc = fmaf(w.w_hh_t[i * 3 * kBands + r], s.h[i], acc);
-    s.hp[r] = acc + w.b_hh[r];
+    x.hp[r] = acc + w.b_hh[r];
   }
   __syncthreads();
 
   // 5. GRU cell, torch gate order (b_hn inside the reset product)
   if (tid < kBands) {
-    const float r = sigmoid_f(s.xp[tid] + s.hp[tid]);
-    const float z = sigmoid_f(s.xp[kBands + tid] + s.hp[kBands + tid]);
-    const float n = tanhf(s.xp[2 * kBands + tid] + r * s.hp[2 * kBands + tid]);
+    const float r = sigmoid_f(x.xp[tid] + x.hp[tid]);
+    const float z = sigmoid_f(x.xp[kBands + tid] + x.hp[kBands + tid]);
+    const float n = tanhf(x.xp[2 * kBands + tid] + r * x.hp[2 * kBands + tid]);
     s.h[tid] = (1.f - z) * n + z * s.h[tid];
   }
   __syncthreads();
@@ -328,16 +347,16 @@ __device__ inline void stage2_frame_step(Stage2Smem& s, const Stage2Weights& w,
   if (tid < kBands) {
     float acc = 0.f;
     for (int i = 0; i < kBands; ++i) acc = fmaf(w.w1_t[i * kBands + tid], s.h[i], acc);
-    for (int i = 0; i < kBands; ++i) acc = fmaf(w.w1_t[(kBands + i) * kBands + tid], s.me[i], acc);
-    s.l1[tid] = fmaxf(acc + w.b1[tid], 0.f);
+    for (int i = 0; i < kBands; ++i) acc = fmaf(w.w1_t[(kBands + i) * kBands + tid], x.me[i], acc);
+    x.l1[tid] = fmaxf(acc + w.b1[tid], 0.f);
   }
   __syncthreads();
 
   // 7. lin2 + sigmoid: the ERB mask
   if (tid < kBands) {
     float acc = 0.f;
-    for (int i = 0; i < kBands; ++i) acc = fmaf(w.w2_t[i * kBands + tid], s.l1[i], acc);
-    s.mask[tid] = sigmoid_f(acc + w.b2[tid]);
+    for (int i = 0; i < kBands; ++i) acc = fmaf(w.w2_t[i * kBands + tid], x.l1[i], acc);
+    x.mask[tid] = sigmoid_f(acc + w.b2[tid]);
   }
   __syncthreads();
 
@@ -347,12 +366,12 @@ __device__ inline void stage2_frame_step(Stage2Smem& s, const Stage2Weights& w,
 #pragma unroll 8
     for (int e = 0; e < kBands; ++e) {
       const float b = w.erb_t[e * kBins + tid];
-      gsum = fmaf(b, s.mask[e] * s.me[e], gsum);
-      norm = fmaf(b, s.me[e], norm);
+      gsum = fmaf(b, x.mask[e] * x.me[e], gsum);
+      norm = fmaf(b, x.me[e], norm);
     }
     const float gain = gain_norm ? gsum / (norm + 1e-9f) : gsum;
-    s.y[tid] = gain * s.spec[tid];
-    s.y[kBins + tid] = gain * s.spec[kBins + tid];
+    x.y[tid] = gain * x.spec[tid];
+    x.y[kBins + tid] = gain * x.spec[kBins + tid];
   }
   __syncthreads();
 
@@ -361,15 +380,110 @@ __device__ inline void stage2_frame_step(Stage2Smem& s, const Stage2Weights& w,
   if (tid < kFrame) {
 #pragma unroll 8
     for (int c = 0; c < kBins; ++c) {
-      acc_r = fmaf(s.y[c], w.synthesis[c * kFrame + tid], acc_r);
-      acc_i = fmaf(s.y[kBins + c], w.synthesis[(kBins + c) * kFrame + tid], acc_i);
+      acc_r = fmaf(x.y[c], w.synthesis[c * kFrame + tid], acc_r);
+      acc_i = fmaf(x.y[kBins + c], w.synthesis[(kBins + c) * kFrame + tid], acc_i);
     }
   }
   const float syn = acc_r + acc_i;
-  if (tid < kBlock) s.out[tid] = (s.tail[tid] + syn) * w.inv_env[tid] + 1e-9f;
+  if (tid < kBlock) x.out[tid] = (s.tail[tid] + syn) * w.inv_env[tid] + 1e-9f;
   __syncthreads();
   if (tid >= kBlock && tid < kFrame) s.tail[tid - kBlock] = syn;
   __syncthreads();
+}
+
+// ---------------------------------------------------------------- both stages
+
+// Rows of the serving state's per-stream `nm` vector: the causal
+// pseudo-norm's running moments (count, sum and sum of squares of the
+// stage-1 output, then of the far end), the health monitor's EMAs of mic and
+// stage-1-residual block power, one pad row (pallas_serving.py:67-71).
+constexpr int kNmRows = 8;
+constexpr int kMoments = 5;  // mic², e, e², far, far² summed over a block
+// MONITOR_SMOOTH and 1 - MONITOR_SMOOTH, each rounded to fp32 as JAX does
+constexpr float kMonitorKeep = 0.99f, kMonitorRate = 0.01f;
+
+// Both stages' state on one CTA. Stage 2's per-frame scratch lies over
+// stage 1's update buffer `g`, which is dead once a Kalman step has
+// returned and is fully rewritten by the next one before it is read; that
+// keeps the block at 107,120 B, so two CTAs fit on an SM.
+template <int L>
+struct TwoStageSmem {
+  KalmanSmem<L> s1;
+  Stage2State s2;
+  float nm[kNmRows];
+  float red[(kBlock / 32) * kMoments];  // per-warp partial block sums
+
+  __device__ Stage2Scratch& x() { return *reinterpret_cast<Stage2Scratch*>(s1.g); }
+  static_assert(sizeof(Stage2Scratch) <= sizeof(KalmanSmem<L>::g), "scratch must fit in g");
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// streaming._norm_scalar, rounded step by step as torch rounds it
+__device__ __forceinline__ float norm_scalar(float total, float sumsq, float count) {
+  const float mean = __fdiv_rn(total, count);
+  const float var = __fdiv_rn(__fsub_rn(sumsq, __fmul_rn(__fmul_rn(count, mean), mean)),
+                              fmaxf(count - 1.f, 1.f));
+  return __fdiv_rn(mean, __fsqrt_rn(fmaxf(var, 1e-12f)));
+}
+
+// One two-stage hop on one CTA's state (pallas_serving.py:173-222,
+// pallas_two_stage.py:97-122): the Kalman block update, its cancelled block
+// handed to stage 2 in shared memory with the far block, then the LittleNet
+// frame. Before the call s1.frame[kBlock:] holds far block t and s1.e mic
+// block t; after it s1.e holds the stage-1 block, x().out the enhanced
+// block t - 1 and x().mask this frame's mask. With `moments` the block's sums fold
+// into s.nm: the monitor rows always, the running moments only when
+// `normalize`, whose current scalars then offset stage 2's analysis frames.
+template <int L>
+__device__ void two_stage_block_step(TwoStageSmem<L>& s, int t, const KalmanParams& kp,
+                                     const Stage1Bases& bs, const Stage2Weights& w,
+                                     bool gain_norm, bool moments, bool normalize) {
+  const int tid = threadIdx.x;
+  const float mic = tid < kBlock ? s.s1.e[tid] : 0.f;  // s1.e becomes the residual
+  kalman_block_step<L>(s.s1, t, kp, bs);
+  if (tid < kBlock) {
+    s.s2.lin[kBlock + tid] = s.s1.e[tid];
+    s.s2.far[kBlock + tid] = s.s1.frame[kBlock + tid];
+  }
+  float off_lin = 0.f, off_far = 0.f;
+  if (moments) {
+    if (tid < kBlock) {  // warps 0-7, all lanes active
+      const float e = s.s1.e[tid], f = s.s1.frame[kBlock + tid];
+      const float v[kMoments] = {mic * mic, e, e * e, f, f * f};
+#pragma unroll
+      for (int q = 0; q < kMoments; ++q) {
+        const float sum = warp_sum(v[q]);
+        if (tid % 32 == 0) s.red[(tid / 32) * kMoments + q] = sum;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float sum[kMoments] = {};
+      for (int g = 0; g < kBlock / 32; ++g)
+#pragma unroll
+        for (int q = 0; q < kMoments; ++q) sum[q] += s.red[g * kMoments + q];
+      s.nm[5] = kMonitorKeep * s.nm[5] + kMonitorRate * (sum[0] / kBlock);
+      s.nm[6] = kMonitorKeep * s.nm[6] + kMonitorRate * (sum[2] / kBlock);
+      if (normalize) {
+        s.nm[0] += static_cast<float>(kBlock);
+#pragma unroll
+        for (int q = 1; q < kMoments; ++q) s.nm[q] += sum[q];
+      }
+    }
+    __syncthreads();
+    if (normalize) {
+      off_lin = norm_scalar(s.nm[1], s.nm[2], s.nm[0]);
+      off_far = norm_scalar(s.nm[3], s.nm[4], s.nm[0]);
+    }
+  } else {
+    __syncthreads();
+  }
+  stage2_frame_step(s.s2, s.x(), w, gain_norm, off_lin, off_far);
 }
 
 }  // namespace aec

@@ -37,17 +37,17 @@ stage2_kernel(const float* __restrict__ lin, const float* __restrict__ far,
   const size_t mask_base = static_cast<size_t>(blockIdx.x) * (t_blocks + 1) * kBands;
   const int tid = threadIdx.x;
 
-  stage2_init(s);
+  stage2_init(s.st);
   for (int f = 0; f <= t_blocks; ++f) {  // frame t_blocks is the zero flush block
     if (tid < kBlock) {
       const size_t off = base + static_cast<size_t>(f) * kBlock + tid;
-      s.lin[kBlock + tid] = f < t_blocks ? lin[off] : 0.f;
-      s.far[kBlock + tid] = f < t_blocks ? far[off] : 0.f;
+      s.st.lin[kBlock + tid] = f < t_blocks ? lin[off] : 0.f;
+      s.st.far[kBlock + tid] = f < t_blocks ? far[off] : 0.f;
     }
     __syncthreads();
-    stage2_frame_step(s, w, gain_norm != 0);
-    if (tid < kBands) mask[mask_base + static_cast<size_t>(f) * kBands + tid] = s.mask[tid];
-    if (f > 0 && tid < kBlock) out[base + static_cast<size_t>(f - 1) * kBlock + tid] = s.out[tid];
+    stage2_frame_step(s.st, s.sc, w, gain_norm != 0);
+    if (tid < kBands) mask[mask_base + static_cast<size_t>(f) * kBands + tid] = s.sc.mask[tid];
+    if (f > 0 && tid < kBlock) out[base + static_cast<size_t>(f - 1) * kBlock + tid] = s.sc.out[tid];
   }
 }
 

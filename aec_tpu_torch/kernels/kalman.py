@@ -30,14 +30,32 @@ __all__ = ["kalman_cancel_fused_batched", "kalman_cancel_plain"]
 _BLOCK = 256
 
 
+# ctypes types of the stage-1 arguments every kernel takes: the three bases,
+# then the eight KalmanParams (see :func:`kalman_operands`)
+KALMAN_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 8
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("kalman_batched")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.aec_kalman_batched.argtypes = [p, p, p, i, i, p, p, p, *[f] * 8, i, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.aec_kalman_batched.argtypes = [p, p, p, i, i, *KALMAN_ARGTYPES, i, p]
     lib.aec_kalman_batched.restype = ctypes.c_int
     lib.aec_kalman_n_blocks.restype = ctypes.c_int
     return lib
+
+
+def kalman_operands(cfg: KalmanConfig, device: torch.device) -> list:
+    """The stage-1 kernel arguments of ``KALMAN_ARGTYPES``: the bases of
+    :func:`stage1_consts` (cached per device, so their pointers stay valid)
+    and the filter constants."""
+    c = stage1_consts(_BLOCK, device)
+    a2 = cfg.a * cfg.a
+    return [
+        _build.ptr(c["fwd"]), _build.ptr(c["inv_tail"]), _build.ptr(c["inv_head"]),
+        cfg.a, a2, 1.0 - a2, cfg.q_min, cfg.obs_smooth, 1.0 - cfg.obs_smooth,
+        cfg.psi_floor, cfg.init_p,
+    ]
 
 
 def _check(cfg: KalmanConfig, far: torch.Tensor, mic: torch.Tensor, block: int,
@@ -73,13 +91,9 @@ def kalman_cancel_fused_batched(
     n = mic.shape[-1]
     farp, micp = ols.pad_to_blocks(far, block), ols.pad_to_blocks(mic, block)
     e = torch.empty_like(micp)
-    c = stage1_consts(block, far.device)
-    a2 = cfg.a * cfg.a
     err = lib.aec_kalman_batched(
         _build.ptr(farp), _build.ptr(micp), _build.ptr(e), farp.shape[0],
-        farp.shape[1] // block, _build.ptr(c["fwd"]), _build.ptr(c["inv_tail"]),
-        _build.ptr(c["inv_head"]), cfg.a, a2, 1.0 - a2, cfg.q_min, cfg.obs_smooth,
-        1.0 - cfg.obs_smooth, cfg.psi_floor, cfg.init_p, far.device.index,
+        farp.shape[1] // block, *kalman_operands(cfg, far.device), far.device.index,
         _build.stream_of(far),
     )
     _build.check(err, "kalman_batched")

@@ -33,11 +33,16 @@ from aec_tpu_torch.ops.gru import gru_cell
 _HOP, _WIN, _BANDS = 256, 512, 32
 
 
+# ctypes types of the stage-2 arguments every kernel takes: the 13 tensors
+# of :func:`stage2_operands`
+STAGE2_ARGTYPES = [ctypes.c_void_p] * 13
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("stage2")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aec_stage2.argtypes = [p, p, p, p, i, i, *[p] * 13, i, i, p]
+    lib.aec_stage2.argtypes = [p, p, p, p, i, i, *STAGE2_ARGTYPES, i, i, p]
     lib.aec_stage2.restype = ctypes.c_int
     return lib
 
@@ -79,26 +84,53 @@ def little_net_apply_fused_plain(
     return out, masks
 
 
-def _check(net: LittleNet, lin: torch.Tensor, far: torch.Tensor, erb: torch.Tensor,
-           cfg: StftConfig) -> None:
-    tensors = [lin, far, erb, *net.parameters()]
-    if lin.device.type != "cuda" or any(t.device != lin.device for t in tensors):
-        raise ValueError("blocks, erb and the net's weights must be on one CUDA device")
+def check_net(net: LittleNet, erb: torch.Tensor, cfg: StftConfig,
+              device: torch.device) -> None:
+    """Raise unless the net and erb are fp32 on the CUDA ``device`` and the
+    net and STFT geometry are the ones the stage-2 device code is built for."""
+    tensors = [erb, *net.parameters()]
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError(f"erb and the net's weights must be on the inputs' CUDA device {device}")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("blocks, erb and the net's weights must be float32")
-    if lin.ndim != 3 or lin.shape != far.shape:
-        raise ValueError(
-            f"lin/far must be (B, Tb, hop) of one shape, got {lin.shape}, {far.shape}"
-        )
-    if not (lin.is_contiguous() and far.is_contiguous()):
-        raise ValueError("lin/far must be contiguous")
-    if (cfg.hop, cfg.win_len, cfg.fft_len) != (_HOP, _WIN, _WIN) or lin.shape[-1] != _HOP:
+        raise TypeError("erb and the net's weights must be float32")
+    if (cfg.hop, cfg.win_len, cfg.fft_len) != (_HOP, _WIN, _WIN):
         raise ValueError(f"the kernel is built for hop {_HOP}, window/FFT {_WIN}, got {cfg}")
     if tuple(erb.shape) != (cfg.n_freqs, _BANDS) or net.hidden != _BANDS:
         raise ValueError(
             f"the kernel is built for a width-1 LittleNet on {_BANDS} ERB bands, "
             f"got erb {tuple(erb.shape)} and GRU hidden {net.hidden}"
         )
+
+
+def stage2_operands(net: LittleNet, erb: torch.Tensor, cfg: StftConfig) -> list[torch.Tensor]:
+    """The 13 stage-2 kernel operands (``Stage2Weights`` in bl_common.cuh),
+    weights transposed to (in, out). The caller holds the list until the
+    launch is enqueued; temporaries freed after it are reused only by later
+    work on the same stream, so stream order keeps them valid for it."""
+    c = stage2_consts(cfg, erb.device)
+    gp = {k: v.detach() for k, v in net.gru_params().items()}
+    return [
+        c["analysis"], c["synthesis"], erb.contiguous(), erb.T.contiguous(),
+        gp["w_ih"].T.contiguous(), gp["w_hh"].T.contiguous(), gp["b_ih"], gp["b_hh"],
+        net.linear1.weight.detach().T.contiguous(), net.linear1.bias.detach(),
+        net.linear2.weight.detach().T.contiguous(), net.linear2.bias.detach(),
+        c["inv_env"],
+    ]
+
+
+def _check(net: LittleNet, lin: torch.Tensor, far: torch.Tensor, erb: torch.Tensor,
+           cfg: StftConfig) -> None:
+    if lin.device.type != "cuda" or far.device != lin.device:
+        raise ValueError(f"lin/far must be on one CUDA device, got {lin.device}, {far.device}")
+    if lin.dtype != torch.float32 or far.dtype != torch.float32:
+        raise TypeError(f"lin/far must be float32, got {lin.dtype}, {far.dtype}")
+    if lin.ndim != 3 or lin.shape != far.shape or lin.shape[-1] != _HOP:
+        raise ValueError(
+            f"lin/far must be (B, Tb, {_HOP}) of one shape, got {lin.shape}, {far.shape}"
+        )
+    if not (lin.is_contiguous() and far.is_contiguous()):
+        raise ValueError("lin/far must be contiguous")
+    check_net(net, erb, cfg, lin.device)
 
 
 def little_net_apply_fused(
@@ -119,20 +151,10 @@ def little_net_apply_fused(
     b, t_blocks, hop = lin_blocks.shape
     out = torch.empty_like(lin_blocks)
     mask = lin_blocks.new_empty((b, t_blocks + 1, _BANDS))
-    c = stage2_consts(cfg, lin_blocks.device)
-    gp = {k: v.detach() for k, v in net.gru_params().items()}
-    # kernel operands; temporaries freed after the call are reused only by
-    # later work on this stream, so stream order keeps them valid for the launch
-    keep = [
-        c["analysis"], c["synthesis"], erb.contiguous(), erb.T.contiguous(),
-        gp["w_ih"].T.contiguous(), gp["w_hh"].T.contiguous(), gp["b_ih"], gp["b_hh"],
-        net.linear1.weight.detach().T.contiguous(), net.linear1.bias.detach(),
-        net.linear2.weight.detach().T.contiguous(), net.linear2.bias.detach(),
-        c["inv_env"],
-    ]
+    keep = stage2_operands(net, erb, cfg)
     err = lib.aec_stage2(
         _build.ptr(lin_blocks), _build.ptr(far_blocks), _build.ptr(out), _build.ptr(mask),
-        b, t_blocks, *[_build.ptr(t) for t in keep], int(gain_norm),
+        b, t_blocks, *map(_build.ptr, keep), int(gain_norm),
         lin_blocks.device.index, _build.stream_of(lin_blocks),
     )
     _build.check(err, "stage2")

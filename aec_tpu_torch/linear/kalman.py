@@ -139,15 +139,10 @@ def kalman_cancel(
     fused route does. ``constrain=False`` stays on the plain loop on every
     device, as JAX routes it to its scan. CPU tensors take the plain loop
     and return its final state. Every product is plain fp32, which meets the
-    JAX ``"parity"`` tier; the ``"fast"`` tier (JAX's mixed bf16 matmuls)
-    is not ported yet.
+    JAX ``"parity"`` tier; ``quality="fast"`` (JAX's mixed bf16 tier, which
+    the port has no use for) computes the same fp32 numbers.
     """
-    if quality == "fast":
-        raise NotImplementedError(
-            "quality='fast' belongs to the fused two-stage route "
-            "(ROADMAP.md queue B, item 5: pallas_two_stage.two_stage_fused)"
-        )
-    if quality != "parity":
+    if quality not in ("parity", "fast"):
         raise ValueError(f"quality must be 'parity' or 'fast', got {quality!r}")
     if far.is_cuda and constrain:
         from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched

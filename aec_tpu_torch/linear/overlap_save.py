@@ -70,6 +70,11 @@ def far_end_spectra(far: torch.Tensor, block: int) -> torch.Tensor:
     return torch.matmul(frames, _mat(block, 0, far.device))
 
 
+def frame_to_spectrum(frame: torch.Tensor, block: int) -> torch.Tensor:
+    """[..., 2B] time frame -> [..., 2K] ri spectrum (streaming use)."""
+    return torch.matmul(frame, _mat(block, 0, frame.device))
+
+
 def mic_blocks(mic: torch.Tensor, block: int) -> torch.Tensor:
     """[..., n] -> [..., T, B] contiguous blocks."""
     return mic.reshape(*mic.shape[:-1], -1, block)

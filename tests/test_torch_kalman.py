@@ -109,7 +109,12 @@ def test_unconstrained_matches_jax(rng):
 
 
 def test_fast_quality_not_ported_yet(rng):
-    far, mic = _scene(rng, b=1, n=4 * 256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kalman_cancel(KalmanConfig(), torch.from_numpy(far), torch.from_numpy(mic), quality="fast")
+    """quality="fast" (JAX's mixed bf16 tier) has no tier of its own in the
+    port: it computes the same fp32 numbers as "parity"; unknown names raise."""
+    far, mic = _scene(rng, b=2, n=4 * 256)
+    args = (KalmanConfig(), torch.from_numpy(far), torch.from_numpy(mic))
+    fast = kalman_cancel(*args, quality="fast")
+    assert torch.equal(fast["wav"], kalman_cancel(*args)["wav"])
+    with pytest.raises(ValueError, match="quality"):
+        kalman_cancel(*args, quality="bf16")
 

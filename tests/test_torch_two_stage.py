@@ -11,11 +11,13 @@ import pytest
 import torch
 
 from aec_tpu.dsp.erb import erb_filterbank
+from aec_tpu.kernels.pallas_two_stage import two_stage_fused as jax_two_stage_fused
 from aec_tpu.models.little_net import little_net_init
 from aec_tpu.pipeline.two_stage import two_stage_cancel as jax_two_stage
 from aec_tpu.train import checkpoints
+from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
 from aec_tpu_torch.pipeline.two_stage import two_stage_cancel
-from aec_tpu_torch.utils.weights import load_npz
+from aec_tpu_torch.utils.weights import load_npz, params_from_jax
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CKPT_DIR = os.path.join(ROOT, "checkpoints")
@@ -84,13 +86,60 @@ def test_stage1_none_matches_jax(rng):
     np.testing.assert_allclose(got["wav"].numpy(), wav_j, atol=1e-4 * np.abs(wav_j).max())
 
 
-@pytest.mark.parametrize("kwargs", [{"stage1": "nlms"}, {"quality": "fast"}, {"fast": True}])
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"stage1": "nlms"}, {"stage1": "nlms", "quality": "fast"}, {"stage1": "nlms", "fast": True}],
+)
 def test_routes_not_ported_yet_raise(rng, kwargs):
+    """NLMS is not ported, on any route: the fast routes are (K4 and the
+    K1 + K2 composition), so only stage1="nlms" still raises."""
     far, mic = _scene(rng, b=1, n=4 * 256)
     net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A3b"):
         two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic),
                          erb_filterbank(), **kwargs)
+
+
+@pytest.mark.parametrize("gain_norm", [False, True])
+def test_two_stage_fused_plain_matches_jax_kernel(rng, gain_norm):
+    """K4's plain version vs the TPU kernel it replaces, in interpret mode at
+    the JAX suite's exact-numerics tier (tests/test_pallas_two_stage.py):
+    wav and linear_wav at its 2e-3 of scale, the T + 1 mask frames."""
+    params = little_net_init(jax.random.PRNGKey(5))
+    far, mic = _scene(rng, b=3, n=20 * 256)
+    erb = erb_filterbank()
+    want = jax_two_stage_fused(params, jnp.asarray(far), jnp.asarray(mic), jnp.asarray(erb),
+                               interpret=True, tile=2, dot_mode="high", gain_norm=gain_norm)
+    got = two_stage_fused(params_from_jax(params), torch.from_numpy(far), torch.from_numpy(mic),
+                          erb, gain_norm=gain_norm)
+    plain = two_stage_fused_plain(params_from_jax(params), torch.from_numpy(far),
+                                  torch.from_numpy(mic), erb, gain_norm=gain_norm)
+    for key in ("wav", "linear_wav", "mask"):
+        assert torch.equal(got[key], plain[key]), key  # the CPU wrapper is the plain version
+        w = np.asarray(want[key])
+        assert got[key].shape == w.shape, key
+        scale = max(float(np.abs(w).max()), 1e-9)
+        np.testing.assert_allclose(got[key].numpy(), w, atol=2e-3 * scale, rtol=0, err_msg=key)
+    assert got["mask"].shape == (3, 21, 32)
+
+
+@pytest.mark.parametrize("kwargs", [{"quality": "fast"}, {"fast": True}])
+def test_fast_routes_match_jax(rng, kwargs):
+    """quality="fast" and the legacy fast=True on the CPU: the K1 + K2
+    composition in fp32, equal to the parity route, and to JAX's fast route
+    on the CPU (fp32 there too) at the parity bars."""
+    far, mic = _scene(rng)
+    erb = erb_filterbank()
+    net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"))
+    want = jax_two_stage(_jax_params("little_net_robust.npz"), jnp.asarray(far),
+                         jnp.asarray(mic), jnp.asarray(erb), **kwargs)
+    got = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb, **kwargs)
+    parity = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb)
+    for key in ("wav", "linear_wav", "mask"):
+        assert torch.equal(got[key], parity[key]), key
+    lin_j, wav_j = np.asarray(want["linear_wav"]), np.asarray(want["wav"])
+    np.testing.assert_allclose(got["linear_wav"].numpy(), lin_j, atol=2e-4 * np.abs(lin_j).max())
+    np.testing.assert_allclose(got["wav"].numpy(), wav_j, atol=5e-4 * np.abs(wav_j).max())
 
 
 def test_port_runs_without_jax():
