@@ -6,7 +6,7 @@ is). The layout mirrors ``aec_tpu`` so every module has a named counterpart:
 - ``aec_tpu_torch.dsp``      — windows, ERB filterbank, STFT/iSTFT as
   DFT-basis matmuls (``aec_tpu/dsp``);
 - ``aec_tpu_torch.linear``   — overlap-save machinery and the partitioned-
-  block frequency-domain Kalman canceller (``aec_tpu/linear``);
+  block frequency-domain Kalman and NLMS cancellers (``aec_tpu/linear``);
 - ``aec_tpu_torch.ops``      — the GRU recurrence (``aec_tpu/ops/gru.py``);
 - ``aec_tpu_torch.models``   — LittleNet as an ``nn.Module``;
 - ``aec_tpu_torch.pipeline`` — the two-stage composition and the streaming
@@ -28,6 +28,9 @@ def __getattr__(name):
     lazy = {
         "two_stage_cancel": ("aec_tpu_torch.pipeline.two_stage", "two_stage_cancel"),
         "kalman_cancel": ("aec_tpu_torch.linear.kalman", "kalman_cancel"),
+        "nlms_cancel": ("aec_tpu_torch.linear.nlms", "nlms_cancel"),
+        "KalmanConfig": ("aec_tpu_torch.configs", "KalmanConfig"),
+        "NlmsConfig": ("aec_tpu_torch.configs", "NlmsConfig"),
         "little_net_apply": ("aec_tpu_torch.models.little_net", "little_net_apply"),
         "erb_filterbank": ("aec_tpu_torch.dsp.erb", "erb_filterbank"),
         "load_npz": ("aec_tpu_torch.utils.weights", "load_npz"),

@@ -1,10 +1,15 @@
 """Hand-written CUDA C++ kernels for Hopper (sm_90a), each beside its plain
 PyTorch version (counterpart of ``aec_tpu/kernels``).
 
-- ``kalman``  — K1, batched Kalman stage 1 (``csrc/kalman_batched.cu``);
+- ``kalman``  — K1, batched Kalman stage 1 (``csrc/kalman_batched.cu``), and
+  K6, single-stream Kalman stage 1 on one thread-block cluster
+  (``csrc/single_stream.cu``);
+- ``nlms``    — K5, batched NLMS stage 1 (``csrc/nlms_batched.cu``), and K7,
+  single-stream NLMS stage 1 (``csrc/single_stream.cu``);
 - ``stage2``  — K2, batched LittleNet stage 2 (``csrc/stage2.cu``);
-- ``serving`` — K3, the streaming serving step for S live streams, state in
-  place (``csrc/serving.cu``), with the serving state and its migrations;
+- ``serving`` — K3, the streaming serving step for S live streams with a
+  Kalman or NLMS stage 1, state in place (``csrc/serving.cu``), with the
+  serving state and its migrations;
 - ``two_stage`` — K4, both stages in one launch (``csrc/two_stage.cu``);
 - ``consts``  — their constant DFT bases, fp32, cached per device;
 - ``_build``  — ``nvcc`` at first use, ctypes binding, error checks.

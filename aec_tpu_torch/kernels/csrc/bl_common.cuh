@@ -1,13 +1,14 @@
 // Shared per-step device code of the stage-1 and stage-2 CUDA kernels.
 //
 // Counterpart of aec_tpu/kernels/bl_common.py: kalman_block_step
-// (bl_common.py:248-365) and stage2_frame_step (bl_common.py:452-525). Both
-// are CTA-wide functions: every thread of a kThreads-thread block calls them,
-// the state lives in the block's shared memory, and they end with
-// __syncthreads(). The batched kernels (kalman_batched.cu, stage2.cu) call
-// them once per block / frame; two_stage_block_step calls them back to back
-// on one CTA's shared state for the kernels that run both stages in one
-// launch (two_stage.cu, serving.cu).
+// (bl_common.py:248-365), nlms_block_step (bl_common.py:368-449) and
+// stage2_frame_step (bl_common.py:452-525). All are CTA-wide functions:
+// every thread of a kThreads-thread block calls them, the state lives in the
+// block's shared memory, and they end with __syncthreads(). The batched
+// kernels (kalman_batched.cu, nlms_batched.cu, stage2.cu) call them once per
+// block / frame; two_stage_block_step calls a stage-1 step and the stage-2
+// step back to back on one CTA's shared state for the kernels that run both
+// stages in one launch (two_stage.cu, serving.cu).
 //
 // Every product is plain fp32 (FFMA): the TPU kernels' bf16 hi/lo splits and
 // separate Nyquist column existed for the bf16 matrix unit and are not needed
@@ -207,6 +208,191 @@ __device__ void kalman_block_step(KalmanSmem<L>& s, int t, const KalmanParams& k
   __syncthreads();
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// NlmsConfig's constants, with the two complements as the JAX package
+// rounds them to fp32
+struct NlmsParams {
+  float mu, eps, ps, one_minus_ps, eps_rel, beta, es, one_minus_es;
+};
+
+constexpr int kBinWarps = (kBins + 31) / 32;  // warps that hold one bin per thread
+
+// Per-utterance NLMS state and work vectors: KalmanSmem without the
+// covariance, with the smoothed far power and the per-warp partial sums of
+// its mean over the bins.
+template <int L>
+struct NlmsSmem {
+  float wr[L * kBins], wi[L * kBins];  // filter
+  float xr[L * kBins], xi[L * kBins];  // far-spectrum ring, as KalmanSmem's
+  float power[kBins], psi[kBins], inv[kBins];  // far power, residual psd, 1/den
+  float frame[kFrame];
+  float e[kBlock];
+  float y[kRi];
+  float er[kRi];
+  float g[L * kRi];
+  float t[L * kBlock], tpart[L * kBlock];
+  float red[kBinWarps];  // per-warp partial sums of the new power
+};
+
+template <int L>
+__device__ void nlms_init(NlmsSmem<L>& s) {
+  for (int i = threadIdx.x; i < L * kBins; i += kThreads) {
+    s.wr[i] = 0.f; s.wi[i] = 0.f; s.xr[i] = 0.f; s.xi[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < kBins; i += kThreads) { s.power[i] = 0.f; s.psi[i] = 0.f; }
+  for (int i = threadIdx.x; i < kFrame; i += kThreads) s.frame[i] = 0.f;
+  __syncthreads();
+}
+
+// One MDF block update (equations: aec_tpu/linear/nlms.py:20-22, 59-102).
+// The same transforms as kalman_block_step; no predict step. Before the call
+// s.frame[kBlock:] holds far block t and s.e mic block t; after it s.e holds
+// the echo-cancelled block t.
+template <int L>
+__device__ void nlms_block_step(NlmsSmem<L>& s, int t, const NlmsParams& np,
+                                const Stage1Bases& bs) {
+  const int tid = threadIdx.x;
+  const int head = t % L;
+  const int j = tid % kBlock, half = tid / kBlock;
+
+  // 1. far-frame analysis of [prev || cur] into ring slot `head`
+  if (tid < kRi) {
+    float acc = 0.f;
+#pragma unroll 8
+    for (int n = 0; n < kFrame; ++n) acc = fmaf(s.frame[n], bs.fwd[n * kRi + tid], acc);
+    if (tid < kBins) s.xr[head * kBins + tid] = acc;
+    else s.xi[head * kBins + tid - kBins] = acc;
+  }
+  __syncthreads();
+
+  // 2. far ring shift; smoothed far power; echo-estimate spectrum
+  //    y = sum_l W[l] X[l]; the power's partial sums per warp for its mean
+  if (tid < kBlock) s.frame[tid] = s.frame[kBlock + tid];
+  float pw = 0.f;
+  if (tid < kBins) {
+    float inst = 0.f, yr = 0.f, yi = 0.f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int xs = ((head - l + L) % L) * kBins + tid, ws = l * kBins + tid;
+      const float xr = s.xr[xs], xi = s.xi[xs];
+      inst += xr * xr + xi * xi;
+      yr += s.wr[ws] * xr - s.wi[ws] * xi;
+      yi += s.wr[ws] * xi + s.wi[ws] * xr;
+    }
+    pw = np.ps * s.power[tid] + np.one_minus_ps * inst;
+    s.power[tid] = pw;
+    s.y[tid] = yr;
+    s.y[kBins + tid] = yi;
+  }
+  if (tid < kBinWarps * 32) {  // whole warps: lanes past the last bin add 0
+    const float sum = warp_sum(pw);
+    if (tid % 32 == 0) s.red[tid / 32] = sum;
+  }
+  __syncthreads();
+
+  // 3. e = d - irfft(y)[B:], the real and imaginary halves summed apart
+  float acc_y = 0.f;
+  if (half < 2) {
+#pragma unroll 8
+    for (int c = half * kBins; c < (half + 1) * kBins; ++c)
+      acc_y = fmaf(s.y[c], bs.inv_tail[c * kBlock + j], acc_y);
+    if (half == 1) s.tpart[j] = acc_y;
+  }
+  __syncthreads();
+  if (half == 0) s.e[j] -= acc_y + s.tpart[j];
+  __syncthreads();
+
+  // 4. residual spectrum E = rfft([0 || e])
+  if (tid < kRi) {
+    float acc = 0.f;
+#pragma unroll 8
+    for (int n = 0; n < kBlock; ++n) acc = fmaf(s.e[n], bs.fwd[(kBlock + n) * kRi + tid], acc);
+    s.er[tid] = acc;
+  }
+  __syncthreads();
+
+  // 5. residual psd; den = power + eps + eps_rel mean_k(power) + beta psi
+  if (tid < kBins) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBinWarps; ++w) total += s.red[w];
+    const float er = s.er[tid], ei = s.er[kBins + tid];
+    const float psi = np.es * s.psi[tid] + np.one_minus_es * (er * er + ei * ei);
+    s.psi[tid] = psi;
+    s.inv[tid] = 1.f / (s.power[tid] + np.eps + np.eps_rel * (total / kBins) + np.beta * psi);
+  }
+  __syncthreads();
+
+  // 6. gradient conj(X[l]) E / den per partition
+  for (int i = tid; i < L * kBins; i += kThreads) {
+    const int l = i / kBins, k = i - l * kBins;
+    const int xs = ((head - l + L) % L) * kBins + k;
+    const float xr = s.xr[xs], xi = s.xi[xs], er = s.er[k], ei = s.er[kBins + k];
+    s.g[l * kRi + k] = (xr * er + xi * ei) * s.inv[k];
+    s.g[l * kRi + kBins + k] = (xr * ei - xi * er) * s.inv[k];
+  }
+  __syncthreads();
+
+  // 7. constraint head t[l] = irfft(G[l])[:B]; partitions in registers
+  float acc_t[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) acc_t[l] = 0.f;
+  if (half < 2) {
+#pragma unroll 2
+    for (int c = half * kBins; c < (half + 1) * kBins; ++c) {
+      const float ih = bs.inv_head[c * kBlock + j];
+#pragma unroll
+      for (int l = 0; l < L; ++l) acc_t[l] = fmaf(s.g[l * kRi + c], ih, acc_t[l]);
+    }
+    if (half == 1) {
+#pragma unroll
+      for (int l = 0; l < L; ++l) s.tpart[l * kBlock + j] = acc_t[l];
+    }
+  }
+  __syncthreads();
+  if (half == 0) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) s.t[l * kBlock + j] = acc_t[l] + s.tpart[l * kBlock + j];
+  }
+  __syncthreads();
+
+  // 8. constraint tail W[l] += mu rfft([t[l] || 0])
+  if (tid < kRi) {
+    float acc[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) acc[l] = 0.f;
+#pragma unroll 2
+    for (int n = 0; n < kBlock; ++n) {
+      const float fb = bs.fwd[n * kRi + tid];
+#pragma unroll
+      for (int l = 0; l < L; ++l) acc[l] = fmaf(s.t[l * kBlock + n], fb, acc[l]);
+    }
+    float* w = tid < kBins ? s.wr : s.wi;
+    const int k = tid < kBins ? tid : tid - kBins;
+#pragma unroll
+    for (int l = 0; l < L; ++l) w[l * kBins + k] += np.mu * acc[l];
+  }
+  __syncthreads();
+}
+
+// The stage-1 step of a two-stage kernel, by the type of its state.
+template <int L>
+__device__ void stage1_block_step(KalmanSmem<L>& s, int t, const KalmanParams& kp,
+                                  const Stage1Bases& bs) {
+  kalman_block_step<L>(s, t, kp, bs);
+}
+
+template <int L>
+__device__ void stage1_block_step(NlmsSmem<L>& s, int t, const NlmsParams& np,
+                                  const Stage1Bases& bs) {
+  nlms_block_step<L>(s, t, np, bs);
+}
+
 // ---------------------------------------------------------------- stage 2
 
 struct Stage2Weights {
@@ -402,26 +588,22 @@ constexpr int kMoments = 5;  // mic², e, e², far, far² summed over a block
 // MONITOR_SMOOTH and 1 - MONITOR_SMOOTH, each rounded to fp32 as JAX does
 constexpr float kMonitorKeep = 0.99f, kMonitorRate = 0.01f;
 
-// Both stages' state on one CTA. Stage 2's per-frame scratch lies over
-// stage 1's update buffer `g`, which is dead once a Kalman step has
+// Both stages' state on one CTA; S1 is the stage-1 filter's state
+// (KalmanSmem<L> or NlmsSmem<L>). Stage 2's per-frame scratch lies over
+// stage 1's update buffer `g`, which is dead once a stage-1 step has
 // returned and is fully rewritten by the next one before it is read; that
-// keeps the block at 107,120 B, so two CTAs fit on an SM.
-template <int L>
+// keeps the block at 107,120 B with Kalman (97,904 B with NLMS), so two CTAs
+// fit on an SM.
+template <class S1>
 struct TwoStageSmem {
-  KalmanSmem<L> s1;
+  S1 s1;
   Stage2State s2;
   float nm[kNmRows];
   float red[(kBlock / 32) * kMoments];  // per-warp partial block sums
 
   __device__ Stage2Scratch& x() { return *reinterpret_cast<Stage2Scratch*>(s1.g); }
-  static_assert(sizeof(Stage2Scratch) <= sizeof(KalmanSmem<L>::g), "scratch must fit in g");
+  static_assert(sizeof(Stage2Scratch) <= sizeof(S1::g), "scratch must fit in g");
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // streaming._norm_scalar, rounded step by step as torch rounds it
 __device__ __forceinline__ float norm_scalar(float total, float sumsq, float count) {
@@ -432,20 +614,21 @@ __device__ __forceinline__ float norm_scalar(float total, float sumsq, float cou
 }
 
 // One two-stage hop on one CTA's state (pallas_serving.py:173-222,
-// pallas_two_stage.py:97-122): the Kalman block update, its cancelled block
-// handed to stage 2 in shared memory with the far block, then the LittleNet
-// frame. Before the call s1.frame[kBlock:] holds far block t and s1.e mic
-// block t; after it s1.e holds the stage-1 block, x().out the enhanced
-// block t - 1 and x().mask this frame's mask. With `moments` the block's sums fold
-// into s.nm: the monitor rows always, the running moments only when
-// `normalize`, whose current scalars then offset stage 2's analysis frames.
-template <int L>
-__device__ void two_stage_block_step(TwoStageSmem<L>& s, int t, const KalmanParams& kp,
+// pallas_two_stage.py:97-122): the stage-1 block update (Kalman or NLMS, by
+// the state's type; P its parameters), its cancelled block handed to stage 2
+// in shared memory with the far block, then the LittleNet frame. Before the
+// call s1.frame[kBlock:] holds far block t and s1.e mic block t; after it
+// s1.e holds the stage-1 block, x().out the enhanced block t - 1 and
+// x().mask this frame's mask. With `moments` the block's sums fold into
+// s.nm: the monitor rows always, the running moments only when `normalize`,
+// whose current scalars then offset stage 2's analysis frames.
+template <class S1, class P>
+__device__ void two_stage_block_step(TwoStageSmem<S1>& s, int t, const P& kp,
                                      const Stage1Bases& bs, const Stage2Weights& w,
                                      bool gain_norm, bool moments, bool normalize) {
   const int tid = threadIdx.x;
   const float mic = tid < kBlock ? s.s1.e[tid] : 0.f;  // s1.e becomes the residual
-  kalman_block_step<L>(s.s1, t, kp, bs);
+  stage1_block_step(s.s1, t, kp, bs);
   if (tid < kBlock) {
     s.s2.lin[kBlock + tid] = s.s1.e[tid];
     s.s2.far[kBlock + tid] = s.s1.frame[kBlock + tid];

@@ -35,7 +35,7 @@ two_stage_kernel(const float* __restrict__ far, const float* __restrict__ mic,
                  float* __restrict__ out, float* __restrict__ lin, float* __restrict__ mask,
                  int t_blocks, Stage1Bases bs, KalmanParams kp, Stage2Weights w, int gain_norm) {
   extern __shared__ float4 smem_raw[];
-  TwoStageSmem<kL>& s = *reinterpret_cast<TwoStageSmem<kL>*>(smem_raw);
+  TwoStageSmem<KalmanSmem<kL>>& s = *reinterpret_cast<TwoStageSmem<KalmanSmem<kL>>*>(smem_raw);
   const size_t base = static_cast<size_t>(blockIdx.x) * t_blocks * kBlock;
   const size_t mask_base = static_cast<size_t>(blockIdx.x) * (t_blocks + 1) * kBands;
   const int tid = threadIdx.x;
@@ -50,7 +50,7 @@ two_stage_kernel(const float* __restrict__ far, const float* __restrict__ mic,
         s.s1.e[tid] = mic[off + tid];
       }
       __syncthreads();
-      two_stage_block_step<kL>(s, t, kp, bs, w, gain_norm != 0, false, false);
+      two_stage_block_step(s, t, kp, bs, w, gain_norm != 0, false, false);
       if (tid < kBlock) lin[off + tid] = s.s1.e[tid];
     } else {  // the zero flush frame
       if (tid < kBlock) {
@@ -81,7 +81,7 @@ extern "C" int aec_two_stage(const float* far, const float* mic, float* out, flo
                              int gain_norm, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(sizeof(TwoStageSmem<kL>));
+  const int smem = static_cast<int>(sizeof(TwoStageSmem<KalmanSmem<kL>>));
   err = cudaFuncSetAttribute(two_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   if (batch == 0) return cudaSuccess;

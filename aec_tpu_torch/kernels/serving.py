@@ -2,23 +2,26 @@
 
 Replaces ``aec_tpu/kernels/pallas_serving.py:239`` (``serving_step_fused``,
 ``pallas_call`` at ``:320``). The serving hot loop advances S live calls by
-k >= 1 hops of 16 ms per call: per stream and hop one Kalman block update,
-its cancelled block handed to one LittleNet frame, with the one-hop output
-lag of ``pipeline/streaming``. The kernel is ``csrc/serving.cu`` on
-``two_stage_block_step`` of ``csrc/bl_common.cuh``: one CTA per stream loads
-the stream's ~56 KB of state into shared memory, runs the k hops, and
-writes the state back in place. It is bound by each SM's L2 read rate of
-the DFT bases, not by the state round trip; the source's header has the
+k >= 1 hops of 16 ms per call: per stream and hop one stage-1 block update
+(Kalman or NLMS, ``stage1``), its cancelled block handed to one LittleNet
+frame, with the one-hop output lag of ``pipeline/streaming``. The kernel is
+``csrc/serving.cu`` on ``two_stage_block_step`` of ``csrc/bl_common.cuh``,
+one template over the filter: one CTA per stream loads the stream's state
+(~56 KB with Kalman, ~47 KB with NLMS) into shared memory, runs the k hops,
+and writes the state back in place. It is bound by each SM's L2 read rate
+of the DFT bases, not by the state round trip; the source's header has the
 reckoning and the levers left.
 
 ``ServingState`` keeps the JAX leaf names in a per-stream contiguous
-layout (the JAX layout put streams in TPU lanes): ``wr, wi, p, xbr, xbi``
-are (S, L, K), the far-spectrum ring in age order (``[:, l]`` is l blocks
-old, as ``StreamState``'s ``x_buf``), ``psi`` is (S, K), ``fprev``, ``tail``,
-``prev_lin``, ``prev_far`` are (S, hop), ``h`` is (S, E) and ``nm`` is
-(S, 8): rows 0-4 the causal pseudo-norm's running moments (count, sum and
-sum of squares of the stage-1 output, then of the far end), rows 5-6 the
-health monitor's EMAs of mic and stage-1-residual block power, row 7 pad.
+layout (the JAX layout put streams in TPU lanes): ``wr, wi, xbr, xbi`` are
+(S, L, K), the far-spectrum ring in age order (``[:, l]`` is l blocks old,
+as ``StreamState``'s ``x_buf``); ``p`` is the Kalman covariance (S, L, K)
+or NLMS's smoothed far power (S, K), as in JAX; ``psi`` is (S, K);
+``fprev``, ``tail``, ``prev_lin``, ``prev_far`` are (S, hop), ``h`` is
+(S, E) and ``nm`` is (S, 8): rows 0-4 the causal pseudo-norm's running
+moments (count, sum and sum of squares of the stage-1 output, then of the
+far end), rows 5-6 the health monitor's EMAs of mic and stage-1-residual
+block power, row 7 pad.
 So the migrations to and from ``StreamState`` are copies and exact
 inverses.
 
@@ -27,8 +30,6 @@ step plus the monitor rows), which :func:`serving_step_fused` takes for CPU
 tensors only. The JAX wrapper's TPU knobs (``tile``, ``interpret``,
 ``dot_mode``, ``vmem_limit_mb``) have no meaning here and are left out:
 every product is plain fp32, the JAX ``dot_mode="high"`` grade.
-``stage1="nlms"`` raises ``NotImplementedError`` until NLMS is ported
-(ROADMAP A3b, B4).
 """
 
 from __future__ import annotations
@@ -38,10 +39,11 @@ import functools
 
 import torch
 
-from aec_tpu_torch.configs import KalmanConfig
+from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
 from aec_tpu_torch.dsp.stft import StftConfig
 from aec_tpu_torch.kernels import _build
 from aec_tpu_torch.kernels.kalman import KALMAN_ARGTYPES, kalman_operands
+from aec_tpu_torch.kernels.nlms import nlms_operands
 from aec_tpu_torch.kernels.stage2 import STAGE2_ARGTYPES, check_net, stage2_operands
 from aec_tpu_torch.models.little_net import LittleNet
 from aec_tpu_torch.pipeline.streaming import _check_stage1, _stream_step_core
@@ -60,17 +62,33 @@ MONITOR_SMOOTH = 0.99
 def _check_serving_stage1(stage1: str) -> None:
     _check_stage1(stage1)
     if stage1 == "none":
-        raise ValueError("the serving state carries a stage-1 filter: stage1 must be 'kalman'")
+        raise ValueError(
+            "the serving state carries a stage-1 filter: stage1 must be 'kalman' or 'nlms'"
+        )
+
+
+def _filter_cfg(kcfg, stage1: str):
+    """``kcfg``, or the stage-1 filter's default config."""
+    return kcfg or (KalmanConfig() if stage1 == "kalman" else NlmsConfig())
+
+
+def _init_values(kcfg, stage1: str) -> dict[str, float]:
+    """The :func:`serving_init` values of the leaves that do not start at 0."""
+    if stage1 == "kalman":
+        return {"p": kcfg.init_p, "psi": kcfg.psi_floor}
+    return {}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("serving")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aec_serving.argtypes = [
-        p, p, p, *[p] * len(_KEYS), i, i, *KALMAN_ARGTYPES, *STAGE2_ARGTYPES, i, i, i, p,
-    ]
-    lib.aec_serving.restype = ctypes.c_int
+    # Kalman and NLMS take the same arguments (eight filter constants each)
+    for fn in (lib.aec_serving, lib.aec_serving_nlms):
+        fn.argtypes = [
+            p, p, p, *[p] * len(_KEYS), i, i, *KALMAN_ARGTYPES, *STAGE2_ARGTYPES, i, i, i, p,
+        ]
+        fn.restype = ctypes.c_int
     lib.aec_serving_n_blocks.restype = ctypes.c_int
     return lib
 
@@ -78,32 +96,38 @@ def _lib() -> ctypes.CDLL:
 def serving_init(
     n_streams: int,
     *,
-    kcfg: KalmanConfig | None = None,
+    kcfg: KalmanConfig | NlmsConfig | None = None,
     scfg: StftConfig = StftConfig(),
     e_bands: int = 32,
     stage1: str = "kalman",
     device=None,
 ) -> ServingState:
-    """Zero state for ``n_streams`` sessions on ``device``: P = init_p,
-    psi = psi_floor, every other leaf 0."""
+    """Zero state for ``n_streams`` sessions on ``device``. ``stage1``
+    picks the filter, ``kcfg`` its config (None: its defaults). Kalman:
+    P = init_p, psi = psi_floor; NLMS: ``p`` is the (S, K) far power. Every
+    other leaf starts at 0."""
     _check_serving_stage1(stage1)
-    kcfg = kcfg or KalmanConfig()
+    kcfg = _filter_cfg(kcfg, stage1)
     s, l, k, hop = n_streams, kcfg.n_blocks, scfg.n_freqs, scfg.hop
-    z = functools.partial(torch.zeros, dtype=torch.float32, device=device)
+    init = _init_values(kcfg, stage1)
+    full = functools.partial(torch.full, dtype=torch.float32, device=device)
+    z = functools.partial(full, fill_value=0.0)
     return {
-        "wr": z(s, l, k), "wi": z(s, l, k),
-        "p": torch.full((s, l, k), kcfg.init_p, dtype=torch.float32, device=device),
-        "xbr": z(s, l, k), "xbi": z(s, l, k),
-        "psi": torch.full((s, k), kcfg.psi_floor, dtype=torch.float32, device=device),
-        "fprev": z(s, hop), "h": z(s, e_bands), "tail": z(s, hop),
-        "prev_lin": z(s, hop), "prev_far": z(s, hop), "nm": z(s, _NM_ROWS),
+        "wr": z((s, l, k)), "wi": z((s, l, k)),
+        "p": full((s, l, k) if stage1 == "kalman" else (s, k), init.get("p", 0.0)),
+        "xbr": z((s, l, k)), "xbi": z((s, l, k)),
+        "psi": full((s, k), init.get("psi", 0.0)),
+        "fprev": z((s, hop)), "h": z((s, e_bands)), "tail": z((s, hop)),
+        "prev_lin": z((s, hop)), "prev_far": z((s, hop)), "nm": z((s, _NM_ROWS)),
     }
 
 
 def serving_state_from_stream(state, *, stage1: str = "kalman") -> ServingState:
     """A batched ``StreamState`` (leading stream axis) -> a new
-    ``ServingState``, for migrating live sessions onto the kernel. The
-    monitor rows of ``nm``, which ``StreamState`` does not carry, start at 0."""
+    ``ServingState``, for migrating live sessions onto the kernel. ``stage1``
+    names the filter the state was built for (NLMS's ``power`` becomes
+    ``p``). The monitor rows of ``nm``, which ``StreamState`` does not
+    carry, start at 0."""
     _check_serving_stage1(stage1)
     s1 = state["stage1"]
     k = s1["w"].shape[-1] // 2
@@ -112,7 +136,7 @@ def serving_state_from_stream(state, *, stage1: str = "kalman") -> ServingState:
     zero = torch.zeros_like(n["count"])
     return {
         "wr": s1["w"][..., :k].contiguous(), "wi": s1["w"][..., k:].contiguous(),
-        "p": s1["p"].clone(),
+        "p": (s1["p"] if stage1 == "kalman" else s1["power"]).clone(),
         "xbr": s1["x_buf"][..., :k].contiguous(), "xbi": s1["x_buf"][..., k:].contiguous(),
         "psi": s1["psi"].clone(),
         "fprev": state["prev_far"].clone(), "h": state["gru_h"][:, 0].contiguous(),
@@ -131,7 +155,7 @@ def serving_state_to_stream(kstate: ServingState, *, stage1: str = "kalman") -> 
     return {
         "stage1": {
             "w": torch.cat([kstate["wr"], kstate["wi"]], -1),
-            "p": kstate["p"].clone(),
+            "p" if stage1 == "kalman" else "power": kstate["p"].clone(),
             "x_buf": torch.cat([kstate["xbr"], kstate["xbi"]], -1),
             "psi": kstate["psi"].clone(),
         },
@@ -148,17 +172,16 @@ def serving_reset_streams(
     state: ServingState,
     done: torch.Tensor,  # (S,) bool: True resets this stream's slot
     *,
-    kcfg: KalmanConfig | None = None,
+    kcfg: KalmanConfig | NlmsConfig | None = None,
     stage1: str = "kalman",
 ) -> ServingState:
     """Session eviction and admission: re-initialize the marked stream
-    slots IN PLACE to their :func:`serving_init` values (init_p / psi_floor
-    for P / psi, zeros elsewhere), so a finished call's slot takes a new one
-    without re-allocating. Returns ``state``."""
+    slots IN PLACE to their :func:`serving_init` values (Kalman: init_p /
+    psi_floor for P / psi; zeros elsewhere and for NLMS), so a finished
+    call's slot takes a new one without re-allocating. Returns ``state``."""
     _check_serving_stage1(stage1)
-    kcfg = kcfg or KalmanConfig()
     done = torch.as_tensor(done, dtype=torch.bool, device=state["wr"].device)
-    init = {"p": kcfg.init_p, "psi": kcfg.psi_floor}
+    init = _init_values(_filter_cfg(kcfg, stage1), stage1)
     for key in _KEYS:
         state[key][done] = init.get(key, 0.0)
     return state
@@ -192,7 +215,7 @@ def serving_step_plain(
     far: torch.Tensor,  # (S, k * hop)
     mic: torch.Tensor,
     erb: torch.Tensor,
-    kcfg: KalmanConfig | None = None,
+    kcfg: KalmanConfig | NlmsConfig | None = None,
     scfg: StftConfig = StftConfig(),
     *,
     normalize: bool = False,
@@ -206,14 +229,14 @@ def serving_step_plain(
     hop = scfg.hop
     kb = _blocks(far, mic, state, hop)
     erb = torch.as_tensor(erb, dtype=torch.float32, device=far.device)
-    st = serving_state_to_stream(state)
+    st = serving_state_to_stream(state, stage1=stage1)
     nm = state["nm"]
     mon = nm[:, 5].clone(), nm[:, 6].clone()
     outs = []
     for u in range(kb):
         far_b, mic_b = far[:, u * hop : (u + 1) * hop], mic[:, u * hop : (u + 1) * hop]
         st, out = _stream_step_core(
-            net, st, far_b, mic_b, erb, scfg, "kalman", kcfg, normalize, gain_norm
+            net, st, far_b, mic_b, erb, scfg, stage1, kcfg, normalize, gain_norm
         )
         res = st["prev_lin"]  # this hop's stage-1 output block
         mon = (
@@ -221,7 +244,7 @@ def serving_step_plain(
             MONITOR_SMOOTH * mon[1] + (1.0 - MONITOR_SMOOTH) * torch.mean(res * res, -1),
         )
         outs.append(out)
-    new = serving_state_from_stream(st)
+    new = serving_state_from_stream(st, stage1=stage1)
     new["nm"][:, 5], new["nm"][:, 6], new["nm"][:, 7] = mon[0], mon[1], nm[:, 7]
     for key in _KEYS:
         state[key].copy_(new[key])
@@ -229,7 +252,7 @@ def serving_step_plain(
 
 
 def _check(net: LittleNet, state: ServingState, far: torch.Tensor, mic: torch.Tensor,
-           erb: torch.Tensor, kcfg: KalmanConfig, scfg: StftConfig, n_blocks: int) -> None:
+           erb: torch.Tensor, kcfg, scfg: StftConfig, n_blocks: int, stage1: str) -> None:
     dev = far.device
     tensors = {"far": far, "mic": mic, **state}
     if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
@@ -242,6 +265,8 @@ def _check(net: LittleNet, state: ServingState, far: torch.Tensor, mic: torch.Te
     check_net(net, erb, scfg, dev)
     s, l, k, hop, e = far.shape[0], n_blocks, scfg.n_freqs, scfg.hop, net.hidden
     want = {key: (s, l, k) for key in ("wr", "wi", "p", "xbr", "xbi")}
+    if stage1 == "nlms":
+        want["p"] = (s, k)
     want.update(psi=(s, k), fprev=(s, hop), h=(s, e), tail=(s, hop), prev_lin=(s, hop),
                 prev_far=(s, hop), nm=(s, _NM_ROWS))
     for key, shape in want.items():
@@ -255,7 +280,7 @@ def serving_step_fused(
     far: torch.Tensor,  # (S, k * hop): k >= 1 queued 16 ms blocks per stream
     mic: torch.Tensor,
     erb: torch.Tensor,
-    kcfg: KalmanConfig | None = None,
+    kcfg: KalmanConfig | NlmsConfig | None = None,
     scfg: StftConfig = StftConfig(),
     *,
     normalize: bool = False,
@@ -274,23 +299,27 @@ def serving_step_fused(
     kernel step would fold the pad into the running moments).
 
     ``normalize`` is the causal running pseudo-norm of ``pipeline/streaming``;
-    ``gain_norm`` the scale-sane ERB synthesis. A CUDA tensor launches K3 (or
-    raises); a CPU tensor takes :func:`serving_step_plain`.
+    ``gain_norm`` the scale-sane ERB synthesis. ``stage1`` ("kalman" or
+    "nlms") must name the filter the state was built for, ``kcfg`` its
+    config. A CUDA tensor launches K3 (or raises); a CPU tensor takes
+    :func:`serving_step_plain`.
     """
     if far.device.type == "cpu":
         return serving_step_plain(net, state, far, mic, erb, kcfg, scfg, normalize=normalize,
                                   gain_norm=gain_norm, stage1=stage1)
     _check_serving_stage1(stage1)
-    kcfg = kcfg or KalmanConfig()
+    kcfg = _filter_cfg(kcfg, stage1)
     erb = torch.as_tensor(erb, dtype=torch.float32, device=far.device)
     lib = _lib()
     kb = _blocks(far, mic, state, scfg.hop)
-    _check(net, state, far, mic, erb, kcfg, scfg, lib.aec_serving_n_blocks())
+    _check(net, state, far, mic, erb, kcfg, scfg, lib.aec_serving_n_blocks(), stage1)
     out = torch.empty_like(far)
     keep = stage2_operands(net, erb, scfg)
-    err = lib.aec_serving(
+    entry, operands = (lib.aec_serving, kalman_operands) if stage1 == "kalman" else (
+        lib.aec_serving_nlms, nlms_operands)
+    err = entry(
         _build.ptr(far), _build.ptr(mic), _build.ptr(out), *(_build.ptr(state[k]) for k in _KEYS),
-        far.shape[0], kb, *kalman_operands(kcfg, far.device), *map(_build.ptr, keep),
+        far.shape[0], kb, *operands(kcfg, far.device), *map(_build.ptr, keep),
         int(gain_norm), int(normalize), far.device.index, _build.stream_of(far),
     )
     _build.check(err, "serving")

@@ -13,7 +13,7 @@ Per bin k, partitions l, diagonal covariance P[l,k] (real):
 
 Spectra and state are REAL ``[re || im]`` tensors (overlap_save.py). The
 plain form is a Python loop over blocks, batched over every leading axis;
-it is the plain version of the CUDA kernel in ``kernels/kalman.py``, which
+it is the plain version of the CUDA kernels in ``kernels/kalman.py``, which
 :func:`kalman_cancel` takes for CUDA tensors.
 """
 
@@ -134,23 +134,21 @@ def kalman_cancel(
 ) -> dict[str, torch.Tensor]:
     """Waveform in/out canceller, [n] or [B, n].
 
-    CUDA tensors run the batched CUDA kernel (``kernels/kalman.py``; a 1-D
-    input is a batch of one) and return ``state=None``, as the JAX package's
-    fused route does. ``constrain=False`` stays on the plain loop on every
-    device, as JAX routes it to its scan. CPU tensors take the plain loop
-    and return its final state. Every product is plain fp32, which meets the
-    JAX ``"parity"`` tier; ``quality="fast"`` (JAX's mixed bf16 tier, which
-    the port has no use for) computes the same fp32 numbers.
+    CUDA tensors run a CUDA kernel and return ``state=None``, as the JAX
+    package's fused route does: a batch the batched kernel K1, a single
+    utterance the single-stream cluster kernel K6 (``kernels/kalman.py``),
+    as JAX routes 1-D calls to ``kalman_cancel_fused``. ``constrain=False``
+    stays on the plain loop on every device, as JAX routes it to its scan.
+    CPU tensors take the plain loop and return its final state. Every
+    product is plain fp32, which meets the JAX ``"parity"`` tier;
+    ``quality="fast"`` (JAX's mixed bf16 tier, which the port has no use
+    for) computes the same fp32 numbers.
     """
     if quality not in ("parity", "fast"):
         raise ValueError(f"quality must be 'parity' or 'fast', got {quality!r}")
     if far.is_cuda and constrain:
-        from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched
+        from aec_tpu_torch.kernels.kalman import kalman_cancel_fused, kalman_cancel_fused_batched
 
-        batched = far.ndim == 2
-        out = kalman_cancel_fused_batched(
-            cfg, far if batched else far[None], mic if batched else mic[None],
-            block=block,
-        )["wav"]
-        return {"wav": out if batched else out[0], "state": None}
+        fused = kalman_cancel_fused_batched if far.ndim == 2 else kalman_cancel_fused
+        return {"wav": fused(cfg, far, mic, block=block)["wav"], "state": None}
     return kalman_cancel_plain(cfg, far, mic, block=block, constrain=constrain)

@@ -28,8 +28,8 @@ vmap). Everything here is plain torch on the inputs' device, as the JAX
 package runs this module as XLA: it is the plain version that the serving
 kernel K3 (``kernels/serving.py``) is held against. ``quality="parity"``
 and ``"fast"`` both compute in fp32 (JAX's "fast" was the TPU's mixed bf16
-tier, which the port does not have). ``stage1="nlms"`` raises
-``NotImplementedError`` until NLMS is ported (ROADMAP A3b, B4).
+tier, which the port does not have); NLMS has no mixed tier in JAX
+either. ``stage1`` is "kalman", "nlms" or "none".
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from typing import Any, TypedDict
 import numpy as np
 import torch
 
-from aec_tpu_torch.configs import KalmanConfig
+from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
 from aec_tpu_torch.dsp.stft import (
     StftConfig,
     analysis_matrix,
@@ -51,12 +51,13 @@ from aec_tpu_torch.dsp.stft import (
 from aec_tpu_torch.dsp.windows import periodic_window
 from aec_tpu_torch.linear import overlap_save as ols
 from aec_tpu_torch.linear.kalman import kalman_init, kalman_step
+from aec_tpu_torch.linear.nlms import nlms_init, nlms_step
 from aec_tpu_torch.models.little_net import LittleNet
 from aec_tpu_torch.ops.gru import gru_cell
 
 
 class StreamState(TypedDict):
-    stage1: Any  # Kalman state dict, or {} for stage1="none"
+    stage1: Any  # Kalman or NLMS state dict, or {} for stage1="none"
     prev_lin: torch.Tensor  # (hop,) previous stage-1 output block
     prev_far: torch.Tensor  # (hop,) previous far-end block
     gru_h: torch.Tensor  # (1, E)
@@ -70,12 +71,7 @@ _NORM_KEYS = ("count", "sum_lin", "sumsq_lin", "sum_far", "sumsq_far")
 
 
 def _check_stage1(stage1: str) -> None:
-    if stage1 == "nlms":
-        raise NotImplementedError(
-            "stage1='nlms' is not ported yet (ROADMAP.md A3b: linear/nlms, "
-            "B4: pallas_nlms)"
-        )
-    if stage1 not in ("kalman", "none"):
+    if stage1 not in ("kalman", "nlms", "none"):
         raise ValueError(f"stage1 must be 'kalman', 'nlms' or 'none', got {stage1!r}")
 
 
@@ -107,13 +103,18 @@ def stream_init(
     cfg: StftConfig = StftConfig(),
     *,
     stage1: str = "kalman",
-    lin_cfg: KalmanConfig | None = None,
+    lin_cfg: KalmanConfig | NlmsConfig | None = None,
     device=None,
 ) -> StreamState:
-    """Zero state of one stream on ``device``."""
+    """Zero state of one stream on ``device``; ``lin_cfg`` is the
+    stage-1 filter's config (None: that filter's defaults)."""
     _check_stage1(stage1)
-    s1 = kalman_init(lin_cfg or KalmanConfig(), cfg.n_freqs, device=device) if (
-        stage1 == "kalman") else {}
+    if stage1 == "kalman":
+        s1 = kalman_init(lin_cfg or KalmanConfig(), cfg.n_freqs, device=device)
+    elif stage1 == "nlms":
+        s1 = nlms_init(lin_cfg or NlmsConfig(), cfg.n_freqs, device=device)
+    else:
+        s1 = {}
     return StreamState(
         stage1=s1,
         prev_lin=torch.zeros(cfg.hop, device=device),
@@ -171,14 +172,16 @@ def _stream_step_core(
     erb: torch.Tensor,
     cfg: StftConfig,
     stage1: str,
-    lin_cfg: KalmanConfig | None,
+    lin_cfg: KalmanConfig | NlmsConfig | None,
     normalize: bool = False,
     gain_norm: bool = False,
 ) -> tuple[StreamState, torch.Tensor]:
-    if stage1 == "kalman":
+    if stage1 in ("kalman", "nlms"):
         x_t = ols.frame_to_spectrum(torch.cat([state["prev_far"], far_block], -1), cfg.hop)
-        s1, lin_block = kalman_step(
-            lin_cfg or KalmanConfig(), state["stage1"], x_t, mic_block, block=cfg.hop
+        step, default = (kalman_step, KalmanConfig) if stage1 == "kalman" else (
+            nlms_step, NlmsConfig)
+        s1, lin_block = step(
+            lin_cfg or default(), state["stage1"], x_t, mic_block, block=cfg.hop
         )
     else:
         s1, lin_block = state["stage1"], mic_block
@@ -223,7 +226,7 @@ def stream_step_batched(
     cfg: StftConfig = StftConfig(),
     *,
     stage1: str = "kalman",
-    lin_cfg: KalmanConfig | None = None,
+    lin_cfg: KalmanConfig | NlmsConfig | None = None,
     normalize: bool = False,
     quality: str = "parity",
     gain_norm: bool = False,
@@ -250,7 +253,7 @@ def stream_step(
     cfg: StftConfig = StftConfig(),
     *,
     stage1: str = "kalman",
-    lin_cfg: KalmanConfig | None = None,
+    lin_cfg: KalmanConfig | NlmsConfig | None = None,
     normalize: bool = False,
     quality: str = "parity",
     gain_norm: bool = False,
@@ -306,7 +309,7 @@ def stream_init_batched(
     cfg: StftConfig = StftConfig(),
     *,
     stage1: str = "kalman",
-    lin_cfg: KalmanConfig | None = None,
+    lin_cfg: KalmanConfig | NlmsConfig | None = None,
     device=None,
 ) -> StreamState:
     """State for ``n_streams`` concurrent calls (leading axis = stream)."""
@@ -322,7 +325,7 @@ def stream_run(
     cfg: StftConfig = StftConfig(),
     *,
     stage1: str = "kalman",
-    lin_cfg: KalmanConfig | None = None,
+    lin_cfg: KalmanConfig | NlmsConfig | None = None,
     erb_bands: int = 32,
     normalize: bool = False,
     quality: str = "parity",

@@ -1,4 +1,4 @@
-"""Two-stage AEC composition: Kalman stage 1 -> LittleNet stage 2
+"""Two-stage AEC composition: Kalman or NLMS stage 1 -> LittleNet stage 2
 (counterpart of ``aec_tpu/pipeline/two_stage.py``).
 
 Routing follows the JAX package, decided by the tensors' device:
@@ -7,10 +7,12 @@ Routing follows the JAX package, decided by the tensors' device:
   ``normalize=False``, a width-1 LittleNet, ``n % hop == 0`` and the
   2x-overlap STFT geometry: the whole pipeline on kernel K4
   (``kernels/two_stage.py``), as JAX sends them to ``two_stage_fused``.
-- Other CUDA calls with a width-1 LittleNet, ``n % hop == 0`` and the
-  2x-overlap geometry (the legacy ``fast=True`` among them): stage 1 on
-  kernel K1 (``kernels/kalman.py``), stage 2 on kernel K2
-  (``kernels/stage2.py``). A 1-D input runs as a batch of one.
+- Other CUDA calls (the legacy ``fast=True`` and every NLMS call among
+  them): stage 1 on its kernel, K1 (Kalman) or K5 (NLMS) for a batch, the
+  single-stream cluster kernel K6 or K7 for a 1-D input
+  (``kernels/kalman.py``, ``kernels/nlms.py``); with a width-1 LittleNet,
+  ``n % hop == 0`` and the 2x-overlap geometry, stage 2 on kernel K2
+  (``kernels/stage2.py``), a 1-D input as a batch of one.
 - Wider checkpoints (GRU hidden != ERB bands), hop-fractional lengths and
   other STFT geometries take the offline ``models.little_net_apply`` for
   stage 2, as the JAX package routes them off its stage-2 kernel.
@@ -21,9 +23,10 @@ from __future__ import annotations
 
 import torch
 
-from aec_tpu_torch.configs import KalmanConfig
+from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
 from aec_tpu_torch.dsp.stft import StftConfig
 from aec_tpu_torch.linear.kalman import kalman_cancel
+from aec_tpu_torch.linear.nlms import nlms_cancel
 from aec_tpu_torch.models.little_net import LittleNet, little_net_apply
 
 
@@ -56,7 +59,7 @@ def two_stage_cancel(
     erb,
     *,
     stage1: str = "kalman",
-    lin_cfg: KalmanConfig | None = None,
+    lin_cfg: KalmanConfig | NlmsConfig | None = None,
     scfg: StftConfig = StftConfig(),
     normalize: bool = False,
     fast: bool = False,
@@ -72,19 +75,14 @@ def two_stage_cancel(
 
     Every product runs in plain fp32 at either ``quality``: ``"parity"``
     and ``"fast"`` (and the legacy ``fast=True``) compute the same numbers
-    and differ only in the route (see the module docstring). JAX's
-    ``stage2_precision`` (a ``jax.lax.Precision`` knob for the TPU's bf16
-    matrix unit) has no meaning here and is left out. ``stage1="nlms"``
-    raises ``NotImplementedError`` until NLMS is ported (ROADMAP.md A3b,
-    B4).
+    and differ only in the route (see the module docstring); NLMS routes
+    identically at both, as in JAX. JAX's ``stage2_precision`` (a
+    ``jax.lax.Precision`` knob for the TPU's bf16 matrix unit) has no
+    meaning here and is left out. ``stage1`` is "kalman", "nlms" or
+    "none"; ``lin_cfg`` the matching config (None: its defaults).
     """
     if quality not in ("parity", "fast"):
         raise ValueError(f"quality must be 'parity' or 'fast', got {quality!r}")
-    if stage1 == "nlms":
-        raise NotImplementedError(
-            "stage1='nlms' is not ported yet (ROADMAP.md A3b: linear/nlms, "
-            "B4: pallas_nlms)"
-        )
     erb = torch.as_tensor(erb, dtype=torch.float32, device=far.device)
     std_width = params.hidden == erb.shape[-1]
     if far.ndim == 2 and std_width and _route_single_kernel(
@@ -100,6 +98,11 @@ def two_stage_cancel(
         if not isinstance(lin_cfg, KalmanConfig):
             raise TypeError(f"stage1='kalman' needs a KalmanConfig, got {lin_cfg!r}")
         linear_wav = kalman_cancel(lin_cfg, far, mic, block=scfg.hop)["wav"]
+    elif stage1 == "nlms":
+        lin_cfg = lin_cfg or NlmsConfig()
+        if not isinstance(lin_cfg, NlmsConfig):
+            raise TypeError(f"stage1='nlms' needs an NlmsConfig, got {lin_cfg!r}")
+        linear_wav = nlms_cancel(lin_cfg, far, mic, block=scfg.hop)["wav"]
     elif stage1 == "none":
         linear_wav = mic
     else:

@@ -8,11 +8,12 @@ import pytest
 import torch
 
 from aec_tpu.configs import KalmanConfig as JaxKalmanConfig
+from aec_tpu.kernels.pallas_kalman import kalman_cancel_fused as jax_kalman_cancel_fused
 from aec_tpu.kernels.pallas_kalman import kalman_cancel_fused_batched_bl
 from aec_tpu.linear import overlap_save as jols
 from aec_tpu.linear.kalman import kalman_cancel as jax_kalman_cancel
 from aec_tpu_torch.configs import KalmanConfig
-from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched
+from aec_tpu_torch.kernels.kalman import kalman_cancel_fused, kalman_cancel_fused_batched
 from aec_tpu_torch.linear import overlap_save as tols
 from aec_tpu_torch.linear.kalman import kalman_cancel, kalman_cancel_plain
 
@@ -74,6 +75,22 @@ def test_kalman_matches_jax_batched_kernel(rng):
     got = kalman_cancel_fused_batched(cfg, torch.from_numpy(far), torch.from_numpy(mic))["wav"]
     scale = max(float(np.abs(want).max()), 1e-9)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4 * scale)
+
+
+def test_single_stream_matches_jax_kernel(rng):
+    """A 1-D input through the single-stream wrapper (the plain loop on the
+    CPU) vs the TPU kernel K6 replaces, in interpret mode at "high", on a
+    hop-fractional length; 2e-4 of scale, the JAX suite's bar."""
+    far, mic = _scene(rng, b=1, n=20 * 256 + 77)
+    want = np.asarray(
+        jax_kalman_cancel_fused(JaxKalmanConfig(), jnp.asarray(far[0]), jnp.asarray(mic[0]),
+                                interpret=True, dot_mode="high")["wav"]
+    )
+    before = kalman_cancel_fused.launches
+    got = kalman_cancel_fused(KalmanConfig(), torch.from_numpy(far[0]), torch.from_numpy(mic[0]))
+    assert kalman_cancel_fused.launches == before
+    assert got["wav"].shape == want.shape == (20 * 256 + 77,)
+    np.testing.assert_allclose(got["wav"].numpy(), want, atol=2e-4 * np.abs(want).max())
 
 
 def test_wrapper_takes_plain_version_on_cpu(rng):

@@ -54,7 +54,7 @@ def _assert_states_close(got, want, rel):
 @pytest.mark.parametrize(
     "stage1,normalize,gain_norm",
     [("kalman", False, False), ("kalman", True, False), ("kalman", False, True),
-     ("none", True, True)],
+     ("none", True, True), ("nlms", False, False), ("nlms", True, True)],
 )
 def test_stream_step_batched_matches_jax(rng, stage1, normalize, gain_norm):
     """12 hops of 4 sessions: every emitted block and, at the end, every state
@@ -138,12 +138,25 @@ def test_stream_step_is_a_batch_of_one(rng):
         torch.testing.assert_close(oo, ob[1], atol=1e-5 * float(ob.abs().max()), rtol=0)
 
 
-def test_nlms_and_unknown_options_raise():
-    with pytest.raises(NotImplementedError, match="A3b"):
-        tst.stream_init(stage1="nlms")
-    with pytest.raises(NotImplementedError, match="B4"):
-        tst.stream_run(load_npz(ROBUST), np.zeros(HOP, np.float32), np.zeros(HOP, np.float32),
-                       erb_filterbank(), stage1="nlms")
+def test_nlms_and_unknown_options_raise(rng):
+    """stage1="nlms" streams as JAX's stream_run does (2e-4 of scale), with
+    the NLMS state leaves; unknown options raise."""
+    from aec_tpu.configs import NlmsConfig as JaxNlmsConfig
+    from aec_tpu_torch.configs import NlmsConfig
+
+    st = tst.stream_init(stage1="nlms")
+    assert sorted(st["stage1"]) == ["power", "psi", "w", "x_buf"]
+    assert not any(bool(v.any()) for v in st["stage1"].values())
+    far, mic = _sessions(rng, 1, 10)
+    cfg = {"mu": 0.4, "eps_rel": 0.05}
+    want = jst.stream_run(_jax_robust(), far[0], mic[0], jnp.asarray(erb_filterbank()),
+                          stage1="nlms", lin_cfg=JaxNlmsConfig(**cfg))
+    got = tst.stream_run(load_npz(ROBUST), far[0], mic[0], erb_filterbank(), stage1="nlms",
+                         lin_cfg=NlmsConfig(**cfg))
+    assert got.shape == want.shape == (10 * HOP,)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4 * float(np.abs(want).max()), rtol=0)
+    with pytest.raises(ValueError, match="stage1"):
+        tst.stream_init(stage1="rls")
     with pytest.raises(ValueError, match="quality"):
         tst.stream_step_batched(load_npz(ROBUST), tst.stream_init_batched(1),
                                 torch.zeros(1, HOP), torch.zeros(1, HOP), erb_filterbank(),

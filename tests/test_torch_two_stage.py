@@ -91,13 +91,53 @@ def test_stage1_none_matches_jax(rng):
     [{"stage1": "nlms"}, {"stage1": "nlms", "quality": "fast"}, {"stage1": "nlms", "fast": True}],
 )
 def test_routes_not_ported_yet_raise(rng, kwargs):
-    """NLMS is not ported, on any route: the fast routes are (K4 and the
-    K1 + K2 composition), so only stage1="nlms" still raises."""
-    far, mic = _scene(rng, b=1, n=4 * 256)
+    """stage1="nlms" is ported on every route: the parity route, "fast"
+    (never K4: NLMS keeps the composition) and the legacy fast=True, which
+    leaves NLMS's stage 1 alone. Each computes the parity route's numbers
+    and JAX's at the parity bars."""
+    far, mic = _scene(rng, b=1, n=16 * 256)
+    erb = erb_filterbank()
     net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3b"):
-        two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic),
-                         erb_filterbank(), **kwargs)
+    got = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb, **kwargs)
+    parity = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb,
+                              stage1="nlms")
+    for key in ("wav", "linear_wav", "mask"):
+        assert torch.equal(got[key], parity[key]), key
+    want = jax_two_stage(_jax_params("little_net_robust.npz"), jnp.asarray(far),
+                         jnp.asarray(mic), jnp.asarray(erb), **kwargs)
+    lin_j, wav_j = np.asarray(want["linear_wav"]), np.asarray(want["wav"])
+    np.testing.assert_allclose(got["linear_wav"].numpy(), lin_j, atol=2e-4 * np.abs(lin_j).max())
+    np.testing.assert_allclose(got["wav"].numpy(), wav_j, atol=5e-4 * np.abs(wav_j).max())
+
+
+@pytest.mark.parametrize("batched", [True, False])
+def test_nlms_two_stage_matches_jax(rng, batched):
+    """two_stage_cancel(stage1="nlms") vs JAX, a batch and a single
+    utterance, with a non-default NlmsConfig: linear_wav at the stage-1 bar,
+    wav and mask at the Kalman route's bars; a KalmanConfig is refused."""
+    from aec_tpu.configs import NlmsConfig as JaxNlmsConfig
+    from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
+
+    far, mic = _scene(rng, b=3, n=24 * 256)
+    if not batched:
+        far, mic = far[1], mic[1]
+    erb = erb_filterbank()
+    cfg = {"mu": 0.3, "beta": 0.5}
+    want = jax_two_stage(_jax_params("little_net_robust.npz"), jnp.asarray(far),
+                         jnp.asarray(mic), jnp.asarray(erb), stage1="nlms",
+                         lin_cfg=JaxNlmsConfig(**cfg))
+    net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"))
+    got = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb,
+                           stage1="nlms", lin_cfg=NlmsConfig(**cfg))
+    lin_j, wav_j = np.asarray(want["linear_wav"]), np.asarray(want["wav"])
+    assert got["wav"].shape == wav_j.shape == mic.shape
+    assert got["mask"].shape == want["mask"].shape
+    np.testing.assert_allclose(got["linear_wav"].numpy(), lin_j, atol=2e-4 * np.abs(lin_j).max())
+    np.testing.assert_allclose(got["wav"].numpy(), wav_j, atol=5e-4 * np.abs(wav_j).max())
+    np.testing.assert_allclose(got["mask"].numpy(), np.asarray(want["mask"]), atol=1e-4)
+    with pytest.raises(TypeError, match="NlmsConfig"):
+        two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb, stage1="nlms",
+                         lin_cfg=KalmanConfig())
 
 
 @pytest.mark.parametrize("gain_norm", [False, True])
@@ -143,8 +183,9 @@ def test_fast_routes_match_jax(rng, kwargs):
 
 
 def test_port_runs_without_jax():
-    """The port imports and runs two_stage_cancel with jax and the JAX
-    package blocked."""
+    """The port imports and runs two_stage_cancel (Kalman and NLMS),
+    nlms_cancel, the streaming step and serving_step_plain(stage1="nlms")
+    with jax and the JAX package blocked."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = sys.modules['aec_tpu'] = None\n"
@@ -155,6 +196,17 @@ def test_port_runs_without_jax():
         "mic = 0.5 * far + 0.1 * torch.from_numpy(rng.standard_normal((2, 4096)).astype(np.float32))\n"
         "out = two_stage_cancel(load_npz('checkpoints/little_net_robust.npz'), far, mic, erb_filterbank())\n"
         "assert out['wav'].shape == (2, 4096) and bool(torch.isfinite(out['wav']).all())\n"
+        "from aec_tpu_torch import NlmsConfig, nlms_cancel, serving_init, serving_step_plain\n"
+        "from aec_tpu_torch import stream_init_batched, stream_step_batched\n"
+        "net = load_npz('checkpoints/little_net_robust.npz')\n"
+        "out = two_stage_cancel(net, far, mic, erb_filterbank(), stage1='nlms')\n"
+        "assert bool(torch.isfinite(out['wav']).all())\n"
+        "assert nlms_cancel(NlmsConfig(), far[0], mic[0])['wav'].shape == (4096,)\n"
+        "st, o = stream_step_batched(net, stream_init_batched(2, stage1='nlms'), far[:, :256],\n"
+        "                            mic[:, :256], erb_filterbank(), stage1='nlms')\n"
+        "ks, o = serving_step_plain(net, serving_init(2, stage1='nlms'), far[:, :256],\n"
+        "                           mic[:, :256], erb_filterbank(), stage1='nlms')\n"
+        "assert o.shape == (2, 256)\n"
         "assert not any(m.split('.')[0] in ('jax', 'aec_tpu') for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
