@@ -9,15 +9,20 @@ is). The layout mirrors ``aec_tpu`` so every module has a named counterpart:
   block frequency-domain Kalman and NLMS cancellers (``aec_tpu/linear``);
 - ``aec_tpu_torch.ops``      — the GRU recurrence (``aec_tpu/ops/gru.py``);
 - ``aec_tpu_torch.models``   — LittleNet as an ``nn.Module``;
-- ``aec_tpu_torch.pipeline`` — the two-stage composition and the streaming
+- ``aec_tpu_torch.pipeline`` — the two-stage composition, the streaming
   (frame-in / frame-out) runtime;
 - ``aec_tpu_torch.kernels``  — hand-written CUDA C++ kernels for sm_90a, each
   beside its plain PyTorch version. A CUDA tensor goes through the kernel
   (or the call raises); a CPU tensor takes the plain version.
-- ``aec_tpu_torch.utils``    — weights carried over from the JAX checkpoints.
+- ``aec_tpu_torch.train``    — LittleNet's trainer, loss metrics and
+  checkpoints in the JAX package's format;
+- ``aec_tpu_torch.cli``      — ``python -m aec_tpu_torch.cli.train``;
+- ``aec_tpu_torch.utils``    — weights carried over from and back to the JAX
+  checkpoints, logging helpers.
 
 The package imports ``torch`` and never ``jax``. The device of every
-computation is the device of its input tensors.
+computation is the device of its input tensors; the entry points that
+create nets or state put them on the card unless asked for ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -34,6 +39,8 @@ def __getattr__(name):
         "little_net_apply": ("aec_tpu_torch.models.little_net", "little_net_apply"),
         "erb_filterbank": ("aec_tpu_torch.dsp.erb", "erb_filterbank"),
         "load_npz": ("aec_tpu_torch.utils.weights", "load_npz"),
+        "little_net_init": ("aec_tpu_torch.models.little_net", "little_net_init"),
+        "TrainConfig": ("aec_tpu_torch.configs", "TrainConfig"),
         **{n: ("aec_tpu_torch.pipeline.streaming", n) for n in (
             "stream_init", "stream_step", "stream_flush", "stream_init_batched",
             "stream_step_batched", "stream_run")},

@@ -1,0 +1,74 @@
+"""Training CLI with the arguments of ``aec_tpu/cli/train.py``, plus
+``--device``:
+
+  python -m aec_tpu_torch.cli.train --tr_list lists/tr_list.txt --cv_file cv.ex \\
+      --ckpt_dir exp [--resume_model exp/models/latest.npz] [--device cpu]
+
+``--model little_net`` is ported; the other families (ROADMAP A9),
+``--mesh`` (A10) and ``--device_cache`` (A7) exit with an error naming the
+item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pprint
+
+from aec_tpu_torch.configs import TrainConfig
+from aec_tpu_torch.pipeline.h5io import read_filelist
+from aec_tpu_torch.train.loop import Trainer
+from aec_tpu_torch.utils.tools import get_logger
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(
+        description="Train the stage-2 post-filter",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.add_argument("--tr_list", type=str, required=True, help="training .ex filelist")
+    p.add_argument("--cv_file", type=str, required=True, help="grouped cv .ex file")
+    p.add_argument("--ckpt_dir", type=str, required=True)
+    p.add_argument("--time_log", type=str, default="")
+    p.add_argument("--loss_log", type=str, default="loss.txt")
+    p.add_argument("--resume_model", type=str, default="")
+    p.add_argument("--mesh", action="store_true", help="shard batches over all devices")
+    p.add_argument("--model", type=str, default="little_net",
+                   choices=("little_net", "two_layer_gru", "fullsubnet", "dccrn", "att_ccrn"),
+                   help="model family; the port has little_net")
+    p.add_argument("--lr", type=float, default=TrainConfig.lr)
+    p.add_argument("--batch_size", type=int, default=TrainConfig.batch_size)
+    p.add_argument("--max_n_epochs", type=int, default=TrainConfig.max_n_epochs)
+    p.add_argument("--validate_metrics", type=str, default="",
+                   help="comma list of extra cv metrics (stoi,sisdr); each gets a "
+                        "best_<metric>.npz slot")
+    p.add_argument("--device_cache", type=str, default="",
+                   choices=("", "int16", "bfloat16", "float32"),
+                   help="cache the whole corpus in device memory")
+    p.add_argument("--device", type=str, default="cuda", help="torch device to train on")
+    args = p.parse_args(argv)
+
+    if args.model != "little_net":
+        p.error(f"--model {args.model}: the model zoo is ROADMAP item A9; the port trains "
+                "little_net")
+    if args.mesh:
+        p.error("--mesh: the port's parallel layer is ROADMAP item A10")
+    if args.device_cache:
+        p.error("--device_cache: the port's device-resident corpus is ROADMAP item A7")
+    get_logger(__name__).info("Arguments:\n%s", pprint.pformat(vars(args)))
+
+    cfg = TrainConfig(lr=args.lr, batch_size=args.batch_size, max_n_epochs=args.max_n_epochs)
+    Trainer(
+        tr_list=read_filelist(args.tr_list),
+        cv_file=args.cv_file,
+        ckpt_dir=args.ckpt_dir,
+        cfg=cfg,
+        resume_model=args.resume_model,
+        time_log=args.time_log,
+        loss_log_name=args.loss_log,
+        validate_metrics=tuple(m for m in args.validate_metrics.split(",") if m),
+        device=args.device,
+    ).train()
+
+
+if __name__ == "__main__":
+    main()

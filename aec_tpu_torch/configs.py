@@ -1,8 +1,8 @@
 """Configuration dataclasses of the port (``aec_tpu/configs.py``).
 
 Restated with the same fields and defaults, so the port imports nothing of
-the JAX package; ``tests/test_torch_kalman.py`` and
-``tests/test_torch_nlms.py`` hold the two equal.
+the JAX package; ``tests/test_torch_kalman.py``, ``tests/test_torch_nlms.py``
+and ``tests/test_torch_train.py`` hold the two equal.
 """
 
 from __future__ import annotations
@@ -41,3 +41,19 @@ class KalmanConfig:
     obs_smooth: float = 0.5  # smoothing of the observation-noise psd
     q_min: float = 0.0
     init_p: float = 10.0  # initial state covariance
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / loop configuration (the reference's train_conf). The
+    reference never calls ``optimizer.zero_grad()``; the port, like the JAX
+    package, resets gradients every step (a documented divergence)."""
+
+    lr: float = 1e-5
+    lr_decay_factor: float = 0.5
+    lr_decay_period: int = 5  # epochs between stepwise lr decays
+    clip_norm: float = -1.0  # < 0 disables clipping (reference semantics)
+    max_n_epochs: int = 50
+    batch_size: int = 16
+    logging_period: int = 0  # 0 -> once per epoch
+    seed: int = 0

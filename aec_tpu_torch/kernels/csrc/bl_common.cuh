@@ -73,8 +73,10 @@ __device__ void kalman_init(KalmanSmem<L>& s, const KalmanParams& kp) {
 
 // One PBFD-Kalman block update (equations: aec_tpu/linear/kalman.py:15-21).
 // Before the call s.frame[kBlock:] holds far block t and s.e mic block t;
-// after it s.e holds the echo-cancelled block t.
-template <int L>
+// after it s.e holds the echo-cancelled block t. With kAnalysis false the
+// caller has already written block t's far-frame spectrum into ring slot
+// t % L (and synchronized) in place of step 1, and s.frame is unused.
+template <int L, bool kAnalysis = true>
 __device__ void kalman_block_step(KalmanSmem<L>& s, int t, const KalmanParams& kp,
                                   const Stage1Bases& bs) {
   const int tid = threadIdx.x;
@@ -82,17 +84,19 @@ __device__ void kalman_block_step(KalmanSmem<L>& s, int t, const KalmanParams& k
   const int j = tid % kBlock, half = tid / kBlock;  // (column, re/im half) split
 
   // 1. far-frame analysis of [prev || cur] into ring slot `head`
-  if (tid < kRi) {
-    float acc = 0.f;
+  if constexpr (kAnalysis) {
+    if (tid < kRi) {
+      float acc = 0.f;
 #pragma unroll 8
-    for (int n = 0; n < kFrame; ++n) acc = fmaf(s.frame[n], bs.fwd[n * kRi + tid], acc);
-    if (tid < kBins) s.xr[head * kBins + tid] = acc;
-    else s.xi[head * kBins + tid - kBins] = acc;
+      for (int n = 0; n < kFrame; ++n) acc = fmaf(s.frame[n], bs.fwd[n * kRi + tid], acc);
+      if (tid < kBins) s.xr[head * kBins + tid] = acc;
+      else s.xi[head * kBins + tid - kBins] = acc;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // 2. far ring shift; predict W- = aW, P- = a²P + (1-a²)|W|² + q_min
-  if (tid < kBlock) s.frame[tid] = s.frame[kBlock + tid];
+  if (kAnalysis && tid < kBlock) s.frame[tid] = s.frame[kBlock + tid];
   for (int i = tid; i < L * kBins; i += kThreads) {
     const float wr = s.wr[i], wi = s.wi[i];
     s.p[i] = kp.a2 * s.p[i] + kp.one_minus_a2 * (wr * wr + wi * wi) + kp.q_min;

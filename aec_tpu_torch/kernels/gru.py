@@ -1,0 +1,161 @@
+"""Kernel K8: the GRU recurrence as one CUDA launch, differentiable.
+
+Replaces ``aec_tpu/kernels/pallas_gru.py:65`` (``_gru_scan_fused_fwd``,
+``pallas_call`` at ``:107``) and its custom VJP ``gru_scan_fused``
+(``:141-169``). The kernel is ``csrc/gru.cu``: one CTA per batch row walks
+the T steps with W_hh^T and h in shared memory; a serial recursion, so one
+step's latency bounds it (the source's header has the reckoning).
+
+:class:`GruScanFused` does what the JAX custom VJP does: its forward is the
+hoisted input projection as one ``torch.matmul`` (``b_hr`` and ``b_hz``
+folded into its bias, ``b_hn`` left inside the reset product) followed by
+the recurrence on K8; its backward recomputes through the plain
+``ops.gru.gru_scan`` and differentiates that. JAX has no backward kernel, so
+neither has the port. :func:`gru_recurrence` is the kernel's wrapper (a
+CUDA tensor launches K8 or raises, a CPU tensor takes the plain recurrence);
+:func:`gru_scan_fused_plain` is the plain version of the whole forward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from aec_tpu_torch.kernels import _build
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("gru")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.aec_gru.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.aec_gru.restype = ctypes.c_int
+    lib.aec_gru_max_hidden.restype = ctypes.c_int
+    return lib
+
+
+def folded_projection(params: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """``x W_ih^T + b_ih + [b_hr; b_hz; 0]`` (B, T, 3H): the hoisted input
+    projection with the hidden bias's additive halves folded in (they add to
+    the input's inside the r and z sigmoids; b_hn does not)."""
+    hidden = params["w_hh"].shape[-1]
+    b_hh = params["b_hh"]
+    bias = params["b_ih"] + torch.cat([b_hh[: 2 * hidden], torch.zeros_like(b_hh[2 * hidden:])])
+    return torch.matmul(x, params["w_ih"].T) + bias
+
+
+def gru_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor, b_hn: torch.Tensor,
+                      h0: torch.Tensor) -> torch.Tensor:
+    """K8's arithmetic in torch, one step per loop iteration."""
+    hidden = h0.shape[-1]
+    h, hs = h0, []
+    for t in range(xp.shape[1]):
+        hp = h @ w_hh.T
+        xr, xz, xn = torch.split(xp[:, t], hidden, dim=-1)
+        r = torch.sigmoid(xr + hp[:, :hidden])
+        z = torch.sigmoid(xz + hp[:, hidden: 2 * hidden])
+        n = torch.tanh(xn + r * (hp[:, 2 * hidden:] + b_hn))
+        h = (1.0 - z) * n + z * h
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def _check(xp, w_hh, b_hn, h0, max_hidden: int) -> None:
+    tensors = (xp, w_hh, b_hn, h0)
+    if xp.device.type != "cuda" or any(a.device != xp.device for a in tensors):
+        raise ValueError(f"xp, w_hh, b_hn and h0 must be on one CUDA device, got "
+                         f"{[str(a.device) for a in tensors]}")
+    if any(a.dtype != torch.float32 for a in tensors):
+        raise TypeError(f"xp, w_hh, b_hn and h0 must be float32, got {[a.dtype for a in tensors]}")
+    b, steps, g3 = xp.shape
+    hidden = g3 // 3
+    if (g3 != 3 * hidden or tuple(w_hh.shape) != (g3, hidden) or tuple(b_hn.shape) != (hidden,)
+            or tuple(h0.shape) != (b, hidden)):
+        raise ValueError(
+            f"want xp (B, T, 3H), w_hh (3H, H), b_hn (H,), h0 (B, H), got {tuple(xp.shape)}, "
+            f"{tuple(w_hh.shape)}, {tuple(b_hn.shape)}, {tuple(h0.shape)}"
+        )
+    if hidden > max_hidden or steps < 1:
+        raise ValueError(f"the kernel takes 1 <= H <= {max_hidden} and T >= 1, got H = {hidden}, "
+                         f"T = {steps}")
+    if not all(a.is_contiguous() for a in (xp, b_hn, h0)):
+        raise ValueError("xp, b_hn and h0 must be contiguous")
+
+
+def gru_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hn: torch.Tensor,
+                   h0: torch.Tensor) -> torch.Tensor:
+    """The GRU recurrence over a folded input projection ``xp`` (B, T, 3H)
+    (:func:`folded_projection`), ``w_hh`` (3H, H), ``b_hn`` (H,) and ``h0``
+    (B, H) -> ys (B, T, H).
+
+    A CUDA tensor launches K8 (or raises: not fp32, not contiguous,
+    H > 128, T = 0); a CPU tensor takes the plain recurrence.
+    """
+    if xp.device.type == "cpu":
+        return gru_recurrence_plain(xp, w_hh, b_hn, h0)
+    lib = _lib()
+    _check(xp, w_hh, b_hn, h0, lib.aec_gru_max_hidden())
+    b, t, hidden = xp.shape[0], xp.shape[1], h0.shape[-1]
+    ys = xp.new_empty((b, t, hidden))
+    whh_t = w_hh.detach().T.contiguous()  # held until the launch is enqueued
+    err = lib.aec_gru(
+        _build.ptr(xp), _build.ptr(whh_t), _build.ptr(b_hn), _build.ptr(h0), _build.ptr(ys),
+        b, t, hidden, xp.device.index, _build.stream_of(xp),
+    )
+    _build.check(err, "gru")
+    gru_recurrence.launches += 1
+    return ys
+
+
+gru_recurrence.launches = 0
+
+
+class GruScanFused(torch.autograd.Function):
+    """``(x, h0, w_ih, w_hh, b_ih, b_hh) -> ys (B, T, H)``: forward through
+    K8 (plain on the CPU), backward by recomputing the plain scan."""
+
+    @staticmethod
+    def forward(ctx, x, h0, w_ih, w_hh, b_ih, b_hh):
+        params = {"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}
+        hidden = w_hh.shape[-1]
+        ys = gru_recurrence(folded_projection(params, x), w_hh, b_hh[2 * hidden:], h0)
+        ctx.save_for_backward(x, h0, w_ih, w_hh, b_ih, b_hh)
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        from aec_tpu_torch.ops.gru import gru_scan
+
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        x, h0, w_ih, w_hh, b_ih, b_hh = leaves
+        with torch.enable_grad():
+            ys, _ = gru_scan({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}, x, h0,
+                             fused=False)
+            need = [t for t, n in zip(leaves, ctx.needs_input_grad) if n]
+            grads = iter(torch.autograd.grad(ys, need, g))
+        return tuple(next(grads) if n else None for n in ctx.needs_input_grad)
+
+
+def gru_scan_fused(params: dict[str, torch.Tensor], x: torch.Tensor,
+                   h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused GRU scan: ``[B, T, I] -> ([B, T, H], h_T)``, differentiable in
+    ``x``, ``h0`` and the four parameters (``nn.GRU``'s own Parameters when
+    called with ``LittleNet.gru_params()``)."""
+    if h0 is None:
+        h0 = x.new_zeros((x.shape[0], params["w_hh"].shape[-1]))
+    ys = GruScanFused.apply(x, h0, params["w_ih"], params["w_hh"], params["b_ih"], params["b_hh"])
+    return ys, ys[:, -1]
+
+
+def gru_scan_fused_plain(params: dict[str, torch.Tensor], x: torch.Tensor,
+                         h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`gru_scan_fused`'s forward: the folded
+    projection, then K8's arithmetic in torch."""
+    hidden = params["w_hh"].shape[-1]
+    if h0 is None:
+        h0 = x.new_zeros((x.shape[0], hidden))
+    ys = gru_recurrence_plain(folded_projection(params, x), params["w_hh"],
+                           params["b_hh"][2 * hidden:], h0)
+    return ys, ys[:, -1]

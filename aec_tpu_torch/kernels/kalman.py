@@ -1,4 +1,4 @@
-"""Kernels K1 and K6: the Kalman stage 1 as one CUDA launch.
+"""Kernels K1, K12 and K6: the Kalman stage 1 as one CUDA launch.
 
 K1 replaces ``aec_tpu/kernels/pallas_kalman.py:492``
 (``kalman_filter_fused_batched_bl``, ``pallas_call`` at ``:573``; wrapper
@@ -7,6 +7,11 @@ K1 replaces ``aec_tpu/kernels/pallas_kalman.py:492``
 CTA per utterance walks all blocks with the filter state in shared memory.
 It is bound by L2 bandwidth (its DFT bases are re-read every step); the
 source's header has the reckoning and the levers left.
+
+K12 replaces ``aec_tpu/kernels/pallas_kalman.py:303``
+(``kalman_filter_fused_batched``, ``pallas_call`` at ``:349``), the filter-
+level entry that takes far-frame spectra: the same source, instantiated to
+load each step's spectrum in place of the in-kernel analysis.
 
 K6 replaces ``aec_tpu/kernels/pallas_kalman.py:150`` (``kalman_filter_fused``,
 ``pallas_call`` at ``:178``; wrapper ``kalman_cancel_fused`` at ``:646``),
@@ -29,9 +34,10 @@ from aec_tpu_torch.configs import KalmanConfig
 from aec_tpu_torch.kernels import _build
 from aec_tpu_torch.kernels.consts import stage1_consts
 from aec_tpu_torch.linear import overlap_save as ols
-from aec_tpu_torch.linear.kalman import kalman_cancel_plain
+from aec_tpu_torch.linear.kalman import kalman_cancel_plain, kalman_filter
 
-__all__ = ["kalman_cancel_fused", "kalman_cancel_fused_batched", "kalman_cancel_plain"]
+__all__ = ["kalman_cancel_fused", "kalman_cancel_fused_batched", "kalman_cancel_plain",
+           "kalman_filter_fused_batched", "kalman_filter_fused_batched_plain"]
 
 _BLOCK = 256
 
@@ -45,8 +51,9 @@ KALMAN_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 8
 def _lib() -> ctypes.CDLL:
     lib = _build.load("kalman_batched")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aec_kalman_batched.argtypes = [p, p, p, i, i, *KALMAN_ARGTYPES, i, p]
-    lib.aec_kalman_batched.restype = ctypes.c_int
+    for fn in (lib.aec_kalman_batched, lib.aec_kalman_batched_spectra):
+        fn.argtypes = [p, p, p, i, i, *KALMAN_ARGTYPES, i, p]
+        fn.restype = ctypes.c_int
     lib.aec_kalman_n_blocks.restype = ctypes.c_int
     return lib
 
@@ -161,3 +168,58 @@ def kalman_cancel_fused(
 
 
 kalman_cancel_fused.launches = 0
+
+
+def kalman_filter_fused_batched_plain(
+    cfg: KalmanConfig, x_ri: torch.Tensor, d_blocks: torch.Tensor, *, block: int = 256,
+) -> torch.Tensor:
+    """Plain version of K12: the block loop of ``linear/kalman.py`` on the
+    spectra, (B, T, 2K) and (B, T, block) -> e-blocks (B, T, block)."""
+    return kalman_filter(cfg, x_ri, d_blocks, block=block)[0]
+
+
+def kalman_filter_fused_batched(
+    cfg: KalmanConfig, x_ri: torch.Tensor, d_blocks: torch.Tensor, *, block: int = 256,
+) -> torch.Tensor:
+    """Far-frame spectra ``x_ri`` (B, T, 2K) [re || im] and mic blocks
+    ``d_blocks`` (B, T, block) -> echo-cancelled blocks (B, T, block) on K12.
+
+    The filter-level entry point of JAX's ``kalman_filter_fused_batched``;
+    its waveform wrapper, JAX's ``kalman_cancel_fused_batched``, has the same
+    semantics as the ``_bl`` one and is :func:`kalman_cancel_fused_batched`
+    here. A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+    the plain loop. Limits as K1's: L = 10, block 256, fp32, contiguous.
+    """
+    if x_ri.device.type == "cpu":
+        return kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks, block=block)
+    lib = _lib()
+    if d_blocks.device != x_ri.device or x_ri.device.type != "cuda":
+        raise ValueError(
+            f"x_ri/d_blocks must be on one CUDA device, got {x_ri.device}, {d_blocks.device}"
+        )
+    if x_ri.dtype != torch.float32 or d_blocks.dtype != torch.float32:
+        raise TypeError(f"x_ri/d_blocks must be float32, got {x_ri.dtype}, {d_blocks.dtype}")
+    if (x_ri.ndim != 3 or d_blocks.shape != (*x_ri.shape[:2], block)
+            or x_ri.shape[-1] != 2 * (block + 1)):
+        raise ValueError(
+            f"x_ri must be (B, T, {2 * (block + 1)}) and d_blocks (B, T, {block}), got "
+            f"{tuple(x_ri.shape)}, {tuple(d_blocks.shape)}"
+        )
+    if not (x_ri.is_contiguous() and d_blocks.is_contiguous()):
+        raise ValueError("x_ri/d_blocks must be contiguous")
+    if block != _BLOCK or cfg.n_blocks != lib.aec_kalman_n_blocks():
+        raise ValueError(
+            f"the kernel is built for block {_BLOCK} and {lib.aec_kalman_n_blocks()} "
+            f"partitions, got block {block} and n_blocks {cfg.n_blocks}"
+        )
+    e = torch.empty_like(d_blocks)
+    err = lib.aec_kalman_batched_spectra(
+        _build.ptr(x_ri), _build.ptr(d_blocks), _build.ptr(e), x_ri.shape[0], x_ri.shape[1],
+        *kalman_operands(cfg, x_ri.device), x_ri.device.index, _build.stream_of(x_ri),
+    )
+    _build.check(err, "kalman_batched_spectra")
+    kalman_filter_fused_batched.launches += 1
+    return e
+
+
+kalman_filter_fused_batched.launches = 0

@@ -100,9 +100,10 @@ def serving_init(
     scfg: StftConfig = StftConfig(),
     e_bands: int = 32,
     stage1: str = "kalman",
-    device=None,
+    device="cuda",
 ) -> ServingState:
-    """Zero state for ``n_streams`` sessions on ``device``. ``stage1``
+    """Zero state for ``n_streams`` sessions on ``device`` (the card unless
+    the caller asks for ``device="cpu"``). ``stage1``
     picks the filter, ``kcfg`` its config (None: its defaults). Kalman:
     P = init_p, psi = psi_floor; NLMS: ``p`` is the (S, K) far power. Every
     other leaf starts at 0."""

@@ -14,16 +14,22 @@ state dict reads like the reference's. Forward contract, quirks preserved:
    by the unmasked back-projection with ``gain_norm``); the SAME gain
    multiplies real and imaginary parts;
 7. iSTFT + 1e-9.
+
+Training objective (:func:`little_net_loss`): the compressed ERB-magnitude
+MSE, summed over the batch and divided by T * bands only, as the reference.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from aec_tpu_torch.dsp import stft as stft_mod
 from aec_tpu_torch.dsp.stft import StftConfig, split_complex
-from aec_tpu_torch.ops.gru import gru_scan
+from aec_tpu_torch.ops.gru import gru_init, gru_scan
+from aec_tpu_torch.utils.tools import num_params
 
 
 class LittleNet(nn.Module):
@@ -48,6 +54,30 @@ class LittleNet(nn.Module):
 
     def forward(self, mic, ref, erb, cfg: StftConfig = StftConfig(), **kw):
         return little_net_apply(self, mic, ref, erb, cfg, **kw)
+
+
+def little_net_init(
+    erb_bands: int = 32, width: int = 1, *, generator: torch.Generator | None = None,
+    device="cuda",
+) -> LittleNet:
+    """A fresh ``LittleNet`` with the reference's init policy: orthogonal
+    GRU weights with U(+-1/sqrt(H)) biases, linear1 kaiming-uniform with the
+    ReLU gain sqrt(2), linear2 with gain 1, zero linear biases. Drawn on the
+    CPU from ``generator`` (one seed, one net on every device), then moved
+    to ``device``. ``width`` scales the GRU hidden and lin1 sizes."""
+    net = LittleNet(erb_bands=erb_bands, width=width)
+    gp = gru_init(2 * erb_bands, net.hidden, orthogonal=True, generator=generator, device="cpu")
+    with torch.no_grad():
+        for name, p in net.gru_params().items():
+            p.copy_(gp[name])
+        for lin, gain in ((net.linear1, math.sqrt(2.0)), (net.linear2, 1.0)):
+            bound = gain * math.sqrt(3.0 / lin.weight.shape[1])  # kaiming_uniform_, fan_in
+            lin.weight.uniform_(-bound, bound, generator=generator)
+            lin.bias.zero_()
+    return net.to(device)
+
+
+param_count = num_params  # total trainable parameters
 
 
 def _pseudo_norm(x: torch.Tensor, per_utt: bool = False) -> torch.Tensor:
@@ -113,3 +143,51 @@ def little_net_apply(
     out_spec = torch.cat([gain * re, gain * im], dim=-1)
     wav = stft_mod.istft(out_spec, cfg) + 1e-9
     return {"wav": wav, "est_erb": est_erb, "mask": mask, "mic_spec": mic_spec}
+
+
+def little_net_loss(
+    net: LittleNet,
+    mic: torch.Tensor,
+    ref: torch.Tensor,
+    near: torch.Tensor,
+    erb: torch.Tensor,
+    cfg: StftConfig = StftConfig(),
+    *,
+    normalize: bool = True,
+    sqrt_eps: float = 0.0,
+    asym_weight: float = 0.0,
+    gain_norm: bool = False,
+    sisnr_weight: float = 0.0,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Training objective ``sum |near_erb^0.5 - est_erb^0.5|^2 / (T * E)``,
+    summed over the batch -> (loss, {"wav", "est_erb"}).
+
+    As ``aec_tpu.models.little_net.little_net_loss``: ``sqrt_eps`` inside
+    the square roots (0 is exact parity; training passes 1e-12 so an
+    estimate that underflows to 0 does not give an infinite gradient);
+    ``asym_weight`` adds ``w * sum(relu(near^0.5 - est^0.5)^2) / (T * E)``,
+    the penalty on removed near-end speech; ``gain_norm`` synthesizes the
+    waveform through the convex gain; ``sisnr_weight`` subtracts ``w / 10``
+    times the mean SI-SNR of the output against the near end over scenes
+    whose raw near end is active.
+    """
+    # activity decided on the RAW near end: the pseudo-norm shifts a silent
+    # scene to a constant that would otherwise count as active
+    near_act = (torch.mean(near * near, dim=-1) > 1e-8).to(torch.float32)
+    if normalize:
+        mic, ref, near = _pseudo_norm(mic), _pseudo_norm(ref), _pseudo_norm(near)
+    out = little_net_apply(net, mic, ref, erb, cfg, normalize=False, gain_norm=gain_norm)
+    near_erb = stft_mod.magnitude(stft_mod.stft(near, cfg)) @ erb  # [B, T, E]
+    t, e = near_erb.shape[-2], near_erb.shape[-1]
+    diff = torch.sqrt(near_erb + sqrt_eps) - torch.sqrt(out["est_erb"] + sqrt_eps)
+    loss = torch.sum(diff * diff) / (t * e)
+    if asym_weight:
+        under = torch.relu(diff)  # near above the estimate: removed near end
+        loss = loss + asym_weight * torch.sum(under * under) / (t * e)
+    if sisnr_weight:
+        from aec_tpu_torch.train.metrics import si_snr_rows
+
+        per = si_snr_rows(out["wav"][..., : near.shape[-1]], near)
+        mean_db = torch.sum(per * near_act) / torch.clamp_min(torch.sum(near_act), 1.0)
+        loss = loss - sisnr_weight * mean_db / 10.0
+    return loss, {"wav": out["wav"], "est_erb": out["est_erb"]}

@@ -13,7 +13,33 @@ carries the hidden-state work.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def gru_init(
+    input_dim: int, hidden: int, *, orthogonal: bool = True,
+    generator: torch.Generator | None = None, device="cuda",
+) -> dict[str, torch.Tensor]:
+    """GRU parameters drawn on the CPU from ``generator`` (so one seed gives
+    one net on every device), then moved to ``device``.
+
+    ``orthogonal=True`` is the reference's init policy: orthogonal weight
+    matrices; biases keep torch's default U(-1/sqrt(H), 1/sqrt(H)).
+    ``orthogonal=False`` draws the weights from that uniform too.
+    """
+    bound = 1.0 / math.sqrt(hidden)
+    w_ih, w_hh = torch.empty(3 * hidden, input_dim), torch.empty(3 * hidden, hidden)
+    for w in (w_ih, w_hh):
+        if orthogonal:
+            torch.nn.init.orthogonal_(w, generator=generator)
+        else:
+            w.uniform_(-bound, bound, generator=generator)
+    b_ih = torch.empty(3 * hidden).uniform_(-bound, bound, generator=generator)
+    b_hh = torch.empty(3 * hidden).uniform_(-bound, bound, generator=generator)
+    params = {"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}
+    return {k: v.to(device) for k, v in params.items()}
 
 
 def gru_cell(params: dict[str, torch.Tensor], h: torch.Tensor,
@@ -31,15 +57,32 @@ def gru_cell(params: dict[str, torch.Tensor], h: torch.Tensor,
 
 def gru_scan(
     params: dict[str, torch.Tensor], x: torch.Tensor,
-    h0: torch.Tensor | None = None,
+    h0: torch.Tensor | None = None, *, fused: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the GRU over frames: ``[B, T, I] -> ([B, T, H], h_T)``."""
+    """Run the GRU over frames: ``[B, T, I] -> ([B, T, H], h_T)``.
+
+    ``fused`` routes as the JAX package does: ``None`` takes the fused
+    route (kernel K8, ``kernels/gru.py``, differentiable) for single-stream
+    long scans, ``B == 1 and T >= 64``, on a CUDA tensor, and the plain loop
+    otherwise. An explicit ``fused=True`` on a CPU tensor runs the fused
+    route's autograd Function over the kernel's plain version (JAX runs its
+    kernel in interpret mode there); ``fused=False`` is the plain loop.
+    """
     b, t, _ = x.shape
     hidden = params["w_hh"].shape[-1]
-    h = x.new_zeros((b, hidden)) if h0 is None else h0
+    if h0 is None:
+        h0 = x.new_zeros((b, hidden))
+    if fused is None:
+        fused = b == 1 and t >= 64 and x.is_cuda
+    if fused:
+        from aec_tpu_torch.kernels.gru import gru_scan_fused
+
+        return gru_scan_fused(params, x, h0)
     x_proj = torch.matmul(x, params["w_ih"].T) + params["b_ih"]  # [B, T, 3H]
-    ys = x.new_empty((b, t, hidden))
+    h, hs = h0, []
     for i in range(t):
         h = gru_cell(params, h, x_proj[:, i])
-        ys[:, i] = h
+        hs.append(h)
+    # one stack, not T slice writes: autograd then holds one node, not T
+    ys = torch.stack(hs, dim=1) if hs else x.new_zeros((b, 0, hidden))
     return ys, h

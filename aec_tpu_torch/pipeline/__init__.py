@@ -1,1 +1,2 @@
-"""Pipelines: the two-stage composition (``aec_tpu/pipeline``)."""
+"""Pipelines: the two-stage composition, the streaming runtime, data I/O
+and loading (``aec_tpu/pipeline``)."""

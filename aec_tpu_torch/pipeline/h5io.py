@@ -1,0 +1,93 @@
+"""HDF5 ``.ex`` dataset I/O, byte-compatible with the reference's schemas
+(``aec_tpu/pipeline/h5io.py``).
+
+Three layouts exist in the reference's packers (all float32):
+
+- TRAIN: one ``.ex`` file per utterance holding four root datasets
+  ``nearend_speech / nearend_mic / farend_speech / echo``, listed in
+  ``tr_list.txt``;
+- TEST: one ``.ex`` file with numbered groups "0".."N-1", each holding the
+  same four dataset names;
+- VAL: grouped like TEST but datasets named ``mic / ref / near / echo``.
+
+``h5py`` is imported inside the functions: the package imports without it
+(a machine that only runs inference needs none).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Mapping
+
+import numpy as np
+
+TRAIN_KEYS = ("nearend_speech", "nearend_mic", "farend_speech", "echo")
+VAL_KEYS = ("mic", "ref", "near", "echo")
+
+
+def write_utterance(path: str, utt: Mapping[str, np.ndarray]) -> None:
+    """TRAIN layout: four root datasets in one file."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for key in TRAIN_KEYS:
+            data = np.asarray(utt[key], dtype=np.float32)
+            f.create_dataset(key, data=data, shape=data.shape, chunks=True)
+
+
+def read_utterance(path: str) -> dict[str, np.ndarray]:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {k: np.asarray(f[k], dtype=np.float32) for k in TRAIN_KEYS}
+
+
+def utterance_length(path: str) -> int:
+    """Sample count of a TRAIN-layout file, from h5 metadata (no data read)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return int(f[TRAIN_KEYS[0]].shape[0])
+
+
+def write_grouped(
+    path: str, utts: Iterable[Mapping[str, np.ndarray]], keys=TRAIN_KEYS
+) -> int:
+    """TEST/VAL layout: numbered groups "0".."N-1" (``keys=VAL_KEYS`` for
+    the val packer's naming). Returns the number of groups written."""
+    import h5py
+
+    n = 0
+    with h5py.File(path, "w") as f:
+        for i, utt in enumerate(utts):
+            grp = f.create_group(str(i))
+            for key in keys:
+                data = np.asarray(utt[key], dtype=np.float32)
+                grp.create_dataset(key, data=data, shape=data.shape, chunks=True)
+            n += 1
+    return n
+
+
+def read_group(path: str, index: int, keys=TRAIN_KEYS) -> dict[str, np.ndarray]:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        grp = f[str(index)]
+        return {k: np.asarray(grp[k], dtype=np.float32) for k in keys}
+
+
+def group_count(path: str) -> int:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return len(f)
+
+
+def write_filelist(path: str, entries: list[str]) -> None:
+    """Newline-joined list file (the reference's tr_list.txt format)."""
+    with open(path, "w") as f:
+        f.write("\n".join(entries))
+
+
+def read_filelist(path: str) -> list[str]:
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]

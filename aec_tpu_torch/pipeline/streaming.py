@@ -104,10 +104,11 @@ def stream_init(
     *,
     stage1: str = "kalman",
     lin_cfg: KalmanConfig | NlmsConfig | None = None,
-    device=None,
+    device="cuda",
 ) -> StreamState:
-    """Zero state of one stream on ``device``; ``lin_cfg`` is the
-    stage-1 filter's config (None: that filter's defaults)."""
+    """Zero state of one stream on ``device`` (the card unless the caller
+    asks for ``device="cpu"``); ``lin_cfg`` is the stage-1 filter's config
+    (None: that filter's defaults)."""
     _check_stage1(stage1)
     if stage1 == "kalman":
         s1 = kalman_init(lin_cfg or KalmanConfig(), cfg.n_freqs, device=device)
@@ -310,9 +311,10 @@ def stream_init_batched(
     *,
     stage1: str = "kalman",
     lin_cfg: KalmanConfig | NlmsConfig | None = None,
-    device=None,
+    device="cuda",
 ) -> StreamState:
-    """State for ``n_streams`` concurrent calls (leading axis = stream)."""
+    """State for ``n_streams`` concurrent calls (leading axis = stream) on
+    ``device`` (the card unless the caller asks for ``device="cpu"``)."""
     one = stream_init(erb_bands, cfg, stage1=stage1, lin_cfg=lin_cfg, device=device)
     return _tree_map(lambda a: a.expand(n_streams, *a.shape).clone(), one)
 

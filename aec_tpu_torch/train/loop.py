@@ -1,0 +1,325 @@
+"""Training loop: Adam + stepped decay, the reference's cadence
+(``aec_tpu/train/loop.py``).
+
+- one train step: the loss's backward, optional global-norm clipping and an
+  Adam update whose numbers are optax's (:class:`Optimizer`);
+- Adam(lr=1e-5) + StepLR(period 5 epochs, gamma 0.5) as the reference's
+  train_conf, through a step-count schedule evaluated before each update as
+  optax evaluates it;
+- frame-weighted loss accounting with the reference's ``countFrames``,
+  validation once per logging period (once per epoch), checkpoints
+  latest/best-on-cv-loss in the JAX package's format;
+- deliberate divergence from the reference, as in the JAX package:
+  gradients are reset every step (the reference never calls
+  ``optimizer.zero_grad()``).
+
+On a CUDA device a batch-1 step (every validation utterance) runs the GRU
+on kernel K8 through ``ops.gru.gru_scan``'s routing; its backward recomputes
+through the plain scan, as the JAX custom VJP does.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from aec_tpu_torch.configs import TrainConfig
+from aec_tpu_torch.dsp.erb import erb_filterbank
+from aec_tpu_torch.dsp.stft import StftConfig
+from aec_tpu_torch.models.little_net import LittleNet, little_net_init, little_net_loss
+from aec_tpu_torch.pipeline.datasets import EvalLoader, TrainLoader
+from aec_tpu_torch.train import checkpoints
+from aec_tpu_torch.utils.tools import count_frames, get_logger, loss_log, num_params
+from aec_tpu_torch.utils.weights import load_params, named_from_tree, params_to_jax, tree_from_named
+
+LossFn = Callable[..., tuple[torch.Tensor, dict]]
+
+# optax's state types, for the checkpoint key paths (``.count``, ``.mu``, ...)
+ScaleByAdamState = collections.namedtuple("ScaleByAdamState", "count mu nu")
+ScaleByScheduleState = collections.namedtuple("ScaleByScheduleState", "count")
+
+
+def make_lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], float]:
+    """torch StepLR semantics over update counts: lr0 * gamma^(epoch // period)."""
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return cfg.lr * (cfg.lr_decay_factor ** (epoch // cfg.lr_decay_period))
+
+    return schedule
+
+
+class Optimizer:
+    """``optax.chain([clip_by_global_norm(clip_norm)], adam(schedule))`` of
+    the JAX loop on ``torch.optim.Adam``, whose update equals optax's
+    (m_hat / (sqrt(v_hat) + 1e-8), no eps inside the root). The group's
+    ``lr`` is set to ``schedule(count)`` before each step, ``count`` being
+    the updates done so far, as optax evaluates the schedule before counting.
+    Clipping is optax's: ``g / norm * clip_norm`` unless ``norm < clip_norm``
+    (not ``clip_grad_norm_``, which adds 1e-6 to the norm)."""
+
+    def __init__(self, cfg: TrainConfig, steps_per_epoch: int, net: LittleNet):
+        self.net = net
+        self.schedule = make_lr_schedule(cfg, steps_per_epoch)
+        self.clip_norm = cfg.clip_norm
+        self.adam = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+        self.count = 0
+
+    def update(self) -> None:
+        """One update from the gradients in the net's ``.grad``."""
+        if self.clip_norm >= 0:
+            grads = [p.grad for p in self.net.parameters()]
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = norm < self.clip_norm  # no host sync: select on the device
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
+        for group in self.adam.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adam.step()
+        self.count += 1
+
+    def state_tree(self) -> tuple:
+        """The state in optax's layout: ``[i][0]`` Adam's count, mu and nu
+        (trees like the params), ``[i][1]`` the schedule's count, with
+        ``i = 1`` behind clipping's empty state, else 0."""
+        moments = {}
+        for key in ("exp_avg", "exp_avg_sq"):
+            moments[key] = tree_from_named({
+                name: self.adam.state.get(p, {}).get(key, torch.zeros_like(p))
+                for name, p in self.net.named_parameters()
+            })
+        count = np.int32(self.count)
+        adam = (ScaleByAdamState(count, moments["exp_avg"], moments["exp_avg_sq"]),
+                ScaleByScheduleState(count))
+        return ((), adam) if self.clip_norm >= 0 else (adam,)
+
+    def load_state_tree(self, tree) -> None:
+        """Resume from :meth:`state_tree`'s layout (numpy leaves, e.g. read by
+        ``checkpoints.restore`` from a JAX or a port checkpoint)."""
+        adam, sched = tree[-1]
+        mu, nu = named_from_tree(adam.mu), named_from_tree(adam.nu)
+        for name, p in self.net.named_parameters():
+            self.adam.state[p] = {
+                "step": torch.tensor(float(adam.count), dtype=torch.float32),
+                "exp_avg": torch.as_tensor(np.array(mu[name]), device=p.device),
+                "exp_avg_sq": torch.as_tensor(np.array(nu[name]), device=p.device),
+            }
+        self.count = int(sched.count)
+
+
+def make_optimizer(cfg: TrainConfig, steps_per_epoch: int, net: LittleNet) -> Optimizer:
+    """The JAX loop's name for :class:`Optimizer` over ``net``'s parameters."""
+    return Optimizer(cfg, steps_per_epoch, net)
+
+
+def train_tree(optimizer: Optimizer) -> dict:
+    """``{"params", "opt_state"}`` as the JAX trainer checkpoints it."""
+    return {"params": params_to_jax(optimizer.net), "opt_state": optimizer.state_tree()}
+
+
+def restore_train_tree(path: str, optimizer: Optimizer) -> None:
+    """Load params and optimizer state from a JAX or port checkpoint."""
+    restored = checkpoints.restore(path, train_tree(optimizer))
+    load_params(optimizer.net, restored["params"])
+    optimizer.load_state_tree(restored["opt_state"])
+
+
+def make_train_step(
+    loss_fn: LossFn, optimizer: Optimizer, *, scfg: StftConfig = StftConfig(),
+    sqrt_eps: float = 1e-12,
+):
+    """One update of ``optimizer.net``: ``step(mic, ref, near, erb) -> loss``
+    (a 0-d tensor on the batch's device, not synchronized). ``loss_fn(net,
+    mic, ref, near, erb, cfg, sqrt_eps=...)`` returns (scalar loss, aux)."""
+    net = optimizer.net
+
+    def step(mic, ref, near, erb):
+        optimizer.adam.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(net, mic, ref, near, erb, scfg, sqrt_eps=sqrt_eps)
+        loss.backward()
+        optimizer.update()
+        return loss.detach()
+
+    return step
+
+
+def make_eval_step(loss_fn: LossFn, *, scfg: StftConfig = StftConfig()):
+    """``step(net, mic, ref, near, erb) -> (loss, enhanced wav)`` without
+    gradients; the loss's default ``sqrt_eps`` (0); the wav feeds the
+    optional stoi/sisdr validation metrics."""
+
+    @torch.no_grad()
+    def step(net, mic, ref, near, erb):
+        loss, aux = loss_fn(net, mic, ref, near, erb, scfg)
+        return loss, aux["wav"]
+
+    return step
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Epoch-loop orchestrator with the reference's cadence and logging, on
+    ``device`` (the card unless asked for ``"cpu"``)."""
+
+    tr_list: list[str]
+    cv_file: str
+    ckpt_dir: str
+    cfg: TrainConfig = TrainConfig()
+    scfg: StftConfig = StftConfig()
+    erb_bands: int = 32
+    resume_model: str = ""
+    time_log: str = ""
+    loss_log_name: str = "loss.txt"
+    use_mesh: bool = False
+    bucket_quantum: int = 4096
+    loss_fn: LossFn = little_net_loss
+    init_fn: Callable[..., LittleNet] = little_net_init
+    # optional cv metrics ("stoi", "sisdr"); each gets a best_<metric>.npz
+    # slot; higher is better
+    validate_metrics: tuple[str, ...] = ()
+    device_cache: str = ""
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.use_mesh:
+            raise NotImplementedError("use_mesh: the port's parallel layer is ROADMAP item A10")
+        if self.device_cache:
+            raise NotImplementedError("device_cache: the port's device-resident corpus is "
+                                      "ROADMAP item A7")
+        # once-per-epoch validation/checkpoint cadence
+        self.logging_period = self.cfg.logging_period or max(
+            len(self.tr_list) // self.cfg.batch_size, 1
+        )
+        unknown = set(self.validate_metrics) - {"stoi", "sisdr"}
+        if unknown:
+            raise ValueError(
+                f"unknown validate_metrics {sorted(unknown)}; supported: stoi, sisdr"
+            )
+
+    def train(self) -> dict:
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        logger = get_logger(os.path.join(self.ckpt_dir, "train.log"), log_file=True)
+        dev = torch.device(self.device)
+        loader = TrainLoader(self.tr_list, self.cfg.batch_size,
+                             bucket_quantum=self.bucket_quantum, seed=self.cfg.seed)
+        cv_loader = EvalLoader(self.cv_file, batch_size=1)
+
+        net = self.init_fn(generator=torch.Generator().manual_seed(self.cfg.seed), device=dev)
+        erb = torch.as_tensor(erb_filterbank(self.scfg.n_freqs, 16000, self.erb_bands),
+                              dtype=torch.float32, device=dev)
+        steps_per_epoch = max(len(self.tr_list) // self.cfg.batch_size, 1)
+        optimizer = make_optimizer(self.cfg, steps_per_epoch, net)
+        train_step = make_train_step(self.loss_fn, optimizer, scfg=self.scfg)
+        eval_step = make_eval_step(self.loss_fn, scfg=self.scfg)
+        logger.info("Trainable parameter count: {:,d} -> {:.2f} MB".format(
+            num_params(net), num_params(net) * 4 / 2**20))
+
+        ckpt_info = {"cur_epoch": 0, "cur_iter": 0, "tr_loss": None, "cv_loss": None,
+                     "best_loss": float("inf")}
+        for m in self.validate_metrics:
+            ckpt_info[f"cv_{m}"] = None
+            ckpt_info[f"best_{m}"] = float("-inf")
+        if self.resume_model:
+            restore_train_tree(self.resume_model, optimizer)
+            ckpt_info.update(checkpoints.load_info(self.resume_model))
+            logger.info(f"Resumed from {self.resume_model}: {ckpt_info}")
+
+        keys = ("nearend_mic", "farend_speech", "nearend_speech")
+        while ckpt_info["cur_epoch"] < self.cfg.max_n_epochs:
+            accu_loss, accu_frames = 0.0, 0
+            for n_iter, batch in enumerate(loader):
+                t0 = time.perf_counter()
+                mic, ref, near = (torch.from_numpy(batch[k]).to(dev) for k in keys)
+                loss_val = float(train_step(mic, ref, near, erb))  # waits for the device
+                batch_time = time.perf_counter() - t0
+                n_frames = count_frames(batch["n_samples"], self.scfg.win_len, self.scfg.hop)
+                accu_loss += loss_val * n_frames
+                accu_frames += n_frames
+
+                msg = (
+                    f"Epoch [{ckpt_info['cur_epoch'] + 1}/{self.cfg.max_n_epochs}], "
+                    f"Iter [{n_iter}], tr_loss = {loss_val:.4f} / "
+                    f"{accu_loss / accu_frames:.4f}, batch_time (s) = {batch_time:.4f}"
+                )
+                if self.time_log:
+                    with open(self.time_log, "a") as f:
+                        print(msg, file=f)
+
+                if (n_iter + 1) % self.logging_period == 0:
+                    metrics = self.validate(eval_step, net, erb, cv_loader)
+                    ckpt_info["cur_iter"] = n_iter
+                    ckpt_info["tr_loss"] = accu_loss / accu_frames
+                    ckpt_info["cv_loss"] = metrics["loss"]
+                    is_best = metrics["loss"] < ckpt_info["best_loss"]
+                    if is_best:
+                        ckpt_info["best_loss"] = metrics["loss"]
+                    extra_best = {}
+                    for m in self.validate_metrics:
+                        ckpt_info[f"cv_{m}"] = metrics[m]
+                        improved = metrics[m] > ckpt_info[f"best_{m}"]
+                        if improved:
+                            ckpt_info[f"best_{m}"] = metrics[m]
+                        extra_best[f"best_{m}"] = improved
+                    checkpoints.save_latest_best(
+                        os.path.join(self.ckpt_dir, "models"), train_tree(optimizer), ckpt_info,
+                        is_best, extra_best=extra_best,
+                    )
+                    loss_log(os.path.join(self.ckpt_dir, self.loss_log_name), ckpt_info, metrics)
+                    # per-period metrics: loss and throughput (xRT = audio s / wall s)
+                    audio_s = batch["nearend_mic"].shape[0] * batch["nearend_mic"].shape[1] / 16000.0
+                    with open(os.path.join(self.ckpt_dir, "metrics.jsonl"), "a") as f:
+                        f.write(json.dumps({
+                            "epoch": ckpt_info["cur_epoch"] + 1, "iter": n_iter,
+                            "tr_loss": ckpt_info["tr_loss"], "cv_loss": metrics["loss"],
+                            "batch_time_s": round(batch_time, 5),
+                            "train_xrt": round(audio_s / batch_time, 1),
+                        }) + "\n")
+                    logger.info("Epoch [{:d}/{:d}], ( tr_loss: {:.4f} | best_loss: {:.4f} )".format(
+                        ckpt_info["cur_epoch"] + 1, self.cfg.max_n_epochs, ckpt_info["tr_loss"],
+                        ckpt_info["best_loss"]))
+                    accu_loss, accu_frames = 0.0, 0
+            ckpt_info["cur_epoch"] += 1
+        return {"net": net, "optimizer": optimizer, "ckpt_info": ckpt_info}
+
+    def validate(self, eval_step, net, erb, cv_loader) -> dict:
+        """Frame-weighted mean cv loss plus the optional waveform metrics
+        (mean over utterances; stoi may be nan on clips too short for a
+        384 ms segment, which are skipped)."""
+        accu_loss, accu_frames = 0.0, 0
+        metric_sums = {m: 0.0 for m in self.validate_metrics}
+        metric_counts = {m: 0 for m in self.validate_metrics}
+        for batch in cv_loader:
+            loss, wav = eval_step(net, *(torch.from_numpy(batch[k]).to(erb.device) for k in (
+                "nearend_mic", "farend_speech", "nearend_speech")), erb)
+            n_frames = count_frames(batch["n_samples"], self.scfg.win_len, self.scfg.hop)
+            accu_loss += float(loss) * n_frames
+            accu_frames += n_frames
+            if self.validate_metrics:
+                from aec_tpu_torch.train.metrics import si_snr
+                from aec_tpu_torch.train.stoi import stoi
+
+                est = wav.cpu().numpy()
+                clean = batch["nearend_speech"]
+                n = batch["n_samples"]
+                for b in range(clean.shape[0]):
+                    e, c = est[b][:n], clean[b][:n]
+                    if "sisdr" in metric_sums:
+                        metric_sums["sisdr"] += float(si_snr(torch.from_numpy(e),
+                                                             torch.from_numpy(c)))
+                        metric_counts["sisdr"] += 1
+                    if "stoi" in metric_sums:
+                        s = stoi(c, e)
+                        if np.isfinite(s):
+                            metric_sums["stoi"] += s
+                            metric_counts["stoi"] += 1
+        out = {"loss": accu_loss / max(accu_frames, 1)}
+        for m in self.validate_metrics:
+            out[m] = metric_sums[m] / max(metric_counts[m], 1)
+        return out

@@ -1,1 +1,2 @@
-"""Utilities: weights carried over from the JAX package."""
+"""Utilities: weights carried over from and back to the JAX package,
+logging and accounting helpers."""

@@ -1,9 +1,9 @@
-"""Weights carried over from the JAX package.
+"""Weights carried over from and back to the JAX package.
 
 The JAX LittleNet parameter tree (``aec_tpu/models/little_net.py``) already
 uses torch's layouts: the GRU stacks its gates [r; z; n] with separate
 input/hidden biases as ``torch.nn.GRU`` does, and the linear weights are
-(out, in). So the mapping is a copy, leaf by leaf.
+(out, in). So the mapping is a copy, leaf by leaf, both ways.
 
 Checkpoints (``checkpoints/little_net_*.npz``) store leaves keyed by their
 tree path, e.g. ``['params']['gru']['w_ih']`` (``aec_tpu/train/
@@ -14,6 +14,7 @@ the JAX restore, ignores extra entries such as optimizer state.
 from __future__ import annotations
 
 import os
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -32,22 +33,50 @@ _LEAVES = {
 }
 
 
-def params_from_jax(tree) -> LittleNet:
-    """JAX LittleNet param tree (numpy or jax leaves) -> ``LittleNet`` on the
-    CPU in eval mode; the width is read from the GRU recurrent matrix."""
+def tree_from_named(values: Mapping[str, Any]) -> dict:
+    """Per-parameter values keyed by ``LittleNet``'s parameter names ->
+    the JAX tree layout ``{"gru": {...}, "lin1": {...}, "lin2": {...}}``."""
+    tree: dict = {}
+    for (a, b), name in _LEAVES.items():
+        tree.setdefault(a, {})[b] = values[name]
+    return tree
+
+
+def named_from_tree(tree) -> dict[str, Any]:
+    """The inverse of :func:`tree_from_named`."""
+    return {name: tree[a][b] for (a, b), name in _LEAVES.items()}
+
+
+def params_from_jax(tree, *, device="cuda") -> LittleNet:
+    """JAX LittleNet param tree (numpy or jax leaves) -> ``LittleNet`` on
+    ``device`` (the card unless the caller asks for ``device="cpu"``) in
+    eval mode; the width is read from the GRU recurrent matrix."""
     erb_bands = np.shape(tree["lin2"]["w"])[0]
     hidden = np.shape(tree["gru"]["w_hh"])[-1]
     net = LittleNet(erb_bands=erb_bands, width=hidden // erb_bands)
-    state = {
-        name: torch.from_numpy(np.array(tree[a][b], dtype=np.float32))
-        for (a, b), name in _LEAVES.items()
-    }
-    net.load_state_dict(state)
-    return net.eval()
+    load_params(net, tree)
+    return net.to(device).eval()
 
 
-def load_npz(path: str) -> LittleNet:
-    """Path-keyed ``.npz`` checkpoint -> ``LittleNet`` (numpy only)."""
+def params_to_jax(net: LittleNet) -> dict:
+    """``LittleNet`` -> the JAX param tree of numpy arrays (the inverse of
+    :func:`params_from_jax`)."""
+    return tree_from_named(
+        {name: p.detach().cpu().numpy() for name, p in net.named_parameters()}
+    )
+
+
+def load_params(net: LittleNet, tree) -> None:
+    """Copy a JAX param tree into ``net``'s parameters, on their device."""
+    net.load_state_dict({
+        name: torch.from_numpy(np.array(v, dtype=np.float32))
+        for name, v in named_from_tree(tree).items()
+    })
+
+
+def load_npz(path: str, *, device="cuda") -> LittleNet:
+    """Path-keyed ``.npz`` checkpoint -> ``LittleNet`` on ``device`` (numpy
+    only)."""
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
     with np.load(path) as data:
@@ -57,4 +86,4 @@ def load_npz(path: str) -> LittleNet:
             if key not in data:
                 raise KeyError(f"checkpoint {path} is missing leaf {key}")
             tree.setdefault(a, {})[b] = data[key]
-    return params_from_jax(tree)
+    return params_from_jax(tree, device=device)

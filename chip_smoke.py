@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--seed N] [--reps N]
 
-Runs ``aec_tpu_torch`` (never JAX): builds the six CUDA sources in the
-checkout (seven kernels), in parallel, and drives every user-facing path.
+Runs ``aec_tpu_torch`` (never JAX): builds the seven CUDA sources in the
+checkout (nine kernels), in parallel, and drives every user-facing path.
 
 - Offline Kalman (phases 4, 5, 7): each kernel against its plain PyTorch
   version at the main path's full shape (batch 256 x 131,072 samples =
@@ -23,6 +23,15 @@ checkout (seven kernels), in parallel, and drives every user-facing path.
   plain version at S = 1024.
 - Times (phases 6, 10, 15): kernels, plain versions and the paths, with
   CUDA events, beside the card's name and power limit.
+- Training (phases 16-19): K8 (the GRU scan) against its plain version at
+  B = 1 x 1001 frames (H = 32 and 128) and B = 16 x 501, its gradients
+  against the plain route's, beside cuDNN's ``nn.GRU``; the trainer of a
+  width-1 LittleNet at ``TrainConfig()``: 5 steps at batch 16 x 8 s (the
+  first against the CPU route), validation at batch 1 through K8, a
+  checkpoint round trip, 3 batch-1 steps; the width-4 net on one utterance
+  at a time (K6 + K8) against the CPU route.
+- K12 (phase 20): the spectra-in batched Kalman entry against K1 and its
+  plain version at the main shape.
 
 One line per phase; the first failure exits nonzero (nothing is caught).
 The second-to-last line is the ``kernels`` JSON (each kernel's launches on
@@ -35,9 +44,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +69,16 @@ ERLE_TOL_DB = 0.1  # kernel route vs plain route, tail ERLE per scene
 # on an input that already differs by K1's round-off, which the sigmoid mask
 # feels most on quiet residual frames: wav at K1's relative bar, mask at 1e-3
 K4_WAV_TOL, K4_MASK_TOL = 1e-3, 1e-3
+# K8 vs plain: h lies in [-1, 1]; an fp32 recursion summed in another order
+K8_TOL = 1e-5
+# gradients through K8 vs the plain route (both backwards recompute the plain
+# scan; only the forward's round-off differs): 1e-4 of each leaf's scale
+K8_GRAD_TOL = 1e-4
+# the first train step vs the same step on the CPU route: fp32 round-off of
+# STFT, GRU and backward in another order -> loss rtol 1e-4; Adam's first
+# update is lr * g / (|g| + eps), so each leaf's mean |difference| <= 1e-3 lr
+STEP_LOSS_TOL, STEP_PARAM_TOL = 1e-4, 1e-3
+N_TRAIN = 128000  # bench config #7: 8 s utterances (501 frames), batch TrainConfig().batch_size
 # K3 vs plain: one Kalman block and one LittleNet frame per stream and hop,
 # state carried across 68 hops and 65 calls in another summation order ->
 # K1's bar of 1e-3 of scale for the output blocks and for every state leaf
@@ -85,6 +106,11 @@ STAGE2_FMA = (2 * FRAME * RI + 2 * K_BINS * BANDS + 3 * BANDS * 3 * BANDS + 2 * 
               + BANDS * BANDS + K_BINS * BANDS + RI * FRAME)
 STAGE1_BASES = 4 * (FRAME * RI + 2 * RI * HOP)  # fwd, inv_tail, inv_head: bytes
 STAGE2_BASES = 4 * (FRAME * RI + RI * FRAME + 2 * K_BINS * BANDS + 12 * BANDS * BANDS)
+
+
+def gru_bound(b: int, t: int, h: int) -> dict:
+    """K8's: B*T*3H*H FMA; xp in, ys out, W_hh^T, b_hn, h0 and h_T."""
+    return bound(b * t * 3 * h * h, 4 * (b * t * 4 * h + 3 * h * h + h + 2 * b * h))
 
 
 def bound(fma: float, nbytes: float) -> dict:
@@ -172,6 +198,179 @@ def serve_pair(net, erb, far, mic, k_calls, stage1="kalman", **kw):
     return ks, ps, rel, err
 
 
+def leaves(tree) -> list[np.ndarray]:
+    """A checkpoint tree's leaves in path order, as numpy arrays."""
+    from aec_tpu_torch.train.checkpoints import tree_map_with_path
+
+    out = []
+    tree_map_with_path(tree, lambda _, v: out.append(
+        v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)))
+    return out
+
+
+def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
+    """16. K8 vs its plain version and beside cuDNN's nn.GRU (same weights,
+    fp32) at one 16 s utterance (B = 1, T = 1001) for H = 32 and 128 and at
+    the training batch (B = 16, T = 501, H = 32: the fused route called
+    explicitly, for information; the routing stays JAX's B == 1)."""
+    from aec_tpu_torch.kernels.gru import folded_projection, gru_recurrence, gru_recurrence_plain
+    from aec_tpu_torch.ops.gru import gru_init
+
+    g = torch.Generator().manual_seed(seed)
+    out = {"err": 0.0, "shapes": {}}
+    for b, t, h in ((1, 1001, 32), (1, 1001, 128), (16, 501, 32)):
+        params = gru_init(2 * BANDS, h, generator=g, device=dev)
+        x = torch.randn(b, t, 2 * BANDS, generator=g).to(dev)
+        h0 = torch.zeros(b, h, device=dev)
+        gru = torch.nn.GRU(2 * BANDS, h, batch_first=True).to(dev)
+        with torch.no_grad():
+            for name, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                              ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                getattr(gru, name).copy_(params[key])
+            xp, b_hn = folded_projection(params, x), params["b_hh"][2 * h:]
+            ys = gru_recurrence(xp, params["w_hh"], b_hn, h0)
+            want = gru_recurrence_plain(xp, params["w_hh"], b_hn, h0)
+            lib = gru(x, h0[None])[0]
+            torch.cuda.synchronize()
+            check(ys.shape == (b, t, h) and bool(torch.isfinite(ys).all()), "K8 output")
+            err = float((ys - want).abs().max())
+            lib_err = float((lib - want).abs().max())
+            t_k = time_ms(lambda: gru_recurrence(xp, params["w_hh"], b_hn, h0), reps)
+            t_p = time_ms(lambda: gru_recurrence_plain(xp, params["w_hh"], b_hn, h0), reps)
+            t_lib = time_ms(lambda: gru(x, h0[None]), reps)
+        phase("K8 vs plain", f"B = {b}, T = {t}, H = {h}: max|d| = {err:.3e} (bar {K8_TOL:g}); "
+              f"cuDNN nn.GRU vs plain {lib_err:.3e} (information)")
+        check(err <= K8_TOL, "K8 disagrees with its plain version")
+        phase("time", f"K8 B = {b}, T = {t}, H = {h}: {t_k:.4f} ms (plain {t_p:.2f} ms, cuDNN "
+              f"nn.GRU {t_lib:.4f} ms) [{smi}]")
+        out["err"] = max(out["err"], err)
+        out["shapes"][(b, t, h)] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_lib}
+    return out
+
+
+def trainer_phase(dev, seed: int, reps: int, smi: str) -> dict:
+    """17-18. K8's gradients against the plain route on one 8 s scene; the
+    trainer at TrainConfig() on 16 utterances x 8 s (bench config #7): 5
+    batch-16 steps (the first against the CPU route), validation at batch 1
+    over 8 scenes (K8), a checkpoint round trip, 3 batch-1 steps (K8)."""
+    from aec_tpu_torch.configs import TrainConfig
+    from aec_tpu_torch.dsp.erb import erb_filterbank
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.gru import gru_recurrence
+    from aec_tpu_torch.models.little_net import (
+        _pseudo_norm,
+        little_net_features,
+        little_net_init,
+        little_net_loss,
+    )
+    from aec_tpu_torch.ops.gru import gru_scan
+    from aec_tpu_torch.train import checkpoints
+    from aec_tpu_torch.train.loop import (
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+        restore_train_tree,
+        train_tree,
+    )
+    from benchmarks.scenes import make_scenes
+
+    cfg = TrainConfig()
+    scenes = [sc for sd in (seed, seed + 1)
+              for sc in make_scenes(np.random.default_rng(sd), n=N_TRAIN).values()]
+    far, mic, near = (torch.from_numpy(np.stack([sc[i] for sc in scenes])) for i in range(3))
+    fd, md, nd = far.to(dev), mic.to(dev), near.to(dev)
+    erb_c = torch.from_numpy(erb_filterbank())
+    erb_d = erb_c.to(dev)
+    net = little_net_init(generator=torch.Generator().manual_seed(seed), device=dev)
+    cpu_net = little_net_init(generator=torch.Generator().manual_seed(seed), device="cpu")
+
+    # 17. gradients through K8 vs the plain route: the GRU of the fresh net on
+    #     one scene's features, a fixed random cotangent, every leaf
+    with torch.no_grad():
+        feats = little_net_features(_pseudo_norm(md[:1]), _pseudo_norm(fd[:1]), erb_d,
+                                    StftConfig())[0]
+    gp = {k: v.detach().clone().requires_grad_() for k, v in net.gru_params().items()}
+    feats.requires_grad_()
+    cot = torch.randn(1, feats.shape[1], net.hidden, generator=torch.Generator().manual_seed(seed))
+    cot = cot.to(dev)
+    grads, launches = {}, {}
+    for fused in (None, False):
+        (ys, _), (launches[fused],) = drive((gru_recurrence,), lambda: gru_scan(gp, feats,
+                                                                                fused=fused))
+        grads[fused] = torch.autograd.grad((ys * cot).sum(), [feats, *gp.values()])
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+                for a, b in zip(grads[None], grads[False]))
+    phase("K8 gradients", f"1 x {feats.shape[1]} frames: launches K8 {launches[None]} (plain route "
+          f"{launches[False]}); worst leaf max|d| / scale = {worst:.3e} (bar {K8_GRAD_TOL:g})")
+    check(launches[None] == 1 and launches[False] == 0, "the batch-1 route did not take K8")
+    check(worst <= K8_GRAD_TOL, "gradients through K8 disagree with the plain route")
+
+    # 18. the trainer: 5 steps at batch 16, the first also on the CPU route
+    opt, cpu_opt = make_optimizer(cfg, 1, net), make_optimizer(cfg, 1, cpu_net)
+    step, cpu_step = make_train_step(little_net_loss, opt), make_train_step(little_net_loss, cpu_opt)
+    losses, times = [], []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(md, fd, nd, erb_d)))  # float() waits for the card
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            cpu_loss = float(cpu_step(mic, far, near, erb_c))
+            mean_d = max(float((p.detach().cpu() - q.detach()).abs().mean())
+                         for p, q in zip(net.parameters(), cpu_net.parameters()))
+            rel = abs(losses[0] / cpu_loss - 1.0)
+            phase("trainer", f"step 1, batch {cfg.batch_size} x {N_TRAIN}: loss {losses[0]:.6f} "
+                  f"(CPU route {cpu_loss:.6f}, rel {rel:.2e}, bar {STEP_LOSS_TOL:g}); worst leaf "
+                  f"mean|d| after the update {mean_d:.3e} (bar {STEP_PARAM_TOL:g} x lr = "
+                  f"{STEP_PARAM_TOL * cfg.lr:.1e})")
+            check(rel <= STEP_LOSS_TOL and mean_d <= STEP_PARAM_TOL * cfg.lr,
+                  "the first train step disagrees with the CPU route")
+    check(all(np.isfinite(losses)), "train loss not finite")
+    t_step = statistics.median(times[1:])
+    train_xrt = cfg.batch_size * N_TRAIN / SR / (t_step / 1e3)
+    phase("trainer", f"losses {', '.join(f'{v:.4f}' for v in losses)}; step ms "
+          f"{', '.join(f'{v:.1f}' for v in times)}; median of steps 2-5 {t_step:.2f} ms = "
+          f"train_xrt {train_xrt:.1f} [{smi}]")
+
+    eval_step = make_eval_step(little_net_loss)
+
+    def validate():
+        return [eval_step(net, md[i:i + 1], fd[i:i + 1], nd[i:i + 1], erb_d) for i in range(8)]
+
+    vals, (k8_val,) = drive((gru_recurrence,), validate)
+    check(k8_val > 0, "batch-1 validation did not go through K8")
+    check(all(bool(torch.isfinite(w).all()) and w.shape == (1, N_TRAIN) and bool(torch.isfinite(v))
+              for v, w in vals), "validation output")
+    t_val = time_ms(validate, reps) / 8
+    phase("trainer", f"validation, 8 scenes at batch 1: launches K8 {k8_val}; cv loss "
+          f"{np.mean([float(v) for v, _ in vals]):.4f}; {t_val:.2f} ms per utterance [{smi}]")
+
+    with tempfile.TemporaryDirectory() as d:
+        tree = train_tree(opt)
+        latest = checkpoints.save_latest_best(d, tree, {"cur_epoch": 0}, True)
+        want, got = leaves(tree), leaves(checkpoints.restore(latest, tree))
+        same = len(want) == len(got) and all(np.array_equal(a, b) for a, b in zip(want, got))
+        fresh = little_net_init(generator=torch.Generator().manual_seed(seed + 7), device=dev)
+        fresh_opt = make_optimizer(cfg, 1, fresh)
+        restore_train_tree(os.path.join(d, "best_loss.npz"), fresh_opt)
+        same_net = all(torch.equal(a, b) for a, b in zip(net.parameters(), fresh.parameters()))
+    phase("trainer", f"save_latest_best -> restore: {len(want)} leaves bit-equal {same}; "
+          f"resumed net bit-equal {same_net}, count {fresh_opt.count}")
+    check(same and same_net and fresh_opt.count == opt.count, "checkpoint round trip")
+
+    def batch_one_steps():
+        return [float(step(md[i:i + 1], fd[i:i + 1], nd[i:i + 1], erb_d)) for i in range(3)]
+
+    b1_losses, (k8_b1,) = drive((gru_recurrence,), batch_one_steps)
+    check(k8_b1 > 0 and all(np.isfinite(b1_losses)), "batch-1 steps did not go through K8")
+    t_b1 = time_ms(lambda: step(md[3:4], fd[3:4], nd[3:4], erb_d), reps)
+    phase("trainer", f"3 batch-1 steps: launches K8 {k8_b1}, losses "
+          f"{', '.join(f'{v:.4f}' for v in b1_losses)}; {t_b1:.2f} ms per step [{smi}]")
+    print(f"train_step_ms={t_step:.3f} train_xrt={train_xrt:.1f} train_step_b1_ms={t_b1:.3f} "
+          f"validate_ms_per_utt={t_val:.3f}", flush=True)
+    return {"k8_val": k8_val}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -188,8 +387,11 @@ def main() -> None:
         kalman_cancel_fused,
         kalman_cancel_fused_batched,
         kalman_cancel_plain,
+        kalman_filter_fused_batched,
+        kalman_filter_fused_batched_plain,
         single_stream_lib,
     )
+    from aec_tpu_torch.linear import overlap_save as ols
     from aec_tpu_torch.kernels.nlms import (
         nlms_cancel_fused,
         nlms_cancel_fused_batched,
@@ -229,7 +431,7 @@ def main() -> None:
     # 3. build the kernels from the checkout's sources (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
-                        "single_stream")
+                        "single_stream", "gru")
     build_s = time.perf_counter() - t0
     phase("build", f"{build_s:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for src, log in sorted(logs.items()):
@@ -238,7 +440,7 @@ def main() -> None:
                 phase("build", f"{src}: {line.strip()}")
 
     cfg = KalmanConfig()
-    net = load_npz("checkpoints/little_net_robust.npz").to(dev)
+    net = load_npz("checkpoints/little_net_robust.npz", device=dev)
     erb = torch.as_tensor(erb_filterbank(), device=dev)
 
     # 4. each kernel vs its plain version at the main path's full shape
@@ -281,7 +483,7 @@ def main() -> None:
     check(all(n > 0 for n in launches), "the main path did not go through every kernel")
     out = {k: v.cpu().numpy() for k, v in out.items()}
     check(out["wav"].shape == s_mic.shape and np.isfinite(out["wav"]).all(), "two_stage output")
-    plain_ref = two_stage_cancel(load_npz("checkpoints/little_net_robust.npz"),
+    plain_ref = two_stage_cancel(load_npz("checkpoints/little_net_robust.npz", device="cpu"),
                                  torch.from_numpy(s_far), torch.from_numpy(s_mic), erb_filterbank())
     with open("benchmarks/results/checkpoint_quality_r3.json") as f:
         jax_grades = json.load(f)["robust"]
@@ -463,7 +665,7 @@ def main() -> None:
           f"K2 {k2_k1}")
     check(min(k5_launches, k2_nl, k7_launches, k2_n1, k6_launches, k2_k1) > 0,
           "an NLMS or single-stream path did not go through its kernels")
-    nl_ref = two_stage_cancel(load_npz("checkpoints/little_net_robust.npz"),
+    nl_ref = two_stage_cancel(load_npz("checkpoints/little_net_robust.npz", device="cpu"),
                               torch.from_numpy(s_far), torch.from_numpy(s_mic), erb_filterbank(),
                               stage1="nlms")
     routes = {"nlms batched": (nl_out, nl_ref), "nlms single": (nl_one, nl_ref),
@@ -547,16 +749,81 @@ def main() -> None:
     print(f"nlms_batched_ms={t_k5:.3f} kalman_single_ms={t_k6:.4f} nlms_single_ms={t_k7:.4f} "
           f"serving_nlms_ms={t_k3n:.4f} streams_nlms={streams_n:.0f}", flush=True)
 
-    # 16. the kernels of the paths, with this run's numbers; bounds from
-    #     this run's shapes (module top), no single PyTorch call computes any
-    #     of these recursions, so library_ms is null
-    t_main, t_utt = N // HOP, -(-N_UTT // HOP)
+    t_main = N // HOP
+    # 16-18. K8 against its plain version and cuDNN; its gradients; the trainer
+    gru = gru_phase(dev, args.seed, args.reps, smi)
+    trained = trainer_phase(dev, args.seed, args.reps, smi)
+
+    # 19. the wide-net single-utterance route: the width-4 checkpoint on the 8
+    #     scenes one by one (stage 1 on K6, stage 2 offline with its GRU on
+    #     K8 at H = 128) against the CPU route
+    from aec_tpu_torch.kernels.gru import gru_recurrence
+
+    w4_path = "checkpoints/little_net_dtalk_w4.npz"
+    w4 = load_npz(w4_path, device=dev)
+    with torch.no_grad():
+        w4_out, (k6_w4, k8_w4) = drive(
+            (kalman_cancel_fused, gru_recurrence),
+            lambda: [two_stage_cancel(w4, sf[i], sm[i], erb) for i in range(len(names))])
+    w4_ref = two_stage_cancel(load_npz(w4_path, device="cpu"), torch.from_numpy(s_far),
+                              torch.from_numpy(s_mic), erb_filterbank())
+    w4_worst = 0.0
+    for i, k in enumerate(names):
+        got = [erle_tail(s_mic[i], w4_out[i][key].cpu().numpy()) for key in ("linear_wav", "wav")]
+        want = [erle_tail(s_mic[i], w4_ref[key][i].numpy()) for key in ("linear_wav", "wav")]
+        check(all(np.isfinite(got)), f"width-4 route ERLE on {k}")
+        w4_worst = max(w4_worst, *(abs(a - b) for a, b in zip(got, want)))
+        phase("wide net", f"{k:13s} stage 1 {got[0]:8.3f} / {want[0]:8.3f}, two-stage "
+              f"{got[1]:8.3f} / {want[1]:8.3f} (card / CPU route)")
+    with torch.no_grad():
+        t_w4 = time_ms(lambda: two_stage_cancel(w4, sf[0], sm[0], erb), args.reps)
+    phase("wide net", f"little_net_dtalk_w4 one by one, 8 x {N}: launches K6 {k6_w4}, K8 {k8_w4}; "
+          f"worst |card - CPU| tail ERLE {w4_worst:.4f} dB (bar {ERLE_TOL_DB} dB); "
+          f"{t_w4:.2f} ms per utterance [{smi}]")
+    check(k6_w4 > 0 and k8_w4 > 0, "the wide-net route did not go through K6 and K8")
+    check(w4_worst <= ERLE_TOL_DB, "the wide-net route disagrees with the CPU route")
+
+    # 20. K12: the spectra-in entry at the main shape against K1 (the same
+    #     step, analysis in the kernel) and its plain loop; then times, in
+    #     turns with K1 (K1, K12, K12, K1)
+    x_ri = ols.far_end_spectra(far, HOP).contiguous()
+    d_blocks = mic.reshape(BATCH, -1, HOP)
+    with torch.no_grad():
+        e12, (k12_launches,) = drive((kalman_filter_fused_batched,),
+                                     lambda: kalman_filter_fused_batched(cfg, x_ri, d_blocks))
+        e1 = kalman_cancel_fused_batched(cfg, far, mic)["wav"].reshape(BATCH, -1, HOP)
+        ep = kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks)
+        torch.cuda.synchronize()
+        k12_err = float((e12 - ep).abs().max())
+        k12_k1 = float((e12 - e1).abs().max())
+        check(e12.shape == d_blocks.shape and bool(torch.isfinite(e12).all()), "K12 output")
+        phase("K12", f"{BATCH} x {t_main} blocks: launches {k12_launches}; max|d| vs K1 "
+              f"{k12_k1:.3e}, vs plain {k12_err:.3e} (bar {K1_TOL:g} x max|mic| = "
+              f"{K1_TOL * mic_scale:.3e})")
+        check(k12_launches == 1 and max(k12_err, k12_k1) <= K1_TOL * mic_scale,
+              "K12 disagrees with K1 or its plain version")
+        k12_turns = [time_ms(lambda: fn(), args.reps) for fn in (
+            lambda: kalman_cancel_fused_batched(cfg, far, mic),
+            lambda: kalman_filter_fused_batched(cfg, x_ri, d_blocks),
+            lambda: kalman_filter_fused_batched(cfg, x_ri, d_blocks),
+            lambda: kalman_cancel_fused_batched(cfg, far, mic))]
+        t_k12 = statistics.median(k12_turns[1:3])
+        t_p12 = time_ms(lambda: kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks), args.reps)
+    phase("time", f"K12 {BATCH} x {N}: {t_k12:.2f} ms (plain {t_p12:.2f} ms); in turns K1 / K12 / "
+          f"K12 / K1: {' / '.join(f'{t:.2f}' for t in k12_turns)} ms [{smi}]")
+    del x_ri, d_blocks, e12, e1, ep
+
+    # 21. the kernels of the paths, with this run's numbers; bounds from
+    #     this run's shapes (module top); library_ms where one PyTorch call
+    #     computes the same function (cuDNN's GRU for K8), else null
+    t_utt = -(-N_UTT // HOP)
     state_bytes = {k: 4 * sum(v.numel() for v in st.values()) // S_SERVE
                    for k, st in (("kalman", ks), ("nlms", ks_n))}
     serve_io = 3 * S_SERVE * HOP * 4 + STAGE1_BASES + STAGE2_BASES
     stage1_batch = bound(BATCH * t_main * STAGE1_FMA, 3 * BATCH * N * 4 + STAGE1_BASES)
     stage1_one = bound(t_utt * STAGE1_FMA, 3 * N_UTT * 4 + STAGE1_BASES)
     masks = BATCH * (t_main + 1) * BANDS * 4
+    k8 = gru["shapes"][(1, 1001, BANDS)]
     rows = [
         ("kalman_batched", "kalman_batched.cu", "pallas_kalman.py:492", launches[0], k1_err,
          t_k1, t_p1, stage1_batch),
@@ -576,14 +843,22 @@ def main() -> None:
          single_err["K6"], t_k6, t_p6, stage1_one),
         ("nlms_single", "single_stream.cu", "pallas_nlms.py:94", k7_launches, single_err["K7"],
          t_k7, t_p7, stage1_one),
+        # K8 at one 16 s utterance, H = 32; launches from the trainer's validation
+        ("gru_scan", "gru.cu", "pallas_gru.py:65", trained["k8_val"], gru["err"], k8["ms"],
+         k8["plain_ms"], gru_bound(1, 1001, BANDS)),
+        ("kalman_batched_spectra", "kalman_batched.cu", "pallas_kalman.py:303", k12_launches,
+         k12_err, t_k12, t_p12,
+         bound(BATCH * t_main * (STAGE1_FMA - FRAME * RI),
+               4 * BATCH * t_main * (RI + 2 * HOP) + STAGE1_BASES)),
     ]
+    library_ms = {"gru_scan": k8["library_ms"]}  # cuDNN's nn.GRU, the same weights
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"aec_tpu/kernels/{tpu}", "launches": n, "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms, **bnd, "library_ms": None}
+         "plain_ms": plain_ms, **bnd, "library_ms": library_ms.get(kernel)}
         for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
     ]}), flush=True)
-    # 17. the result
+    # 22. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -15,18 +15,24 @@ import torch
 
 from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
 from aec_tpu_torch.dsp.erb import erb_filterbank
+from aec_tpu_torch.kernels.gru import gru_recurrence, gru_scan_fused, gru_scan_fused_plain
 from aec_tpu_torch.kernels.kalman import (
     kalman_cancel_fused,
     kalman_cancel_fused_batched,
     kalman_cancel_plain,
+    kalman_filter_fused_batched,
+    kalman_filter_fused_batched_plain,
 )
 from aec_tpu_torch.kernels.nlms import (
     nlms_cancel_fused,
     nlms_cancel_fused_batched,
     nlms_cancel_plain,
 )
+from aec_tpu_torch.linear import overlap_save as ols
 from aec_tpu_torch.linear.kalman import kalman_cancel
 from aec_tpu_torch.kernels.stage2 import little_net_apply_fused, little_net_apply_fused_plain
+from aec_tpu_torch.models.little_net import little_net_init, little_net_loss
+from aec_tpu_torch.ops.gru import gru_init, gru_scan
 from aec_tpu_torch.pipeline.two_stage import two_stage_cancel
 from aec_tpu_torch.utils.weights import load_npz
 
@@ -106,7 +112,7 @@ def test_stage2_kernel_refuses_a_wide_net(cuda, scene):
 
 def test_two_stage_kernel_route_matches_cpu_route(cuda, scene):
     far, mic = scene(3, 64 * 256)
-    net = load_npz(ROBUST)
+    net = load_npz(ROBUST, device="cpu")
     want = two_stage_cancel(net, far, mic, erb_filterbank())
     k1, k2 = kalman_cancel_fused_batched.launches, little_net_apply_fused.launches
     got = two_stage_cancel(net.to(cuda), far.to(cuda), mic.to(cuda), erb_filterbank())
@@ -181,7 +187,7 @@ def test_serving_kernel_refuses_what_it_cannot_take(cuda, scene):
     with pytest.raises(ValueError, match="'p'"):
         serving_step_fused(net, serving_init(2, device=cuda), far, mic, erb, stage1="nlms")
     with pytest.raises(ValueError):  # state on the CPU: no silent plain run
-        serving_step_fused(net, serving_init(2), far, mic, erb)
+        serving_step_fused(net, serving_init(2, device="cpu"), far, mic, erb)
     with pytest.raises(ValueError):  # a width-2 net
         serving_step_fused(load_npz(ROBUST.replace("robust", "dtalk_w2")).to(cuda),
                            serving_init(2, e_bands=32, device=cuda), far, mic, erb)
@@ -345,3 +351,118 @@ def test_nlms_serving_kernel_matches_plain(cuda, scene, k):
             serving_reset_streams(ps, done, stage1="nlms")
     assert serving_step_fused.launches == before + 3
     _leaf_close(ks, ps, 1e-3, "state")
+
+
+def _gru_case(cuda, b, t, h, i=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    params = gru_init(i, h, generator=g, device=cuda)
+    x = torch.randn(b, t, i, generator=g).to(cuda)
+    h0 = (0.5 * torch.randn(b, h, generator=g)).to(cuda)
+    return params, x, h0
+
+
+@pytest.mark.parametrize("b,h", [(1, 32), (3, 32), (1, 128), (3, 128)])
+def test_gru_kernel_matches_plain(cuda, b, h):
+    """K8 vs its plain version over T = 101 steps (a multiple of no unroll):
+    h stays in [-1, 1], fp32 in another summation order -> 1e-5 absolute."""
+    params, x, h0 = _gru_case(cuda, b, 101, h)
+    before = gru_recurrence.launches
+    with torch.no_grad():
+        ys, h_t = gru_scan_fused(params, x, h0)
+        torch.cuda.synchronize()
+        want, want_h = gru_scan_fused_plain(params, x, h0)
+        scan, _ = gru_scan(params, x, h0, fused=False)
+    assert gru_recurrence.launches == before + 1
+    assert ys.shape == (b, 101, h) and torch.equal(h_t, ys[:, -1])
+    torch.testing.assert_close(ys, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(ys, scan, atol=1e-5, rtol=0)
+
+
+def test_gru_kernel_refuses_what_it_cannot_take(cuda):
+    params, x, h0 = _gru_case(cuda, 2, 9, 32)
+    from aec_tpu_torch.kernels.gru import folded_projection
+
+    xp = folded_projection(params, x)
+    b_hn = params["b_hh"][64:]
+    with pytest.raises(TypeError):
+        gru_recurrence(xp.double(), params["w_hh"].double(), b_hn.double(), h0.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        gru_recurrence(xp.transpose(0, 1).contiguous().transpose(0, 1), params["w_hh"], b_hn, h0)
+    with pytest.raises(ValueError, match="CUDA"):  # no silent plain run
+        gru_recurrence(xp, params["w_hh"], b_hn, h0.cpu())
+    big, xb, hb = _gru_case(cuda, 1, 4, 160)
+    with pytest.raises(ValueError, match="H <= 128"):
+        gru_scan_fused(big, xb, hb)
+
+
+def test_gru_gradients_through_kernel_equal_plain_route(cuda):
+    """A batch-1 T >= 64 scan on the card routes to K8; its gradients (the
+    plain scan recomputed) equal the plain route's to 1e-5 of scale."""
+    params, x, h0 = _gru_case(cuda, 1, 200, 32)
+    leaves = [x, h0, *params.values()]
+    for t in leaves:
+        t.requires_grad_()
+    before = gru_recurrence.launches
+    ys, h_t = gru_scan(params, x, h0)
+    assert gru_recurrence.launches == before + 1
+    got = torch.autograd.grad((ys * ys).sum() + h_t.sum(), leaves)
+    ys2, h2 = gru_scan(params, x, h0, fused=False)
+    want = torch.autograd.grad((ys2 * ys2).sum() + h2.sum(), leaves)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5 * float(w.abs().max()), rtol=0)
+
+
+def test_batch_one_loss_backward_launches_gru_kernel(cuda, scene):
+    """A batch-1 little_net_loss on the card (and its backward) goes through
+    K8; the gradients match the same loss on the CPU route."""
+    net = little_net_init(generator=torch.Generator().manual_seed(1))
+    cpu_net = little_net_init(generator=torch.Generator().manual_seed(1), device="cpu")
+    mic, far = scene(1, 80 * 256)
+    near = 0.3 * mic
+    erb = torch.from_numpy(erb_filterbank())
+    before = gru_recurrence.launches
+    loss, _ = little_net_loss(net, mic.to(cuda), far.to(cuda), near.to(cuda), erb.to(cuda),
+                              sqrt_eps=1e-12)
+    loss.backward()
+    assert gru_recurrence.launches == before + 1
+    want, _ = little_net_loss(cpu_net, mic, far, near, erb, sqrt_eps=1e-12)
+    want.backward()
+    torch.testing.assert_close(loss.detach().cpu(), want.detach(), rtol=1e-4, atol=0)
+    for (name, p), q in zip(net.named_parameters(), cpu_net.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-3 * float(q.grad.abs().max()),
+                                   rtol=0, msg=lambda m, name=name: f"{name}: {m}")
+
+
+def test_spectra_kernel_matches_k1_and_plain(cuda, scene):
+    """K12 (spectra in) vs K1 (the same step with the analysis in the
+    kernel) and vs its plain loop: K1's bar of 1e-3 of max|mic|."""
+    cfg = KalmanConfig()
+    far, mic = (t.to(cuda) for t in scene(5, 48 * 256))
+    x_ri = ols.far_end_spectra(far, 256).contiguous()
+    d_blocks = mic.reshape(5, -1, 256)
+    before = kalman_filter_fused_batched.launches
+    got = kalman_filter_fused_batched(cfg, x_ri, d_blocks)
+    torch.cuda.synchronize()
+    assert kalman_filter_fused_batched.launches == before + 1
+    bar = 1e-3 * float(mic.abs().max())
+    k1 = kalman_cancel_fused_batched(cfg, far, mic)["wav"].reshape(5, -1, 256)
+    torch.testing.assert_close(got, k1, atol=bar, rtol=0)
+    torch.testing.assert_close(got, kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks),
+                               atol=bar, rtol=0)
+    with pytest.raises(ValueError):
+        kalman_filter_fused_batched(cfg, x_ri[:, :, :256].contiguous(), d_blocks)
+    with pytest.raises(ValueError):
+        kalman_filter_fused_batched(KalmanConfig(n_blocks=4), x_ri, d_blocks)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """State and nets land on the card unless the caller asks for the CPU."""
+    from aec_tpu_torch.kernels.serving import serving_init
+    from aec_tpu_torch.pipeline.streaming import stream_init, stream_init_batched
+
+    on_card = [*serving_init(2).values(), *stream_init()["stage1"].values(),
+               stream_init()["gru_h"], *stream_init_batched(2)["stage1"].values(),
+               *load_npz(ROBUST).parameters(), *little_net_init().parameters()]
+    assert all(t.is_cuda for t in on_card)
+    assert not any(t.is_cuda for t in serving_init(2, device="cpu").values())
+    assert not any(p.is_cuda for p in load_npz(ROBUST, device="cpu").parameters())

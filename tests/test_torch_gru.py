@@ -1,0 +1,135 @@
+"""Port GRU (aec_tpu_torch.ops.gru, kernels.gru: K8's route) == JAX.
+
+The fused route on a CPU tensor is the autograd Function over K8's plain
+version; JAX's fused kernel runs in interpret mode, as its own suite runs
+it (tests/test_pallas_gru.py)."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from aec_tpu.kernels.pallas_gru import _gru_scan_fused_fwd, gru_scan_fused as jax_gru_scan_fused
+from aec_tpu.ops.gru import gru_scan as jax_gru_scan
+from aec_tpu_torch.kernels.gru import gru_recurrence, gru_scan_fused, gru_scan_fused_plain
+from aec_tpu_torch.ops.gru import gru_init, gru_scan
+
+KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+def _case(rng, b, t, i, h):
+    """The same numpy parameters and inputs for both packages."""
+    s = 1.0 / np.sqrt(h)
+    params = {
+        "w_ih": rng.uniform(-s, s, (3 * h, i)), "w_hh": rng.uniform(-s, s, (3 * h, h)),
+        "b_ih": rng.uniform(-s, s, 3 * h), "b_hh": rng.uniform(-s, s, 3 * h),
+    }
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    x = rng.standard_normal((b, t, i)).astype(np.float32)
+    h0 = (0.5 * rng.standard_normal((b, h))).astype(np.float32)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    return params, x, h0, jp, tp
+
+
+@pytest.mark.parametrize("b,t,i,h", [(2, 20, 64, 32), (1, 70, 64, 32)])
+def test_plain_scan_matches_jax(rng, b, t, i, h):
+    _, x, h0, jp, tp = _case(rng, b, t, i, h)
+    want, want_h = jax_gru_scan(jp, jnp.asarray(x), jnp.asarray(h0), fused=False)
+    got, got_h = gru_scan(tp, torch.from_numpy(x), torch.from_numpy(h0), fused=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-6)
+
+
+@pytest.mark.parametrize("b,t,i,h", [(4, 37, 64, 32), (1, 70, 64, 32), (2, 5, 8, 8)])
+def test_fused_route_matches_jax_kernel(rng, b, t, i, h):
+    """The port's fused route on the CPU vs JAX's kernel in interpret mode:
+    2e-6, the JAX suite's own bar (tests/test_pallas_gru.py:21)."""
+    _, x, h0, jp, tp = _case(rng, b, t, i, h)
+    want, want_h = _gru_scan_fused_fwd(jp, jnp.asarray(x), jnp.asarray(h0), interpret=True,
+                                       unroll=4)
+    before = gru_recurrence.launches
+    with torch.no_grad():
+        got, got_h = gru_scan(tp, torch.from_numpy(x), torch.from_numpy(h0), fused=True)
+        plain, _ = gru_scan_fused_plain(tp, torch.from_numpy(x), torch.from_numpy(h0))
+    assert gru_recurrence.launches == before  # a CPU tensor never launches
+    assert torch.equal(got, plain)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=2e-6)
+
+
+def test_fused_gradients_match_jax_custom_vjp(rng):
+    """GruScanFused's backward vs jax.vjp of gru_scan_fused (its custom VJP
+    recomputes through the scan): rtol 1e-5 / atol 1e-6, the JAX suite's
+    bar (tests/test_pallas_gru.py:52)."""
+    _, x, h0, jp, tp = _case(rng, 3, 11, 16, 8)
+    g_ys = rng.standard_normal((3, 11, 8)).astype(np.float32)
+    g_h = rng.standard_normal((3, 8)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p, xx, hh: jax_gru_scan_fused(p, xx, hh, True), jp, jnp.asarray(x),
+                     jnp.asarray(h0))
+    want_p, want_x, want_h0 = vjp((jnp.asarray(g_ys), jnp.asarray(g_h)))
+
+    leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    xt, ht = torch.from_numpy(x).requires_grad_(), torch.from_numpy(h0).requires_grad_()
+    ys, h_t = gru_scan(leaves, xt, ht, fused=True)
+    got = torch.autograd.grad((ys, h_t), [xt, ht, *(leaves[k] for k in KEYS)],
+                              (torch.from_numpy(g_ys), torch.from_numpy(g_h)))
+    want = [want_x, want_h0, *(want_p[k] for k in KEYS)]
+    for name, a, w in zip(("x", "h0", *KEYS), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_fused_function_reaches_gru_module_parameters(rng):
+    """Gradients land on nn.GRU's own Parameters (LittleNet.gru_params()),
+    equal to the plain scan's; an input that needs none gets none."""
+    gru = torch.nn.GRU(16, 8, batch_first=True)
+    params = {"w_ih": gru.weight_ih_l0, "w_hh": gru.weight_hh_l0, "b_ih": gru.bias_ih_l0,
+              "b_hh": gru.bias_hh_l0}
+    x = torch.from_numpy(rng.standard_normal((1, 9, 16)).astype(np.float32))
+    for fused in (True, False):
+        gru.zero_grad()
+        ys, h_t = gru_scan(params, x, fused=fused)
+        (ys.square().sum() + h_t.sum()).backward()
+        grads = [p.grad.clone() for p in params.values()]
+        if fused:
+            fused_grads = grads
+    for a, b in zip(fused_grads, grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert x.grad is None
+
+
+def test_routing_on_cpu_takes_the_plain_loop(rng):
+    """fused=None on a CPU tensor is the plain loop even at B == 1, T >= 64
+    (the kernel route needs a CUDA tensor), and launches nothing."""
+    _, x, h0, _, tp = _case(rng, 1, 80, 64, 32)
+    before = gru_recurrence.launches
+    with torch.no_grad():
+        auto, _ = gru_scan(tp, torch.from_numpy(x), torch.from_numpy(h0))
+        plain, _ = gru_scan(tp, torch.from_numpy(x), torch.from_numpy(h0), fused=False)
+    assert torch.equal(auto, plain) and gru_recurrence.launches == before
+    ys, h_t = gru_scan_fused(tp, torch.from_numpy(x))  # h0 defaults to zeros
+    assert ys.shape == (1, 80, 32) and torch.equal(h_t, ys[:, -1])
+
+
+@pytest.mark.parametrize("orthogonal", [True, False])
+def test_gru_init_orthogonal_and_bounded(orthogonal):
+    """Orthogonal weights (orthonormal columns of the (3H, I) and (3H, H)
+    matrices) or U(+-1/sqrt(H)); biases in U(+-1/sqrt(H)); one seed, one
+    draw."""
+    hidden, inp = 32, 64
+    p = gru_init(inp, hidden, orthogonal=orthogonal,
+                 generator=torch.Generator().manual_seed(0), device="cpu")
+    q = gru_init(inp, hidden, orthogonal=orthogonal,
+                 generator=torch.Generator().manual_seed(0), device="cpu")
+    assert all(torch.equal(p[k], q[k]) for k in KEYS)
+    assert p["w_ih"].shape == (3 * hidden, inp) and p["w_hh"].shape == (3 * hidden, hidden)
+    bound = 1.0 / np.sqrt(hidden)
+    for k in ("b_ih", "b_hh"):
+        assert p[k].shape == (3 * hidden,) and float(p[k].abs().max()) <= bound
+    for k in ("w_ih", "w_hh"):
+        w = p[k]
+        if orthogonal:
+            torch.testing.assert_close(w.T @ w, torch.eye(w.shape[1]), atol=1e-5, rtol=0)
+        else:
+            assert float(w.abs().max()) <= bound

@@ -13,7 +13,12 @@ from aec_tpu.kernels.pallas_kalman import kalman_cancel_fused_batched_bl
 from aec_tpu.linear import overlap_save as jols
 from aec_tpu.linear.kalman import kalman_cancel as jax_kalman_cancel
 from aec_tpu_torch.configs import KalmanConfig
-from aec_tpu_torch.kernels.kalman import kalman_cancel_fused, kalman_cancel_fused_batched
+from aec_tpu_torch.kernels.kalman import (
+    kalman_cancel_fused,
+    kalman_cancel_fused_batched,
+    kalman_filter_fused_batched,
+    kalman_filter_fused_batched_plain,
+)
 from aec_tpu_torch.linear import overlap_save as tols
 from aec_tpu_torch.linear.kalman import kalman_cancel, kalman_cancel_plain
 
@@ -75,6 +80,36 @@ def test_kalman_matches_jax_batched_kernel(rng):
     got = kalman_cancel_fused_batched(cfg, torch.from_numpy(far), torch.from_numpy(mic))["wav"]
     scale = max(float(np.abs(want).max()), 1e-9)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4 * scale)
+
+
+def test_spectra_in_entry_matches_jax_kernel(rng):
+    """K12's entry (its plain version on the CPU) vs the TPU kernel it
+    replaces, the spectra-in ``kalman_filter_fused_batched``, and vs that
+    kernel's waveform wrapper ``kalman_cancel_fused_batched``, both in
+    interpret mode with tile=2 as tests/test_pallas_kalman.py:120 runs
+    them; 2e-4 of scale, that test's bar."""
+    from aec_tpu.kernels.pallas_kalman import (
+        kalman_cancel_fused_batched as jax_cancel_batched,
+        kalman_filter_fused_batched as jax_filter_batched,
+    )
+
+    far, mic = _scene(rng)
+    x_ri = np.array(jols.far_end_spectra(jnp.asarray(far), 256))
+    d_blocks = mic.reshape(mic.shape[0], -1, 256)
+    want = np.asarray(jax_filter_batched(JaxKalmanConfig(), jnp.asarray(x_ri),
+                                         jnp.asarray(d_blocks), interpret=True, tile=2))
+    want_wav = np.asarray(jax_cancel_batched(JaxKalmanConfig(), jnp.asarray(far),
+                                             jnp.asarray(mic), interpret=True, tile=2)["wav"])
+    before = kalman_filter_fused_batched.launches
+    got = kalman_filter_fused_batched(KalmanConfig(), torch.from_numpy(x_ri),
+                                      torch.from_numpy(d_blocks))
+    assert kalman_filter_fused_batched.launches == before
+    assert got.shape == want.shape == d_blocks.shape
+    assert torch.equal(got, kalman_filter_fused_batched_plain(
+        KalmanConfig(), torch.from_numpy(x_ri), torch.from_numpy(d_blocks)))
+    scale = max(float(np.abs(want).max()), 1e-9)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4 * scale)
+    np.testing.assert_allclose(got.reshape(mic.shape).numpy(), want_wav, atol=2e-4 * scale)
 
 
 def test_single_stream_matches_jax_kernel(rng):

@@ -24,7 +24,7 @@ def _nets():
     packages. With it the JAX kernel's bf16_3x products sit within 6e-5 of
     scale of fp32; the sharper robust checkpoint takes them to ~4e-4."""
     params = little_net_init(jax.random.PRNGKey(0))
-    return params, params_from_jax(params)
+    return params, params_from_jax(params, device="cpu")
 
 
 def _sessions(rng, hops, s=S):
@@ -55,7 +55,7 @@ def _run(rng, hops, chunk, stage1="kalman", **kw):
     erb = erb_filterbank()
     params, net = _nets()
     js = jsv.serving_init(S, tile=S, stage1=stage1)
-    ts = tsv.serving_init(S, stage1=stage1)
+    ts = tsv.serving_init(S, stage1=stage1, device="cpu")
     kw["stage1"] = stage1
     outs_j, outs_t = [], []
     for lo in range(0, hops * HOP, chunk * HOP):
@@ -140,9 +140,9 @@ def test_nlms_serving_matches_streaming_and_resets(rng):
     from aec_tpu_torch.configs import NlmsConfig
 
     far, mic = _sessions(rng, 4)
-    net, erb, cfg = load_npz(ROBUST), erb_filterbank(), NlmsConfig(mu=0.3)
-    ks = tsv.serving_init(S, kcfg=cfg, stage1="nlms")
-    ss = tst.stream_init_batched(S, stage1="nlms", lin_cfg=cfg)
+    net, erb, cfg = load_npz(ROBUST, device="cpu"), erb_filterbank(), NlmsConfig(mu=0.3)
+    ks = tsv.serving_init(S, kcfg=cfg, stage1="nlms", device="cpu")
+    ss = tst.stream_init_batched(S, stage1="nlms", lin_cfg=cfg, device="cpu")
     for t in range(4):
         fb = torch.from_numpy(far[:, t * HOP : (t + 1) * HOP])
         mb = torch.from_numpy(mic[:, t * HOP : (t + 1) * HOP])
@@ -155,7 +155,7 @@ def test_nlms_serving_matches_streaming_and_resets(rng):
     assert torch.equal(tst.stream_flush(net, st, erb), tst.stream_flush(net, ss, erb))
     done = torch.tensor([False, True, False, True])
     tsv.serving_reset_streams(ks, done, kcfg=cfg, stage1="nlms")
-    init = tsv.serving_init(S, kcfg=cfg, stage1="nlms")
+    init = tsv.serving_init(S, kcfg=cfg, stage1="nlms", device="cpu")
     for key in ks:
         assert torch.equal(ks[key][done], init[key][done]), key
         assert not init[key].any(), key
@@ -165,8 +165,8 @@ def test_chunked_call_equals_single_calls(rng):
     """One k = 3 call == three k = 1 calls (bit for bit in the port), and ==
     JAX's k = 3 chunked kernel call."""
     far, mic = _sessions(rng, 6)
-    net, erb = load_npz(ROBUST), erb_filterbank()
-    one, three = tsv.serving_init(S), tsv.serving_init(S)
+    net, erb = load_npz(ROBUST, device="cpu"), erb_filterbank()
+    one, three = tsv.serving_init(S, device="cpu"), tsv.serving_init(S, device="cpu")
     outs = []
     for t in range(6):
         one, o = tsv.serving_step_fused(net, one, torch.from_numpy(far[:, t * HOP : (t + 1) * HOP]),
@@ -196,8 +196,8 @@ def test_serving_matches_streaming_and_flushes(rng):
     """The serving step == stream_step_batched (both plain, same numbers), and
     the end of a session: serving_state_to_stream + stream_flush."""
     far, mic = _sessions(rng, 5)
-    net, erb = load_npz(ROBUST), erb_filterbank()
-    ks, ss = tsv.serving_init(S), tst.stream_init_batched(S)
+    net, erb = load_npz(ROBUST, device="cpu"), erb_filterbank()
+    ks, ss = tsv.serving_init(S, device="cpu"), tst.stream_init_batched(S, device="cpu")
     for t in range(5):
         fb = torch.from_numpy(far[:, t * HOP : (t + 1) * HOP])
         mb = torch.from_numpy(mic[:, t * HOP : (t + 1) * HOP])
@@ -243,7 +243,7 @@ def _tree_to_torch(tree):
 
 def test_reset_streams_and_init(rng):
     _, ts, _, _ = _run(rng, 4, 1)
-    init = tsv.serving_init(S)
+    init = tsv.serving_init(S, device="cpu")
     assert set(init) == set(jsv.serving_init(S, tile=S))
     assert init["wr"].shape == (S, 10, 257) and init["nm"].shape == (S, 8)
     done = torch.tensor([True, False, True, False])
@@ -257,25 +257,25 @@ def test_reset_streams_and_init(rng):
 
 def test_wrapper_takes_plain_version_on_cpu(rng):
     far, mic = _sessions(rng, 2)
-    net, erb = load_npz(ROBUST), erb_filterbank()
+    net, erb = load_npz(ROBUST, device="cpu"), erb_filterbank()
     before = tsv.serving_step_fused.launches
-    a, oa = tsv.serving_step_fused(net, tsv.serving_init(S), torch.from_numpy(far),
+    a, oa = tsv.serving_step_fused(net, tsv.serving_init(S, device="cpu"), torch.from_numpy(far),
                                    torch.from_numpy(mic), erb)
-    b, ob = tsv.serving_step_plain(net, tsv.serving_init(S), torch.from_numpy(far),
+    b, ob = tsv.serving_step_plain(net, tsv.serving_init(S, device="cpu"), torch.from_numpy(far),
                                    torch.from_numpy(mic), erb)
     assert torch.equal(oa, ob) and all(torch.equal(a[k], b[k]) for k in a)
     assert tsv.serving_step_fused.launches == before
 
 
 def test_serving_refuses_what_it_cannot_take(rng):
-    net, erb = load_npz(ROBUST), erb_filterbank()
-    nlms = tsv.serving_init(S, stage1="nlms")  # the (S, K) far power in `p`
+    net, erb = load_npz(ROBUST, device="cpu"), erb_filterbank()
+    nlms = tsv.serving_init(S, stage1="nlms", device="cpu")  # the (S, K) far power in `p`
     assert nlms["p"].shape == nlms["psi"].shape == (S, 257) and nlms["wr"].shape == (S, 10, 257)
     _, out = tsv.serving_step_fused(net, nlms, torch.zeros(S, HOP), torch.zeros(S, HOP), erb,
                                     stage1="nlms")
     assert out.shape == (S, HOP) and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="k \\* 256"):
-        tsv.serving_step_fused(net, tsv.serving_init(S), torch.zeros(S, HOP + 1),
+        tsv.serving_step_fused(net, tsv.serving_init(S, device="cpu"), torch.zeros(S, HOP + 1),
                                torch.zeros(S, HOP + 1), erb)
     with pytest.raises(ValueError, match="stage1"):
-        tsv.serving_init(S, stage1="none")
+        tsv.serving_init(S, stage1="none", device="cpu")

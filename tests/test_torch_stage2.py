@@ -42,7 +42,7 @@ def _jax_robust():
 def test_little_net_apply_and_recurrence_match_jax(rng, normalize, gain_norm):
     """Shipped robust checkpoint through load_npz; offline apply and the K2
     plain recurrence vs JAX at Precision.HIGHEST (fp32)."""
-    net = load_npz(ROBUST)
+    net = load_npz(ROBUST, device="cpu")
     erb = erb_filterbank()
     mic, ref = _inputs(rng)
     want = jax_apply(
@@ -71,7 +71,7 @@ def test_recurrence_matches_jax_stage2_kernel(rng, gain_norm):
     """K2's plain version vs the TPU kernel it replaces (interpret mode,
     bf16_3x tier): the JAX suite's bar for that kernel (test_pallas_stage2.py:35)."""
     jp = little_net_init(jax.random.PRNGKey(3))
-    net = params_from_jax(jax.tree.map(np.asarray, jp))
+    net = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     erb = erb_filterbank()
     mic, ref = _inputs(rng, b=3, n=12 * 256)
     want = jax_fused_wav(
@@ -92,7 +92,7 @@ def test_recurrence_matches_jax_stage2_kernel(rng, gain_norm):
 def test_random_net_mask_matches_jax(rng):
     """A random-init net keeps the mask away from sigmoid saturation."""
     jp = little_net_init(jax.random.PRNGKey(7))
-    net = params_from_jax(jax.tree.map(np.asarray, jp))
+    net = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     erb = erb_filterbank()
     mic, ref = _inputs(rng, b=2, n=16 * 256)
     want = jax_apply(jp, jnp.asarray(mic), jnp.asarray(ref), jnp.asarray(erb),
@@ -109,7 +109,7 @@ def test_random_net_mask_matches_jax(rng):
 
 def test_per_utterance_norm_matches_jax(rng):
     jp = little_net_init(jax.random.PRNGKey(9))
-    net = params_from_jax(jax.tree.map(np.asarray, jp))
+    net = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     erb = erb_filterbank()
     mic, ref = _inputs(rng, b=2, n=8 * 256)
     mic[1] *= 5.0  # utterances of different level: per-utterance scalars differ
@@ -123,7 +123,7 @@ def test_per_utterance_norm_matches_jax(rng):
 
 def test_gru_scan_matches_jax_and_torch_gru(rng):
     jp = little_net_init(jax.random.PRNGKey(1))
-    net = params_from_jax(jax.tree.map(np.asarray, jp))
+    net = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     x = rng.standard_normal((2, 20, 64)).astype(np.float32)
     want, _ = jax_gru_scan(jp["gru"], jnp.asarray(x))
     with torch.no_grad():
@@ -135,7 +135,7 @@ def test_gru_scan_matches_jax_and_torch_gru(rng):
 
 
 def test_fused_wrapper_takes_plain_version_on_cpu(rng):
-    net = load_npz(ROBUST)
+    net = load_npz(ROBUST, device="cpu")
     erb = torch.from_numpy(erb_filterbank())
     lin, far = (torch.from_numpy(a.reshape(2, -1, 256)) for a in _inputs(rng, b=2, n=6 * 256))
     before = little_net_apply_fused.launches

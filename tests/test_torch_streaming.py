@@ -63,9 +63,9 @@ def test_stream_step_batched_matches_jax(rng, stage1, normalize, gain_norm):
     s, hops = 4, 12
     far, mic = _sessions(rng, s, hops)
     erb = erb_filterbank()
-    params, net = _jax_robust(), load_npz(ROBUST)
+    params, net = _jax_robust(), load_npz(ROBUST, device="cpu")
     js = jst.stream_init_batched(s, stage1=stage1)
-    ts = tst.stream_init_batched(s, stage1=stage1)
+    ts = tst.stream_init_batched(s, stage1=stage1, device="cpu")
     _assert_states_close(ts, js, 0.0)
     kw = dict(stage1=stage1, normalize=normalize, gain_norm=gain_norm)
     for t in range(hops):
@@ -87,7 +87,7 @@ def test_stream_run_and_flush_match_jax(rng, normalize):
     far, mic = _sessions(rng, 1, 10)
     erb = erb_filterbank()
     want = jst.stream_run(_jax_robust(), far[0], mic[0], jnp.asarray(erb), normalize=normalize)
-    got = tst.stream_run(load_npz(ROBUST), far[0], mic[0], erb, normalize=normalize)
+    got = tst.stream_run(load_npz(ROBUST, device="cpu"), far[0], mic[0], erb, normalize=normalize)
     assert got.shape == want.shape == (10 * HOP,)
     scale = float(np.abs(want).max())
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4 * scale, rtol=0)
@@ -97,8 +97,8 @@ def test_batched_flush_matches_per_stream_flush(rng):
     s, hops = 3, 6
     far, mic = _sessions(rng, s, hops)
     erb = erb_filterbank()
-    net = load_npz(ROBUST)
-    st = tst.stream_init_batched(s)
+    net = load_npz(ROBUST, device="cpu")
+    st = tst.stream_init_batched(s, device="cpu")
     for t in range(hops):
         st, _ = tst.stream_step_batched(net, st, torch.from_numpy(far[:, t * HOP : (t + 1) * HOP]),
                                         torch.from_numpy(mic[:, t * HOP : (t + 1) * HOP]), erb,
@@ -116,7 +116,7 @@ def test_streaming_equals_offline(rng):
     within the JAX streaming bound of 2e-3 of signal scale."""
     far, mic = _sessions(rng, 2, 16)
     erb = erb_filterbank()
-    net = load_npz(ROBUST)
+    net = load_npz(ROBUST, device="cpu")
     offline = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb)["wav"]
     for i in range(2):
         streamed = tst.stream_run(net, far[i], mic[i], erb)
@@ -127,8 +127,8 @@ def test_streaming_equals_offline(rng):
 def test_stream_step_is_a_batch_of_one(rng):
     far, mic = _sessions(rng, 2, 3)
     erb = erb_filterbank()
-    net = load_npz(ROBUST)
-    sb, so = tst.stream_init_batched(2), tst.stream_init()
+    net = load_npz(ROBUST, device="cpu")
+    sb, so = tst.stream_init_batched(2, device="cpu"), tst.stream_init(device="cpu")
     for t in range(3):
         fb, mb = torch.from_numpy(far[:, t * HOP : (t + 1) * HOP]), torch.from_numpy(
             mic[:, t * HOP : (t + 1) * HOP])
@@ -144,20 +144,20 @@ def test_nlms_and_unknown_options_raise(rng):
     from aec_tpu.configs import NlmsConfig as JaxNlmsConfig
     from aec_tpu_torch.configs import NlmsConfig
 
-    st = tst.stream_init(stage1="nlms")
+    st = tst.stream_init(stage1="nlms", device="cpu")
     assert sorted(st["stage1"]) == ["power", "psi", "w", "x_buf"]
     assert not any(bool(v.any()) for v in st["stage1"].values())
     far, mic = _sessions(rng, 1, 10)
     cfg = {"mu": 0.4, "eps_rel": 0.05}
     want = jst.stream_run(_jax_robust(), far[0], mic[0], jnp.asarray(erb_filterbank()),
                           stage1="nlms", lin_cfg=JaxNlmsConfig(**cfg))
-    got = tst.stream_run(load_npz(ROBUST), far[0], mic[0], erb_filterbank(), stage1="nlms",
+    got = tst.stream_run(load_npz(ROBUST, device="cpu"), far[0], mic[0], erb_filterbank(), stage1="nlms",
                          lin_cfg=NlmsConfig(**cfg))
     assert got.shape == want.shape == (10 * HOP,)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4 * float(np.abs(want).max()), rtol=0)
     with pytest.raises(ValueError, match="stage1"):
-        tst.stream_init(stage1="rls")
+        tst.stream_init(stage1="rls", device="cpu")
     with pytest.raises(ValueError, match="quality"):
-        tst.stream_step_batched(load_npz(ROBUST), tst.stream_init_batched(1),
+        tst.stream_step_batched(load_npz(ROBUST, device="cpu"), tst.stream_init_batched(1, device="cpu"),
                                 torch.zeros(1, HOP), torch.zeros(1, HOP), erb_filterbank(),
                                 quality="bf16")

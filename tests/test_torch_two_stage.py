@@ -44,7 +44,7 @@ def test_two_stage_matches_jax(rng, gain_norm):
     erb = erb_filterbank()
     want = jax_two_stage(_jax_params("little_net_robust.npz"), jnp.asarray(far),
                          jnp.asarray(mic), jnp.asarray(erb), gain_norm=gain_norm)
-    got = two_stage_cancel(load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz")),
+    got = two_stage_cancel(load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"), device="cpu"),
                            torch.from_numpy(far), torch.from_numpy(mic), erb,
                            gain_norm=gain_norm)
     lin_j = np.asarray(want["linear_wav"])
@@ -65,7 +65,7 @@ def test_single_utterance_and_wide_checkpoint_match_jax(rng):
     want = jax_two_stage(_jax_params("little_net_dtalk_w2.npz", width=2),
                          jnp.asarray(far[0]), jnp.asarray(mic[0]), jnp.asarray(erb),
                          normalize=True)
-    got = two_stage_cancel(load_npz(os.path.join(CKPT_DIR, "little_net_dtalk_w2.npz")),
+    got = two_stage_cancel(load_npz(os.path.join(CKPT_DIR, "little_net_dtalk_w2.npz"), device="cpu"),
                            torch.from_numpy(far[0]), torch.from_numpy(mic[0]), erb,
                            normalize=True)
     wav_j = np.asarray(want["wav"])
@@ -79,7 +79,7 @@ def test_stage1_none_matches_jax(rng):
     erb = erb_filterbank()
     want = jax_two_stage(_jax_params("little_net_general.npz"), jnp.asarray(far),
                          jnp.asarray(mic), jnp.asarray(erb), stage1="none")
-    got = two_stage_cancel(load_npz(os.path.join(CKPT_DIR, "little_net_general.npz")),
+    got = two_stage_cancel(load_npz(os.path.join(CKPT_DIR, "little_net_general.npz"), device="cpu"),
                            torch.from_numpy(far), torch.from_numpy(mic), erb, stage1="none")
     assert torch.equal(got["linear_wav"], torch.from_numpy(mic))
     wav_j = np.asarray(want["wav"])
@@ -97,7 +97,7 @@ def test_routes_not_ported_yet_raise(rng, kwargs):
     and JAX's at the parity bars."""
     far, mic = _scene(rng, b=1, n=16 * 256)
     erb = erb_filterbank()
-    net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"))
+    net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"), device="cpu")
     got = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb, **kwargs)
     parity = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb,
                               stage1="nlms")
@@ -126,7 +126,7 @@ def test_nlms_two_stage_matches_jax(rng, batched):
     want = jax_two_stage(_jax_params("little_net_robust.npz"), jnp.asarray(far),
                          jnp.asarray(mic), jnp.asarray(erb), stage1="nlms",
                          lin_cfg=JaxNlmsConfig(**cfg))
-    net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"))
+    net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"), device="cpu")
     got = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb,
                            stage1="nlms", lin_cfg=NlmsConfig(**cfg))
     lin_j, wav_j = np.asarray(want["linear_wav"]), np.asarray(want["wav"])
@@ -150,9 +150,9 @@ def test_two_stage_fused_plain_matches_jax_kernel(rng, gain_norm):
     erb = erb_filterbank()
     want = jax_two_stage_fused(params, jnp.asarray(far), jnp.asarray(mic), jnp.asarray(erb),
                                interpret=True, tile=2, dot_mode="high", gain_norm=gain_norm)
-    got = two_stage_fused(params_from_jax(params), torch.from_numpy(far), torch.from_numpy(mic),
+    got = two_stage_fused(params_from_jax(params, device="cpu"), torch.from_numpy(far), torch.from_numpy(mic),
                           erb, gain_norm=gain_norm)
-    plain = two_stage_fused_plain(params_from_jax(params), torch.from_numpy(far),
+    plain = two_stage_fused_plain(params_from_jax(params, device="cpu"), torch.from_numpy(far),
                                   torch.from_numpy(mic), erb, gain_norm=gain_norm)
     for key in ("wav", "linear_wav", "mask"):
         assert torch.equal(got[key], plain[key]), key  # the CPU wrapper is the plain version
@@ -170,7 +170,7 @@ def test_fast_routes_match_jax(rng, kwargs):
     on the CPU (fp32 there too) at the parity bars."""
     far, mic = _scene(rng)
     erb = erb_filterbank()
-    net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"))
+    net = load_npz(os.path.join(CKPT_DIR, "little_net_robust.npz"), device="cpu")
     want = jax_two_stage(_jax_params("little_net_robust.npz"), jnp.asarray(far),
                          jnp.asarray(mic), jnp.asarray(erb), **kwargs)
     got = two_stage_cancel(net, torch.from_numpy(far), torch.from_numpy(mic), erb, **kwargs)
@@ -194,17 +194,17 @@ def test_port_runs_without_jax():
         "rng = np.random.default_rng(0)\n"
         "far = torch.from_numpy(rng.standard_normal((2, 4096)).astype(np.float32))\n"
         "mic = 0.5 * far + 0.1 * torch.from_numpy(rng.standard_normal((2, 4096)).astype(np.float32))\n"
-        "out = two_stage_cancel(load_npz('checkpoints/little_net_robust.npz'), far, mic, erb_filterbank())\n"
+        "out = two_stage_cancel(load_npz('checkpoints/little_net_robust.npz', device='cpu'), far, mic, erb_filterbank())\n"
         "assert out['wav'].shape == (2, 4096) and bool(torch.isfinite(out['wav']).all())\n"
         "from aec_tpu_torch import NlmsConfig, nlms_cancel, serving_init, serving_step_plain\n"
         "from aec_tpu_torch import stream_init_batched, stream_step_batched\n"
-        "net = load_npz('checkpoints/little_net_robust.npz')\n"
+        "net = load_npz('checkpoints/little_net_robust.npz', device='cpu')\n"
         "out = two_stage_cancel(net, far, mic, erb_filterbank(), stage1='nlms')\n"
         "assert bool(torch.isfinite(out['wav']).all())\n"
         "assert nlms_cancel(NlmsConfig(), far[0], mic[0])['wav'].shape == (4096,)\n"
-        "st, o = stream_step_batched(net, stream_init_batched(2, stage1='nlms'), far[:, :256],\n"
+        "st, o = stream_step_batched(net, stream_init_batched(2, stage1='nlms', device='cpu'), far[:, :256],\n"
         "                            mic[:, :256], erb_filterbank(), stage1='nlms')\n"
-        "ks, o = serving_step_plain(net, serving_init(2, stage1='nlms'), far[:, :256],\n"
+        "ks, o = serving_step_plain(net, serving_init(2, stage1='nlms', device='cpu'), far[:, :256],\n"
         "                           mic[:, :256], erb_filterbank(), stage1='nlms')\n"
         "assert o.shape == (2, 256)\n"
         "assert not any(m.split('.')[0] in ('jax', 'aec_tpu') for m, v in sys.modules.items() if v is not None)\n"

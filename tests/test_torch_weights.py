@@ -30,7 +30,7 @@ def test_all_shipped_checkpoints_listed():
 def test_load_npz_matches_jax_restore(name):
     path = os.path.join(CKPT_DIR, name)
     width = WIDTHS.get(name, 1)
-    net = load_npz(path)
+    net = load_npz(path, device="cpu")
     assert net.hidden == 32 * width
     want = checkpoints.restore(
         path, {"params": little_net_init(jax.random.PRNGKey(0), width=width)}
@@ -49,13 +49,13 @@ def test_load_npz_matches_jax_restore(name):
 
 def test_load_npz_missing_file():
     with pytest.raises(FileNotFoundError):
-        load_npz(os.path.join(CKPT_DIR, "no_such_checkpoint.npz"))
+        load_npz(os.path.join(CKPT_DIR, "no_such_checkpoint.npz"), device="cpu")
 
 
 @pytest.mark.parametrize("width", [1, 2])
 def test_params_from_jax_same_forward(rng, width):
     jp = little_net_init(jax.random.PRNGKey(11), width=width)
-    net = params_from_jax(jax.tree.map(np.asarray, jp))
+    net = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     erb = erb_filterbank()
     mic = rng.standard_normal((2, 12 * 256)).astype(np.float32)
     ref = rng.standard_normal((2, 12 * 256)).astype(np.float32)
