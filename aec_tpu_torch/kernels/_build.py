@@ -91,9 +91,30 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib_path(name)))
 
 
+# what the launch code says when it refuses a launch for lack of room
+_REFUSALS = {
+    7: "the card cannot place the thread-block cluster",
+    9: "one CTA cannot hold the shared memory this geometry needs",
+    82: "the card cannot hold the grid co-resident",
+}
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {what} failed with cudaError_t {err}")
+        why = _REFUSALS.get(err)
+        raise RuntimeError(f"CUDA kernel {what} failed with cudaError_t {err}"
+                           + (f": {why}" if why else ""))
+
+
+def check_smem(need: int, device: torch.device, what: str) -> None:
+    """Raise unless one CTA of the card can hold ``need`` bytes of shared
+    memory: the limit a kernel's geometry runs into first."""
+    have = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if need > have:
+        raise ValueError(
+            f"{what} needs {need} B of shared memory per CTA at this geometry; the card "
+            f"gives a CTA at most {have} B"
+        )
 
 
 def ptr(t) -> ctypes.c_void_p:

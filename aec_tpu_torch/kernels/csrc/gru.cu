@@ -20,6 +20,12 @@
 // from device memory; a barrier; H threads combine the gates and write h and
 // the output; a barrier.
 //
+// Wider nets (H > 128, whose W_hh^T no longer fits one SM: 3 MB at H = 512)
+// take the wide path, the same recurrence on one persistent grid of
+// co-resident CTAs (grid_scan.cuh, shared with K9): each CTA owns U hidden
+// units and their 3 gate columns of W_hh^T, read from L2 every step, and one
+// grid barrier ends each step.
+//
 // What bounds it. Neither bytes nor FMAs: one step is 3H^2 FMA on one SM
 // (3 K at H = 32) and the steps are serial, so the time is T times one step's
 // latency (two barriers, a dependent chain of H/4 FMAs, expf and tanhf); a
@@ -28,6 +34,8 @@
 // registers, and fewer barriers per step.
 
 #include <cuda_runtime.h>
+
+#include "grid_scan.cuh"
 
 namespace {
 
@@ -106,4 +114,28 @@ extern "C" int aec_gru(const float* xp, const float* whh_t, const float* b_hn, c
   gru_kernel<<<batch, 3 * hidden, smem, static_cast<cudaStream_t>(stream)>>>(
       xp, whh_t, b_hn, h0, ys, t_steps, hidden);
   return cudaGetLastError();
+}
+
+// units per CTA of the wide path's launch plan at this shape
+extern "C" int aec_gru_units(int rows, int hidden, int device) {
+  aec_grid::GridPlan<aec_grid::GruCell> p{};
+  if (aec_grid::grid_plan(1, rows, hidden, device, &p) != cudaSuccess) return -1;
+  return p.units;
+}
+
+// The wide path (H > kMaxHidden): xp (batch, t_steps, 3H) as aec_gru's; wp
+// (nchunk, H, 3U) packed W_hh^T; b_hn (H); hbuf (2, batch, H) with h0 in [0];
+// ys (batch, t_steps, H).
+extern "C" int aec_gru_grid(const float* xp, const float* wp, const float* b_hn, float* hbuf,
+                            float* ys, int batch, int t_steps, int hidden, int units, int device,
+                            void* stream) {
+  using namespace aec_grid;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  GridPlan<GruCell> p{};
+  err = grid_plan(1, batch, hidden, device, &p);
+  if (err != cudaSuccess) return err;
+  if (p.units != units) return cudaErrorInvalidValue;  // W_hh^T packed for another plan
+  const GridArgs a{xp, wp, b_hn, ys, hbuf, batch, t_steps, hidden, p.units, p.nchunk};
+  return grid_launch(a, p, device, static_cast<cudaStream_t>(stream));
 }

@@ -15,7 +15,8 @@
 // utterance walks all T blocks with its whole filter state (W re/im, P, the
 // far-spectrum ring: 5 x L x 257 fp32) resident in shared memory, so the only
 // device-memory traffic is the far blocks (or spectra) and mic blocks in and
-// the cancelled blocks out. Each step is bl_common.cuh's kalman_block_step:
+// the cancelled blocks out. The geometry (block, L) is the caller's; the
+// layout is carved at run time (bl_common.cuh). Each step is bl_common.cuh's kalman_block_step:
 // far-frame analysis DFT (K1 only), predict, echo estimate, residual DFT,
 // gain, factored constraint (irfft head, then rfft tail), covariance update.
 //
@@ -35,75 +36,83 @@ using namespace aec;
 
 namespace {
 
-constexpr int kL = 10;  // KalmanConfig.n_blocks
-
-// far: (batch, t_blocks, kBlock) far blocks, or with kSpectraIn
-// (batch, t_blocks, kRi) far-frame spectra [re || im]
-template <bool kSpectraIn>
+// far: (batch, t_blocks, B) far blocks, or with kSpectraIn
+// (batch, t_blocks, 2K) far-frame spectra [re || im]
+template <bool kSpectraIn, class G>
 __global__ void __launch_bounds__(kThreads, 2)
 kalman_batched_kernel(const float* __restrict__ far, const float* __restrict__ mic,
-                      float* __restrict__ e, int t_blocks, Stage1Bases bs, KalmanParams kp) {
-  extern __shared__ float4 smem_raw[];
-  KalmanSmem<kL>& s = *reinterpret_cast<KalmanSmem<kL>*>(smem_raw);
-  const size_t base = static_cast<size_t>(blockIdx.x) * t_blocks * kBlock;
+                      float* __restrict__ e, int t_blocks, G q, Stage1Bases bs, KalmanParams kp) {
+  Carve c;
+  const KalmanSmem s(c, q);
+  const int B = q.block, K = q.bins;
+  const size_t base = static_cast<size_t>(blockIdx.x) * t_blocks * B;
   const int tid = threadIdx.x;
 
-  kalman_init<kL>(s, kp);
+  kalman_init(s, q, kp);
   for (int t = 0; t < t_blocks; ++t) {
-    const size_t off = base + static_cast<size_t>(t) * kBlock;
+    const size_t off = base + static_cast<size_t>(t) * B;
     if constexpr (kSpectraIn) {
-      const float* x = far + (static_cast<size_t>(blockIdx.x) * t_blocks + t) * kRi;
-      const int head = t % kL;
-      if (tid < kBins) s.xr[head * kBins + tid] = x[tid];
-      else if (tid < kRi) s.xi[head * kBins + tid - kBins] = x[tid];
-    } else if (tid < kBlock) {
-      s.frame[kBlock + tid] = far[off + tid];
+      const float* x = far + (static_cast<size_t>(blockIdx.x) * t_blocks + t) * q.ri;
+      const int head = t % q.L;
+      for (int i = tid; i < q.ri; i += kThreads) {
+        if (i < K) s.xr[head * K + i] = x[i];
+        else s.xi[head * K + i - K] = x[i];
+      }
+    } else {
+      for (int j = tid; j < B; j += kThreads) s.frame[B + j] = far[off + j];
     }
-    if (tid < kBlock) s.e[tid] = mic[off + tid];
+    for (int j = tid; j < B; j += kThreads) s.e[j] = mic[off + j];
     __syncthreads();
-    kalman_block_step<kL, !kSpectraIn>(s, t, kp, bs);
-    if (tid < kBlock) e[off + tid] = s.e[tid];
+    kalman_block_step<!kSpectraIn>(s, q, t, kp, bs);
+    for (int j = tid; j < B; j += kThreads) e[off + j] = s.e[j];
   }
 }
 
 template <bool kSpectraIn>
-int launch(const float* far, const float* mic, float* e, int batch, int t_blocks,
-           const float* fwd, const float* inv_tail, const float* inv_head, float a, float a2,
-           float one_minus_a2, float q_min, float obs, float one_minus_obs, float floor_,
-           float init_p, int device, void* stream) {
+int launch(const float* far, const float* mic, float* e, int batch, int t_blocks, int block,
+           int n_blocks, const float* fwd, const float* inv_tail, const float* inv_head, float a,
+           float a2, float one_minus_a2, float q_min, float obs, float one_minus_obs,
+           float floor_, float init_p, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(sizeof(KalmanSmem<kL>));
-  err = cudaFuncSetAttribute(kalman_batched_kernel<kSpectraIn>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  if (batch == 0 || t_blocks == 0) return cudaSuccess;
   const Stage1Bases bs{fwd, inv_tail, inv_head};
   const KalmanParams kp{a, a2, one_minus_a2, q_min, obs, one_minus_obs, floor_, init_p};
-  kalman_batched_kernel<kSpectraIn><<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      far, mic, e, t_blocks, bs, kp);
-  return cudaGetLastError();
+  return with_geom(block, n_blocks, -1, [&](auto q) {
+    auto kernel = kalman_batched_kernel<kSpectraIn, decltype(q)>;
+    const size_t smem = smem_bytes<KalmanSmem>(q);
+    cudaError_t e2 = set_smem(reinterpret_cast<const void*>(kernel), smem, device);
+    if (e2 != cudaSuccess || batch == 0 || t_blocks == 0) return e2;
+    kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(far, mic, e, t_blocks, q,
+                                                                         bs, kp);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
 
-extern "C" int aec_kalman_n_blocks() { return kL; }
+// shared memory of one CTA at this geometry, bytes
+extern "C" long long aec_kalman_smem(int block, int n_blocks) {
+  return static_cast<long long>(smem_bytes<KalmanSmem>(make_geom(block, n_blocks, 0)));
+}
 
 extern "C" int aec_kalman_batched(const float* far, const float* mic, float* e, int batch,
-                                  int t_blocks, const float* fwd, const float* inv_tail,
-                                  const float* inv_head, float a, float a2, float one_minus_a2,
-                                  float q_min, float obs, float one_minus_obs, float floor_,
-                                  float init_p, int device, void* stream) {
-  return launch<false>(far, mic, e, batch, t_blocks, fwd, inv_tail, inv_head, a, a2,
-                       one_minus_a2, q_min, obs, one_minus_obs, floor_, init_p, device, stream);
+                                  int t_blocks, int block, int n_blocks, const float* fwd,
+                                  const float* inv_tail, const float* inv_head, float a, float a2,
+                                  float one_minus_a2, float q_min, float obs, float one_minus_obs,
+                                  float floor_, float init_p, int device, void* stream) {
+  return launch<false>(far, mic, e, batch, t_blocks, block, n_blocks, fwd, inv_tail, inv_head, a,
+                       a2, one_minus_a2, q_min, obs, one_minus_obs, floor_, init_p, device,
+                       stream);
 }
 
 extern "C" int aec_kalman_batched_spectra(const float* x_ri, const float* mic, float* e,
-                                          int batch, int t_blocks, const float* fwd,
-                                          const float* inv_tail, const float* inv_head, float a,
-                                          float a2, float one_minus_a2, float q_min, float obs,
+                                          int batch, int t_blocks, int block, int n_blocks,
+                                          const float* fwd, const float* inv_tail,
+                                          const float* inv_head, float a, float a2,
+                                          float one_minus_a2, float q_min, float obs,
                                           float one_minus_obs, float floor_, float init_p,
                                           int device, void* stream) {
-  return launch<true>(x_ri, mic, e, batch, t_blocks, fwd, inv_tail, inv_head, a, a2,
-                      one_minus_a2, q_min, obs, one_minus_obs, floor_, init_p, device, stream);
+  return launch<true>(x_ri, mic, e, batch, t_blocks, block, n_blocks, fwd, inv_tail, inv_head, a,
+                      a2, one_minus_a2, q_min, obs, one_minus_obs, floor_, init_p, device,
+                      stream);
 }

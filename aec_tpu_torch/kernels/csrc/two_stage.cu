@@ -19,7 +19,8 @@
 // What bounds it. The same per-step work as K1 plus K2 (~4 M FMA and ~5.3 MB
 // of fp32 DFT bases read from L2 per utterance and step), so it is bound by
 // each SM's L2 read rate as they are. Stage 2's scratch lies over stage 1's
-// (TwoStageSmem): 107,120 B per CTA, so two CTAs share an SM as K1's do, and
+// (TwoStageSmem): ~107 KB per CTA at the default geometry (carved at run
+// time for the caller's hop, L and bands), so two CTAs share an SM as K1's do, and
 // K2's frames ride in the same waves as K1's steps instead of a second pass.
 
 #include "bl_common.cuh"
@@ -28,68 +29,79 @@ using namespace aec;
 
 namespace {
 
-constexpr int kL = 10;  // KalmanConfig.n_blocks
+using Smem = TwoStageSmem<KalmanSmem>;
 
+template <class G>
 __global__ void __launch_bounds__(kThreads, 2)
 two_stage_kernel(const float* __restrict__ far, const float* __restrict__ mic,
                  float* __restrict__ out, float* __restrict__ lin, float* __restrict__ mask,
-                 int t_blocks, Stage1Bases bs, KalmanParams kp, Stage2Weights w, int gain_norm) {
-  extern __shared__ float4 smem_raw[];
-  TwoStageSmem<KalmanSmem<kL>>& s = *reinterpret_cast<TwoStageSmem<KalmanSmem<kL>>*>(smem_raw);
-  const size_t base = static_cast<size_t>(blockIdx.x) * t_blocks * kBlock;
-  const size_t mask_base = static_cast<size_t>(blockIdx.x) * (t_blocks + 1) * kBands;
+                 int t_blocks, G q, Stage1Bases bs, KalmanParams kp, Stage2Weights w,
+                 int gain_norm) {
+  Carve c;
+  const Smem s(c, q);
+  const int B = q.block, E = q.bands;
+  const size_t base = static_cast<size_t>(blockIdx.x) * t_blocks * B;
+  const size_t mask_base = static_cast<size_t>(blockIdx.x) * (t_blocks + 1) * E;
   const int tid = threadIdx.x;
 
-  kalman_init<kL>(s.s1, kp);
-  stage2_init(s.s2);
+  kalman_init(s.s1, q, kp);
+  stage2_init(s.s2, q);
   for (int t = 0; t <= t_blocks; ++t) {
-    const size_t off = base + static_cast<size_t>(t) * kBlock;
+    const size_t off = base + static_cast<size_t>(t) * B;
     if (t < t_blocks) {
-      if (tid < kBlock) {
-        s.s1.frame[kBlock + tid] = far[off + tid];
-        s.s1.e[tid] = mic[off + tid];
+      for (int j = tid; j < B; j += kThreads) {
+        s.s1.frame[B + j] = far[off + j];
+        s.s1.e[j] = mic[off + j];
       }
       __syncthreads();
-      two_stage_block_step(s, t, kp, bs, w, gain_norm != 0, false, false);
-      if (tid < kBlock) lin[off + tid] = s.s1.e[tid];
+      two_stage_block_step(s, q, t, kp, bs, w, gain_norm != 0, false, false);
+      for (int j = tid; j < B; j += kThreads) lin[off + j] = s.s1.e[j];
     } else {  // the zero flush frame
-      if (tid < kBlock) {
-        s.s2.lin[kBlock + tid] = 0.f;
-        s.s2.far[kBlock + tid] = 0.f;
+      for (int j = tid; j < B; j += kThreads) {
+        s.s2.lin[B + j] = 0.f;
+        s.s2.far[B + j] = 0.f;
       }
       __syncthreads();
-      stage2_frame_step(s.s2, s.x(), w, gain_norm != 0);
+      stage2_frame_step(s.s2, s.x, q, w, gain_norm != 0);
     }
-    if (tid < kBands) mask[mask_base + static_cast<size_t>(t) * kBands + tid] = s.x().mask[tid];
-    if (t > 0 && tid < kBlock) out[off - kBlock + tid] = s.x().out[tid];
+    for (int e = tid; e < E; e += kThreads)
+      mask[mask_base + static_cast<size_t>(t) * E + e] = s.x.mask[e];
+    if (t > 0)
+      for (int j = tid; j < B; j += kThreads) out[off - B + j] = s.x.out[j];
   }
 }
 
 }  // namespace
 
-extern "C" int aec_two_stage_n_blocks() { return kL; }
+// shared memory of one CTA at this geometry, bytes
+extern "C" long long aec_two_stage_smem(int block, int n_blocks, int bands) {
+  return static_cast<long long>(smem_bytes<Smem>(make_geom(block, n_blocks, bands)));
+}
 
 extern "C" int aec_two_stage(const float* far, const float* mic, float* out, float* lin,
-                             float* mask, int batch, int t_blocks, const float* fwd,
-                             const float* inv_tail, const float* inv_head, float a, float a2,
-                             float one_minus_a2, float q_min, float obs, float one_minus_obs,
-                             float floor_, float init_p, const float* analysis,
-                             const float* synthesis, const float* erb, const float* erb_t,
-                             const float* w_ih_t, const float* w_hh_t, const float* b_ih,
-                             const float* b_hh, const float* w1_t, const float* b1,
-                             const float* w2_t, const float* b2, const float* inv_env,
-                             int gain_norm, int device, void* stream) {
+                             float* mask, int batch, int t_blocks, int block, int n_blocks,
+                             int bands, const float* fwd, const float* inv_tail,
+                             const float* inv_head, float a, float a2, float one_minus_a2,
+                             float q_min, float obs, float one_minus_obs, float floor_,
+                             float init_p, const float* analysis, const float* synthesis,
+                             const float* erb, const float* erb_t, const float* w_ih_t,
+                             const float* w_hh_t, const float* b_ih, const float* b_hh,
+                             const float* w1_t, const float* b1, const float* w2_t,
+                             const float* b2, const float* inv_env, int gain_norm, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(sizeof(TwoStageSmem<KalmanSmem<kL>>));
-  err = cudaFuncSetAttribute(two_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  if (batch == 0) return cudaSuccess;
   const Stage1Bases bs{fwd, inv_tail, inv_head};
   const KalmanParams kp{a, a2, one_minus_a2, q_min, obs, one_minus_obs, floor_, init_p};
   const Stage2Weights w{analysis, synthesis, erb, erb_t, w_ih_t, w_hh_t, b_ih,
                         b_hh,     w1_t,      b1,  w2_t,  b2,     inv_env};
-  two_stage_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      far, mic, out, lin, mask, t_blocks, bs, kp, w, gain_norm);
-  return cudaGetLastError();
+  return with_geom(block, n_blocks, bands, [&](auto q) {
+    auto kernel = two_stage_kernel<decltype(q)>;
+    const size_t smem = smem_bytes<Smem>(q);
+    cudaError_t e2 = set_smem(reinterpret_cast<const void*>(kernel), smem, device);
+    if (e2 != cudaSuccess || batch == 0) return e2;
+    kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        far, mic, out, lin, mask, t_blocks, q, bs, kp, w, gain_norm);
+    return cudaGetLastError();
+  });
 }

@@ -4,7 +4,10 @@ Replaces ``aec_tpu/kernels/pallas_gru.py:65`` (``_gru_scan_fused_fwd``,
 ``pallas_call`` at ``:107``) and its custom VJP ``gru_scan_fused``
 (``:141-169``). The kernel is ``csrc/gru.cu``: one CTA per batch row walks
 the T steps with W_hh^T and h in shared memory; a serial recursion, so one
-step's latency bounds it (the source's header has the reckoning).
+step's latency bounds it (the source's header has the reckoning). A net too
+wide for one SM (H > 128) takes the kernel's wide path: the same recurrence
+on one persistent grid of co-resident CTAs (``csrc/grid_scan.cuh``, shared
+with K9), each owning a few hidden units, W_hh^T read from L2 every step.
 
 :class:`GruScanFused` does what the JAX custom VJP does: its forward is the
 hoisted input projection as one ``torch.matmul`` (``b_hr`` and ``b_hz``
@@ -22,6 +25,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from aec_tpu_torch.kernels import _build
 
@@ -33,7 +37,22 @@ def _lib() -> ctypes.CDLL:
     lib.aec_gru.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.aec_gru.restype = ctypes.c_int
     lib.aec_gru_max_hidden.restype = ctypes.c_int
+    lib.aec_gru_units.argtypes = [i, i, i]
+    lib.aec_gru_units.restype = ctypes.c_int
+    lib.aec_gru_grid.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.aec_gru_grid.restype = ctypes.c_int
     return lib
+
+
+def pack_gate_columns(w_hh: torch.Tensor, gates: int, units: int) -> torch.Tensor:
+    """``W_hh`` (G, gates H, H) -> (G, nchunk, H, gates U): for each CTA of a
+    grid recurrence (``csrc/grid_scan.cuh``) the gate columns of W_hh^T of
+    its U hidden units, contiguous; units past H are zero columns."""
+    g, _, hidden = w_hh.shape
+    nchunk = -(-hidden // units)
+    w = F.pad(w_hh.reshape(g, gates, hidden, hidden), (0, 0, 0, nchunk * units - hidden))
+    w = w.reshape(g, gates, nchunk, units, hidden).permute(0, 2, 4, 1, 3)
+    return w.reshape(g, nchunk, hidden, gates * units).contiguous()
 
 
 def folded_projection(params: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +81,7 @@ def gru_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor, b_hn: torch.Tenso
     return torch.stack(hs, dim=1)
 
 
-def _check(xp, w_hh, b_hn, h0, max_hidden: int) -> None:
+def _check(xp, w_hh, b_hn, h0) -> None:
     tensors = (xp, w_hh, b_hn, h0)
     if xp.device.type != "cuda" or any(a.device != xp.device for a in tensors):
         raise ValueError(f"xp, w_hh, b_hn and h0 must be on one CUDA device, got "
@@ -77,9 +96,8 @@ def _check(xp, w_hh, b_hn, h0, max_hidden: int) -> None:
             f"want xp (B, T, 3H), w_hh (3H, H), b_hn (H,), h0 (B, H), got {tuple(xp.shape)}, "
             f"{tuple(w_hh.shape)}, {tuple(b_hn.shape)}, {tuple(h0.shape)}"
         )
-    if hidden > max_hidden or steps < 1:
-        raise ValueError(f"the kernel takes 1 <= H <= {max_hidden} and T >= 1, got H = {hidden}, "
-                         f"T = {steps}")
+    if hidden < 1 or steps < 1:
+        raise ValueError(f"the kernel takes H >= 1 and T >= 1, got H = {hidden}, T = {steps}")
     if not all(a.is_contiguous() for a in (xp, b_hn, h0)):
         raise ValueError("xp, b_hn and h0 must be contiguous")
 
@@ -90,20 +108,33 @@ def gru_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hn: torch.Tensor,
     (:func:`folded_projection`), ``w_hh`` (3H, H), ``b_hn`` (H,) and ``h0``
     (B, H) -> ys (B, T, H).
 
-    A CUDA tensor launches K8 (or raises: not fp32, not contiguous,
-    H > 128, T = 0); a CPU tensor takes the plain recurrence.
+    A CUDA tensor launches K8 (or raises: not fp32, not contiguous, T = 0,
+    a grid the card cannot hold co-resident on the wide path); a CPU tensor
+    takes the plain recurrence. H <= 128 runs one CTA per row, a wider H
+    the wide path.
     """
     if xp.device.type == "cpu":
         return gru_recurrence_plain(xp, w_hh, b_hn, h0)
     lib = _lib()
-    _check(xp, w_hh, b_hn, h0, lib.aec_gru_max_hidden())
+    _check(xp, w_hh, b_hn, h0)
     b, t, hidden = xp.shape[0], xp.shape[1], h0.shape[-1]
+    dev = xp.device.index
     ys = xp.new_empty((b, t, hidden))
-    whh_t = w_hh.detach().T.contiguous()  # held until the launch is enqueued
-    err = lib.aec_gru(
-        _build.ptr(xp), _build.ptr(whh_t), _build.ptr(b_hn), _build.ptr(h0), _build.ptr(ys),
-        b, t, hidden, xp.device.index, _build.stream_of(xp),
-    )
+    if hidden <= lib.aec_gru_max_hidden():
+        whh_t = w_hh.detach().T.contiguous()  # held until the launch is enqueued
+        err = lib.aec_gru(
+            _build.ptr(xp), _build.ptr(whh_t), _build.ptr(b_hn), _build.ptr(h0), _build.ptr(ys),
+            b, t, hidden, dev, _build.stream_of(xp),
+        )
+    else:
+        units = lib.aec_gru_units(b, hidden, dev)
+        wp = pack_gate_columns(w_hh.detach()[None], 3, units)
+        hbuf = xp.new_zeros((2, b, hidden))
+        hbuf[0] = h0
+        err = lib.aec_gru_grid(
+            _build.ptr(xp), _build.ptr(wp), _build.ptr(b_hn), _build.ptr(hbuf), _build.ptr(ys),
+            b, t, hidden, units, dev, _build.stream_of(xp),
+        )
     _build.check(err, "gru")
     gru_recurrence.launches += 1
     return ys

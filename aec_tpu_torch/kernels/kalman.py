@@ -39,12 +39,10 @@ from aec_tpu_torch.linear.kalman import kalman_cancel_plain, kalman_filter
 __all__ = ["kalman_cancel_fused", "kalman_cancel_fused_batched", "kalman_cancel_plain",
            "kalman_filter_fused_batched", "kalman_filter_fused_batched_plain"]
 
-_BLOCK = 256
-
-
-# ctypes types of the stage-1 arguments every kernel takes: the three bases,
-# then the eight filter constants (see :func:`kalman_operands`)
-KALMAN_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 8
+# ctypes types of the stage-1 arguments every kernel takes: the block and the
+# partition count, the three bases, then the eight filter constants (see
+# :func:`kalman_operands`)
+KALMAN_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 8
 
 
 @functools.cache
@@ -54,7 +52,8 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.aec_kalman_batched, lib.aec_kalman_batched_spectra):
         fn.argtypes = [p, p, p, i, i, *KALMAN_ARGTYPES, i, p]
         fn.restype = ctypes.c_int
-    lib.aec_kalman_n_blocks.restype = ctypes.c_int
+    lib.aec_kalman_smem.argtypes = [i, i]
+    lib.aec_kalman_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -67,29 +66,30 @@ def single_stream_lib() -> ctypes.CDLL:
     for fn in (lib.aec_kalman_single, lib.aec_nlms_single):
         fn.argtypes = [p, p, p, i, *KALMAN_ARGTYPES, i, p]
         fn.restype = ctypes.c_int
-    lib.aec_single_n_blocks.restype = ctypes.c_int
     lib.aec_single_cluster.restype = ctypes.c_int
+    lib.aec_single_smem.argtypes = [i, i, i]
+    lib.aec_single_smem.restype = ctypes.c_longlong
     return lib
 
 
-def kalman_operands(cfg: KalmanConfig, device: torch.device) -> list:
-    """The stage-1 kernel arguments of ``KALMAN_ARGTYPES``: the bases of
-    :func:`stage1_consts` (cached per device, so their pointers stay valid)
-    and the filter constants."""
-    c = stage1_consts(_BLOCK, device)
+def kalman_operands(cfg: KalmanConfig, device: torch.device, block: int) -> list:
+    """The stage-1 kernel arguments of ``KALMAN_ARGTYPES``: the geometry, the
+    bases of :func:`stage1_consts` (cached per device, so their pointers stay
+    valid) and the filter constants."""
+    c = stage1_consts(block, device)
     a2 = cfg.a * cfg.a
     return [
+        block, cfg.n_blocks,
         _build.ptr(c["fwd"]), _build.ptr(c["inv_tail"]), _build.ptr(c["inv_head"]),
         cfg.a, a2, 1.0 - a2, cfg.q_min, cfg.obs_smooth, 1.0 - cfg.obs_smooth,
         cfg.psi_floor, cfg.init_p,
     ]
 
 
-def check_inputs(cfg, far: torch.Tensor, mic: torch.Tensor, block: int, n_blocks: int,
-                 ndim: int) -> None:
+def check_inputs(cfg, far: torch.Tensor, mic: torch.Tensor, block: int, ndim: int) -> None:
     """Raise unless far/mic are what a stage-1 kernel takes: one CUDA
-    device, float32, contiguous, ``ndim`` axes of one shape, the kernel's
-    block and partition count."""
+    device, float32, contiguous, ``ndim`` axes of one shape, a block and a
+    partition count of at least 1."""
     if far.device != mic.device or far.device.type != "cuda":
         raise ValueError(f"far/mic must be on one CUDA device, got {far.device}, {mic.device}")
     if far.dtype != torch.float32 or mic.dtype != torch.float32:
@@ -99,18 +99,21 @@ def check_inputs(cfg, far: torch.Tensor, mic: torch.Tensor, block: int, n_blocks
         raise ValueError(f"far/mic must be {shape} of one shape, got {far.shape}, {mic.shape}")
     if not (far.is_contiguous() and mic.is_contiguous()):
         raise ValueError("far/mic must be contiguous")
-    if block != _BLOCK or cfg.n_blocks != n_blocks:
-        raise ValueError(
-            f"the kernel is built for block {_BLOCK} and {n_blocks} partitions, "
-            f"got block {block} and n_blocks {cfg.n_blocks}"
-        )
+    if block < 1 or cfg.n_blocks < 1:
+        raise ValueError(f"block and n_blocks must be >= 1, got {block}, {cfg.n_blocks}")
 
 
 def launch_single(entry, operands: list, cfg, far: torch.Tensor, mic: torch.Tensor,
                   block: int) -> torch.Tensor:
     """One utterance through a single-stream cluster kernel (K6 or K7) ->
-    e [n]. Raises if the card cannot place the cluster."""
-    check_inputs(cfg, far, mic, block, single_stream_lib().aec_single_n_blocks(), 1)
+    e [n]. Raises if a CTA of the cluster cannot hold its share of the state
+    and bases, or if the card cannot place the cluster."""
+    check_inputs(cfg, far, mic, block, 1)
+    lib = single_stream_lib()
+    nlms = entry is lib.aec_nlms_single
+    _build.check_smem(lib.aec_single_smem(block, cfg.n_blocks, int(nlms)), far.device,
+                      f"the single-stream {'NLMS' if nlms else 'Kalman'} kernel (one CTA of "
+                      f"{lib.aec_single_cluster()})")
     n = mic.shape[-1]
     farp, micp = ols.pad_to_blocks(far, block), ols.pad_to_blocks(mic, block)
     e = torch.empty_like(micp)
@@ -134,13 +137,15 @@ def kalman_cancel_fused_batched(
     if far.device.type == "cpu":
         return {"wav": kalman_cancel_plain(cfg, far, mic, block=block)["wav"]}
     lib = _lib()
-    check_inputs(cfg, far, mic, block, lib.aec_kalman_n_blocks(), 2)
+    check_inputs(cfg, far, mic, block, 2)
+    _build.check_smem(lib.aec_kalman_smem(block, cfg.n_blocks), far.device,
+                      "the batched Kalman kernel")
     n = mic.shape[-1]
     farp, micp = ols.pad_to_blocks(far, block), ols.pad_to_blocks(mic, block)
     e = torch.empty_like(micp)
     err = lib.aec_kalman_batched(
         _build.ptr(farp), _build.ptr(micp), _build.ptr(e), farp.shape[0],
-        farp.shape[1] // block, *kalman_operands(cfg, far.device), far.device.index,
+        farp.shape[1] // block, *kalman_operands(cfg, far.device, block), far.device.index,
         _build.stream_of(far),
     )
     _build.check(err, "kalman_batched")
@@ -161,8 +166,8 @@ def kalman_cancel_fused(
     """
     if far.device.type == "cpu":
         return {"wav": kalman_cancel_plain(cfg, far, mic, block=block)["wav"]}
-    e = launch_single(single_stream_lib().aec_kalman_single, kalman_operands(cfg, far.device),
-                      cfg, far, mic, block)
+    e = launch_single(single_stream_lib().aec_kalman_single,
+                      kalman_operands(cfg, far.device, block), cfg, far, mic, block)
     kalman_cancel_fused.launches += 1
     return {"wav": e}
 
@@ -188,7 +193,8 @@ def kalman_filter_fused_batched(
     its waveform wrapper, JAX's ``kalman_cancel_fused_batched``, has the same
     semantics as the ``_bl`` one and is :func:`kalman_cancel_fused_batched`
     here. A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    the plain loop. Limits as K1's: L = 10, block 256, fp32, contiguous.
+    the plain loop. Limits as K1's: fp32, contiguous, the shared memory of
+    one CTA.
     """
     if x_ri.device.type == "cpu":
         return kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks, block=block)
@@ -207,15 +213,14 @@ def kalman_filter_fused_batched(
         )
     if not (x_ri.is_contiguous() and d_blocks.is_contiguous()):
         raise ValueError("x_ri/d_blocks must be contiguous")
-    if block != _BLOCK or cfg.n_blocks != lib.aec_kalman_n_blocks():
-        raise ValueError(
-            f"the kernel is built for block {_BLOCK} and {lib.aec_kalman_n_blocks()} "
-            f"partitions, got block {block} and n_blocks {cfg.n_blocks}"
-        )
+    if block < 1 or cfg.n_blocks < 1:
+        raise ValueError(f"block and n_blocks must be >= 1, got {block}, {cfg.n_blocks}")
+    _build.check_smem(lib.aec_kalman_smem(block, cfg.n_blocks), x_ri.device,
+                      "the batched Kalman kernel")
     e = torch.empty_like(d_blocks)
     err = lib.aec_kalman_batched_spectra(
         _build.ptr(x_ri), _build.ptr(d_blocks), _build.ptr(e), x_ri.shape[0], x_ri.shape[1],
-        *kalman_operands(cfg, x_ri.device), x_ri.device.index, _build.stream_of(x_ri),
+        *kalman_operands(cfg, x_ri.device, block), x_ri.device.index, _build.stream_of(x_ri),
     )
     _build.check(err, "kalman_batched_spectra")
     kalman_filter_fused_batched.launches += 1

@@ -40,26 +40,26 @@ from aec_tpu_torch.linear.nlms import nlms_cancel_plain
 
 __all__ = ["nlms_cancel_fused", "nlms_cancel_fused_batched", "nlms_cancel_plain"]
 
-_BLOCK = 256
-
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("nlms_batched")
     p, i = ctypes.c_void_p, ctypes.c_int
-    # the three bases and eight filter constants, as KALMAN_ARGTYPES
+    # the geometry, three bases and eight filter constants, as KALMAN_ARGTYPES
     lib.aec_nlms_batched.argtypes = [p, p, p, i, i, *KALMAN_ARGTYPES, i, p]
     lib.aec_nlms_batched.restype = ctypes.c_int
-    lib.aec_nlms_n_blocks.restype = ctypes.c_int
+    lib.aec_nlms_smem.argtypes = [i, i]
+    lib.aec_nlms_smem.restype = ctypes.c_longlong
     return lib
 
 
-def nlms_operands(cfg: NlmsConfig, device: torch.device) -> list:
-    """The stage-1 kernel arguments for NLMS: the bases of
+def nlms_operands(cfg: NlmsConfig, device: torch.device, block: int) -> list:
+    """The stage-1 kernel arguments for NLMS: the geometry, the bases of
     :func:`stage1_consts` (cached per device) and the eight constants of
     ``NlmsParams`` in ``csrc/bl_common.cuh``."""
-    c = stage1_consts(_BLOCK, device)
+    c = stage1_consts(block, device)
     return [
+        block, cfg.n_blocks,
         _build.ptr(c["fwd"]), _build.ptr(c["inv_tail"]), _build.ptr(c["inv_head"]),
         cfg.mu, cfg.eps, cfg.power_smooth, 1.0 - cfg.power_smooth, cfg.eps_rel, cfg.beta,
         cfg.err_smooth, 1.0 - cfg.err_smooth,
@@ -78,13 +78,15 @@ def nlms_cancel_fused_batched(
     if far.device.type == "cpu":
         return {"wav": nlms_cancel_plain(cfg, far, mic, block=block)["wav"]}
     lib = _lib()
-    check_inputs(cfg, far, mic, block, lib.aec_nlms_n_blocks(), 2)
+    check_inputs(cfg, far, mic, block, 2)
+    _build.check_smem(lib.aec_nlms_smem(block, cfg.n_blocks), far.device,
+                      "the batched NLMS kernel")
     n = mic.shape[-1]
     farp, micp = ols.pad_to_blocks(far, block), ols.pad_to_blocks(mic, block)
     e = torch.empty_like(micp)
     err = lib.aec_nlms_batched(
         _build.ptr(farp), _build.ptr(micp), _build.ptr(e), farp.shape[0],
-        farp.shape[1] // block, *nlms_operands(cfg, far.device), far.device.index,
+        farp.shape[1] // block, *nlms_operands(cfg, far.device, block), far.device.index,
         _build.stream_of(far),
     )
     _build.check(err, "nlms_batched")
@@ -105,8 +107,8 @@ def nlms_cancel_fused(
     """
     if far.device.type == "cpu":
         return {"wav": nlms_cancel_plain(cfg, far, mic, block=block)["wav"]}
-    e = launch_single(single_stream_lib().aec_nlms_single, nlms_operands(cfg, far.device), cfg,
-                      far, mic, block)
+    e = launch_single(single_stream_lib().aec_nlms_single, nlms_operands(cfg, far.device, block),
+                      cfg, far, mic, block)
     nlms_cancel_fused.launches += 1
     return {"wav": e}
 

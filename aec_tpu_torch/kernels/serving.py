@@ -83,13 +83,17 @@ def _init_values(kcfg, stage1: str) -> dict[str, float]:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("serving")
     p, i = ctypes.c_void_p, ctypes.c_int
-    # Kalman and NLMS take the same arguments (eight filter constants each)
+    # Kalman and NLMS take the same arguments (eight filter constants each):
+    # streams and blocks, the stage-1 geometry, the bands, the stage-1 and
+    # stage-2 operands
     for fn in (lib.aec_serving, lib.aec_serving_nlms):
         fn.argtypes = [
-            p, p, p, *[p] * len(_KEYS), i, i, *KALMAN_ARGTYPES, *STAGE2_ARGTYPES, i, i, i, p,
+            p, p, p, *[p] * len(_KEYS), i, i, *KALMAN_ARGTYPES[:2], i, *KALMAN_ARGTYPES[2:],
+            *STAGE2_ARGTYPES, i, i, i, p,
         ]
         fn.restype = ctypes.c_int
-    lib.aec_serving_n_blocks.restype = ctypes.c_int
+    lib.aec_serving_smem.argtypes = [i, i, i, i]
+    lib.aec_serving_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -253,7 +257,7 @@ def serving_step_plain(
 
 
 def _check(net: LittleNet, state: ServingState, far: torch.Tensor, mic: torch.Tensor,
-           erb: torch.Tensor, kcfg, scfg: StftConfig, n_blocks: int, stage1: str) -> None:
+           erb: torch.Tensor, kcfg, scfg: StftConfig, stage1: str) -> None:
     dev = far.device
     tensors = {"far": far, "mic": mic, **state}
     if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
@@ -261,10 +265,10 @@ def _check(net: LittleNet, state: ServingState, far: torch.Tensor, mic: torch.Te
     for key, t in tensors.items():
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{key} must be a contiguous float32 tensor")
-    if kcfg.n_blocks != n_blocks:
-        raise ValueError(f"the kernel is built for {n_blocks} partitions, got {kcfg.n_blocks}")
+    if kcfg.n_blocks < 1:
+        raise ValueError(f"n_blocks must be >= 1, got {kcfg.n_blocks}")
     check_net(net, erb, scfg, dev)
-    s, l, k, hop, e = far.shape[0], n_blocks, scfg.n_freqs, scfg.hop, net.hidden
+    s, l, k, hop, e = far.shape[0], kcfg.n_blocks, scfg.n_freqs, scfg.hop, net.hidden
     want = {key: (s, l, k) for key in ("wr", "wi", "p", "xbr", "xbi")}
     if stage1 == "nlms":
         want["p"] = (s, k)
@@ -313,14 +317,19 @@ def serving_step_fused(
     erb = torch.as_tensor(erb, dtype=torch.float32, device=far.device)
     lib = _lib()
     kb = _blocks(far, mic, state, scfg.hop)
-    _check(net, state, far, mic, erb, kcfg, scfg, lib.aec_serving_n_blocks(), stage1)
+    _check(net, state, far, mic, erb, kcfg, scfg, stage1)
+    bands = erb.shape[-1]
+    _build.check_smem(
+        lib.aec_serving_smem(scfg.hop, kcfg.n_blocks, bands, int(stage1 == "nlms")), far.device,
+        "the serving kernel")
     out = torch.empty_like(far)
     keep = stage2_operands(net, erb, scfg)
     entry, operands = (lib.aec_serving, kalman_operands) if stage1 == "kalman" else (
         lib.aec_serving_nlms, nlms_operands)
+    s1 = operands(kcfg, far.device, scfg.hop)
     err = entry(
         _build.ptr(far), _build.ptr(mic), _build.ptr(out), *(_build.ptr(state[k]) for k in _KEYS),
-        far.shape[0], kb, *operands(kcfg, far.device), *map(_build.ptr, keep),
+        far.shape[0], kb, *s1[:2], bands, *s1[2:], *map(_build.ptr, keep),
         int(gain_norm), int(normalize), far.device.index, _build.stream_of(far),
     )
     _build.check(err, "serving")

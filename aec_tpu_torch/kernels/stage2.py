@@ -30,9 +30,6 @@ from aec_tpu_torch.kernels.consts import stage2_consts
 from aec_tpu_torch.models.little_net import LittleNet, _pseudo_norm
 from aec_tpu_torch.ops.gru import gru_cell
 
-_HOP, _WIN, _BANDS = 256, 512, 32
-
-
 # ctypes types of the stage-2 arguments every kernel takes: the 13 tensors
 # of :func:`stage2_operands`
 STAGE2_ARGTYPES = [ctypes.c_void_p] * 13
@@ -42,8 +39,10 @@ STAGE2_ARGTYPES = [ctypes.c_void_p] * 13
 def _lib() -> ctypes.CDLL:
     lib = _build.load("stage2")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aec_stage2.argtypes = [p, p, p, p, i, i, *STAGE2_ARGTYPES, i, i, p]
+    lib.aec_stage2.argtypes = [p, p, p, p, i, i, i, i, *STAGE2_ARGTYPES, i, i, p]
     lib.aec_stage2.restype = ctypes.c_int
+    lib.aec_stage2_smem.argtypes = [i, i]
+    lib.aec_stage2_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -86,19 +85,21 @@ def little_net_apply_fused_plain(
 
 def check_net(net: LittleNet, erb: torch.Tensor, cfg: StftConfig,
               device: torch.device) -> None:
-    """Raise unless the net and erb are fp32 on the CUDA ``device`` and the
-    net and STFT geometry are the ones the stage-2 device code is built for."""
+    """Raise unless the net and erb are fp32 on the CUDA ``device``, the STFT
+    is the 2x-overlap geometry (window = FFT = 2 hop) the stage-2 device code
+    computes, and the net is a width-1 LittleNet (GRU hidden = ERB bands, as
+    JAX's ``bl_common.stage2_frame_step`` carries it)."""
     tensors = [erb, *net.parameters()]
     if device.type != "cuda" or any(t.device != device for t in tensors):
         raise ValueError(f"erb and the net's weights must be on the inputs' CUDA device {device}")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("erb and the net's weights must be float32")
-    if (cfg.hop, cfg.win_len, cfg.fft_len) != (_HOP, _WIN, _WIN):
-        raise ValueError(f"the kernel is built for hop {_HOP}, window/FFT {_WIN}, got {cfg}")
-    if tuple(erb.shape) != (cfg.n_freqs, _BANDS) or net.hidden != _BANDS:
+    if not cfg.win_len == cfg.fft_len == 2 * cfg.hop:
+        raise ValueError(f"the stage-2 kernels need window = FFT = 2 * hop, got {cfg}")
+    if erb.ndim != 2 or erb.shape[0] != cfg.n_freqs or net.hidden != erb.shape[1]:
         raise ValueError(
-            f"the kernel is built for a width-1 LittleNet on {_BANDS} ERB bands, "
-            f"got erb {tuple(erb.shape)} and GRU hidden {net.hidden}"
+            f"the stage-2 kernels need a width-1 LittleNet (GRU hidden = ERB bands) and erb "
+            f"(K = {cfg.n_freqs}, E), got erb {tuple(erb.shape)} and GRU hidden {net.hidden}"
         )
 
 
@@ -124,9 +125,9 @@ def _check(net: LittleNet, lin: torch.Tensor, far: torch.Tensor, erb: torch.Tens
         raise ValueError(f"lin/far must be on one CUDA device, got {lin.device}, {far.device}")
     if lin.dtype != torch.float32 or far.dtype != torch.float32:
         raise TypeError(f"lin/far must be float32, got {lin.dtype}, {far.dtype}")
-    if lin.ndim != 3 or lin.shape != far.shape or lin.shape[-1] != _HOP:
+    if lin.ndim != 3 or lin.shape != far.shape or lin.shape[-1] != cfg.hop:
         raise ValueError(
-            f"lin/far must be (B, Tb, {_HOP}) of one shape, got {lin.shape}, {far.shape}"
+            f"lin/far must be (B, Tb, {cfg.hop}) of one shape, got {lin.shape}, {far.shape}"
         )
     if not (lin.is_contiguous() and far.is_contiguous()):
         raise ValueError("lin/far must be contiguous")
@@ -149,12 +150,14 @@ def little_net_apply_fused(
     _check(net, lin_blocks, far_blocks, erb, cfg)
     lib = _lib()
     b, t_blocks, hop = lin_blocks.shape
+    bands = erb.shape[-1]
+    _build.check_smem(lib.aec_stage2_smem(hop, bands), lin_blocks.device, "the stage-2 kernel")
     out = torch.empty_like(lin_blocks)
-    mask = lin_blocks.new_empty((b, t_blocks + 1, _BANDS))
+    mask = lin_blocks.new_empty((b, t_blocks + 1, bands))
     keep = stage2_operands(net, erb, cfg)
     err = lib.aec_stage2(
         _build.ptr(lin_blocks), _build.ptr(far_blocks), _build.ptr(out), _build.ptr(mask),
-        b, t_blocks, *map(_build.ptr, keep), int(gain_norm),
+        b, t_blocks, hop, bands, *map(_build.ptr, keep), int(gain_norm),
         lin_blocks.device.index, _build.stream_of(lin_blocks),
     )
     _build.check(err, "stage2")

@@ -37,18 +37,20 @@ from aec_tpu_torch.kernels.stage2 import (
 from aec_tpu_torch.linear.kalman import kalman_cancel_plain
 from aec_tpu_torch.models.little_net import LittleNet
 
-_BANDS = 32
-
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("two_stage")
     p, i = ctypes.c_void_p, ctypes.c_int
+    # the batch and blocks, the stage-1 geometry and operands, the bands, the
+    # stage-2 operands
     lib.aec_two_stage.argtypes = [
-        p, p, p, p, p, i, i, *KALMAN_ARGTYPES, *STAGE2_ARGTYPES, i, i, p,
+        p, p, p, p, p, i, i, *KALMAN_ARGTYPES[:2], i, *KALMAN_ARGTYPES[2:], *STAGE2_ARGTYPES,
+        i, i, p,
     ]
     lib.aec_two_stage.restype = ctypes.c_int
-    lib.aec_two_stage_n_blocks.restype = ctypes.c_int
+    lib.aec_two_stage_smem.argtypes = [i, i, i]
+    lib.aec_two_stage_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -83,15 +85,15 @@ def two_stage_fused_plain(
     return {"wav": out.reshape(b, -1), "linear_wav": lin, "mask": mask}
 
 
-def _check(far: torch.Tensor, mic: torch.Tensor, kcfg: KalmanConfig, n_blocks: int) -> None:
+def _check(far: torch.Tensor, mic: torch.Tensor, kcfg: KalmanConfig) -> None:
     if far.device.type != "cuda" or mic.device != far.device:
         raise ValueError(f"far/mic must be on one CUDA device, got {far.device}, {mic.device}")
     if far.dtype != torch.float32 or mic.dtype != torch.float32:
         raise TypeError(f"far/mic must be float32, got {far.dtype}, {mic.dtype}")
     if not (far.is_contiguous() and mic.is_contiguous()):
         raise ValueError("far/mic must be contiguous")
-    if kcfg.n_blocks != n_blocks:
-        raise ValueError(f"the kernel is built for {n_blocks} partitions, got {kcfg.n_blocks}")
+    if kcfg.n_blocks < 1:
+        raise ValueError(f"n_blocks must be >= 1, got {kcfg.n_blocks}")
 
 
 def two_stage_fused(
@@ -110,15 +112,18 @@ def two_stage_fused(
     t_blocks = _t_blocks(far, mic, scfg)
     erb = torch.as_tensor(erb, dtype=torch.float32, device=far.device)
     lib = _lib()
-    _check(far, mic, kcfg, lib.aec_two_stage_n_blocks())
+    _check(far, mic, kcfg)
     check_net(net, erb, scfg, far.device)
-    b = far.shape[0]
+    b, bands = far.shape[0], erb.shape[-1]
+    _build.check_smem(lib.aec_two_stage_smem(scfg.hop, kcfg.n_blocks, bands), far.device,
+                      "the two-stage kernel")
     out, lin = torch.empty_like(far), torch.empty_like(far)
-    mask = far.new_empty((b, t_blocks + 1, _BANDS))
+    mask = far.new_empty((b, t_blocks + 1, bands))
     keep = stage2_operands(net, erb, scfg)
+    s1 = kalman_operands(kcfg, far.device, scfg.hop)
     err = lib.aec_two_stage(
         _build.ptr(far), _build.ptr(mic), _build.ptr(out), _build.ptr(lin), _build.ptr(mask),
-        b, t_blocks, *kalman_operands(kcfg, far.device), *map(_build.ptr, keep),
+        b, t_blocks, *s1[:2], bands, *s1[2:], *map(_build.ptr, keep),
         int(gain_norm), far.device.index, _build.stream_of(far),
     )
     _build.check(err, "two_stage")

@@ -32,6 +32,11 @@ checkout (nine kernels), in parallel, and drives every user-facing path.
   at a time (K6 + K8) against the CPU route.
 - K12 (phase 20): the spectra-in batched Kalman entry against K1 and its
   plain version at the main shape.
+- Other geometries (phase 21): the 8 scenes at 4 and 16 partitions (block
+  256) and at the 320 / 160 / 320 STFT through K1, K5, K6, K7, K12, K2, K4
+  and K3 (both filters) against their plain versions, and through
+  ``two_stage_cancel``'s batched, fast and single-utterance routes.
+- K8 wide (phase 16): H = 64, 128, 129 and 512 beside cuDNN's ``nn.GRU``.
 
 One line per phase; the first failure exits nonzero (nothing is caught).
 The second-to-last line is the ``kernels`` JSON (each kernel's launches on
@@ -90,6 +95,8 @@ S_SERVE, HOP = 1024, 256  # bench config concurrent_streams: S streams, one 16 m
 STAGE1_TOL = 1e-3
 N_UTT = 256000  # bench configs #1 and #2: one 16 s utterance
 N_FRAC = 40 * HOP + 77  # a hop-fractional single utterance
+# the other geometries the stage-1/2 kernels take: (partitions, block == hop)
+GEOMETRIES = ((4, 256), (16, 256), (10, 160))
 
 # The least time the card could take (PERF.md section 2): the larger of the
 # fp32 operations over the FFMA peak and the bytes over the HBM rate, from
@@ -177,24 +184,26 @@ def drive(kernels, fn):
     return out, [k.launches for k in kernels]
 
 
-def serve_pair(net, erb, far, mic, k_calls, stage1="kalman", **kw):
+def serve_pair(net, erb, far, mic, k_calls, stage1="kalman", hop=HOP, **kw):
     """K3 and serving_step_plain side by side over ``k_calls`` (a list of
     blocks per call); returns both states, the worst output max|d| relative
-    to its call's output scale, and the worst max|d| itself."""
+    to its call's output scale, and the worst max|d| itself. ``kw`` may
+    name the filter's ``kcfg`` and the ``scfg`` of a ``hop``-sample STFT."""
     from aec_tpu_torch.kernels.serving import serving_init, serving_step_fused, serving_step_plain
 
     s = far.shape[0]
-    ks, ps = (serving_init(s, stage1=stage1, device=far.device) for _ in range(2))
+    geometry = {k: kw[k] for k in ("kcfg", "scfg") if k in kw}
+    ks, ps = (serving_init(s, stage1=stage1, device=far.device, **geometry) for _ in range(2))
     kw["stage1"] = stage1
     rel, err, lo = 0.0, 0.0, 0
     for k in k_calls:
-        fb, mb = far[:, lo : lo + k * HOP].contiguous(), mic[:, lo : lo + k * HOP].contiguous()
+        fb, mb = far[:, lo : lo + k * hop].contiguous(), mic[:, lo : lo + k * hop].contiguous()
         ks, ok = serving_step_fused(net, ks, fb, mb, erb, **kw)
         ps, op = serving_step_plain(net, ps, fb, mb, erb, **kw)
-        check(ok.shape == (s, k * HOP) and bool(torch.isfinite(ok).all()), "K3 output")
+        check(ok.shape == (s, k * hop) and bool(torch.isfinite(ok).all()), "K3 output")
         d = float((ok - op).abs().max())
         rel, err = max(rel, d / max(float(op.abs().max()), 1e-9)), max(err, d)
-        lo += k * HOP
+        lo += k * hop
     return ks, ps, rel, err
 
 
@@ -210,7 +219,8 @@ def leaves(tree) -> list[np.ndarray]:
 
 def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
     """16. K8 vs its plain version and beside cuDNN's nn.GRU (same weights,
-    fp32) at one 16 s utterance (B = 1, T = 1001) for H = 32 and 128 and at
+    fp32) at one 16 s utterance (B = 1, T = 1001) for H = 32, 64 and 128 (one
+    CTA per row) and 129 and 512 (the wide path on a grid of CTAs), and at
     the training batch (B = 16, T = 501, H = 32: the fused route called
     explicitly, for information; the routing stays JAX's B == 1)."""
     from aec_tpu_torch.kernels.gru import folded_projection, gru_recurrence, gru_recurrence_plain
@@ -218,7 +228,8 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
 
     g = torch.Generator().manual_seed(seed)
     out = {"err": 0.0, "shapes": {}}
-    for b, t, h in ((1, 1001, 32), (1, 1001, 128), (16, 501, 32)):
+    for b, t, h in ((1, 1001, 32), (1, 1001, 64), (1, 1001, 128), (1, 1001, 129),
+                    (1, 1001, 512), (16, 501, 32)):
         params = gru_init(2 * BANDS, h, generator=g, device=dev)
         x = torch.randn(b, t, 2 * BANDS, generator=g).to(dev)
         h0 = torch.zeros(b, h, device=dev)
@@ -369,6 +380,120 @@ def trainer_phase(dev, seed: int, reps: int, smi: str) -> dict:
     print(f"train_step_ms={t_step:.3f} train_xrt={train_xrt:.1f} train_step_b1_ms={t_b1:.3f} "
           f"validate_ms_per_utt={t_val:.3f}", flush=True)
     return {"k8_val": k8_val}
+
+
+def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
+    """21. The stage-1/2 kernels at other geometries on the 8 scenes (cut to
+    a block multiple), each against its plain version at the default
+    geometry's bars; two_stage_cancel's routes at each, against the plain
+    route in tail ERLE. One path per geometry and route: counts set to 0,
+    driven, read."""
+    from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
+    from aec_tpu_torch.dsp.erb import erb_filterbank
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.kalman import (
+        kalman_cancel_fused,
+        kalman_cancel_fused_batched,
+        kalman_cancel_plain,
+        kalman_filter_fused_batched,
+        kalman_filter_fused_batched_plain,
+    )
+    from aec_tpu_torch.kernels.nlms import (
+        nlms_cancel_fused,
+        nlms_cancel_fused_batched,
+        nlms_cancel_plain,
+    )
+    from aec_tpu_torch.kernels.stage2 import little_net_apply_fused, little_net_apply_fused_plain
+    from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
+    from aec_tpu_torch.linear import overlap_save as ols
+    from aec_tpu_torch.pipeline.two_stage import two_stage_cancel
+    from aec_tpu_torch.utils.weights import load_npz
+    from benchmarks.scenes import erle_tail
+
+    cpu_net = load_npz("checkpoints/little_net_robust.npz", device="cpu")
+    for n_blocks, hop in GEOMETRIES:
+        n = N // hop * hop
+        scfg = StftConfig(win_len=2 * hop, hop=hop, fft_len=2 * hop)
+        erb_np = erb_filterbank(n_freqs=scfg.n_freqs)
+        erb = torch.as_tensor(erb_np, device=dev)
+        kc, nc = KalmanConfig(n_blocks=n_blocks), NlmsConfig(n_blocks=n_blocks)
+        far = torch.from_numpy(np.ascontiguousarray(s_far[:, :n])).to(dev)
+        mic = torch.from_numpy(np.ascontiguousarray(s_mic[:, :n])).to(dev)
+        bar = STAGE1_TOL * float(mic.abs().max())
+        tag = f"L = {n_blocks}, block {hop}"
+        errs = {}
+        with torch.no_grad():
+            for name, fused, plain, c in (("K1", kalman_cancel_fused_batched, kalman_cancel_plain,
+                                           kc),
+                                          ("K5", nlms_cancel_fused_batched, nlms_cancel_plain, nc)):
+                got, (k,) = drive((fused,), lambda: fused(c, far, mic, block=hop)["wav"])
+                check(k == 1 and got.shape == mic.shape and bool(torch.isfinite(got).all()),
+                      f"{name} at {tag}")
+                errs[name] = float((got - plain(c, far, mic, block=hop)["wav"]).abs().max())
+            for name, fused, plain, c in (("K6", kalman_cancel_fused, kalman_cancel_plain, kc),
+                                          ("K7", nlms_cancel_fused, nlms_cancel_plain, nc)):
+                got, (k,) = drive((fused,), lambda: [fused(c, far[i], mic[i], block=hop)["wav"]
+                                                    for i in range(2)])
+                check(k == 2, f"{name} at {tag}")
+                errs[name] = max(float((g - plain(c, far[i], mic[i], block=hop)["wav"]).abs().max())
+                                 for i, g in enumerate(got))
+            x_ri = ols.far_end_spectra(far, hop).contiguous()
+            d_blocks = mic.reshape(len(names), -1, hop)
+            errs["K12"] = float((kalman_filter_fused_batched(kc, x_ri, d_blocks, block=hop)
+                                 - kalman_filter_fused_batched_plain(kc, x_ri, d_blocks,
+                                                                     block=hop)).abs().max())
+            phase("geometry", f"{tag}: 8 scenes x {n}: max|d| vs plain " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items()) + f" (bar {bar:.3e})")
+            check(max(errs.values()) <= bar, f"a stage-1 kernel disagrees at {tag}")
+
+            lin_b = kalman_cancel_plain(kc, far, mic, block=hop)["wav"].reshape(len(names), -1, hop)
+            far_b = far.reshape(len(names), -1, hop)
+            o_k, m_k = little_net_apply_fused(net, lin_b, far_b, erb, scfg)
+            o_p, m_p = little_net_apply_fused_plain(net, lin_b, far_b, erb, scfg)
+            k2 = (float((o_k - o_p).abs().max()), float((m_k - m_p).abs().max()))
+            k2_bar = (K2_WAV_TOL * float(o_p.abs().max()), K2_MASK_TOL)
+            f_k = two_stage_fused(net, far, mic, erb, kcfg=kc, scfg=scfg)
+            f_p = two_stage_fused_plain(net, far, mic, erb, kcfg=kc, scfg=scfg)
+            k4 = [float((f_k[key] - f_p[key]).abs().max()) for key in ("linear_wav", "wav", "mask")]
+            k4_bar = (bar, K4_WAV_TOL * float(f_p["wav"].abs().max()), K4_MASK_TOL)
+            phase("geometry", f"{tag}: K2 wav {k2[0]:.3e} (bar {k2_bar[0]:.3e}), mask {k2[1]:.3e} "
+                  f"(bar {k2_bar[1]:g}); K4 " + ", ".join(
+                      f"{key} {e:.3e} (bar {b:.3e})" for key, e, b in
+                      zip(("linear_wav", "wav", "mask"), k4, k4_bar)))
+            check(all(e <= b for e, b in zip(k2, k2_bar)), f"K2 disagrees at {tag}")
+            check(all(e <= b for e, b in zip(k4, k4_bar)), f"K4 disagrees at {tag}")
+            for stage1 in ("kalman", "nlms"):
+                ks, ps, rel, _ = serve_pair(net, erb, far, mic, [1] * 40 + [4] * 4, hop=hop,
+                                            stage1=stage1, kcfg=kc if stage1 == "kalman" else nc,
+                                            scfg=scfg)
+                leaf, leaf_rel = state_err(ks, ps)
+                phase("geometry", f"{tag}: K3-{stage1} 8 streams, 40 x k=1 + 4 x k=4: out "
+                      f"{rel:.3e}, worst state leaf {leaf} {leaf_rel:.3e} (bar {K3_TOL:g})")
+                check(rel <= K3_TOL and leaf_rel <= K3_TOL, f"K3-{stage1} disagrees at {tag}")
+
+            routes = {
+                "batch K1 + K2": ((kalman_cancel_fused_batched, little_net_apply_fused),
+                                  lambda: two_stage_cancel(net, far, mic, erb, lin_cfg=kc,
+                                                           scfg=scfg)),
+                "fast K4": ((two_stage_fused,),
+                            lambda: two_stage_cancel(net, far, mic, erb, lin_cfg=kc, scfg=scfg,
+                                                     quality="fast")),
+                "one by one K6 + K2": ((kalman_cancel_fused, little_net_apply_fused),
+                                       lambda: {"wav": torch.stack([two_stage_cancel(
+                                           net, far[i], mic[i], erb, lin_cfg=kc,
+                                           scfg=scfg)["wav"] for i in range(len(names))])}),
+            }
+            want = two_stage_cancel(cpu_net, far.cpu(), mic.cpu(), erb_np, lin_cfg=kc,
+                                    scfg=scfg)["wav"].numpy()
+            for route, (kernels, fn) in routes.items():
+                out, counts = drive(kernels, fn)
+                check(min(counts) > 0, f"two_stage_cancel's {route} route at {tag} missed a kernel")
+                wav = out["wav"].cpu().numpy()
+                worst = max(abs(erle_tail(s_mic[i, :n], wav[i]) - erle_tail(s_mic[i, :n], want[i]))
+                            for i in range(len(names)))
+                phase("geometry", f"{tag}: two_stage_cancel {route}: launches {counts}; worst "
+                      f"|kernel - plain| tail ERLE {worst:.4f} dB (bar {ERLE_TOL_DB} dB) [{smi}]")
+                check(worst <= ERLE_TOL_DB, f"the {route} route disagrees at {tag}")
 
 
 def main() -> None:
@@ -813,7 +938,10 @@ def main() -> None:
           f"K12 / K1: {' / '.join(f'{t:.2f}' for t in k12_turns)} ms [{smi}]")
     del x_ri, d_blocks, e12, e1, ep
 
-    # 21. the kernels of the paths, with this run's numbers; bounds from
+    # 21. the stage-1/2 kernels at other geometries
+    geometry_phase(dev, net, names, s_far, s_mic, smi)
+
+    # 22. the kernels of the paths, with this run's numbers; bounds from
     #     this run's shapes (module top); library_ms where one PyTorch call
     #     computes the same function (cuDNN's GRU for K8), else null
     t_utt = -(-N_UTT // HOP)
@@ -858,7 +986,7 @@ def main() -> None:
          "plain_ms": plain_ms, **bnd, "library_ms": library_ms.get(kernel)}
         for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
     ]}), flush=True)
-    # 22. the result
+    # 23. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -76,9 +76,11 @@ def test_kalman_kernel_matches_plain(cuda, scene):
 
 
 def test_kalman_kernel_refuses_what_it_cannot_take(cuda, scene):
+    """Refusals at real limits only: 30 partitions at block 256 need more
+    shared memory than one CTA has (24 fit); another dtype; a strided input."""
     far, mic = (t.to(cuda) for t in scene(2, 8 * 256))
-    with pytest.raises(ValueError):
-        kalman_cancel_fused_batched(KalmanConfig(n_blocks=4), far, mic)
+    with pytest.raises(ValueError, match="shared memory"):
+        kalman_cancel_fused_batched(KalmanConfig(n_blocks=30), far, mic)
     with pytest.raises(TypeError):
         kalman_cancel_fused_batched(KalmanConfig(), far.double(), mic.double())
     with pytest.raises(ValueError):
@@ -285,16 +287,16 @@ def test_single_stream_kernels_match_plain(cuda, which, seed):
 
 
 def test_stage1_kernels_refuse_what_they_cannot_take(cuda, scene):
-    """K5, K6 and K7 raise on another partition count, a CPU/CUDA mix, a
-    non-contiguous input and the other kind of input (a batch to K6/K7, one
-    utterance to K5)."""
+    """K5, K6 and K7 raise on a partition count whose state one CTA's shared
+    memory cannot hold, a CPU/CUDA mix, a non-contiguous input and the other
+    kind of input (a batch to K6/K7, one utterance to K5)."""
     far, mic = (t.to(cuda) for t in scene(2, 8 * 256))
     cases = ((nlms_cancel_fused_batched, NlmsConfig, far, mic),
              (kalman_cancel_fused, KalmanConfig, far[0], mic[0]),
              (nlms_cancel_fused, NlmsConfig, far[0], mic[0]))
     for fn, cfg, f, m in cases:
-        with pytest.raises(ValueError, match="partitions"):
-            fn(cfg(n_blocks=4), f, m)
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(cfg(n_blocks=30), f, m)
         with pytest.raises(ValueError, match="CUDA"):  # no silent plain run
             fn(cfg(), f, m.cpu())
         with pytest.raises(ValueError, match="contiguous"):
@@ -361,10 +363,12 @@ def _gru_case(cuda, b, t, h, i=64, seed=0):
     return params, x, h0
 
 
-@pytest.mark.parametrize("b,h", [(1, 32), (3, 32), (1, 128), (3, 128)])
+@pytest.mark.parametrize("b,h", [(1, 32), (3, 32), (1, 128), (3, 128), (1, 129), (1, 512),
+                                 (2, 300)])
 def test_gru_kernel_matches_plain(cuda, b, h):
-    """K8 vs its plain version over T = 101 steps (a multiple of no unroll):
-    h stays in [-1, 1], fp32 in another summation order -> 1e-5 absolute."""
+    """K8 vs its plain version over T = 101 steps (a multiple of no unroll),
+    H <= 128 on one CTA per row, wider on the grid path: h stays in
+    [-1, 1], fp32 in another summation order -> 1e-5 absolute."""
     params, x, h0 = _gru_case(cuda, b, 101, h)
     before = gru_recurrence.launches
     with torch.no_grad():
@@ -390,9 +394,8 @@ def test_gru_kernel_refuses_what_it_cannot_take(cuda):
         gru_recurrence(xp.transpose(0, 1).contiguous().transpose(0, 1), params["w_hh"], b_hn, h0)
     with pytest.raises(ValueError, match="CUDA"):  # no silent plain run
         gru_recurrence(xp, params["w_hh"], b_hn, h0.cpu())
-    big, xb, hb = _gru_case(cuda, 1, 4, 160)
-    with pytest.raises(ValueError, match="H <= 128"):
-        gru_scan_fused(big, xb, hb)
+    with pytest.raises(ValueError, match="T >= 1"):
+        gru_recurrence(xp[:, :0].contiguous(), params["w_hh"], b_hn, h0)
 
 
 def test_gru_gradients_through_kernel_equal_plain_route(cuda):
@@ -451,8 +454,8 @@ def test_spectra_kernel_matches_k1_and_plain(cuda, scene):
                                atol=bar, rtol=0)
     with pytest.raises(ValueError):
         kalman_filter_fused_batched(cfg, x_ri[:, :, :256].contiguous(), d_blocks)
-    with pytest.raises(ValueError):
-        kalman_filter_fused_batched(KalmanConfig(n_blocks=4), x_ri, d_blocks)
+    with pytest.raises(ValueError, match="shared memory"):
+        kalman_filter_fused_batched(KalmanConfig(n_blocks=30), x_ri, d_blocks)
 
 
 def test_entry_points_default_to_the_card(cuda):
@@ -466,3 +469,127 @@ def test_entry_points_default_to_the_card(cuda):
     assert all(t.is_cuda for t in on_card)
     assert not any(t.is_cuda for t in serving_init(2, device="cpu").values())
     assert not any(p.is_cuda for p in load_npz(ROBUST, device="cpu").parameters())
+
+
+# ---------------------------------------------------------------- every geometry
+
+GEOMETRIES = [(4, 256), (16, 256), (10, 160)]
+
+
+@pytest.mark.parametrize("n_blocks,hop", GEOMETRIES)
+def test_stage1_kernels_take_every_geometry(cuda, scene, n_blocks, hop):
+    """K1, K5, K6, K7 and K12 at other partition counts and a 160-sample
+    block, each against its plain version at K1's bar (1e-3 of max|mic|)."""
+    far, mic = (t.to(cuda) for t in scene(3, 40 * hop + 37))
+    bar = 1e-3 * float(mic.abs().max())
+    for cfg, batched, single, plain in (
+            (KalmanConfig(n_blocks=n_blocks), kalman_cancel_fused_batched, kalman_cancel_fused,
+             kalman_cancel_plain),
+            (NlmsConfig(n_blocks=n_blocks), nlms_cancel_fused_batched, nlms_cancel_fused,
+             nlms_cancel_plain)):
+        want = plain(cfg, far, mic, block=hop)["wav"]
+        before = (batched.launches, single.launches)
+        got = batched(cfg, far, mic, block=hop)["wav"]
+        one = single(cfg, far[1].contiguous(), mic[1].contiguous(), block=hop)["wav"]
+        torch.cuda.synchronize()
+        assert (batched.launches, single.launches) == (before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(got, want, atol=bar, rtol=0)
+        torch.testing.assert_close(one, want[1], atol=bar, rtol=0)
+    cfg = KalmanConfig(n_blocks=n_blocks)
+    n = 40 * hop
+    x_ri = ols.far_end_spectra(far[:, :n].contiguous(), hop).contiguous()
+    d_blocks = mic[:, :n].reshape(3, -1, hop).contiguous()
+    got = kalman_filter_fused_batched(cfg, x_ri, d_blocks, block=hop)
+    torch.testing.assert_close(got, kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks,
+                                                                      block=hop),
+                               atol=bar, rtol=0)
+
+
+def test_kalman_cancel_at_four_partitions_runs_its_kernels(cuda, scene):
+    far, mic = (t.to(cuda) for t in scene(2, 20 * 256))
+    cfg = KalmanConfig(n_blocks=4)
+    before = kalman_cancel_fused_batched.launches, kalman_cancel_fused.launches
+    out = kalman_cancel(cfg, far, mic)["wav"]
+    one = kalman_cancel(cfg, far[0].contiguous(), mic[0].contiguous())["wav"]
+    assert (kalman_cancel_fused_batched.launches, kalman_cancel_fused.launches) == (
+        before[0] + 1, before[1] + 1)
+    bar = 1e-3 * float(mic.abs().max())
+    want = kalman_cancel_plain(cfg, far, mic)["wav"]
+    torch.testing.assert_close(out, want, atol=bar, rtol=0)
+    torch.testing.assert_close(one, want[0], atol=bar, rtol=0)
+
+
+@pytest.mark.parametrize("n_blocks,hop", GEOMETRIES)
+def test_two_stage_and_serving_kernels_take_every_geometry(cuda, scene, n_blocks, hop):
+    """K2, K4 and K3 (both filters) at other partition counts and the
+    320 / 160 / 320 STFT, against their plain versions at the bars of the
+    default geometry's tests."""
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.serving import serving_init, serving_step_fused, serving_step_plain
+    from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
+
+    scfg = StftConfig(win_len=2 * hop, hop=hop, fft_len=2 * hop)
+    net = load_npz(ROBUST).to(cuda)
+    erb = torch.from_numpy(erb_filterbank(n_freqs=scfg.n_freqs)).to(cuda)
+    far, mic = (t.to(cuda) for t in scene(4, 30 * hop))
+    kcfg = KalmanConfig(n_blocks=n_blocks)
+    with torch.no_grad():
+        lin, fb = (t.reshape(4, -1, hop) for t in (mic, far))
+        out, mask = little_net_apply_fused(net, lin, fb, erb, scfg)
+        w_out, w_mask = little_net_apply_fused_plain(net, lin, fb, erb, scfg)
+        torch.testing.assert_close(out, w_out, atol=1e-4 * float(w_out.abs().max()), rtol=0)
+        torch.testing.assert_close(mask, w_mask, atol=1e-5, rtol=0)
+        got = two_stage_fused(net, far, mic, erb, kcfg=kcfg, scfg=scfg)
+        want = two_stage_fused_plain(net, far, mic, erb, kcfg=kcfg, scfg=scfg)
+        torch.testing.assert_close(got["linear_wav"], want["linear_wav"],
+                                   atol=1e-3 * float(mic.abs().max()), rtol=0)
+        torch.testing.assert_close(got["wav"], want["wav"],
+                                   atol=1e-3 * float(want["wav"].abs().max()), rtol=0)
+        torch.testing.assert_close(got["mask"], want["mask"], atol=1e-3, rtol=0)
+        for stage1, cfg in (("kalman", kcfg), ("nlms", NlmsConfig(n_blocks=n_blocks))):
+            ks, ps = (serving_init(4, kcfg=cfg, scfg=scfg, stage1=stage1, device=cuda)
+                      for _ in range(2))
+            for u in range(0, 12 * hop, 3 * hop):  # k = 3 hops per call
+                fb3, mb3 = far[:, u:u + 3 * hop].contiguous(), mic[:, u:u + 3 * hop].contiguous()
+                ks, o_k = serving_step_fused(net, ks, fb3, mb3, erb, cfg, scfg, stage1=stage1,
+                                             normalize=True)
+                ps, o_p = serving_step_plain(net, ps, fb3, mb3, erb, cfg, scfg, stage1=stage1,
+                                             normalize=True)
+                torch.testing.assert_close(o_k, o_p, atol=1e-3 * float(o_p.abs().max()), rtol=0)
+            for key in ks:
+                torch.testing.assert_close(ks[key], ps[key], rtol=0,
+                                           atol=1e-3 * max(float(ps[key].abs().max()), 1e-9))
+
+
+def test_two_stage_cancel_at_hop_160_runs_its_kernels(cuda, scene):
+    """two_stage_cancel with StftConfig(320, 160, 320) on the card: the batch
+    takes K1 + K2, quality="fast" K4, one utterance K6 + K2; within 0.1 dB
+    tail ERLE of the CPU route."""
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.two_stage import two_stage_fused
+
+    scfg = StftConfig(win_len=320, hop=160, fft_len=320)
+    erb_np = erb_filterbank(n_freqs=scfg.n_freqs)
+    net = load_npz(ROBUST).to(cuda)
+    far, mic = scene(2, 100 * 160)
+    fd, md = far.to(cuda), mic.to(cuda)
+    kernels = (kalman_cancel_fused_batched, little_net_apply_fused, two_stage_fused,
+               kalman_cancel_fused)
+    before = [k.launches for k in kernels]
+    with torch.no_grad():
+        batch = two_stage_cancel(net, fd, md, erb_np, scfg=scfg)
+        fast = two_stage_cancel(net, fd, md, erb_np, scfg=scfg, quality="fast")
+        one = two_stage_cancel(net, fd[0].contiguous(), md[0].contiguous(), erb_np, scfg=scfg)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 2, 1, 1]
+    want = two_stage_cancel(load_npz(ROBUST, device="cpu"), far, mic, erb_np, scfg=scfg)
+
+    def tail_db(m, e):
+        t = slice(m.shape[-1] // 2, None)
+        return 10 * np.log10(np.sum(m[t] ** 2) / (np.sum(e[t] ** 2) + 1e-12))
+
+    for got, rows in ((batch, (0, 1)), (fast, (0, 1)), (one, (0,))):
+        for i in rows:
+            g = got["wav"] if got["wav"].ndim == 1 else got["wav"][i]
+            assert abs(tail_db(mic[i].numpy(), g.cpu().numpy())
+                       - tail_db(mic[i].numpy(), want["wav"][i].numpy())) <= 0.1
+

@@ -12,7 +12,12 @@ import torch
 
 from aec_tpu.kernels.pallas_gru import _gru_scan_fused_fwd, gru_scan_fused as jax_gru_scan_fused
 from aec_tpu.ops.gru import gru_scan as jax_gru_scan
-from aec_tpu_torch.kernels.gru import gru_recurrence, gru_scan_fused, gru_scan_fused_plain
+from aec_tpu_torch.kernels.gru import (
+    gru_recurrence,
+    gru_scan_fused,
+    gru_scan_fused_plain,
+    pack_gate_columns,
+)
 from aec_tpu_torch.ops.gru import gru_init, gru_scan
 
 KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
@@ -42,7 +47,8 @@ def test_plain_scan_matches_jax(rng, b, t, i, h):
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-6)
 
 
-@pytest.mark.parametrize("b,t,i,h", [(4, 37, 64, 32), (1, 70, 64, 32), (2, 5, 8, 8)])
+@pytest.mark.parametrize("b,t,i,h", [(4, 37, 64, 32), (1, 70, 64, 32), (2, 5, 8, 8),
+                                     (1, 12, 16, 160)])
 def test_fused_route_matches_jax_kernel(rng, b, t, i, h):
     """The port's fused route on the CPU vs JAX's kernel in interpret mode:
     2e-6, the JAX suite's own bar (tests/test_pallas_gru.py:21)."""
@@ -133,3 +139,22 @@ def test_gru_init_orthogonal_and_bounded(orthogonal):
             torch.testing.assert_close(w.T @ w, torch.eye(w.shape[1]), atol=1e-5, rtol=0)
         else:
             assert float(w.abs().max()) <= bound
+
+
+@pytest.mark.parametrize("groups,gates,hidden,units", [(1, 3, 7, 3), (2, 4, 10, 4), (1, 3, 8, 8)])
+def test_pack_gate_columns_layout(groups, gates, hidden, units):
+    """The wide paths' per-CTA weight slices (K8 above H = 128, K9):
+    packed[g, c, k, gate * U + j] = W_hh[g][gate * H + c * U + j, k], zero
+    past H."""
+    w = torch.randn(groups, gates * hidden, hidden)
+    packed = pack_gate_columns(w, gates, units)
+    nchunk = -(-hidden // units)
+    assert tuple(packed.shape) == (groups, nchunk, hidden, gates * units)
+    for g in range(groups):
+        for c in range(nchunk):
+            for gate in range(gates):
+                for j in range(units):
+                    unit = c * units + j
+                    col = packed[g, c, :, gate * units + j]
+                    want = w[g, gate * hidden + unit] if unit < hidden else torch.zeros(hidden)
+                    assert torch.equal(col, want)
