@@ -4,19 +4,22 @@ A second package beside ``aec_tpu`` (the JAX reference, which stays as it
 is). The layout mirrors ``aec_tpu`` so every module has a named counterpart:
 
 - ``aec_tpu_torch.dsp``      — windows, ERB filterbank, STFT/iSTFT as
-  DFT-basis matmuls (``aec_tpu/dsp``);
+  DFT-basis matmuls, GCC-PHAT bulk-delay alignment (``aec_tpu/dsp``);
 - ``aec_tpu_torch.linear``   — overlap-save machinery and the partitioned-
   block frequency-domain Kalman and NLMS cancellers (``aec_tpu/linear``);
-- ``aec_tpu_torch.ops``      — the GRU recurrence (``aec_tpu/ops/gru.py``);
-- ``aec_tpu_torch.models``   — LittleNet as an ``nn.Module``;
+- ``aec_tpu_torch.ops``      — the GRU and LSTM recurrences, DCCRN's complex
+  conv/norm layers (``aec_tpu/ops``);
+- ``aec_tpu_torch.models``   — LittleNet, TwoLayerGRU and DCCRN as
+  ``nn.Module`` s, and the registry of the ported families;
 - ``aec_tpu_torch.pipeline`` — the two-stage composition, the streaming
-  (frame-in / frame-out) runtime;
+  (frame-in / frame-out) runtime, the ``.ex`` files, wav I/O;
 - ``aec_tpu_torch.kernels``  — hand-written CUDA C++ kernels for sm_90a, each
   beside its plain PyTorch version. A CUDA tensor goes through the kernel
   (or the call raises); a CPU tensor takes the plain version.
-- ``aec_tpu_torch.train``    — LittleNet's trainer, loss metrics and
-  checkpoints in the JAX package's format;
-- ``aec_tpu_torch.cli``      — ``python -m aec_tpu_torch.cli.train``;
+- ``aec_tpu_torch.train``    — LittleNet's trainer, the model adapters, loss
+  metrics and checkpoints in the JAX package's format;
+- ``aec_tpu_torch.cli``      — ``python -m aec_tpu_torch.cli.train`` and
+  ``python -m aec_tpu_torch.cli.infer``;
 - ``aec_tpu_torch.utils``    — weights carried over from and back to the JAX
   checkpoints, logging helpers.
 

@@ -3,7 +3,10 @@
 The JAX LittleNet parameter tree (``aec_tpu/models/little_net.py``) already
 uses torch's layouts: the GRU stacks its gates [r; z; n] with separate
 input/hidden biases as ``torch.nn.GRU`` does, and the linear weights are
-(out, in). So the mapping is a copy, leaf by leaf, both ways.
+(out, in). So the mapping is a copy, leaf by leaf, both ways. TwoLayerGRU's
+tree is the same with a 2E-wide GRU. DCCRN's (params, state) trees carry
+over as they are: :class:`~aec_tpu_torch.models.dccrn.Dccrn` holds the JAX
+trees, HWIO conv kernels included.
 
 Checkpoints (``checkpoints/little_net_*.npz``) store leaves keyed by their
 tree path, e.g. ``['params']['gru']['w_ih']`` (``aec_tpu/train/
@@ -19,7 +22,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from aec_tpu_torch.models.dccrn import Dccrn, DccrnConfig
 from aec_tpu_torch.models.little_net import LittleNet
+from aec_tpu_torch.models.two_layer_gru import TwoLayerGru
 
 _LEAVES = {
     ("gru", "w_ih"): "gru1.weight_ih_l0",
@@ -87,3 +92,44 @@ def load_npz(path: str, *, device="cuda") -> LittleNet:
                 raise KeyError(f"checkpoint {path} is missing leaf {key}")
             tree.setdefault(a, {})[b] = data[key]
     return params_from_jax(tree, device=device)
+
+
+_TWO_LAYER_GRU = {key: name.replace("gru1.", "gru.") for key, name in _LEAVES.items()}
+
+
+def two_layer_gru_from_jax(tree, *, device="cuda") -> TwoLayerGru:
+    """JAX TwoLayerGRU param tree -> ``TwoLayerGru`` on ``device``, eval mode."""
+    net = TwoLayerGru(erb_bands=np.shape(tree["lin2"]["w"])[0])
+    net.load_state_dict({name: torch.from_numpy(np.array(tree[a][b], dtype=np.float32))
+                         for (a, b), name in _TWO_LAYER_GRU.items()})
+    return net.to(device).eval()
+
+
+def two_layer_gru_to_jax(net: TwoLayerGru) -> dict:
+    """``TwoLayerGru`` -> the JAX param tree of numpy arrays."""
+    values = {name: p.detach().cpu().numpy() for name, p in net.named_parameters()}
+    tree: dict = {}
+    for (a, b), name in _TWO_LAYER_GRU.items():
+        tree.setdefault(a, {})[b] = values[name]
+    return tree
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def dccrn_from_jax(params, state, cfg: DccrnConfig = DccrnConfig(), *, device="cuda") -> Dccrn:
+    """JAX DCCRN (params, state) trees (numpy or jax leaves) -> ``Dccrn`` on
+    ``device``, eval mode."""
+    to_t = lambda v: torch.from_numpy(np.array(v, dtype=np.float32))  # noqa: E731
+    return Dccrn(_map_tree(params, to_t), _map_tree(state, to_t), cfg).to(device).eval()
+
+
+def dccrn_to_jax(net: Dccrn) -> tuple[dict, dict]:
+    """``Dccrn`` -> the JAX (params, state) trees of numpy arrays."""
+    to_np = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    return _map_tree(net.params(), to_np), _map_tree(net.state(), to_np)

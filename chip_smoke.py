@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--seed N] [--reps N]
 
-Runs ``aec_tpu_torch`` (never JAX): builds the seven CUDA sources in the
-checkout (nine kernels), in parallel, and drives every user-facing path.
+Runs ``aec_tpu_torch`` (never JAX): builds the eight CUDA sources in the
+checkout (ten kernels), in parallel, and drives every user-facing path.
 
 - Offline Kalman (phases 4, 5, 7): each kernel against its plain PyTorch
   version at the main path's full shape (batch 256 x 131,072 samples =
@@ -37,6 +37,11 @@ checkout (nine kernels), in parallel, and drives every user-facing path.
   and K3 (both filters) against their plain versions, and through
   ``two_stage_cancel``'s batched, fast and single-utterance routes.
 - K8 wide (phase 16): H = 64, 128, 129 and 512 beside cuDNN's ``nn.GRU``.
+- DCCRN inference (phases 22-23): K9 (the grouped complex LSTM) at
+  ``DccrnConfig()``'s width (I = H = 1024 per part, T = 513) at B = 1 and 8
+  against its plain version, beside the plain scan and cuDNN's ``nn.LSTM``;
+  ``cli/infer``'s DCCRN enhancer (Kalman stage 1) on the 8 scenes one by
+  one, kernel route (K1 + K9) against the plain route, cuDNN's TF32 off.
 
 One line per phase; the first failure exits nonzero (nothing is caught).
 The second-to-last line is the ``kernels`` JSON (each kernel's launches on
@@ -97,6 +102,12 @@ N_UTT = 256000  # bench configs #1 and #2: one 16 s utterance
 N_FRAC = 40 * HOP + 77  # a hop-fractional single utterance
 # the other geometries the stage-1/2 kernels take: (partitions, block == hop)
 GEOMETRIES = ((4, 256), (16, 256), (10, 160))
+# K9 vs plain: h lies in [-1, 1]; an fp32 recursion summed in another order
+K9_TOL = 1e-5
+# the DCCRN enhancer, kernel route vs plain route: K1's round-off enters
+# DCCRN's input, which its convolutions and recurrence carry to the wav
+DCCRN_WAV_TOL = 1e-3
+T_DCCRN = N // HOP + 1  # frames of one 8.2 s utterance: 513
 
 # The least time the card could take (PERF.md section 2): the larger of the
 # fp32 operations over the FFMA peak and the bytes over the HBM rate, from
@@ -496,6 +507,111 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
                 check(worst <= ERLE_TOL_DB, f"the {route} route disagrees at {tag}")
 
 
+def lstm_phase(dev, seed: int, reps: int, smi: str) -> dict:
+    """22. K9 at DccrnConfig()'s width (two groups, I = H = 1024, T = 513)
+    at B = 1 and B = 8 against its plain version; times beside the plain
+    scan and cuDNN's nn.LSTM (one call per group over the 2B rows with K9's
+    weights; it also does the input projection K9 leaves to a matmul)."""
+    from aec_tpu_torch.kernels.lstm import (
+        grouped_lstm_recurrence,
+        grouped_lstm_recurrence_plain,
+        grouped_projection,
+        stacked,
+    )
+    from aec_tpu_torch.ops.lstm import complex_lstm_init
+
+    g = torch.Generator().manual_seed(seed)
+    out = {"err": 0.0, "shapes": {}}
+    for b in (1, 8):
+        params = complex_lstm_init(2048, 2048, generator=g, device=dev)
+        r, i = (torch.randn(b, T_DCCRN, 1024, generator=g).to(dev) for _ in range(2))
+        x2 = torch.cat([r, i], 0)
+        lstms = []
+        for grp in ("real", "imag"):
+            lstm = torch.nn.LSTM(1024, 1024, batch_first=True).to(dev)
+            with torch.no_grad():
+                for name, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                                  ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                    getattr(lstm, name).copy_(params[grp][key])
+            lstms.append(lstm)
+        with torch.no_grad():
+            xp = grouped_projection(params, x2).contiguous()
+            w = stacked(params, "w_hh")
+            ys = grouped_lstm_recurrence(xp, w)
+            want = grouped_lstm_recurrence_plain(xp, w)
+            lib = torch.stack([m(x2)[0] for m in lstms])
+            torch.cuda.synchronize()
+            check(ys.shape == (2, 2 * b, T_DCCRN, 1024) and bool(torch.isfinite(ys).all()),
+                  "K9 output")
+            err = float((ys - want).abs().max())
+            lib_err = float((lib - want).abs().max())
+            t_k = time_ms(lambda: grouped_lstm_recurrence(xp, w), reps)
+            t_p = time_ms(lambda: grouped_lstm_recurrence_plain(xp, w), reps)
+            t_lib = time_ms(lambda: [m(x2) for m in lstms], reps)
+        phase("K9 vs plain", f"B = {b}, T = {T_DCCRN}, H = 1024, 2 groups: max|d| = {err:.3e} "
+              f"(bar {K9_TOL:g}); cuDNN nn.LSTM vs plain {lib_err:.3e} (information)")
+        check(err <= K9_TOL, "K9 disagrees with its plain version")
+        phase("time", f"K9 B = {b}, T = {T_DCCRN}: {t_k:.3f} ms (plain {t_p:.2f} ms, cuDNN "
+              f"nn.LSTM x 2 groups {t_lib:.3f} ms) [{smi}]")
+        out["err"] = max(out["err"], err)
+        out["shapes"][b] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_lib}
+        del params, xp, w, ys, want, lib, lstms
+    return out
+
+
+def dccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
+    """23. cli/infer's DCCRN enhancer: DccrnConfig() from dccrn_init (seed
+    0), saved with train/checkpoints.save under {params, model_state} and
+    restored by _make_enhancer("dccrn", path, "kalman"), on the 8 scenes one
+    by one (batch 1, as cli/infer's loader gives them). The kernel route
+    runs K1 once and K9 twice (one launch per complex-LSTM layer) per
+    utterance; its plain version is the same path with Kalman's plain loop
+    and the plain complex-LSTM scan, on the card."""
+    from aec_tpu_torch.cli.infer import _make_enhancer, _tree_to
+    from aec_tpu_torch.configs import KalmanConfig
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched, kalman_cancel_plain
+    from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.models.dccrn import DccrnConfig, dccrn_apply, dccrn_init
+    from aec_tpu_torch.train import checkpoints
+
+    params, state = dccrn_init(generator=torch.Generator().manual_seed(0), device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "dccrn.npz")
+        checkpoints.save(path, {"params": params, "model_state": state})
+        enhance, params = _make_enhancer("dccrn", path, "kalman", StftConfig(), device=dev)
+    state = _tree_to(state, dev)
+    sf, sm = (torch.from_numpy(a).to(dev) for a in (s_far, s_mic))
+
+    def kernel_route():
+        return [enhance(sf[i:i + 1], sm[i:i + 1]) for i in range(len(names))]
+
+    def plain_route(i):
+        lin = kalman_cancel_plain(KalmanConfig(), sf[i:i + 1], sm[i:i + 1])["wav"]
+        out, _ = dccrn_apply(params, state, lin, sf[i:i + 1], DccrnConfig(), lstm_fused=False)
+        return out["wav"]
+
+    got, (k1, k9) = drive((kalman_cancel_fused_batched, grouped_lstm_recurrence), kernel_route)
+    phase("dccrn path", f"cli/infer DCCRN enhancer, 8 scenes x {N} one by one: launches K1 {k1}, "
+          f"K9 {k9} (cuDNN TF32 {torch.backends.cudnn.allow_tf32})")
+    check(k1 == len(names) and k9 == 2 * len(names),
+          "the DCCRN path did not run K1 + K9 per utterance")
+    worst = 0.0
+    with torch.no_grad():
+        for i in range(len(names)):
+            want = plain_route(i)
+            check(got[i].shape == (1, N) and bool(torch.isfinite(got[i]).all()), "DCCRN wav")
+            worst = max(worst, float((got[i] - want).abs().max()) / float(want.abs().max()))
+        t_utt = time_ms(lambda: enhance(sf[:1], sm[:1]), reps)
+        t_plain = time_ms(lambda: plain_route(0), max(1, reps // 2))
+    phase("dccrn path", f"kernel vs plain route: worst max|d| / scale = {worst:.3e} (bar "
+          f"{DCCRN_WAV_TOL:g}); {t_utt:.2f} ms per 8.2 s utterance = "
+          f"{N / SR / (t_utt / 1e3):.1f} x realtime (plain route {t_plain:.1f} ms) [{smi}]")
+    check(worst <= DCCRN_WAV_TOL, "the DCCRN kernel route disagrees with its plain route")
+    print(f"dccrn_utt_ms={t_utt:.3f}", flush=True)
+    return {"k9_launches": k9}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -556,7 +672,7 @@ def main() -> None:
     # 3. build the kernels from the checkout's sources (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
-                        "single_stream", "gru")
+                        "single_stream", "gru", "lstm")
     build_s = time.perf_counter() - t0
     phase("build", f"{build_s:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for src, log in sorted(logs.items()):
@@ -938,12 +1054,15 @@ def main() -> None:
           f"K12 / K1: {' / '.join(f'{t:.2f}' for t in k12_turns)} ms [{smi}]")
     del x_ri, d_blocks, e12, e1, ep
 
-    # 21. the stage-1/2 kernels at other geometries
+    # 21. the stage-1/2 kernels at other geometries; 22-23. K9 and the DCCRN path
     geometry_phase(dev, net, names, s_far, s_mic, smi)
+    lstm = lstm_phase(dev, args.seed, args.reps, smi)
+    dccrn = dccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
 
-    # 22. the kernels of the paths, with this run's numbers; bounds from
+    # 24. the kernels of the paths, with this run's numbers; bounds from
     #     this run's shapes (module top); library_ms where one PyTorch call
-    #     computes the same function (cuDNN's GRU for K8), else null
+    #     computes the same function (cuDNN's GRU for K8, its LSTM for K9),
+    #     else null
     t_utt = -(-N_UTT // HOP)
     state_bytes = {k: 4 * sum(v.numel() for v in st.values()) // S_SERVE
                    for k, st in (("kalman", ks), ("nlms", ks_n))}
@@ -952,6 +1071,12 @@ def main() -> None:
     stage1_one = bound(t_utt * STAGE1_FMA, 3 * N_UTT * 4 + STAGE1_BASES)
     masks = BATCH * (t_main + 1) * BANDS * 4
     k8 = gru["shapes"][(1, 1001, BANDS)]
+    k9 = lstm["shapes"][1]
+    # K9 per layer at B = 1: 2 groups x 2 rows x 4H x H FMA per frame; xp in,
+    # W_hh read, ys out
+    k9_bound = bound(2 * 2 * 4 * 1024 * 1024 * T_DCCRN,
+                     4 * (2 * 2 * T_DCCRN * 4 * 1024 + 2 * 4 * 1024 * 1024
+                          + 2 * 2 * T_DCCRN * 1024))
     rows = [
         ("kalman_batched", "kalman_batched.cu", "pallas_kalman.py:492", launches[0], k1_err,
          t_k1, t_p1, stage1_batch),
@@ -978,15 +1103,19 @@ def main() -> None:
          k12_err, t_k12, t_p12,
          bound(BATCH * t_main * (STAGE1_FMA - FRAME * RI),
                4 * BATCH * t_main * (RI + 2 * HOP) + STAGE1_BASES)),
+        # K9 at one 8.2 s utterance (B = 1, T = 513); launches from the DCCRN path
+        ("lstm_grouped", "lstm.cu", "pallas_lstm.py:88", dccrn["k9_launches"], lstm["err"],
+         k9["ms"], k9["plain_ms"], k9_bound),
     ]
-    library_ms = {"gru_scan": k8["library_ms"]}  # cuDNN's nn.GRU, the same weights
+    # cuDNN's nn.GRU and nn.LSTM with the kernels' weights
+    library_ms = {"gru_scan": k8["library_ms"], "lstm_grouped": k9["library_ms"]}
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"aec_tpu/kernels/{tpu}", "launches": n, "max_abs_err": err, "ms": ms,
          "plain_ms": plain_ms, **bnd, "library_ms": library_ms.get(kernel)}
         for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
     ]}), flush=True)
-    # 23. the result
+    # 25. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -593,3 +593,99 @@ def test_two_stage_cancel_at_hop_160_runs_its_kernels(cuda, scene):
             assert abs(tail_db(mic[i].numpy(), g.cpu().numpy())
                        - tail_db(mic[i].numpy(), want["wav"][i].numpy())) <= 0.1
 
+
+# ---------------------------------------------------------------- K9 and DCCRN
+
+def _clstm_case(cuda, b, t, width=2048, seed=0):
+    from aec_tpu_torch.ops.lstm import complex_lstm_init
+
+    g = torch.Generator().manual_seed(seed)
+    params = complex_lstm_init(width, width, generator=g, device=cuda)
+    r, i = (torch.randn(b, t, width // 2, generator=g).to(cuda) for _ in range(2))
+    return params, r, i
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_lstm_kernel_matches_plain(cuda, b):
+    """K9 at DCCRN's full width (I = H = 1024 per part) over T = 513 frames
+    vs its plain version: h in [-1, 1], fp32 in another summation order ->
+    1e-5 absolute."""
+    from aec_tpu_torch.kernels.lstm import (
+        complex_lstm_scan_fused,
+        complex_lstm_scan_fused_plain,
+        grouped_lstm_recurrence,
+    )
+
+    params, r, i = _clstm_case(cuda, b, 513)
+    before = grouped_lstm_recurrence.launches
+    with torch.no_grad():
+        got = complex_lstm_scan_fused(params, r, i)
+        torch.cuda.synchronize()
+        want = complex_lstm_scan_fused_plain(params, r, i)
+    assert grouped_lstm_recurrence.launches == before + 1
+    for a, w in zip(got, want):
+        assert a.shape == (b, 513, 1024)
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
+
+
+def test_complex_lstm_routes_to_k9(cuda):
+    """On a CUDA tensor complex_lstm_scan takes K9 at B <= 16 and T >= 64,
+    as JAX routes its TPU kernel, and the plain loop otherwise."""
+    from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.ops.lstm import complex_lstm_scan
+
+    for b, t, want in ((1, 64, 1), (16, 70, 1), (1, 63, 0), (17, 64, 0)):
+        params, r, i = _clstm_case(cuda, b, t, width=64)
+        before = grouped_lstm_recurrence.launches
+        with torch.no_grad():
+            complex_lstm_scan(params, r, i)
+        assert grouped_lstm_recurrence.launches - before == want, (b, t)
+
+
+def test_lstm_kernel_gradients_equal_plain_route(cuda):
+    """The Function's backward recomputes the plain grouped scan from the
+    same inputs and cotangents, so its gradients equal the plain route's to
+    1e-5 of each leaf's scale."""
+    from aec_tpu_torch.ops.lstm import complex_lstm_scan
+
+    params, r, i = _clstm_case(cuda, 1, 80, width=128)
+    leaves = [r, i] + [params[g][k] for g in ("real", "imag")
+                       for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    for t in leaves:
+        t.requires_grad_()
+    cot = [torch.randn(1, 80, 64, device=cuda) for _ in range(2)]
+    grads = {}
+    for fused in (None, False):
+        out = complex_lstm_scan(params, r, i, fused=fused)
+        grads[fused] = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), leaves)
+    for a, w in zip(grads[None], grads[False]):
+        torch.testing.assert_close(a, w, atol=1e-5 * float(w.abs().max()), rtol=0)
+
+
+def test_dccrn_enhancer_runs_k1_and_k9(cuda, scene, tmp_path):
+    """cli/infer's DCCRN enhancer at DccrnConfig() on the card, one
+    utterance: one K1 launch (Kalman stage 1 on the (1, n) batch) and two
+    K9 launches (one per complex-LSTM layer); the wav within 1e-3 of scale
+    of the CPU route (K1's round-off enters DCCRN's input; cuDNN's TF32
+    pinned off)."""
+    from aec_tpu_torch.cli.infer import _make_enhancer
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.models.dccrn import dccrn_init
+    from aec_tpu_torch.train import checkpoints
+
+    torch.backends.cudnn.allow_tf32 = False
+    params, state = dccrn_init(generator=torch.Generator().manual_seed(0), device="cpu")
+    path = str(tmp_path / "dccrn.npz")
+    checkpoints.save(path, {"params": params, "model_state": state})
+    far, mic = scene(1, 200 * 256)
+    enhance, _ = _make_enhancer("dccrn", path, "kalman", StftConfig(), device=cuda)
+    before = kalman_cancel_fused_batched.launches, grouped_lstm_recurrence.launches
+    got = enhance(far.to(cuda), mic.to(cuda))
+    torch.cuda.synchronize()
+    assert (kalman_cancel_fused_batched.launches - before[0],
+            grouped_lstm_recurrence.launches - before[1]) == (1, 2)
+    enhance_cpu, _ = _make_enhancer("dccrn", path, "kalman", StftConfig(), device="cpu")
+    want = enhance_cpu(far, mic)
+    assert got.shape == want.shape == mic.shape
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3 * float(want.abs().max()), rtol=0)

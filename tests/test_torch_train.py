@@ -363,7 +363,7 @@ def test_cli_trains_on_the_cpu_without_jax(tmp_path, rng):
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "ok"
     assert os.path.isfile(os.path.join(exp, "models", "latest.npz"))
-    for flags, item in ((["--model", "dccrn"], "A9"), (["--mesh"], "A10"),
+    for flags, item in ((["--model", "dccrn"], "A1"), (["--mesh"], "A10"),
                         (["--device_cache", "int16"], "A7")):
         res = subprocess.run(
             [sys.executable, "-m", "aec_tpu_torch.cli.train", "--tr_list", lst, "--cv_file", cv,
