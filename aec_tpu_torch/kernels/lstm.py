@@ -32,6 +32,7 @@ import torch
 
 from aec_tpu_torch.kernels import _build
 from aec_tpu_torch.kernels.gru import pack_gate_columns
+from aec_tpu_torch.ops.lstm import lstm_gates
 
 _GROUPS = ("real", "imag")
 _KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
@@ -74,10 +75,7 @@ def grouped_lstm_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor) -> torch
     w_t = w_hh.transpose(1, 2)
     hs = []
     for i in range(t):
-        gates = xp[:, :, i] + torch.matmul(h, w_t)
-        ig, fg, gg, og = torch.split(gates, hidden, dim=-1)
-        c = torch.sigmoid(fg) * c + torch.sigmoid(ig) * torch.tanh(gg)
-        h = torch.sigmoid(og) * torch.tanh(c)
+        h, c = lstm_gates(xp[:, :, i] + torch.matmul(h, w_t), c)
         hs.append(h)
     return torch.stack(hs, dim=2)
 

@@ -40,7 +40,8 @@ def quantize_rows_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return w_q, scale
 
 
-def _gates(gates: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def lstm_gates(gates: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-activations [i; f; g; o] (..., 4H) and c -> (h', c')."""
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
     c_next = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     return torch.sigmoid(o) * torch.tanh(c_next), c_next
@@ -49,11 +50,7 @@ def _gates(gates: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Te
 def lstm_cell(params: dict[str, torch.Tensor], h: torch.Tensor, c: torch.Tensor,
               x_proj: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One step given a PRE-PROJECTED input ``x @ w_ih.T + b_ih``: -> (h', c')."""
-    gates = x_proj + torch.matmul(h, params["w_hh"].T) + params["b_hh"]
-    i, f, g, o = torch.chunk(gates, 4, dim=-1)
-    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
-    c_next = f * c + i * torch.tanh(g)
-    return o * torch.tanh(c_next), c_next
+    return lstm_gates(x_proj + torch.matmul(h, params["w_hh"].T) + params["b_hh"], c)
 
 
 def _recurrent_dtype(recurrent_dtype):
@@ -120,12 +117,12 @@ def lstm_scan(
         def step(h, c, xp_t):
             h_q = torch.round(torch.clamp(h * 127.0, -127.0, 127.0))
             acc = torch.matmul(h_q.to(torch.float64), w_q_t).to(x.dtype)
-            return _gates(xp_t + acc * out_scale + b_hh, c)
+            return lstm_gates(xp_t + acc * out_scale + b_hh, c)
     elif rdt is not None:
         w_hh_t = params["w_hh"].T.to(rdt).to(x.dtype)  # cast ONCE
 
         def step(h, c, xp_t):
-            return _gates(xp_t + torch.matmul(h.to(rdt).to(x.dtype), w_hh_t) + b_hh, c)
+            return lstm_gates(xp_t + torch.matmul(h.to(rdt).to(x.dtype), w_hh_t) + b_hh, c)
     else:
 
         def step(h, c, xp_t):
@@ -184,7 +181,7 @@ def complex_lstm_scan(
     hs = []
     for i in range(t):
         gates = x_proj[:, :, i] + torch.matmul(hh, w_hh_t) + stack["b_hh"][:, None, :]
-        hh, cc = _gates(gates, cc)
+        hh, cc = lstm_gates(gates, cc)
         hs.append(hh)
     ys = torch.stack(hs, dim=2) if hs else real.new_zeros((2, 2 * b, 0, hidden))
     r2r, i2r = ys[0, :b], ys[0, b:]
