@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from aec_tpu_torch.configs import KalmanConfig
+from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
 from aec_tpu_torch.kernels import _build
 from aec_tpu_torch.kernels.consts import stage1_consts
 from aec_tpu_torch.linear import overlap_save as ols
@@ -110,7 +110,7 @@ def launch_single(entry, operands: list, cfg, far: torch.Tensor, mic: torch.Tens
     and bases, or if the card cannot place the cluster."""
     check_inputs(cfg, far, mic, block, 1)
     lib = single_stream_lib()
-    nlms = entry is lib.aec_nlms_single
+    nlms = isinstance(cfg, NlmsConfig)
     _build.check_smem(lib.aec_single_smem(block, cfg.n_blocks, int(nlms)), far.device,
                       f"the single-stream {'NLMS' if nlms else 'Kalman'} kernel (one CTA of "
                       f"{lib.aec_single_cluster()})")
