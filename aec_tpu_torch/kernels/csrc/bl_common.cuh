@@ -714,9 +714,9 @@ constexpr float kMonitorKeep = 0.99f, kMonitorRate = 0.01f;
 // Both stages' state on one CTA; S1 is the stage-1 filter's state
 // (KalmanSmem or NlmsSmem). Stage 2's per-frame scratch lies over stage 1's
 // update buffer `g` where it fits (L * 2K floats; at the default geometry
-// 5,140 against 3,144): g is dead once a stage-1 step has returned and is
+// 5,140 against 3,148): g is dead once a stage-1 step has returned and is
 // fully rewritten by the next one before it is read. That keeps the block at
-// 107,120 B with Kalman (97,904 B with NLMS) at the default geometry, so two
+// 107,392 B with Kalman (98,224 B with NLMS) at the default geometry, so two
 // CTAs fit on an SM.
 template <class S1>
 struct TwoStageSmem {
