@@ -380,6 +380,11 @@ def test_gru_kernel_matches_plain(cuda, b, h):
     assert ys.shape == (b, 101, h) and torch.equal(h_t, ys[:, -1])
     torch.testing.assert_close(ys, want, atol=1e-5, rtol=0)
     torch.testing.assert_close(ys, scan, atol=1e-5, rtol=0)
+    if b == 1:  # gru_scan's own route at B == 1, T >= 64 takes K8 at any width
+        with torch.no_grad():
+            routed, _ = gru_scan(params, x, h0)
+        assert gru_recurrence.launches == before + 2
+        torch.testing.assert_close(routed, ys, atol=0, rtol=0)
 
 
 def test_gru_kernel_refuses_what_it_cannot_take(cuda):
