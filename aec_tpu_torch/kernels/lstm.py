@@ -32,9 +32,15 @@ import torch
 
 from aec_tpu_torch.kernels import _build
 from aec_tpu_torch.kernels.gru import pack_gate_columns
-from aec_tpu_torch.ops.lstm import lstm_gates
+from aec_tpu_torch.ops.lstm import (
+    GROUPS,
+    complex_lstm_scan,
+    grouped_lstm_recurrence_plain,
+    grouped_projection,
+    recombine,
+    stacked,
+)
 
-_GROUPS = ("real", "imag")
 _KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
 
 
@@ -49,35 +55,6 @@ def _lib() -> ctypes.CDLL:
     lib.aec_lstm_smem.argtypes = [i, i, i]
     lib.aec_lstm_smem.restype = ctypes.c_longlong
     return lib
-
-
-def stacked(params: dict, key: str) -> torch.Tensor:
-    """One parameter of both groups stacked: (2, ...)."""
-    return torch.stack([params[g][key] for g in _GROUPS])
-
-
-def grouped_projection(params: dict, x2: torch.Tensor) -> torch.Tensor:
-    """The hoisted input projection of both groups with both biases:
-    ``x2`` (2B, T, I) -> xp (2, 2B, T, 4H)."""
-    w_ih = stacked(params, "w_ih")
-    bias = stacked(params, "b_ih") + stacked(params, "b_hh")
-    xp = torch.matmul(x2.unsqueeze(0), w_ih.transpose(1, 2).unsqueeze(1))
-    return xp + bias[:, None, None, :]
-
-
-def grouped_lstm_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """K9's arithmetic in torch, one step per loop iteration: xp (G, R, T, 4H)
-    and w_hh (G, 4H, H) -> ys (G, R, T, H), from zero state."""
-    g, r, t, h4 = xp.shape
-    hidden = h4 // 4
-    h = xp.new_zeros((g, r, hidden))
-    c = xp.new_zeros((g, r, hidden))
-    w_t = w_hh.transpose(1, 2)
-    hs = []
-    for i in range(t):
-        h, c = lstm_gates(xp[:, :, i] + torch.matmul(h, w_t), c)
-        hs.append(h)
-    return torch.stack(hs, dim=2)
 
 
 def _check(xp: torch.Tensor, w_hh: torch.Tensor) -> None:
@@ -130,21 +107,14 @@ def grouped_lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tenso
 grouped_lstm_recurrence.launches = 0
 
 
-def _recombine(ys: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """ys (2, 2B, T, H) -> (r2r - i2i, i2r + r2i)."""
-    r2r, i2r = ys[0, :b], ys[0, b:]
-    r2i, i2i = ys[1, :b], ys[1, b:]
-    return r2r - i2i, i2r + r2i
-
-
 def _params(flat) -> dict:
     """The 8 tensors in (real, imag) x (w_ih, w_hh, b_ih, b_hh) order -> the
     complex-LSTM params dict."""
-    return {g: dict(zip(_KEYS, flat[4 * j: 4 * j + 4])) for j, g in enumerate(_GROUPS)}
+    return {g: dict(zip(_KEYS, flat[4 * j: 4 * j + 4])) for j, g in enumerate(GROUPS)}
 
 
 def _flat(params: dict) -> list[torch.Tensor]:
-    return [params[g][k] for g in _GROUPS for k in _KEYS]
+    return [params[g][k] for g in GROUPS for k in _KEYS]
 
 
 class ComplexLstmScanFused(torch.autograd.Function):
@@ -158,12 +128,10 @@ class ComplexLstmScanFused(torch.autograd.Function):
         xp = grouped_projection(params, torch.cat([real, imag], dim=0))
         ys = grouped_lstm_recurrence(xp.contiguous(), stacked(params, "w_hh"))
         ctx.save_for_backward(real, imag, *weights)
-        return _recombine(ys, real.shape[0])
+        return recombine(ys, real.shape[0])
 
     @staticmethod
     def backward(ctx, g_real, g_imag):
-        from aec_tpu_torch.ops.lstm import complex_lstm_scan
-
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
             out = complex_lstm_scan(_params(leaves[2:]), leaves[0], leaves[1], fused=False)
@@ -183,8 +151,7 @@ def complex_lstm_scan_fused(params: dict, real: torch.Tensor,
 
 def complex_lstm_scan_fused_plain(params: dict, real: torch.Tensor,
                                   imag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`complex_lstm_scan_fused`'s forward: the
-    hoisted projection, then K9's arithmetic in torch, then the
-    recombination."""
-    xp = grouped_projection(params, torch.cat([real, imag], dim=0))
-    return _recombine(grouped_lstm_recurrence_plain(xp, stacked(params, "w_hh")), real.shape[0])
+    """Plain version of :func:`complex_lstm_scan_fused`'s forward: the plain
+    grouped scan, ``complex_lstm_scan(fused=False)`` (the hoisted projection,
+    K9's arithmetic in torch, the recombination)."""
+    return complex_lstm_scan(params, real, imag, fused=False)

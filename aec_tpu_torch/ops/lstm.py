@@ -145,6 +145,46 @@ def complex_lstm_init(
             for g in ("real", "imag")}
 
 
+GROUPS = ("real", "imag")
+
+
+def stacked(params: dict, key: str) -> torch.Tensor:
+    """One parameter of both groups stacked: (2, ...)."""
+    return torch.stack([params[g][key] for g in GROUPS])
+
+
+def grouped_projection(params: dict, x2: torch.Tensor) -> torch.Tensor:
+    """The hoisted input projection of both groups with both biases:
+    ``x2`` (2B, T, I) -> xp (2, 2B, T, 4H)."""
+    w_ih = stacked(params, "w_ih")
+    bias = stacked(params, "b_ih") + stacked(params, "b_hh")
+    xp = torch.matmul(x2.unsqueeze(0), w_ih.transpose(1, 2).unsqueeze(1))
+    return xp + bias[:, None, None, :]
+
+
+def grouped_lstm_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """The grouped recurrence, one step per loop iteration: xp (G, R, T, 4H)
+    and w_hh (G, 4H, H) -> ys (G, R, T, H), from zero state. It is kernel
+    K9's plain version (``kernels/lstm.py``)."""
+    g, r, t, h4 = xp.shape
+    hidden = h4 // 4
+    h = xp.new_zeros((g, r, hidden))
+    c = xp.new_zeros((g, r, hidden))
+    w_t = w_hh.transpose(1, 2)
+    hs = []
+    for i in range(t):
+        h, c = lstm_gates(xp[:, :, i] + torch.matmul(h, w_t), c)
+        hs.append(h)
+    return torch.stack(hs, dim=2) if hs else xp.new_zeros((g, r, 0, hidden))
+
+
+def recombine(ys: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """ys (2, 2B, T, H) -> (r2r - i2i, i2r + r2i)."""
+    r2r, i2r = ys[0, :b], ys[0, b:]
+    r2i, i2i = ys[1, :b], ys[1, b:]
+    return r2r - i2i, i2r + r2i
+
+
 def complex_lstm_scan(
     params: dict, real: torch.Tensor, imag: torch.Tensor, fused: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -153,7 +193,9 @@ def complex_lstm_scan(
     The four naive-complex LSTM passes (real/imag parameters x real/imag
     inputs) share the time axis, so they fold into one loop whose step is a
     single grouped product: the group axis stacks the two parameter sets,
-    the batch axis the two inputs.
+    the batch axis the two inputs. The input projection with both biases is
+    hoisted out of the loop (:func:`grouped_projection`), as JAX's kernel
+    hoists it.
 
     ``fused`` routes as JAX routes on its TPU: None takes the fused route
     (kernel K9, ``kernels/lstm.py``, differentiable) on a CUDA tensor at
@@ -169,21 +211,5 @@ def complex_lstm_scan(
         from aec_tpu_torch.kernels.lstm import complex_lstm_scan_fused
 
         return complex_lstm_scan_fused(params, real, imag)
-    hidden = params["real"]["w_hh"].shape[-1]
-    stack = {k: torch.stack([params["real"][k], params["imag"][k]])
-             for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
-    x2 = torch.cat([real, imag], dim=0)  # (2B, T, I)
-    x_proj = torch.matmul(x2.unsqueeze(0), stack["w_ih"].transpose(1, 2).unsqueeze(1))
-    x_proj = x_proj + stack["b_ih"][:, None, None, :]  # (2, 2B, T, 4H)
-    w_hh_t = stack["w_hh"].transpose(1, 2)
-    hh = real.new_zeros((2, 2 * b, hidden))
-    cc = real.new_zeros((2, 2 * b, hidden))
-    hs = []
-    for i in range(t):
-        gates = x_proj[:, :, i] + torch.matmul(hh, w_hh_t) + stack["b_hh"][:, None, :]
-        hh, cc = lstm_gates(gates, cc)
-        hs.append(hh)
-    ys = torch.stack(hs, dim=2) if hs else real.new_zeros((2, 2 * b, 0, hidden))
-    r2r, i2r = ys[0, :b], ys[0, b:]
-    r2i, i2i = ys[1, :b], ys[1, b:]
-    return r2r - i2i, i2r + r2i
+    xp = grouped_projection(params, torch.cat([real, imag], dim=0))
+    return recombine(grouped_lstm_recurrence_plain(xp, stacked(params, "w_hh")), b)
