@@ -51,9 +51,11 @@ def little_net_apply_fused_plain(
     erb: torch.Tensor, cfg: StftConfig = StftConfig(), *, gain_norm: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2: blocks (B, Tb, hop) -> (out (B, Tb, hop),
-    mask (B, Tb + 1, E)), one frame per loop step."""
+    mask (B, Tb + 1, E)), one frame per loop step, in the blocks' dtype (a
+    float64 net and blocks give the fp64 evaluation the kernel's round-off
+    is measured against)."""
     b, t_blocks, hop = lin_blocks.shape
-    c = stage2_consts(cfg, lin_blocks.device)
+    c = {k: v.to(lin_blocks.dtype) for k, v in stage2_consts(cfg, lin_blocks.device).items()}
     gp = net.gru_params()
     zero = lin_blocks.new_zeros((b, hop))
     h = lin_blocks.new_zeros((b, net.hidden))

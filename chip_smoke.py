@@ -8,9 +8,12 @@ checkout (ten kernels), in parallel, and drives every user-facing path.
 - Offline Kalman (phases 4, 5, 7): each kernel against its plain PyTorch
   version at the main path's full shape (batch 256 x 131,072 samples =
   8.2 s at 16 kHz, L=10 / block 256 / K=257, the width-1 LittleNet of
-  ``checkpoints/little_net_robust.npz``); ``two_stage_cancel`` on the 8
-  scenes of ``benchmarks/scenes.py``, graded against the plain (CPU) route;
-  the ``quality="fast"`` route, which runs the whole pipeline as K4.
+  ``checkpoints/little_net_robust.npz``), K2's mask also against the plain
+  version evaluated in fp64 (there and on full-scale noise through four
+  untrained nets, beside TF32 products as the lower-precision control);
+  ``two_stage_cancel`` on the 8 scenes of ``benchmarks/scenes.py``, graded
+  against the plain (CPU) route; the ``quality="fast"`` route, which runs
+  the whole pipeline as K4.
 - Streaming serving (phases 8, 9): K3 against its plain version at
   S = 1024 live streams (bench config ``concurrent_streams``), then the 8
   scenes streamed hop by hop through K3 against the offline result.
@@ -35,7 +38,11 @@ checkout (ten kernels), in parallel, and drives every user-facing path.
 - Other geometries (phase 21): the 8 scenes at 4 and 16 partitions (block
   256) and at the 320 / 160 / 320 STFT through K1, K5, K6, K7, K12, K2, K4
   and K3 (both filters) against their plain versions, and through
-  ``two_stage_cancel``'s batched, fast and single-utterance routes.
+  ``two_stage_cancel``'s batched, fast and single-utterance routes; then
+  K1, K12, K5, K6, K7, K4 and K3 (both filters) each at the largest
+  partition count its wrapper accepts at blocks 256 and 160, against the
+  plain versions, and one partition more, which must be refused for
+  shared memory.
 - K8 wide (phase 16): H = 64, 128, 129 and 512 beside cuDNN's ``nn.GRU``.
 - DCCRN inference (phases 22-23): K9 (the grouped complex LSTM) at
   ``DccrnConfig()``'s width (I = H = 1024 per part, T = 513) at B = 1 and 8
@@ -53,6 +60,7 @@ version's time and its bound from this run's shapes), the last line the
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import statistics
@@ -71,7 +79,14 @@ SR = 16000
 K1_TOL = 1e-3
 # K2 vs plain on the same input: fp32 round-off through DFT, GRU and pinv
 # synthesis, no recursion beyond the 32-wide GRU -> 1e-4 of scale, mask 1e-5
+# (on the main path also against the plain version evaluated in fp64)
 K2_WAV_TOL, K2_MASK_TOL = 1e-4, 1e-5
+# The mask's round-off grows with the input level and the net's gains. On
+# full-scale noise through an untrained net each fp32 evaluation lands up to
+# ~1.2e-5 from fp64 and K2 and the plain version up to ~1.4e-5 apart, while
+# TF32 products (the lower-precision control) land 1.9e-2 to 3e-2 off: the
+# mask bar there is 5e-5, and the control must stay at least 1e-3 off
+K2_LOUD_MASK_TOL, K2_CONTROL_MIN = 5e-5, 1e-3
 ERLE_TOL_DB = 0.1  # kernel route vs plain route, tail ERLE per scene
 # K4 runs K1's and K2's device code in one launch: against the K1 + K2
 # kernel route on the same input it is held to K2's bars. Against the plain
@@ -507,6 +522,171 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
                 check(worst <= ERLE_TOL_DB, f"the {route} route disagrees at {tag}")
 
 
+def largest_l(run) -> tuple[int, str]:
+    """The largest partition count ``run(L)`` accepts, raising L from 1 until
+    it refuses; the refusal must be for shared memory. -> (L, the refusal)."""
+    for n_blocks in range(1, 257):
+        try:
+            run(n_blocks)
+        except ValueError as e:
+            check("shared memory" in str(e) and n_blocks > 1,
+                  f"a refusal at L = {n_blocks} that is not for shared memory: {e}")
+            return n_blocks - 1, str(e)
+    raise SystemExit("chip_smoke: FAILED: no partition count up to 256 was refused")
+
+
+def limits_phase(dev, net, seed: int, smi: str) -> None:
+    """21b. Each kernel whose shared-memory layout grows with the partition
+    count, at the largest L its wrapper accepts at blocks 256 and 160 (two
+    full register chunks of partitions and more), against its plain version
+    at the geometry phase's bars; one partition more must be refused."""
+    from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
+    from aec_tpu_torch.dsp.erb import erb_filterbank
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.kalman import (
+        kalman_cancel_fused,
+        kalman_cancel_fused_batched,
+        kalman_cancel_plain,
+        kalman_filter_fused_batched,
+        kalman_filter_fused_batched_plain,
+    )
+    from aec_tpu_torch.kernels.nlms import (
+        nlms_cancel_fused,
+        nlms_cancel_fused_batched,
+        nlms_cancel_plain,
+    )
+    from aec_tpu_torch.kernels.serving import serving_init, serving_step_fused
+    from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
+    from aec_tpu_torch.linear import overlap_save as ols
+
+    for hop in (256, 160):
+        scfg = StftConfig(win_len=2 * hop, hop=hop, fft_len=2 * hop)
+        erb = torch.as_tensor(erb_filterbank(n_freqs=scfg.n_freqs), device=dev)
+        far, mic = make_batch(dev, seed + 30, 2, 200 * hop)
+        tiny = far[:, :2 * hop].contiguous(), mic[:, :2 * hop].contiguous()
+        bar = STAGE1_TOL * float(mic.abs().max())
+
+        def stage1(fn, cfg, one):
+            def run(n_blocks, f, m):
+                if one:
+                    f, m = f[0].contiguous(), m[0].contiguous()
+                return {"wav": fn(cfg(n_blocks=n_blocks), f, m, block=hop)["wav"]}
+            return run
+
+        def spectra(fn):
+            return lambda n_blocks, f, m: {"wav": fn(
+                KalmanConfig(n_blocks=n_blocks), ols.far_end_spectra(f, hop).contiguous(),
+                m.reshape(2, -1, hop).contiguous(), block=hop)}
+
+        def fast(fn):
+            return lambda n_blocks, f, m: fn(net, f, m, erb, kcfg=KalmanConfig(n_blocks=n_blocks),
+                                             scfg=scfg)
+
+        def serve(stage1_, cfg):
+            def run(n_blocks, f, m):
+                st = serving_init(2, kcfg=cfg(n_blocks=n_blocks), scfg=scfg, stage1=stage1_,
+                                  device=dev)
+                return serving_step_fused(net, st, f[:, :hop].contiguous(), m[:, :hop].contiguous(),
+                                          erb, cfg(n_blocks=n_blocks), scfg, stage1=stage1_)
+            return run
+
+        def k4_bars(want):
+            return {"linear_wav": bar, "wav": K4_WAV_TOL * float(want["wav"].abs().max()),
+                    "mask": K4_MASK_TOL}
+
+        cases = {  # name: (kernel route, plain route or None for K3, bars from plain's output)
+            "K1": (stage1(kalman_cancel_fused_batched, KalmanConfig, False),
+                   stage1(kalman_cancel_plain, KalmanConfig, False), None),
+            "K12": (spectra(kalman_filter_fused_batched), spectra(kalman_filter_fused_batched_plain),
+                    None),
+            "K5": (stage1(nlms_cancel_fused_batched, NlmsConfig, False),
+                   stage1(nlms_cancel_plain, NlmsConfig, False), None),
+            "K6": (stage1(kalman_cancel_fused, KalmanConfig, True),
+                   stage1(kalman_cancel_plain, KalmanConfig, True), None),
+            "K7": (stage1(nlms_cancel_fused, NlmsConfig, True),
+                   stage1(nlms_cancel_plain, NlmsConfig, True), None),
+            "K4": (fast(two_stage_fused), fast(two_stage_fused_plain), k4_bars),
+            "K3-kalman": (serve("kalman", KalmanConfig), None, None),
+            "K3-nlms": (serve("nlms", NlmsConfig), None, None),
+        }
+        with torch.no_grad():
+            for name, (run, plain, bars) in cases.items():
+                n_max, refusal = largest_l(lambda n_blocks: run(n_blocks, *tiny))
+                if plain is None:
+                    stage1_ = name.split("-")[1]
+                    cfg = (KalmanConfig if stage1_ == "kalman" else NlmsConfig)(n_blocks=n_max)
+                    ks, ps, rel, _ = serve_pair(net, erb, far, mic, [1] * 40 + [4] * 4, hop=hop,
+                                                stage1=stage1_, kcfg=cfg, scfg=scfg)
+                    leaf, leaf_rel = state_err(ks, ps)
+                    errs = {"out / scale": (rel, K3_TOL), f"state {leaf} / scale": (leaf_rel, K3_TOL)}
+                else:
+                    got, want = run(n_max, far, mic), plain(n_max, far, mic)
+                    b = bars(want) if bars else {"wav": bar}
+                    errs = {k: (float((got[k] - want[k]).abs().max()), b[k]) for k in b}
+                torch.cuda.synchronize()
+                phase("limits", f"{name} block {hop}: largest L {n_max}, max|d| vs plain " + ", ".join(
+                    f"{k} {e:.3e} (bar {v:.3e})" for k, (e, v) in errs.items())
+                    + f"; L {n_max + 1} refused: {refusal}")
+                check(all(e <= v for e, v in errs.values()),
+                      f"{name} disagrees with its plain version at its largest L ({n_max}, block {hop})")
+
+
+def k2_against_fp64(net, lin_b, far_b, erb) -> dict:
+    """K2's mask, the plain fp32 version's and the plain version's with TF32
+    products (the lower-precision control), each as max|d| from the plain
+    version evaluated in fp64 on the same fp32 inputs and weights."""
+    from aec_tpu_torch.kernels.stage2 import little_net_apply_fused, little_net_apply_fused_plain
+
+    _, m_64 = little_net_apply_fused_plain(copy.deepcopy(net).double(), lin_b.double(),
+                                           far_b.double(), erb.double())
+    _, m_k = little_net_apply_fused(net, lin_b, far_b, erb)
+    _, m_p = little_net_apply_fused_plain(net, lin_b, far_b, erb)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, m_t = little_net_apply_fused_plain(net, lin_b, far_b, erb)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    return {"K2": float((m_k.double() - m_64).abs().max()),
+            "plain": float((m_p.double() - m_64).abs().max()),
+            "tf32": float((m_t.double() - m_64).abs().max()),
+            "K2 - plain": float((m_k - m_p).abs().max())}
+
+
+def k2_roundoff_phase(dev, seed: int) -> None:
+    """4b. K2's mask on full-scale noise (8 x 40 blocks, far end at unit
+    variance, Kalman residual as stage 2's input) through four untrained
+    nets, against the fp64 evaluation and the plain version, where the
+    mask's round-off is largest; the plain fp32 version and TF32 products
+    (the lower-precision control) beside it."""
+    from aec_tpu_torch.configs import KalmanConfig
+    from aec_tpu_torch.dsp.erb import erb_filterbank
+    from aec_tpu_torch.kernels.kalman import kalman_cancel_plain
+    from aec_tpu_torch.models.little_net import little_net_init
+
+    erb = torch.as_tensor(erb_filterbank(), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = 40 * HOP
+    with torch.no_grad():
+        for s in range(1, 5):
+            rnet = little_net_init(generator=torch.Generator().manual_seed(seed + s), device=dev)
+            far = torch.randn(8, n, generator=g, device=dev)
+            rir = torch.randn(8, 300, generator=g, device=dev)
+            rir = 0.3 * rir * torch.exp(-torch.arange(300, device=dev) / 60.0)
+            echo = torch.fft.irfft(torch.fft.rfft(far, n + 300) * torch.fft.rfft(rir, n + 300),
+                                   n + 300)[:, :n]
+            mic = echo + 0.01 * torch.randn(8, n, generator=g, device=dev)
+            lin = kalman_cancel_plain(KalmanConfig(), far, mic)["wav"]
+            r = k2_against_fp64(rnet, lin.reshape(8, -1, HOP), far.reshape(8, -1, HOP), erb)
+            phase("K2 round-off", f"untrained net {seed + s}, full-scale noise: mask max|d| from "
+                  f"fp64: K2 {r['K2']:.3e}, plain fp32 {r['plain']:.3e}, TF32 products "
+                  f"{r['tf32']:.3e} (control, >= {K2_CONTROL_MIN:g}); K2 - plain "
+                  f"{r['K2 - plain']:.3e} (bar {K2_LOUD_MASK_TOL:g} for K2 - fp64 and K2 - plain)")
+            check(max(r["K2"], r["K2 - plain"]) <= K2_LOUD_MASK_TOL,
+                  "K2's mask is off its fp64 evaluation or its plain version")
+            check(r["tf32"] >= K2_CONTROL_MIN, "the TF32 control sits within the mask bar")
+
+
 def lstm_phase(dev, seed: int, reps: int, smi: str) -> dict:
     """22. K9 at DccrnConfig()'s width (two groups, I = H = 1024, T = 513)
     at B = 1 and B = 8 against its plain version; times beside the plain
@@ -710,7 +890,15 @@ def main() -> None:
               f"mask max|d| = {k2_mask_err:.3e} (bar {K2_MASK_TOL:g})")
         check(k2_err <= K2_WAV_TOL * wav_scale, "K2 wav disagrees with its plain version")
         check(k2_mask_err <= K2_MASK_TOL, "K2 mask disagrees with its plain version")
-    del e_k, e_p, o_k, o_p, m_k, m_p
+        del o_k, o_p, m_k, m_p
+        r = k2_against_fp64(net, lin_b, far_b, erb)
+        phase("K2 round-off", f"main path: mask max|d| from fp64: K2 {r['K2']:.3e} (bar "
+              f"{K2_MASK_TOL:g}), plain fp32 {r['plain']:.3e}, TF32 products {r['tf32']:.3e} "
+              f"(control, >= {K2_CONTROL_MIN:g})")
+        check(r["K2"] <= K2_MASK_TOL, "K2's mask is off its fp64 evaluation")
+        check(r["tf32"] >= K2_CONTROL_MIN, "the TF32 control sits within the mask bar")
+    del e_k, e_p
+    k2_roundoff_phase(dev, args.seed)
 
     # 5. the main path end to end on the 8 scenes, kernel route vs plain route
     scenes = make_scenes(np.random.default_rng(args.seed), n=N)
@@ -1054,8 +1242,10 @@ def main() -> None:
           f"K12 / K1: {' / '.join(f'{t:.2f}' for t in k12_turns)} ms [{smi}]")
     del x_ri, d_blocks, e12, e1, ep
 
-    # 21. the stage-1/2 kernels at other geometries; 22-23. K9 and the DCCRN path
+    # 21. the stage-1/2 kernels at other geometries and at their largest
+    #     partition counts; 22-23. K9 and the DCCRN path
     geometry_phase(dev, net, names, s_far, s_mic, smi)
+    limits_phase(dev, net, args.seed, smi)
     lstm = lstm_phase(dev, args.seed, args.reps, smi)
     dccrn = dccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
 

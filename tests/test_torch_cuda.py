@@ -599,6 +599,118 @@ def test_two_stage_cancel_at_hop_160_runs_its_kernels(cuda, scene):
                        - tail_db(mic[i].numpy(), want["wav"][i].numpy())) <= 0.1
 
 
+def _largest_l(run):
+    """The largest partition count ``run`` accepts; the first refusal must be
+    for shared memory."""
+    for n_blocks in range(1, 257):
+        try:
+            run(n_blocks)
+        except ValueError as e:
+            assert "shared memory" in str(e) and n_blocks > 1, str(e)
+            return n_blocks - 1
+    raise AssertionError("no partition count up to 256 was refused")
+
+
+def _at_partitions(kernel, n_blocks, hop, net, erb, far, mic, plain=False):
+    """``kernel`` (its plain version if ``plain``) at ``n_blocks`` partitions
+    and block ``hop``: -> a dict of outputs."""
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.serving import serving_init, serving_step_fused, serving_step_plain
+    from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
+
+    scfg = StftConfig(win_len=2 * hop, hop=hop, fft_len=2 * hop)
+    kc, nc = KalmanConfig(n_blocks=n_blocks), NlmsConfig(n_blocks=n_blocks)
+    if kernel in ("K1", "K5", "K6", "K7"):
+        cfg = kc if kernel in ("K1", "K6") else nc
+        fn = {"K1": (kalman_cancel_fused_batched, kalman_cancel_plain),
+              "K5": (nlms_cancel_fused_batched, nlms_cancel_plain),
+              "K6": (kalman_cancel_fused, kalman_cancel_plain),
+              "K7": (nlms_cancel_fused, nlms_cancel_plain)}[kernel][plain]
+        if kernel in ("K6", "K7"):
+            far, mic = far[0].contiguous(), mic[0].contiguous()
+        return {"wav": fn(cfg, far, mic, block=hop)["wav"]}
+    if kernel == "K12":
+        fn = kalman_filter_fused_batched_plain if plain else kalman_filter_fused_batched
+        n = far.shape[-1] // hop * hop
+        return {"wav": fn(kc, ols.far_end_spectra(far[:, :n].contiguous(), hop).contiguous(),
+                          mic[:, :n].reshape(far.shape[0], -1, hop).contiguous(), block=hop)}
+    if kernel == "K4":
+        fn = two_stage_fused_plain if plain else two_stage_fused
+        return fn(net, far, mic, erb, kcfg=kc, scfg=scfg)
+    stage1 = kernel.split("-")[1]  # K3-kalman, K3-nlms: 3 calls of 2 hops
+    cfg = kc if stage1 == "kalman" else nc
+    step = serving_step_plain if plain else serving_step_fused
+    st = serving_init(far.shape[0], kcfg=cfg, scfg=scfg, stage1=stage1, device=far.device)
+    outs = []
+    for u in range(0, min(6, far.shape[-1] // hop) * hop, 2 * hop):
+        st, o = step(net, st, far[:, u:u + 2 * hop].contiguous(), mic[:, u:u + 2 * hop].contiguous(),
+                     erb, cfg, scfg, stage1=stage1)
+        outs.append(o)
+    return {"out": torch.cat(outs, -1), **{f"state {k}": v for k, v in st.items()}}
+
+
+@pytest.mark.parametrize("hop", [256, 160])
+@pytest.mark.parametrize("kernel", ["K1", "K12", "K5", "K6", "K7", "K4", "K3-kalman", "K3-nlms"])
+def test_kernels_at_their_largest_partition_count(cuda, scene, kernel, hop):
+    """Every kernel whose shared-memory layout grows with the partition
+    count, at the largest L its wrapper accepts (raised from 1 on a
+    two-block input until the wrapper refuses for shared memory), against
+    its plain version at the geometry tests' bars: stage-1 outputs at 1e-3
+    of max|mic|, K4's wav at 1e-3 of its scale and mask at 1e-3, K3's
+    outputs and state leaves at 1e-3 of each one's scale."""
+    from aec_tpu_torch.dsp.stft import StftConfig
+
+    net = load_npz(ROBUST).to(cuda)
+    erb = torch.from_numpy(erb_filterbank(n_freqs=StftConfig(2 * hop, hop, 2 * hop).n_freqs))
+    erb = erb.to(cuda)
+    far, mic = (t.to(cuda) for t in scene(2, 60 * hop))
+    tiny = far[:, :2 * hop].contiguous(), mic[:, :2 * hop].contiguous()
+    with torch.no_grad():
+        n_max = _largest_l(lambda n: _at_partitions(kernel, n, hop, net, erb, *tiny))
+        got = _at_partitions(kernel, n_max, hop, net, erb, far, mic)
+        want = _at_partitions(kernel, n_max, hop, net, erb, far, mic, plain=True)
+    assert n_max >= (18 if hop == 256 else 38)
+    for key, w in want.items():
+        if key == "mask":
+            atol = 1e-3
+        elif kernel.startswith("K3") or key == "wav" and kernel == "K4":
+            atol = 1e-3 * max(float(w.abs().max()), 1e-9)
+        else:
+            atol = 1e-3 * float(mic.abs().max())
+        torch.testing.assert_close(got[key], w, atol=atol, rtol=0,
+                                   msg=lambda m, key=key: f"{kernel} L={n_max} {key}: {m}")
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_stage2_mask_against_fp64(cuda, scene, seed):
+    """K2's mask on full-scale noise through an untrained net, where the
+    mask's fp32 round-off is largest (each fp32 evaluation up to ~1.2e-5
+    from fp64 there): within 5e-5 of the plain version evaluated in fp64
+    and of the plain fp32 version, while TF32 products, the lower-precision
+    control, land more than 1e-3 off, so the bar tells fp32 from lower
+    precision."""
+    import copy
+
+    net = little_net_init(generator=torch.Generator().manual_seed(seed))
+    erb = torch.from_numpy(erb_filterbank()).to(cuda)
+    far, mic = (t.to(cuda) for t in scene(4, 40 * 256))
+    with torch.no_grad():
+        lin = kalman_cancel_plain(KalmanConfig(), far, mic)["wav"].reshape(4, -1, 256)
+        fb = far.reshape(4, -1, 256)
+        _, m64 = little_net_apply_fused_plain(copy.deepcopy(net).double(), lin.double(),
+                                              fb.double(), erb.double())
+        _, mask = little_net_apply_fused(net, lin, fb, erb)
+        _, m32 = little_net_apply_fused_plain(net, lin, fb, erb)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, m_tf32 = little_net_apply_fused_plain(net, lin, fb, erb)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    torch.testing.assert_close(mask.double(), m64, atol=5e-5, rtol=0)
+    torch.testing.assert_close(mask, m32, atol=5e-5, rtol=0)
+    assert float((m_tf32.double() - m64).abs().max()) > 1e-3
+
+
 # ---------------------------------------------------------------- K9 and DCCRN
 
 def _clstm_case(cuda, b, t, width=2048, seed=0):

@@ -146,3 +146,27 @@ def test_fused_wrapper_takes_plain_version_on_cpu(rng):
     assert torch.equal(out, want_out) and torch.equal(mask, want_mask)
     assert little_net_apply_fused.launches == before
 
+
+def test_plain_version_evaluates_in_float64(rng):
+    """The plain version computes in its inputs' dtype: a float64 net and
+    blocks give the fp64 evaluation the card's round-off checks hold K2
+    against. It is the same function: the fp32 JAX apply (Precision.HIGHEST)
+    of an untrained net on the same inputs agrees to the mask bar, 1e-5, and
+    the wav to 1e-4 of scale."""
+    import copy
+
+    jp = little_net_init(jax.random.PRNGKey(7))
+    net = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    erb = erb_filterbank()
+    mic, ref = _inputs(rng, b=2, n=16 * 256)
+    want = jax_apply(jp, jnp.asarray(mic), jnp.asarray(ref), jnp.asarray(erb),
+                     normalize=False, precision=HIGHEST)
+    with torch.no_grad():
+        got = little_net_apply_fused_wav(
+            copy.deepcopy(net).double(), torch.from_numpy(mic).double(),
+            torch.from_numpy(ref).double(), torch.from_numpy(erb).double(), normalize=False,
+        )
+    assert got["wav"].dtype == got["mask"].dtype == torch.float64
+    want_wav = np.asarray(want["wav"])
+    np.testing.assert_allclose(got["mask"].numpy(), np.asarray(want["mask"]), atol=1e-5)
+    np.testing.assert_allclose(got["wav"].numpy(), want_wav, atol=1e-4 * np.abs(want_wav).max())
