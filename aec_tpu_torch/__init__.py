@@ -3,14 +3,14 @@
 A second package beside ``aec_tpu`` (the JAX reference, which stays as it
 is). The layout mirrors ``aec_tpu`` so every module has a named counterpart:
 
-- ``aec_tpu_torch.dsp``      — windows, ERB filterbank, STFT/iSTFT as
-  DFT-basis matmuls, GCC-PHAT bulk-delay alignment (``aec_tpu/dsp``);
+- ``aec_tpu_torch.dsp``      — windows, ERB and mel filterbanks, STFT/iSTFT
+  as DFT-basis matmuls, GCC-PHAT bulk-delay alignment (``aec_tpu/dsp``);
 - ``aec_tpu_torch.linear``   — overlap-save machinery and the partitioned-
   block frequency-domain Kalman and NLMS cancellers (``aec_tpu/linear``);
 - ``aec_tpu_torch.ops``      — the GRU and LSTM recurrences, DCCRN's complex
   conv/norm layers (``aec_tpu/ops``);
-- ``aec_tpu_torch.models``   — LittleNet, TwoLayerGRU and DCCRN as
-  ``nn.Module`` s, and the registry of the ported families;
+- ``aec_tpu_torch.models``   — LittleNet, TwoLayerGRU, DCCRN, FullSubNet and
+  ATT-CCRN as ``nn.Module`` s, and the registry of the ported families;
 - ``aec_tpu_torch.pipeline`` — the two-stage composition, the streaming
   (frame-in / frame-out) runtime, the ``.ex`` files, wav I/O;
 - ``aec_tpu_torch.kernels``  — hand-written CUDA C++ kernels for sm_90a, each

@@ -6,14 +6,17 @@ family, optionally after a stage-1 linear canceller, and writes five wavs:
 
   python -m aec_tpu_torch.cli.infer --tt_list lists/tt_list.txt --ckpt_dir exp \\
       --model_file exp/models/best_loss.npz --est_path out \\
-      [--model little_net|two_layer_gru|dccrn] [--stage1 kalman] [--device cpu]
+      [--model little_net|two_layer_gru|fullsubnet|dccrn|att_ccrn] [--stage1 kalman] \\
+      [--lstm_dtype auto|int8|bf16|f32] [--device cpu]
 
 Checkpoints are the framework's path-keyed ``.npz`` files (either package
-writes them). ``--model fullsubnet`` and ``att_ccrn`` exit naming ROADMAP A2;
-a reference ``.pt`` checkpoint raises naming ``utils/torch_compat`` (A5).
-On the card, stage 1 runs its batched kernel (K1 or K5) on the loader's
-(1, n) batches; LittleNet's and TwoLayerGRU's GRU at batch 1 runs on K8,
-DCCRN's two complex-LSTM layers on K9.
+writes them); a reference ``.pt`` checkpoint raises naming
+``utils/torch_compat`` (ROADMAP A5). On the card, stage 1 runs its batched
+kernel (K1 or K5) on the loader's (1, n) batches; LittleNet's and
+TwoLayerGRU's GRU at batch 1 runs on K8, DCCRN's two complex-LSTM layers on
+K9, FullSubNet's joint full/sub-band recurrence on K11, and ATT-CCRN's
+bottleneck LSTM on K10 (``--lstm_dtype auto`` is int8 on a CUDA device, f32
+on the CPU, as JAX's is int8 on its accelerator only).
 """
 
 from __future__ import annotations
@@ -66,8 +69,9 @@ def _make_enhancer(
     """Returns (enhance(far [B, n], mic [B, n]) -> wav [B, n], params),
     loading the weights onto ``device`` (the card unless the caller asks for
     the CPU). ``normalize`` is the reference Tester's in-forward pseudo-norm,
-    LittleNet only. ``lstm_dtype`` is ATT-CCRN's (not ported) and accepted
-    for the JAX CLI's flag set."""
+    LittleNet only. ``lstm_dtype`` is ATT-CCRN's bottleneck recurrence:
+    "auto" is int8 on a CUDA device (kernel K10) and f32 elsewhere, as JAX's
+    is int8 on the TPU only."""
     if model in NOT_PORTED:
         raise NotImplementedError(
             f"--model {model} is not ported yet (ROADMAP {NOT_PORTED[model]})")
@@ -122,7 +126,6 @@ def _make_enhancer(
 
         return enhance, params
 
-    from aec_tpu_torch.models.dccrn import DccrnConfig, dccrn_apply
     from aec_tpu_torch.train.generic import make_adapter
 
     adapter = make_adapter(model, scfg)
@@ -130,13 +133,41 @@ def _make_enhancer(
     restored = checkpoints.restore(model_file, {"params": p0, "model_state": s0})
     params = _tree_to(restored["params"], device)
     model_state = _tree_to(restored["model_state"], device)
-    cfg = DccrnConfig()
+
+    if model == "fullsubnet":
+        from aec_tpu_torch.models.fullsubnet import FullSubNetConfig, fullsubnet_apply
+
+        cfg = FullSubNetConfig()
+
+        def post(lin, far):
+            return fullsubnet_apply(params, lin, far, cfg)["wav"]
+    elif model == "dccrn":
+        from aec_tpu_torch.models.dccrn import DccrnConfig, dccrn_apply
+
+        cfg = DccrnConfig()
+
+        def post(lin, far):
+            return dccrn_apply(params, model_state, lin, far, cfg, train=False)[0]["wav"]
+    else:
+        from aec_tpu_torch.models.att_ccrn import AttCcrnConfig, att_ccrn_apply
+
+        cfg = AttCcrnConfig()
+        # int8 recurrent weights on the card (K10), f32 on the CPU; JAX's auto
+        # is int8 on its TPU only. Training paths never take int8 (its
+        # rounding has no gradient).
+        if lstm_dtype == "auto":
+            rd = "int8" if torch.device(device).type == "cuda" else None
+        else:
+            rd = {"int8": "int8", "bf16": torch.bfloat16, "f32": torch.float32}[lstm_dtype]
+
+        def post(lin, far):
+            return att_ccrn_apply(params, model_state, lin, far, cfg, train=False,
+                                  lstm_recurrent_dtype=rd)[0]["wav"]
 
     @torch.no_grad()
     def enhance(far, mic):
         far = prealign(far, mic)
-        lin = stage1_fn(far, mic)
-        return dccrn_apply(params, model_state, lin, far, cfg, train=False)[0]["wav"]
+        return post(stage1_fn(far, mic), far)
 
     return enhance, params
 
@@ -174,13 +205,14 @@ def main(argv=None) -> None:
     p.add_argument("--gain-norm", action="store_true",
                    help="little_net only: scale-sane ERB synthesis")
     p.add_argument("--lstm_dtype", choices=("auto", "int8", "bf16", "f32"), default="auto",
-                   help="att_ccrn only (not ported yet, ROADMAP A2)")
+                   help="att_ccrn only: the bottleneck LSTM's recurrent weights. auto = int8 on "
+                        "a CUDA device (kernel K10; the JAX package grades int8 >= 71 dB wav "
+                        "SNR against bf16 on its 8 scenes), f32 elsewhere; bf16 and f32 run "
+                        "the plain per-step loop")
     p.add_argument("--sr", type=int, default=16000)
     p.add_argument("--device", type=str, default="cuda", help="torch device to run on")
     args = p.parse_args(argv)
 
-    if args.model in NOT_PORTED:
-        p.error(f"--model {args.model} is not ported yet (ROADMAP {NOT_PORTED[args.model]})")
     os.makedirs(args.ckpt_dir, exist_ok=True)
     log = get_logger(os.path.join(args.ckpt_dir, "test.log"), log_file=True)
     log.info("Arguments:\n%s", pprint.pformat(vars(args)))

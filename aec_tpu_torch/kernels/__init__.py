@@ -13,6 +13,12 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
 - ``two_stage`` — K4, both stages in one launch (``csrc/two_stage.cu``);
 - ``gru``     — K8, the GRU recurrence (``csrc/gru.cu``), and the autograd
   Function of the fused GRU scan;
+- ``lstm``    — K9, DCCRN's grouped complex-LSTM recurrence (``csrc/lstm.cu``
+  on ``csrc/grid_scan.cuh``), and its autograd Function;
+- ``lstm_int8`` — K10, the int8 LSTM recurrence of ATT-CCRN's bottleneck
+  (``csrc/lstm_int8.cu``);
+- ``fullsubnet`` — K11, FullSubNet's joint full-band / sub-band LSTM
+  recurrence (``csrc/fullsubnet.cu``), and its autograd Function;
 - ``consts``  — their constant DFT bases, fp32, cached per device;
 - ``_build``  — ``nvcc`` at first use, ctypes binding, error checks.
 

@@ -35,6 +35,7 @@ from torch import nn
 
 from aec_tpu_torch.dsp import stft as stft_mod
 from aec_tpu_torch.dsp.stft import StftConfig, split_complex
+from aec_tpu_torch.models.tree_net import TreeNet
 from aec_tpu_torch.ops import complex_layers as cl
 from aec_tpu_torch.ops.lstm import complex_lstm_init, complex_lstm_scan, lstm_init, lstm_scan
 from aec_tpu_torch.train.metrics import si_snr
@@ -224,67 +225,13 @@ def dccrn_loss_sisnr(params, state, mic, far, near, cfg: DccrnConfig = DccrnConf
 
 # ---------------------------------------------------------------- the module
 
-def _module_of(tree, leaf) -> nn.Module:
-    """A module tree mirroring ``tree`` (dicts -> modules, lists ->
-    ModuleLists); ``leaf(module, name, tensor)`` registers each leaf."""
-    if isinstance(tree, list):
-        return nn.ModuleList([_module_of(v, leaf) for v in tree])
-    m = nn.Module()
-    for k, v in tree.items():
-        if isinstance(v, (dict, list)):
-            m.add_module(k, _module_of(v, leaf))
-        else:
-            leaf(m, k, v)
-    return m
-
-
-def _tree_of(m: nn.Module, which: str):
-    """The inverse of :func:`_module_of`: the tensors as a nested dict/list."""
-    if isinstance(m, nn.ModuleList):
-        return [_tree_of(c, which) for c in m]
-    own = m._parameters if which == "params" else m._buffers
-    tree = dict(own.items())
-    tree.update({k: _tree_of(c, which) for k, c in m.named_children()})
-    return tree
-
-
-class Dccrn(nn.Module):
+class Dccrn(TreeNet):
     """DCCRN holding ``dccrn_init``'s (params, state) trees: ``self.net``
     the parameters, ``self.stats`` the BatchNorm running statistics
     (buffers). ``forward(mic, far)`` is ``dccrn_apply`` in the module's
     mode (``train()`` / ``eval()``)."""
 
+    apply_fn = dccrn_apply
+
     def __init__(self, params: dict, state: dict, cfg: DccrnConfig = DccrnConfig()):
-        super().__init__()
-        self.cfg = cfg
-        self.net = _module_of(params, lambda m, k, v: m.register_parameter(
-            k, nn.Parameter(torch.as_tensor(v, dtype=torch.float32))))
-        self.stats = _module_of(state, lambda m, k, v: m.register_buffer(
-            k, torch.as_tensor(v, dtype=torch.float32)))
-
-    def params(self) -> dict:
-        return _tree_of(self.net, "params")
-
-    def state(self) -> dict:
-        return _tree_of(self.stats, "buffers")
-
-    def forward(self, mic: torch.Tensor, far: torch.Tensor) -> dict:
-        out, new_state = dccrn_apply(self.params(), self.state(), mic, far, self.cfg,
-                                     train=self.training)
-        if self.training:
-            with torch.no_grad():
-                _copy_into(self.state(), new_state)
-        return out
-
-
-def _copy_into(dst, src) -> None:
-    """Copy the leaves of tree ``src`` into the tensors of tree ``dst``."""
-    if isinstance(dst, dict):
-        for k in dst:
-            _copy_into(dst[k], src[k])
-    elif isinstance(dst, list):
-        for d, s in zip(dst, src):
-            _copy_into(d, s)
-    else:
-        dst.copy_(src)
-
+        super().__init__(params, state, cfg)

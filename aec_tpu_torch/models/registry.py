@@ -22,11 +22,11 @@ class ModelSpec:
 
 
 # families of the JAX registry the port does not have yet, and the item that brings them
-NOT_PORTED = {"fullsubnet": "A2", "att_ccrn": "A2", "dct_dnn": "A2", "dct_cnn": "A2"}
+NOT_PORTED = {"dct_dnn": "A2", "dct_cnn": "A2"}
 
 
 def _specs() -> dict[str, ModelSpec]:
-    from aec_tpu_torch.models import dccrn, little_net, two_layer_gru
+    from aec_tpu_torch.models import att_ccrn, dccrn, fullsubnet, little_net, two_layer_gru
 
     return {
         "little_net": ModelSpec(
@@ -42,6 +42,17 @@ def _specs() -> dict[str, ModelSpec]:
         "dccrn": ModelSpec(
             "dccrn", dccrn.dccrn_init, dccrn.dccrn_apply, dccrn.dccrn_loss_v1, stateful=True,
             reference="dccrn.py:453-594 / dccrn2.py (use_clstm, masking modes)",
+        ),
+        "fullsubnet": ModelSpec(
+            "fullsubnet", fullsubnet.fullsubnet_init, fullsubnet.fullsubnet_apply,
+            fullsubnet.fullsubnet_loss, stateful=False,
+            reference="models.py (training script only; module missing upstream — working "
+                      "realization)",
+        ),
+        "att_ccrn": ModelSpec(
+            "att_ccrn", att_ccrn.att_ccrn_init, att_ccrn.att_ccrn_apply,
+            att_ccrn.att_ccrn_loss, stateful=True,
+            reference="attention_ccrn.py:240-422 (repaired; reference forward is broken)",
         ),
     }
 

@@ -53,6 +53,27 @@ def lstm_cell(params: dict[str, torch.Tensor], h: torch.Tensor, c: torch.Tensor,
     return lstm_gates(x_proj + torch.matmul(h, params["w_hh"].T) + params["b_hh"], c)
 
 
+def lstm_int8_recurrence_plain(
+    xp: torch.Tensor, w_q: torch.Tensor, out_scale: torch.Tensor, b_hh: torch.Tensor,
+    h0: torch.Tensor, c0: torch.Tensor,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """The int8 recurrence, one step per loop iteration: ``xp`` (B, T, 4H) =
+    x W_ih^T + b_ih, ``w_q`` (4H, H) W_hh's per-row int8 codes, ``out_scale``
+    (4H,) their row scale / 127 -> (ys (B, T, H), (h_T, c_T)). h is carried
+    as int8 at the fixed scale 127; the products sum exactly (in float64,
+    which holds 127 * 127 * H exactly for any H a net has). Kernel K10's
+    plain version."""
+    w_q_t = w_q.T.to(torch.float64)  # (H, 4H) integer codes, exact
+    h, c, hs = h0, c0, []
+    for i in range(xp.shape[1]):
+        h_q = torch.round(torch.clamp(h * 127.0, -127.0, 127.0))
+        acc = torch.matmul(h_q.to(torch.float64), w_q_t).to(xp.dtype)
+        h, c = lstm_gates(xp[:, i] + acc * out_scale + b_hh, c)
+        hs.append(h)
+    ys = torch.stack(hs, dim=1) if hs else xp.new_zeros((xp.shape[0], 0, w_q.shape[1]))
+    return ys, (h, c)
+
+
 def _recurrent_dtype(recurrent_dtype):
     """None, "int8" or a float dtype (JAX's spellings: a dtype object or its
     name); any other integer dtype is refused, as JAX refuses it."""
@@ -81,11 +102,16 @@ def lstm_scan(
     products exactly (in float64, which holds 127 * 127 * H exactly for any H
     a net has), dequantizing with one (B, 4H) multiply.
 
-    ``int8_kernel=True`` asks for JAX's int8-resident kernel
-    (``pallas_lstm.lstm_int8_fused``): it needs zero initial state and
-    H % 128 == 0, as in JAX. On the CPU it runs the int8 branch, that
-    kernel's plain version; on a CUDA tensor it raises until the kernel is
-    ported (ROADMAP B3).
+    The int8 branch routes by ``int8_kernel``: None runs kernel K10
+    (``kernels/lstm_int8.py``) on a CUDA tensor, from any initial state, B
+    and H, and the plain loop (:func:`lstm_int8_recurrence_plain`, K10's
+    plain version) on a CPU tensor; True keeps the refusals of JAX's
+    int8-resident kernel (``pallas_lstm.lstm_int8_fused``: zero initial
+    state, H % 128 == 0), then routes as None does; False is the plain loop
+    on any device. A CUDA call that K10 cannot take raises. JAX's TPU int8
+    route is its XLA scan, not its kernel (``aec_tpu/ops/lstm.py:129-147``);
+    the port's alternative to K10 is a chain of launches per step, so a CUDA
+    tensor takes the kernel.
     """
     b, t, _ = x.shape
     hidden = params["w_hh"].shape[-1]
@@ -99,26 +125,19 @@ def lstm_scan(
     b_hh = params["b_hh"]
 
     if rdt == "int8":
-        if int8_kernel:
-            if not (default_state and hidden % 128 == 0):
-                raise ValueError(
-                    "int8_kernel=True needs zero initial state and 128-aligned hidden dim "
-                    f"(got h0/c0 set or hidden={hidden})"
-                )
-            if x.is_cuda:
-                raise NotImplementedError(
-                    "int8_kernel=True: the int8-resident LSTM kernel is not ported yet "
-                    "(ROADMAP B3)"
-                )
+        if int8_kernel and not (default_state and hidden % 128 == 0):
+            raise ValueError(
+                "int8_kernel=True needs zero initial state and 128-aligned hidden dim "
+                f"(got h0/c0 set or hidden={hidden})"
+            )
         w_q, w_scale = quantize_rows_int8(params["w_hh"])
-        w_q_t = w_q.T.to(torch.float64)  # (H, 4H) integer codes, exact
         out_scale = (w_scale / 127.0).to(x.dtype)
+        if x.is_cuda and int8_kernel is not False:
+            from aec_tpu_torch.kernels.lstm_int8 import lstm_int8_recurrence
 
-        def step(h, c, xp_t):
-            h_q = torch.round(torch.clamp(h * 127.0, -127.0, 127.0))
-            acc = torch.matmul(h_q.to(torch.float64), w_q_t).to(x.dtype)
-            return lstm_gates(xp_t + acc * out_scale + b_hh, c)
-    elif rdt is not None:
+            return lstm_int8_recurrence(x_proj, w_q, out_scale, b_hh, h0, c0)
+        return lstm_int8_recurrence_plain(x_proj, w_q, out_scale, b_hh, h0, c0)
+    if rdt is not None:
         w_hh_t = params["w_hh"].T.to(rdt).to(x.dtype)  # cast ONCE
 
         def step(h, c, xp_t):

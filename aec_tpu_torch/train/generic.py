@@ -2,9 +2,10 @@
 ported family, used by ``cli/infer`` (and by the generic trainer, ROADMAP
 A1, which comes with the training slice).
 
-Stateless families (LittleNet, TwoLayerGRU) take an ``nn.Module`` as their
-params and ``{}`` as state; DCCRN takes its (params, state) trees of tensors,
-BatchNorm running statistics in the state.
+Stateless families take ``{}`` as state: LittleNet and TwoLayerGRU an
+``nn.Module`` as their params, FullSubNet its param tree of tensors. DCCRN
+and ATT-CCRN take their (params, state) trees, BatchNorm running statistics
+in the state.
 """
 
 from __future__ import annotations
@@ -67,6 +68,50 @@ def make_adapter(name: str, scfg: StftConfig = StftConfig()) -> ModelAdapter:
 
         def enhance(params, state, mic, far):
             return dccrn_apply(params, state, mic, far, cfg, train=False)[0]["wav"]
+
+        return ModelAdapter(init, loss, stateful=True, enhance=enhance)
+
+    if name == "fullsubnet":
+        from aec_tpu_torch.models.fullsubnet import (
+            FullSubNetConfig,
+            fullsubnet_apply,
+            fullsubnet_init,
+            fullsubnet_loss,
+        )
+
+        cfg = FullSubNetConfig()
+
+        def init(generator=None, device="cuda"):
+            return fullsubnet_init(cfg, generator=generator, device=device), {}
+
+        def loss(params, state, mic, far, near, echo, train):
+            value, _ = fullsubnet_loss(params, mic, far, near, echo, cfg)
+            return value, state
+
+        def enhance(params, state, mic, far):
+            return fullsubnet_apply(params, mic, far, cfg)["wav"]
+
+        return ModelAdapter(init, loss, stateful=False, enhance=enhance)
+
+    if name == "att_ccrn":
+        from aec_tpu_torch.models.att_ccrn import (
+            AttCcrnConfig,
+            att_ccrn_apply,
+            att_ccrn_init,
+            att_ccrn_loss,
+        )
+
+        cfg = AttCcrnConfig()
+
+        def init(generator=None, device="cuda"):
+            return att_ccrn_init(cfg, generator=generator, device=device)
+
+        def loss(params, state, mic, far, near, echo, train):
+            value, aux = att_ccrn_loss(params, state, mic, far, near, cfg, train=train)
+            return value, aux["state"]
+
+        def enhance(params, state, mic, far):
+            return att_ccrn_apply(params, state, mic, far, cfg, train=False)[0]["wav"]
 
         return ModelAdapter(init, loss, stateful=True, enhance=enhance)
 

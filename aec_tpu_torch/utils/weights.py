@@ -4,9 +4,12 @@ The JAX LittleNet parameter tree (``aec_tpu/models/little_net.py``) already
 uses torch's layouts: the GRU stacks its gates [r; z; n] with separate
 input/hidden biases as ``torch.nn.GRU`` does, and the linear weights are
 (out, in). So the mapping is a copy, leaf by leaf, both ways. TwoLayerGRU's
-tree is the same with a 2E-wide GRU. DCCRN's (params, state) trees carry
-over as they are: :class:`~aec_tpu_torch.models.dccrn.Dccrn` holds the JAX
-trees, HWIO conv kernels included.
+tree is the same with a 2E-wide GRU. DCCRN's and ATT-CCRN's (params, state)
+trees and FullSubNet's param tree carry over as they are: the modules
+:class:`~aec_tpu_torch.models.dccrn.Dccrn`,
+:class:`~aec_tpu_torch.models.att_ccrn.AttCcrn` and
+:class:`~aec_tpu_torch.models.fullsubnet.FullSubNet` hold the JAX trees, HWIO
+conv kernels included.
 
 Checkpoints (``checkpoints/little_net_*.npz``) store leaves keyed by their
 tree path, e.g. ``['params']['gru']['w_ih']`` (``aec_tpu/train/
@@ -22,7 +25,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from aec_tpu_torch.models.att_ccrn import AttCcrn, AttCcrnConfig
 from aec_tpu_torch.models.dccrn import Dccrn, DccrnConfig
+from aec_tpu_torch.models.fullsubnet import FullSubNet, FullSubNetConfig
 from aec_tpu_torch.models.little_net import LittleNet
 from aec_tpu_torch.models.two_layer_gru import TwoLayerGru
 
@@ -122,14 +127,43 @@ def _map_tree(tree, fn):
     return fn(tree)
 
 
+def _to_torch(tree):
+    return _map_tree(tree, lambda v: torch.from_numpy(np.array(v, dtype=np.float32)))
+
+
+def _to_numpy(tree):
+    return _map_tree(tree, lambda t: t.detach().cpu().numpy())
+
+
 def dccrn_from_jax(params, state, cfg: DccrnConfig = DccrnConfig(), *, device="cuda") -> Dccrn:
     """JAX DCCRN (params, state) trees (numpy or jax leaves) -> ``Dccrn`` on
     ``device``, eval mode."""
-    to_t = lambda v: torch.from_numpy(np.array(v, dtype=np.float32))  # noqa: E731
-    return Dccrn(_map_tree(params, to_t), _map_tree(state, to_t), cfg).to(device).eval()
+    return Dccrn(_to_torch(params), _to_torch(state), cfg).to(device).eval()
 
 
 def dccrn_to_jax(net: Dccrn) -> tuple[dict, dict]:
     """``Dccrn`` -> the JAX (params, state) trees of numpy arrays."""
-    to_np = lambda t: t.detach().cpu().numpy()  # noqa: E731
-    return _map_tree(net.params(), to_np), _map_tree(net.state(), to_np)
+    return _to_numpy(net.params()), _to_numpy(net.state())
+
+
+def att_ccrn_from_jax(params, state, cfg: AttCcrnConfig = AttCcrnConfig(), *,
+                      device="cuda") -> AttCcrn:
+    """JAX ATT-CCRN (params, state) trees -> ``AttCcrn`` on ``device``, eval
+    mode."""
+    return AttCcrn(_to_torch(params), _to_torch(state), cfg).to(device).eval()
+
+
+def att_ccrn_to_jax(net: AttCcrn) -> tuple[dict, dict]:
+    """``AttCcrn`` -> the JAX (params, state) trees of numpy arrays."""
+    return _to_numpy(net.params()), _to_numpy(net.state())
+
+
+def fullsubnet_from_jax(params, cfg: FullSubNetConfig = FullSubNetConfig(), *,
+                        device="cuda") -> FullSubNet:
+    """JAX FullSubNet param tree -> ``FullSubNet`` on ``device``, eval mode."""
+    return FullSubNet(_to_torch(params), cfg).to(device).eval()
+
+
+def fullsubnet_to_jax(net: FullSubNet) -> dict:
+    """``FullSubNet`` -> the JAX param tree of numpy arrays."""
+    return _to_numpy(net.params())

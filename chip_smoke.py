@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--seed N] [--reps N]
 
-Runs ``aec_tpu_torch`` (never JAX): builds the eight CUDA sources in the
-checkout (ten kernels), in parallel, and drives every user-facing path.
+Runs ``aec_tpu_torch`` (never JAX): builds the ten CUDA sources in the
+checkout (twelve kernels), in parallel, and drives every user-facing path.
 
 - Offline Kalman (phases 4, 5, 7): each kernel against its plain PyTorch
   version at the main path's full shape (batch 256 x 131,072 samples =
@@ -49,6 +49,16 @@ checkout (ten kernels), in parallel, and drives every user-facing path.
   against its plain version, beside the plain scan and cuDNN's ``nn.LSTM``;
   ``cli/infer``'s DCCRN enhancer (Kalman stage 1) on the 8 scenes one by
   one, kernel route (K1 + K9) against the plain route, cuDNN's TF32 off.
+- FullSubNet inference (phase 24): K11 (the joint full-band / sub-band
+  LSTM recurrence) at ``FullSubNetConfig()``'s widths over 820 frames (8.2 s
+  at hop 160) at B = 1 and 4 against its plain joint loop; ``cli/infer``'s
+  FullSubNet enhancer (Kalman stage 1) on the 8 scenes one by one, kernel
+  route (K1 + K11) against the plain route.
+- ATT-CCRN inference (phase 25): K10 (the int8 LSTM recurrence) at the
+  bottleneck's H = 4096, T = 513 against the plain int8 loop, with the count
+  of h's int8 codes that differ; ``cli/infer``'s ATT-CCRN enhancer
+  (``--lstm_dtype auto``: int8 on the card) on the 8 scenes, kernel route
+  (K1 + K10) against the plain route, and its wav SNR against the f32 route.
 
 One line per phase; the first failure exits nonzero (nothing is caught).
 The second-to-last line is the ``kernels`` JSON (each kernel's launches on
@@ -123,11 +133,23 @@ K9_TOL = 1e-5
 # DCCRN's input, which its convolutions and recurrence carry to the wav
 DCCRN_WAV_TOL = 1e-3
 T_DCCRN = N // HOP + 1  # frames of one 8.2 s utterance: 513
+# K11 vs plain: h in [-1, 1], an fp32 recursion summed in another order
+K11_TOL = 1e-5
+T_FSN = N // 160 + 1  # frames of one 8.2 s utterance at FullSubNet's hop of 160: 820
+# K10 vs the plain int8 loop: the same operations in the same order, so a code
+# of h flips only where a transcendental differs by an ulp near a half; a flip
+# moves one h_q by 1/127, which the recurrence carries -> 1e-2 absolute
+K10_TOL = 1e-2
+# each enhancer, kernel route vs plain route (the DCCRN bar and reason)
+ENHANCER_WAV_TOL = 1e-3
+# ATT-CCRN's int8 route against its f32 route, wav SNR per scene (the JAX
+# package graded 71.45-76.41 dB against bf16, benchmarks/results/ab_lstm_int8_r4.json)
+INT8_SNR_MIN_DB = 60.0
 
 # The least time the card could take (PERF.md section 2): the larger of the
 # fp32 operations over the FFMA peak and the bytes over the HBM rate, from
 # the published H100 SXM figures at 700 W.
-PEAK_FP32, PEAK_HBM = 67e12, 3.35e12
+PEAK_FP32, PEAK_HBM, PEAK_INT8 = 67e12, 3.35e12, 1979e12
 L_PART, K_BINS, RI, FRAME, BANDS = 10, 257, 514, 512, 32
 # FMAs of one stage-1 block step per utterance: far-frame analysis, echo
 # synthesis, residual analysis, constraint head and tail over L partitions
@@ -141,14 +163,41 @@ STAGE1_BASES = 4 * (FRAME * RI + 2 * RI * HOP)  # fwd, inv_tail, inv_head: bytes
 STAGE2_BASES = 4 * (FRAME * RI + RI * FRAME + 2 * K_BINS * BANDS + 12 * BANDS * BANDS)
 
 
+def fsn_bound(b: int, t: int, f: int = 161, hf: int = 256, hs: int = 96) -> dict:
+    """K11's: per frame the full-band, embedding, sub-band and embedding-column
+    FMAs; xp_fb, xp_sb, the weights in, ys out."""
+    fma = t * b * (4 * hf * hf + f * hf + f * 4 * hs * hs + f * 4 * hs)
+    return bound(fma, 4 * (b * t * (4 * hf + f * 4 * hs + f * hs)
+                           + 4 * hf * hf + f * hf + f + 4 * hs + 4 * hs * hs))
+
+
+def int8_bound(b: int, t: int, h: int) -> dict:
+    """K10's: B T 4H H int8 MACs at the int8 peak; the codes (1 B each),
+    xp, scale, b_hh, h0, c0 in, ys and c_T out (fp32)."""
+    return bound(b * t * 4 * h * h, 4 * h * h + 4 * (b * t * 4 * h + 2 * 4 * h + 3 * b * h
+                                                     + b * t * h), PEAK_INT8)
+
+
+def time_once(fn) -> float:
+    """One run of ``fn`` on CUDA events (for plain loops too slow to repeat;
+    the comparison run before it was the warm-up)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def gru_bound(b: int, t: int, h: int) -> dict:
     """K8's: B*T*3H*H FMA; xp in, ys out, W_hh^T, b_hn, h0 and h_T."""
     return bound(b * t * 3 * h * h, 4 * (b * t * 4 * h + 3 * h * h + h + 2 * b * h))
 
 
-def bound(fma: float, nbytes: float) -> dict:
-    """``bound_ms`` and ``bound_by`` of the kernels JSON."""
-    t_ops, t_bytes = 2 * fma / PEAK_FP32 * 1e3, nbytes / PEAK_HBM * 1e3
+def bound(fma: float, nbytes: float, peak: float = PEAK_FP32) -> dict:
+    """``bound_ms`` and ``bound_by`` of the kernels JSON: ``fma``
+    multiply-adds at ``peak`` operations per second (fp32 unless named)."""
+    t_ops, t_bytes = 2 * fma / peak * 1e3, nbytes / PEAK_HBM * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
@@ -792,6 +841,184 @@ def dccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
     return {"k9_launches": k9}
 
 
+def fullsubnet_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
+    """24. K11 at FullSubNetConfig()'s widths (H_fb 256, H_sb 96, F = 161) over
+    T = 820 frames (8.2 s at hop 160) at B = 1 and 4 against its plain joint
+    loop, timed beside it; cli/infer's FullSubNet enhancer (fullsubnet_init,
+    seed 0, saved with train/checkpoints, restored by
+    _make_enhancer("fullsubnet", path, "kalman")) on the 8 scenes one by one,
+    K1 + K11 per utterance, against the plain route (Kalman's plain loop, the
+    plain joint loop) on the card."""
+    from aec_tpu_torch.cli.infer import _make_enhancer
+    from aec_tpu_torch.configs import KalmanConfig
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+    from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched, kalman_cancel_plain
+    from aec_tpu_torch.models.fullsubnet import (
+        FullSubNetConfig,
+        _joint_scan_hs,
+        fullsubnet_apply,
+        fullsubnet_init,
+    )
+    from aec_tpu_torch.train import checkpoints
+
+    cfg = FullSubNetConfig()
+    g = torch.Generator().manual_seed(0)
+    out = {"err": 0.0, "shapes": {}}
+    for b in (1, 4):
+        params = fullsubnet_init(cfg, generator=g, device=dev)
+        xp_fb = (0.3 * torch.randn(b, T_FSN, 4 * cfg.fb_hidden, generator=g)).to(dev)
+        xp_sb = (0.3 * torch.randn(b, T_FSN, cfg.n_freqs, 4 * cfg.sb_hidden, generator=g)).to(dev)
+        with torch.no_grad():
+            ys = joint_recurrence(params, xp_fb, xp_sb)
+            want = _joint_scan_hs(params, xp_fb, xp_sb)
+            torch.cuda.synchronize()
+            check(ys.shape == (b, T_FSN, cfg.n_freqs, cfg.sb_hidden)
+                  and bool(torch.isfinite(ys).all()), "K11 output")
+            err = float((ys - want).abs().max())
+            t_k = time_ms(lambda: joint_recurrence(params, xp_fb, xp_sb), reps)
+            t_p = time_ms(lambda: _joint_scan_hs(params, xp_fb, xp_sb), 1)
+        phase("K11 vs plain", f"B = {b}, T = {T_FSN}, H_fb 256, H_sb 96, F 161: max|d| = "
+              f"{err:.3e} (bar {K11_TOL:g})")
+        check(err <= K11_TOL, "K11 disagrees with its plain version")
+        phase("time", f"K11 B = {b}, T = {T_FSN}: {t_k:.3f} ms (plain joint loop {t_p:.2f} ms) "
+              f"[{smi}]")
+        out["err"] = max(out["err"], err)
+        out["shapes"][b] = {"ms": t_k, "plain_ms": t_p}
+        del params, xp_fb, xp_sb, ys, want
+
+    params = fullsubnet_init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fullsubnet.npz")
+        checkpoints.save(path, {"params": params})
+        enhance, params = _make_enhancer("fullsubnet", path, "kalman", StftConfig(), device=dev)
+    sf, sm = (torch.from_numpy(a).to(dev) for a in (s_far, s_mic))
+
+    def plain_route(i):
+        lin = kalman_cancel_plain(KalmanConfig(), sf[i:i + 1], sm[i:i + 1])["wav"]
+        return fullsubnet_apply(params, lin, sf[i:i + 1], cfg, joint_kernel=False)["wav"]
+
+    got, (k1, k11) = drive((kalman_cancel_fused_batched, joint_recurrence),
+                           lambda: [enhance(sf[i:i + 1], sm[i:i + 1]) for i in range(len(names))])
+    phase("fullsubnet path", f"cli/infer FullSubNet enhancer, 8 scenes x {N} one by one: "
+          f"launches K1 {k1}, K11 {k11}")
+    check(k1 == len(names) and k11 == len(names),
+          "the FullSubNet path did not run K1 + K11 per utterance")
+    worst = 0.0
+    with torch.no_grad():
+        for i in range(len(names)):
+            want = plain_route(i)
+            check(got[i].shape == want.shape and bool(torch.isfinite(got[i]).all()),
+                  "FullSubNet wav")
+            worst = max(worst, float((got[i] - want).abs().max()) / float(want.abs().max()))
+        t_utt = time_ms(lambda: enhance(sf[:1], sm[:1]), reps)
+        t_plain = time_ms(lambda: plain_route(0), 1)
+    phase("fullsubnet path", f"kernel vs plain route: worst max|d| / scale = {worst:.3e} (bar "
+          f"{ENHANCER_WAV_TOL:g}); {t_utt:.2f} ms per 8.2 s utterance = "
+          f"{N / SR / (t_utt / 1e3):.1f} x realtime (plain route {t_plain:.1f} ms) [{smi}]")
+    check(worst <= ENHANCER_WAV_TOL, "the FullSubNet kernel route disagrees with its plain route")
+    out["launches"] = k11
+    return out
+
+
+def att_ccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
+    """25. K10 at ATT-CCRN's bottleneck (H = 4096, T = 513, B = 1) against the
+    plain int8 loop, with the count of h's codes that differ, timed beside it
+    (the plain loop once: its float64 product streams 537 MB a step) and,
+    for information, the f32 plain loop; cli/infer's ATT-CCRN enhancer
+    (att_ccrn_init, seed 0; --lstm_dtype auto, int8 on the card) on the 8
+    scenes, K1 + K10 per utterance, against the plain route (Kalman's plain
+    loop, the plain int8 loop), and its wav SNR against the f32 route."""
+    from aec_tpu_torch.cli.infer import _make_enhancer, _tree_to
+    from aec_tpu_torch.configs import KalmanConfig
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched, kalman_cancel_plain
+    from aec_tpu_torch.kernels.lstm_int8 import lstm_int8_recurrence
+    from aec_tpu_torch.models.att_ccrn import AttCcrnConfig, att_ccrn_apply, att_ccrn_init
+    from aec_tpu_torch.ops.lstm import (
+        lstm_init,
+        lstm_int8_recurrence_plain,
+        lstm_scan,
+        quantize_rows_int8,
+    )
+    from aec_tpu_torch.train import checkpoints
+
+    h = 4096
+    g = torch.Generator().manual_seed(0)
+    lp = lstm_init(h, h, generator=g, device=dev)
+    x = torch.randn(1, T_DCCRN, h, generator=g).to(dev)
+    with torch.no_grad():
+        xp = x @ lp["w_ih"].T + lp["b_ih"]
+        w_q, w_scale = quantize_rows_int8(lp["w_hh"])
+        args = (xp, w_q, w_scale / 127.0, lp["b_hh"], torch.zeros(1, h, device=dev),
+                torch.zeros(1, h, device=dev))
+        ys, (_, c_t) = lstm_int8_recurrence(*args)
+        want, (_, c_w) = lstm_int8_recurrence_plain(*args)
+        torch.cuda.synchronize()
+        check(ys.shape == (1, T_DCCRN, h) and bool(torch.isfinite(ys).all()), "K10 output")
+        err = max(float((ys - want).abs().max()), float((c_t - c_w).abs().max()))
+        code = lambda y: torch.round(torch.clamp(y * 127.0, -127.0, 127.0))  # noqa: E731
+        flips = int((code(ys) != code(want)).sum())
+        t_k = time_ms(lambda: lstm_int8_recurrence(*args), reps)
+        t_p = time_once(lambda: lstm_int8_recurrence_plain(*args))
+        lstm_scan(lp, x[:, :8])  # warm the f32 loop's kernels
+        t_f32 = time_once(lambda: lstm_scan(lp, x))
+    phase("K10 vs plain", f"B = 1, T = {T_DCCRN}, H = {h}: max|d| = {err:.3e} (bar {K10_TOL:g}); "
+          f"codes of h that differ: {flips} of {ys.numel()}")
+    check(err <= K10_TOL, "K10 disagrees with its plain version")
+    phase("time", f"K10 B = 1, T = {T_DCCRN}, H = {h}: {t_k:.3f} ms (plain int8 loop {t_p:.2f} ms "
+          f"once; f32 plain loop {t_f32:.2f} ms, information; the per-step restream of 67 MB "
+          f"of codes from HBM alone: {T_DCCRN * 4 * h * h / PEAK_HBM * 1e3:.2f} ms) [{smi}]")
+    out = {"err": err, "flips": flips, "ms": t_k, "plain_ms": t_p}
+    del lp, x, xp, w_q, args, ys, want
+
+    cfg = AttCcrnConfig()
+    params, state = att_ccrn_init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "att_ccrn.npz")
+        checkpoints.save(path, {"params": params, "model_state": state})
+        enhance, params = _make_enhancer("att_ccrn", path, "kalman", StftConfig(), device=dev)
+        enhance_f32, _ = _make_enhancer("att_ccrn", path, "kalman", StftConfig(),
+                                        lstm_dtype="f32", device=dev)
+    state = _tree_to(state, dev)
+    sf, sm = (torch.from_numpy(a).to(dev) for a in (s_far, s_mic))
+
+    def plain_route(i):
+        lin = kalman_cancel_plain(KalmanConfig(), sf[i:i + 1], sm[i:i + 1])["wav"]
+        return att_ccrn_apply(params, state, lin, sf[i:i + 1], cfg, lstm_recurrent_dtype="int8",
+                              lstm_int8_kernel=False)[0]["wav"]
+
+    got, (k1, k10) = drive((kalman_cancel_fused_batched, lstm_int8_recurrence),
+                           lambda: [enhance(sf[i:i + 1], sm[i:i + 1]) for i in range(len(names))])
+    phase("att_ccrn path", f"cli/infer ATT-CCRN enhancer (--lstm_dtype auto), 8 scenes x {N} one "
+          f"by one: launches K1 {k1}, K10 {k10}")
+    check(k1 == len(names) and k10 == len(names),
+          "the ATT-CCRN path did not run K1 + K10 per utterance")
+    worst, snrs = 0.0, []
+    with torch.no_grad():
+        for i in range(len(names)):
+            want = plain_route(i)
+            check(got[i].shape == want.shape and bool(torch.isfinite(got[i]).all()),
+                  "ATT-CCRN wav")
+            worst = max(worst, float((got[i] - want).abs().max()) / float(want.abs().max()))
+            ref = enhance_f32(sf[i:i + 1], sm[i:i + 1])
+            noise = float(((got[i] - ref) ** 2).sum())
+            snrs.append(10 * np.log10(float((ref ** 2).sum()) / noise) if noise else np.inf)
+        t_utt = time_ms(lambda: enhance(sf[:1], sm[:1]), reps)
+        t_plain = time_once(lambda: plain_route(0))
+        t_f32 = time_ms(lambda: enhance_f32(sf[:1], sm[:1]), 1)
+    phase("att_ccrn path", "int8 route vs f32 route, wav SNR dB: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in zip(names, snrs)) + f" (bar >= {INT8_SNR_MIN_DB:g})")
+    phase("att_ccrn path", f"kernel vs plain route: worst max|d| / scale = {worst:.3e} (bar "
+          f"{ENHANCER_WAV_TOL:g}); {t_utt:.2f} ms per 8.2 s utterance = "
+          f"{N / SR / (t_utt / 1e3):.1f} x realtime (plain route {t_plain:.1f} ms once; f32 route "
+          f"{t_f32:.1f} ms) [{smi}]")
+    check(worst <= ENHANCER_WAV_TOL, "the ATT-CCRN kernel route disagrees with its plain route")
+    check(min(snrs) >= INT8_SNR_MIN_DB, "the ATT-CCRN int8 route is off its f32 route")
+    out["launches"] = k10
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -852,7 +1079,7 @@ def main() -> None:
     # 3. build the kernels from the checkout's sources (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
-                        "single_stream", "gru", "lstm")
+                        "single_stream", "gru", "lstm", "fullsubnet", "lstm_int8")
     build_s = time.perf_counter() - t0
     phase("build", f"{build_s:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for src, log in sorted(logs.items()):
@@ -1248,11 +1475,15 @@ def main() -> None:
     limits_phase(dev, net, args.seed, smi)
     lstm = lstm_phase(dev, args.seed, args.reps, smi)
     dccrn = dccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
+    # 24-25. K11 and the FullSubNet path; K10 and the ATT-CCRN path
+    fsn = fullsubnet_phase(dev, names, s_far, s_mic, args.reps, smi)
+    att = att_ccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
 
-    # 24. the kernels of the paths, with this run's numbers; bounds from
+    # 26. the kernels of the paths, with this run's numbers; bounds from
     #     this run's shapes (module top); library_ms where one PyTorch call
     #     computes the same function (cuDNN's GRU for K8, its LSTM for K9),
-    #     else null
+    #     else null (no PyTorch call computes K10's int8 recurrence or
+    #     K11's coupled full-band / sub-band recurrence)
     t_utt = -(-N_UTT // HOP)
     state_bytes = {k: 4 * sum(v.numel() for v in st.values()) // S_SERVE
                    for k, st in (("kalman", ks), ("nlms", ks_n))}
@@ -1296,6 +1527,12 @@ def main() -> None:
         # K9 at one 8.2 s utterance (B = 1, T = 513); launches from the DCCRN path
         ("lstm_grouped", "lstm.cu", "pallas_lstm.py:88", dccrn["k9_launches"], lstm["err"],
          k9["ms"], k9["plain_ms"], k9_bound),
+        # K10 at ATT-CCRN's bottleneck (B = 1, T = 513, H = 4096); launches from its path
+        ("lstm_int8", "lstm_int8.cu", "pallas_lstm.py:237", att["launches"], att["err"],
+         att["ms"], att["plain_ms"], int8_bound(1, T_DCCRN, 4096)),
+        # K11 at one 8.2 s utterance (B = 1, T = 820); launches from the FullSubNet path
+        ("fullsubnet_joint", "fullsubnet.cu", "pallas_fullsubnet.py:106", fsn["launches"],
+         fsn["err"], fsn["shapes"][1]["ms"], fsn["shapes"][1]["plain_ms"], fsn_bound(1, T_FSN)),
     ]
     # cuDNN's nn.GRU and nn.LSTM with the kernels' weights
     library_ms = {"gru_scan": k8["library_ms"], "lstm_grouped": k9["library_ms"]}
@@ -1305,7 +1542,7 @@ def main() -> None:
          "plain_ms": plain_ms, **bnd, "library_ms": library_ms.get(kernel)}
         for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
     ]}), flush=True)
-    # 25. the result
+    # 27. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

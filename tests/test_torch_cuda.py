@@ -806,3 +806,189 @@ def test_dccrn_enhancer_runs_k1_and_k9(cuda, scene, tmp_path):
     want = enhance_cpu(far, mic)
     assert got.shape == want.shape == mic.shape
     torch.testing.assert_close(got.cpu(), want, atol=1e-3 * float(want.abs().max()), rtol=0)
+
+
+def _fsn_case(cuda, fb, sb, b, t, seed=0):
+    from aec_tpu_torch.models.fullsubnet import FullSubNetConfig, fullsubnet_init
+
+    g = torch.Generator().manual_seed(seed)
+    params = fullsubnet_init(FullSubNetConfig(fb_hidden=fb, sb_hidden=sb), generator=g,
+                             device=cuda)
+    xp_fb = (0.3 * torch.randn(b, t, 4 * fb, generator=g)).to(cuda)
+    xp_sb = (0.3 * torch.randn(b, t, 161, 4 * sb, generator=g)).to(cuda)
+    return params, xp_fb, xp_sb
+
+
+@pytest.mark.parametrize("fb,sb,b,t", [(32, 16, 1, 40), (256, 96, 1, 120), (256, 96, 4, 60),
+                                       (40, 24, 3, 30)])
+def test_fullsubnet_kernel_matches_plain(cuda, fb, sb, b, t):
+    """K11 against its plain joint loop at narrow and FullSubNetConfig()
+    widths, B = 1 and 4: h in [-1, 1], an fp32 recursion summed in another
+    order -> 1e-5 absolute."""
+    from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+    from aec_tpu_torch.models.fullsubnet import _joint_scan_hs
+
+    params, xp_fb, xp_sb = _fsn_case(cuda, fb, sb, b, t)
+    before = joint_recurrence.launches
+    with torch.no_grad():
+        got = joint_recurrence(params, xp_fb, xp_sb)
+        torch.cuda.synchronize()
+        want = _joint_scan_hs(params, xp_fb, xp_sb)
+    assert joint_recurrence.launches == before + 1
+    assert got.shape == (b, t, 161, sb)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_fullsubnet_kernel_refuses_what_it_cannot_take(cuda):
+    """A CUDA call K11 cannot take raises and never runs the plain loop:
+    B = 64 rows of h, c and pre-activations per CTA beyond shared memory;
+    another dtype; a strided input."""
+    from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+
+    params, xp_fb, xp_sb = _fsn_case(cuda, 256, 96, 64, 4)
+    before = joint_recurrence.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        joint_recurrence(params, xp_fb, xp_sb)
+    params, xp_fb, xp_sb = _fsn_case(cuda, 32, 16, 1, 8)
+    with pytest.raises(TypeError):
+        joint_recurrence(params, xp_fb.double(), xp_sb.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        joint_recurrence(params, xp_fb[:, ::2], xp_sb[:, ::2])
+    assert joint_recurrence.launches == before
+
+
+def test_fullsubnet_routes_and_gradients(cuda):
+    """fullsubnet_masks on a CUDA tensor runs K11 once (joint_kernel=False
+    none); the Function's gradients (recomputed through the plain loop)
+    equal the plain route's to 1e-5 of each leaf's scale."""
+    from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+    from aec_tpu_torch.models.fullsubnet import FullSubNetConfig, fullsubnet_masks
+
+    cfg = FullSubNetConfig(fb_hidden=32, sb_hidden=16)
+    params, _, _ = _fsn_case(cuda, 32, 16, 1, 1)
+    g = torch.Generator().manual_seed(3)
+    mic, ref = (torch.rand(2, 50, 161, generator=g).to(cuda) for _ in range(2))
+    leaves = [params[a][k] for a in ("fb_lstm", "sb_lstm")
+              for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    leaves += [params[a][k] for a in ("fb_out", "sb_out") for k in ("w", "b")]
+    for t in leaves:
+        t.requires_grad_()
+    grads, counts = {}, {}
+    for jk in (None, False):
+        before = joint_recurrence.launches
+        near, echo = fullsubnet_masks(params, mic, ref, cfg, joint_kernel=jk)
+        counts[jk] = joint_recurrence.launches - before
+        grads[jk] = torch.autograd.grad((near * near).sum() + (echo * mic).sum(), leaves)
+    assert counts == {None: 1, False: 0}
+    for a, w in zip(grads[None], grads[False]):
+        torch.testing.assert_close(a, w, atol=1e-5 * float(w.abs().max()), rtol=0)
+
+
+def _int8_case(cuda, h, b, t, seed=0):
+    from aec_tpu_torch.ops.lstm import lstm_init, quantize_rows_int8
+
+    g = torch.Generator().manual_seed(seed)
+    params = lstm_init(h, h, generator=g, device=cuda)
+    x = torch.randn(b, t, h, generator=g).to(cuda)
+    xp = x @ params["w_ih"].T + params["b_ih"]
+    w_q, scale = quantize_rows_int8(params["w_hh"])
+    return params, x, (xp, w_q, scale / 127.0, params["b_hh"])
+
+
+@pytest.mark.parametrize("h,b,t", [(128, 1, 40), (1024, 1, 64), (4096, 1, 64), (1024, 3, 32),
+                                   (100, 2, 20), (4096, 9, 8)])
+def test_int8_kernel_matches_plain(cuda, h, b, t):
+    """K10 against the plain int8 loop, ATT-CCRN's H = 4096 included, B > 1
+    and an H that is no multiple of 16, from zero and from a given state.
+    The kernel repeats the loop's operations in its order, so a code of h
+    flips only if a transcendental differs by an ulp near a half; a flip
+    moves one h_q by 1/127: 1e-2 absolute."""
+    from aec_tpu_torch.kernels.lstm_int8 import lstm_int8_recurrence
+    from aec_tpu_torch.ops.lstm import lstm_int8_recurrence_plain
+
+    _, _, args = _int8_case(cuda, h, b, t)
+    g = torch.Generator().manual_seed(7)
+    for h0, c0 in ((torch.zeros(b, h, device=cuda), torch.zeros(b, h, device=cuda)),
+                   ((0.5 * torch.randn(b, h, generator=g)).to(cuda),
+                    torch.randn(b, h, generator=g).to(cuda))):
+        before = lstm_int8_recurrence.launches
+        ys, (h_t, c_t) = lstm_int8_recurrence(*args, h0, c0)
+        torch.cuda.synchronize()
+        assert lstm_int8_recurrence.launches == before + 1
+        want, (hw, cw) = lstm_int8_recurrence_plain(*args, h0, c0)
+        assert ys.shape == (b, t, h)
+        torch.testing.assert_close(ys, want, atol=1e-2, rtol=0)
+        torch.testing.assert_close(c_t, cw, atol=1e-2, rtol=0)
+        assert torch.equal(h_t, ys[:, -1])
+
+
+def test_int8_lstm_scan_routes_to_k10(cuda):
+    """lstm_scan(recurrent_dtype="int8") on a CUDA tensor: int8_kernel None
+    takes K10 (from zero or a given state, any H), True keeps JAX's refusals
+    and then takes K10, False runs the plain loop; a call K10 cannot take
+    raises (B = 80 codes of h per CTA beyond shared memory, at H = 4096)."""
+    from aec_tpu_torch.kernels.lstm_int8 import lstm_int8_recurrence
+    from aec_tpu_torch.ops.lstm import lstm_scan
+
+    params, x, _ = _int8_case(cuda, 256, 2, 16)
+    h0 = torch.zeros(2, 256, device=cuda)
+    for kw, want in ((dict(), 1), (dict(h0=h0, c0=h0), 1), (dict(int8_kernel=True), 1),
+                     (dict(int8_kernel=False), 0)):
+        before = lstm_int8_recurrence.launches
+        lstm_scan(params, x, recurrent_dtype="int8", **kw)
+        assert lstm_int8_recurrence.launches - before == want, kw
+    p100, x100, _ = _int8_case(cuda, 100, 1, 8)
+    before = lstm_int8_recurrence.launches
+    lstm_scan(p100, x100, recurrent_dtype="int8")
+    assert lstm_int8_recurrence.launches == before + 1
+    with pytest.raises(ValueError, match="128-aligned"):
+        lstm_scan(p100, x100, recurrent_dtype="int8", int8_kernel=True)
+    big, xb, _ = _int8_case(cuda, 4096, 80, 2)
+    before = lstm_int8_recurrence.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        lstm_scan(big, xb, recurrent_dtype="int8")
+    with pytest.raises(TypeError):
+        lstm_scan({k: v.double() for k, v in params.items()}, x.double(), recurrent_dtype="int8")
+    assert lstm_int8_recurrence.launches == before
+
+
+def test_fullsubnet_and_att_ccrn_enhancers_run_their_kernels(cuda, scene, tmp_path):
+    """cli/infer's FullSubNet and ATT-CCRN enhancers at full width on the
+    card, one utterance each: K1 once (Kalman stage 1) and K11, resp. K10
+    (``--lstm_dtype auto`` is int8 on the card), once; each wav within 1e-3
+    of scale of the same path's plain route on the card (K1's round-off
+    enters the nets' inputs; cuDNN's TF32 pinned off)."""
+    from aec_tpu_torch.cli.infer import _make_enhancer, _tree_to
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+    from aec_tpu_torch.kernels.lstm_int8 import lstm_int8_recurrence
+    from aec_tpu_torch.models.att_ccrn import att_ccrn_apply, att_ccrn_init
+    from aec_tpu_torch.models.fullsubnet import fullsubnet_apply, fullsubnet_init
+    from aec_tpu_torch.train import checkpoints
+
+    torch.backends.cudnn.allow_tf32 = False
+    far, mic = (t.to(cuda) for t in scene(1, 100 * 256))
+    lin = kalman_cancel_plain(KalmanConfig(), far, mic)["wav"]
+    g = torch.Generator().manual_seed(0)
+    fsn = fullsubnet_init(generator=g, device="cpu")
+    att = att_ccrn_init(generator=g, device="cpu")
+    cases = (
+        ("fullsubnet", {"params": fsn}, joint_recurrence,
+         lambda p: fullsubnet_apply(p, lin, far, joint_kernel=False)["wav"]),
+        ("att_ccrn", {"params": att[0], "model_state": att[1]}, lstm_int8_recurrence,
+         lambda p: att_ccrn_apply(p, _tree_to(att[1], cuda), lin, far,
+                                  lstm_recurrent_dtype="int8", lstm_int8_kernel=False)[0]["wav"]),
+    )
+    for model, tree, kernel, plain in cases:
+        path = str(tmp_path / f"{model}.npz")
+        checkpoints.save(path, tree)
+        enhance, params = _make_enhancer(model, path, "kalman", StftConfig(), device=cuda)
+        before = kalman_cancel_fused_batched.launches, kernel.launches
+        got = enhance(far, mic)
+        torch.cuda.synchronize()
+        assert (kalman_cancel_fused_batched.launches - before[0],
+                kernel.launches - before[1]) == (1, 1), model
+        with torch.no_grad():
+            want = plain(params)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all()), model
+        torch.testing.assert_close(got, want, atol=1e-3 * float(want.abs().max()), rtol=0)

@@ -223,10 +223,13 @@ def test_module_weights_round_trip_and_forward(rng):
 
 
 def test_registry():
-    assert registry.list_models() == ["dccrn", "little_net", "two_layer_gru"]
+    assert registry.list_models() == ["att_ccrn", "dccrn", "fullsubnet", "little_net",
+                                      "two_layer_gru"]
     spec = registry.get_model("dccrn")
     assert spec.stateful and spec.apply is td.dccrn_apply
-    for name in ("fullsubnet", "att_ccrn", "dct_dnn", "dct_cnn"):
+    assert registry.get_model("att_ccrn").stateful
+    assert not registry.get_model("fullsubnet").stateful
+    for name in ("dct_dnn", "dct_cnn"):
         with pytest.raises(KeyError, match="ROADMAP A2"):
             registry.get_model(name)
     with pytest.raises(KeyError, match="unknown model"):
@@ -268,7 +271,7 @@ def test_make_adapter_stateless_matches_jax(rng, name):
     lt, _ = ta.loss(net, {}, *map(torch.from_numpy, (mic, far, near, echo)), True)
     lj, _ = ja.loss(params, {}, *map(jnp.asarray, (mic, far, near, echo)), True)
     _close(lt, lj, 1e-5, "loss")
-    for other in ("fullsubnet", "att_ccrn"):
+    for other in ("dct_dnn", "dct_cnn"):
         with pytest.raises(KeyError, match="ROADMAP A2"):
             make_adapter(other)
 

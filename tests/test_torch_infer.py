@@ -1,6 +1,6 @@
 """Port inference slice == JAX: dsp/delay, pipeline/audio_io, models/two_layer_gru
-and ``cli/infer`` (little_net, two_layer_gru, dccrn) on a tiny ``.ex`` file,
-against the JAX CLI's wavs."""
+and ``cli/infer`` (little_net, two_layer_gru, dccrn, fullsubnet, att_ccrn) on
+a tiny ``.ex`` file, against the JAX CLI's wavs."""
 
 import os
 import subprocess
@@ -15,6 +15,8 @@ import torch
 from aec_tpu.cli import infer as jax_infer
 from aec_tpu.dsp import delay as jdelay
 from aec_tpu.dsp.erb import erb_filterbank
+from aec_tpu.models import att_ccrn as jatt
+from aec_tpu.models import fullsubnet as jfsn
 from aec_tpu.models import two_layer_gru as jtl
 from aec_tpu.pipeline import audio_io as jio
 from aec_tpu.train import checkpoints as jck
@@ -165,8 +167,61 @@ def test_infer_cli_dccrn_matches_jax(tmp_path, tt_list):
     _compare(_run_both(tmp_path, tt_list, path, "--model", "dccrn", "--stage1", "kalman"), 1e-4)
 
 
+def test_infer_cli_fullsubnet_matches_jax(tmp_path, tt_list):
+    """FullSubNetConfig() at full width from JAX's init, saved by JAX's
+    checkpoints.save, restored by both CLIs; Kalman stage 1 on the CLI's
+    512/256 blocks, FullSubNet's own 320/160 STFT (the hop-mismatch tail is
+    padded). Wavs within 1e-4 of scale (fp32 round-off through the
+    10-partition recursion and the net)."""
+    path = str(tmp_path / "fsn.npz")
+    jck.save(path, {"params": jfsn.fullsubnet_init(jax.random.PRNGKey(5))})
+    _compare(_run_both(tmp_path, tt_list, path, "--model", "fullsubnet", "--stage1", "kalman"),
+             1e-4)
+
+
+@pytest.mark.slow
+def test_infer_cli_att_ccrn_matches_jax(tmp_path, tt_list):
+    """AttCcrnConfig() at full width (a 4096-wide bottleneck LSTM) from
+    JAX's init, saved by JAX; ``--lstm_dtype auto`` is f32 off the
+    accelerator on both sides. Wavs within 1e-4 of scale. Slow (~110 s):
+    JAX's CPU scan at H = 4096 takes ~16 s per utterance and its init ~12 s;
+    the port's model is held to JAX at narrow widths in
+    tests/test_torch_att_ccrn.py."""
+    params, state = jatt.att_ccrn_init(jax.random.PRNGKey(6))
+    path = str(tmp_path / "att.npz")
+    jck.save(path, {"params": params, "model_state": state})
+    del params, state
+    _compare(_run_both(tmp_path, tt_list, path, "--model", "att_ccrn", "--stage1", "kalman"),
+             1e-4)
+
+
+def test_infer_cli_att_ccrn_lstm_dtypes(tmp_path):
+    """The ATT-CCRN enhancer on a JAX-saved full-width checkpoint (the tree
+    drawn by the port's init) equals the model behind Kalman stage 1, bit for
+    bit, for each ``--lstm_dtype``: auto is f32 on the CPU, int8 and bf16 the
+    quantized and cast recurrences (int8 differs from f32)."""
+    from aec_tpu_torch.configs import KalmanConfig
+    from aec_tpu_torch.linear.kalman import kalman_cancel
+    from aec_tpu_torch.models import att_ccrn as tatt
+
+    params, state = tatt.att_ccrn_init(generator=torch.Generator().manual_seed(1), device="cpu")
+    path = str(tmp_path / "att.npz")
+    jck.save(path, jax.tree.map(lambda t: t.numpy(), {"params": params, "model_state": state}))
+    far, mic = (torch.from_numpy(v) for v in _delayed(np.random.default_rng(9), 1, 2048, [0]))
+    lin = kalman_cancel(KalmanConfig(), far, mic, block=256)["wav"]
+    got = {}
+    for dtype, rd in (("auto", None), ("int8", "int8"), ("bf16", torch.bfloat16)):
+        enhance, _ = infer._make_enhancer("att_ccrn", path, "kalman", infer.StftConfig(),
+                                          lstm_dtype=dtype, device="cpu")
+        got[dtype] = enhance(far, mic)
+        with torch.no_grad():
+            want, _ = tatt.att_ccrn_apply(params, state, lin, far, lstm_recurrent_dtype=rd)
+        assert torch.equal(got[dtype], want["wav"]), dtype
+    assert float((got["int8"] - got["auto"]).abs().max()) > 0
+
+
 def test_infer_refusals(tmp_path, tt_list):
-    for model in ("fullsubnet", "att_ccrn"):
+    for model in ("dct_dnn", "dct_cnn"):
         with pytest.raises(NotImplementedError, match="ROADMAP A2"):
             infer._make_enhancer(model, CKPT, "none", infer.StftConfig(), device="cpu")
         with pytest.raises(SystemExit):
@@ -174,8 +229,9 @@ def test_infer_refusals(tmp_path, tt_list):
                         "--est_path", str(tmp_path / "e"), "--model", model, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="utils/torch_compat"):
         infer.load_params(str(tmp_path / "ref.pt"), device="cpu")
-    with pytest.raises(ValueError, match="little_net-only"):
-        infer._make_enhancer("dccrn", "x.pt", "none", infer.StftConfig(), device="cpu")
+    for model in ("dccrn", "fullsubnet", "att_ccrn"):
+        with pytest.raises(ValueError, match="little_net-only"):
+            infer._make_enhancer(model, "x.pt", "none", infer.StftConfig(), device="cpu")
 
 
 def test_infer_cli_imports_no_jax():

@@ -14,6 +14,7 @@ import torch
 from aec_tpu.kernels.pallas_lstm import _grouped_lstm_fused_fwd
 from aec_tpu.ops import lstm as jl
 from aec_tpu_torch.kernels import lstm as kl
+from aec_tpu_torch.kernels import lstm_int8 as k10
 from aec_tpu_torch.ops import lstm as tl
 
 KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
@@ -133,6 +134,33 @@ def test_lstm_int8_kernel_plain_version_matches_jax_kernel(rng):
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-5 * scale)
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj),
                                atol=1e-5 * max(float(np.abs(np.asarray(cj)).max()), 1.0))
+
+
+def test_int8_routes_on_the_cpu_and_initial_state_match_jax(rng):
+    """K10's route on CPU tensors: every ``int8_kernel`` runs the plain loop
+    (the wrapper takes it for a CPU tensor, no launch), from zero and from a
+    given state; against JAX's int8 scan from the same state at the int8
+    branch's 1e-2 (one code of h may move by one)."""
+    p = _lstm_params(rng, 6, 24)
+    x = (0.5 * rng.standard_normal((3, 17, 6))).astype(np.float32)
+    h0 = (0.4 * rng.standard_normal((3, 24))).astype(np.float32)
+    c0 = rng.standard_normal((3, 24)).astype(np.float32)
+    jp, tp = _both(p)
+    xt, ht0, ct0 = map(torch.from_numpy, (x, h0, c0))
+    before = k10.lstm_int8_recurrence.launches
+    outs = [tl.lstm_scan(tp, xt, ht0, ct0, recurrent_dtype="int8", int8_kernel=k)
+            for k in (None, False)]
+    w_q, scale = tl.quantize_rows_int8(tp["w_hh"])
+    xp = torch.matmul(xt, tp["w_ih"].T) + tp["b_ih"]
+    direct = k10.lstm_int8_recurrence(xp, w_q, scale / 127.0, tp["b_hh"], ht0, ct0)
+    assert k10.lstm_int8_recurrence.launches == before
+    for y, (h, c) in outs + [direct]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(c, outs[0][1][1])
+        assert torch.equal(h, y[:, -1])
+    yj, (_, cj) = jl.lstm_scan(jp, jnp.asarray(x), jnp.asarray(h0), jnp.asarray(c0),
+                               recurrent_dtype="int8")
+    np.testing.assert_allclose(outs[0][0].numpy(), np.asarray(yj), atol=1e-2)
+    np.testing.assert_allclose(outs[0][1][1].numpy(), np.asarray(cj), atol=1e-2)
 
 
 def test_lstm_scan_refusals_match_jax(rng):
