@@ -1,0 +1,267 @@
+// CTA-wide real FFTs over shared memory, for the FFT step of K1 and K12.
+//
+// A real transform of length N = 2B is a complex FFT of length M = B over
+// the even / odd samples packed as (re, im), and a split of its M outputs
+// into the K = B + 1 bins of the real spectrum (and back for the inverse).
+// The complex FFT is a Stockham auto-sort schedule: pass p of radix R reads
+// element j + r M/R (j < M/R, r < R), multiplies it by the twiddle
+// W_M^(r k M/(Ns R)) with k = j mod Ns, takes the R-point DFT in registers
+// and writes element (j div Ns) Ns R + k + r Ns, where Ns is the product of
+// the earlier radices; results come out in natural order. Each pass is one
+// strided loop over (transform, butterfly) pairs of the CTA and one barrier,
+// so a transform costs one barrier per radix (3 at B = 256: radices 8, 8, 4;
+// 3 at B = 160: 8, 4, 5), and L transforms run side by side in the same
+// passes. Radices 2, 3, 4, 5 and 8 are written out, so every B = 2^a 3^b 5^c
+// runs; kernels/fft_plan.py builds the plan and the twiddle table (W_N^m for
+// m in [0, M), float64 rounded to fp32) and holds a plain-torch model of
+// this schedule that the CPU tests check.
+//
+// The first pass of a transform reads its input through a loader (a
+// functor (transform, index) -> complex), so packing real input, zero
+// halves and the inverse's pre-split cost no pass of their own; the forward
+// split is done by whoever consumes the spectrum (fwd_split). The inverse
+// drops the imaginary parts of bins 0 and K - 1, as np.fft.irfft and the
+// dense inverse bases do.
+#pragma once
+
+#include "bl_common.cuh"
+
+namespace aec {
+
+constexpr int kMaxPasses = 12;  // kernels/fft_plan.py MAX_PASSES
+
+// a radix plan read at run time (the host's)
+struct RunPlan {
+  int passes;
+  int radix[kMaxPasses];
+};
+
+// a radix plan fixed at compile time
+template <int... Rs>
+struct FixedPlan {};
+
+// complex element i of an array of interleaved (re, im) pairs
+__device__ __forceinline__ float2& c2(SArr a, int i) {
+  return reinterpret_cast<float2*>(aec_smem4)[a.off / 2 + i];
+}
+
+// complex element e of transform l in a work buffer of L transforms of M
+// complex values each
+__device__ __forceinline__ float2& elem(SArr buf, int l, int e, int M) {
+  return c2(buf, l * M + e);
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 cscale(float2 a, float s) { return make_float2(a.x * s, a.y * s); }
+
+// a times -i (forward) or +i (inverse): the quarter turn of the transform's sign
+template <bool kInv>
+__device__ __forceinline__ float2 rot(float2 a) {
+  return kInv ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+}
+
+// W_N^m for m in [0, N) from the table of W_N^m, m in [0, M)
+// (W_N^(m + M) = -W_N^m); conjugated for the inverse
+template <bool kInv>
+__device__ __forceinline__ float2 twiddle(SArr tw, int m, int M) {
+  float2 w = c2(tw, m < M ? m : m - M);
+  if (m >= M) w = make_float2(-w.x, -w.y);
+  if (kInv) w.y = -w.y;
+  return w;
+}
+
+// ---------------------------------------------------------------- butterflies
+
+template <int R, bool kInv>
+struct Dft;
+
+template <bool kInv>
+struct Dft<2, kInv> {
+  __device__ __forceinline__ static void run(float2* v) {
+    const float2 a = v[0];
+    v[0] = cadd(a, v[1]);
+    v[1] = csub(a, v[1]);
+  }
+};
+
+template <bool kInv>
+struct Dft<4, kInv> {
+  __device__ __forceinline__ static void run(float2* v) {
+    const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
+    const float2 t2 = cadd(v[1], v[3]), t3 = rot<kInv>(csub(v[1], v[3]));
+    v[0] = cadd(t0, t2);
+    v[2] = csub(t0, t2);
+    v[1] = cadd(t1, t3);
+    v[3] = csub(t1, t3);
+  }
+};
+
+template <bool kInv>
+struct Dft<8, kInv> {
+  __device__ __forceinline__ static void run(float2* v) {
+    constexpr float h = 0.70710678118654752f;  // sqrt(1/2)
+    float2 e[4] = {v[0], v[2], v[4], v[6]}, o[4] = {v[1], v[3], v[5], v[7]};
+    Dft<4, kInv>::run(e);
+    Dft<4, kInv>::run(o);
+    // o[k] *= W_8^k
+    o[1] = cscale(cadd(o[1], rot<kInv>(o[1])), h);
+    o[2] = rot<kInv>(o[2]);
+    o[3] = cscale(csub(rot<kInv>(o[3]), o[3]), h);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = cadd(e[k], o[k]);
+      v[k + 4] = csub(e[k], o[k]);
+    }
+  }
+};
+
+template <bool kInv>
+struct Dft<3, kInv> {
+  __device__ __forceinline__ static void run(float2* v) {
+    constexpr float s = 0.86602540378443865f;  // sin(2 pi / 3)
+    const float2 a = cadd(v[1], v[2]), b = cscale(rot<kInv>(csub(v[1], v[2])), s);
+    const float2 m = csub(v[0], cscale(a, 0.5f));
+    v[0] = cadd(v[0], a);
+    v[1] = cadd(m, b);
+    v[2] = csub(m, b);
+  }
+};
+
+template <bool kInv>
+struct Dft<5, kInv> {
+  __device__ __forceinline__ static void run(float2* v) {
+    constexpr float c1 = 0.30901699437494742f, c2_ = -0.80901699437494742f;  // cos(2 pi / 5), cos(4 pi / 5)
+    constexpr float s1 = 0.95105651629515357f, s2 = 0.58778525229247313f;    // sin(2 pi / 5), sin(4 pi / 5)
+    const float2 a1 = cadd(v[1], v[4]), b1 = csub(v[1], v[4]);
+    const float2 a2 = cadd(v[2], v[3]), b2 = csub(v[2], v[3]);
+    const float2 m1 = cadd(v[0], cadd(cscale(a1, c1), cscale(a2, c2_)));
+    const float2 m2 = cadd(v[0], cadd(cscale(a1, c2_), cscale(a2, c1)));
+    const float2 n1 = rot<kInv>(cadd(cscale(b1, s1), cscale(b2, s2)));
+    const float2 n2 = rot<kInv>(csub(cscale(b1, s2), cscale(b2, s1)));
+    v[0] = cadd(v[0], cadd(a1, a2));
+    v[1] = cadd(m1, n1);
+    v[4] = csub(m1, n1);
+    v[2] = cadd(m2, n2);
+    v[3] = csub(m2, n2);
+  }
+};
+
+// ---------------------------------------------------------------- passes
+
+// a work buffer of L transforms of M points each
+struct BufSrc {
+  SArr a;
+  int m;
+  __device__ __forceinline__ float2 operator()(int l, int i) const { return elem(a, l, i, m); }
+};
+
+// One Stockham pass of radix R over L transforms of M = q.block points:
+// src(l, i) -> work buffer dst. No barrier.
+template <int R, bool kInv, class G, class Src>
+__device__ __forceinline__ void fft_pass(const G& q, int L, int ns, const Src& src, SArr dst,
+                                         SArr tw) {
+  const int M = q.block, mr = M / R, span = ns * R, step = M / span;
+  for (int w = threadIdx.x; w < L * mr; w += kThreads) {
+    const int l = w / mr, j = w - l * mr, k = j % ns;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = src(l, j + r * mr);
+    if (ns > 1) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], twiddle<kInv>(tw, 2 * r * k * step, M));
+    }
+    Dft<R, kInv>::run(v);
+    const int d = (j / ns) * span + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) elem(dst, l, d + r * ns, M) = v[r];
+  }
+}
+
+template <bool kInv, class G, class Src>
+__device__ __forceinline__ void fft_pass_any(int radix, const G& q, int L, int ns, const Src& src,
+                                             SArr dst, SArr tw) {
+  switch (radix) {
+    case 8: fft_pass<8, kInv>(q, L, ns, src, dst, tw); break;
+    case 4: fft_pass<4, kInv>(q, L, ns, src, dst, tw); break;
+    case 2: fft_pass<2, kInv>(q, L, ns, src, dst, tw); break;
+    case 5: fft_pass<5, kInv>(q, L, ns, src, dst, tw); break;
+    default: fft_pass<3, kInv>(q, L, ns, src, dst, tw); break;
+  }
+}
+
+template <bool kInv, class G, class Src, int R, int... Rs>
+__device__ __forceinline__ SArr fft_fixed(const G& q, int L, int ns, const Src& src, SArr dst,
+                                          SArr other, SArr tw) {
+  fft_pass<R, kInv>(q, L, ns, src, dst, tw);
+  __syncthreads();
+  if constexpr (sizeof...(Rs) == 0) {
+    return dst;
+  } else {
+    return fft_fixed<kInv, G, BufSrc, Rs...>(q, L, ns * R, BufSrc{dst, q.block}, other, dst, tw);
+  }
+}
+
+// L complex FFTs of M = q.block points (unscaled; the inverse conjugates
+// the twiddles): the first pass reads src and writes dst, later passes
+// alternate between `other` and dst. Ends with a barrier; returns the
+// buffer that holds the result. `src` may read `other`, never dst.
+template <bool kInv, class G, class Src, int... Rs>
+__device__ __forceinline__ SArr fft(const FixedPlan<Rs...>&, const G& q, int L, const Src& src,
+                                    SArr dst, SArr other, SArr tw) {
+  return fft_fixed<kInv, G, Src, Rs...>(q, L, 1, src, dst, other, tw);
+}
+
+template <bool kInv, class G, class Src>
+__device__ __forceinline__ SArr fft(const RunPlan& p, const G& q, int L, const Src& src, SArr dst,
+                                    SArr other, SArr tw) {
+  fft_pass_any<kInv>(p.radix[0], q, L, 1, src, dst, tw);
+  __syncthreads();
+  int ns = p.radix[0];
+  for (int i = 1; i < p.passes; ++i) {
+    const SArr from = dst;
+    dst = other;
+    other = from;
+    fft_pass_any<kInv>(p.radix[i], q, L, ns, BufSrc{from, q.block}, dst, tw);
+    __syncthreads();
+    ns *= p.radix[i];
+  }
+  return dst;
+}
+
+// ---------------------------------------------------------------- real-FFT splits
+
+// Bin k in [0, M] of the real FFT whose half-length complex FFT is
+// transform l of work buffer z: X[k] = (Z[k] + Z*[M-k]) / 2 - i W_N^k (Z[k]
+// - Z*[M-k]) / 2, indices mod M.
+__device__ __forceinline__ float2 fwd_split(SArr z, int l, int k, int M, SArr tw) {
+  const float2 a = elem(z, l, k == M ? 0 : k, M);
+  const float2 b = elem(z, l, k == 0 ? 0 : M - k, M);  // Z[M-k], conjugated below
+  const float sr = a.x + b.x, si = a.y - b.y;             // Z[k] + Z*[M-k]
+  const float fr = 0.5f * (a.y + b.y), fi = -0.5f * (a.x - b.x);  // -i (Z[k] - Z*[M-k]) / 2
+  const float2 w = k < M ? c2(tw, k) : make_float2(-1.f, 0.f);
+  return make_float2(0.5f * sr + (w.x * fr - w.y * fi), 0.5f * si + (w.x * fi + w.y * fr));
+}
+
+// The inverse's pre-split for k in [0, M): Z'[k] = ((X[k] + X*[M-k]) + i
+// conj(W_N^k) (X[k] - X*[M-k])) * inv_n, from xk = X[k] and xm = X[M-k]
+// (bins 0 and M with their imaginary parts already dropped); the inverse
+// passes then give x[2n] = Re z[n], x[2n+1] = Im z[n].
+__device__ __forceinline__ float2 inv_split(float2 xk, float2 xm, float2 w, float inv_n) {
+  const float er = xk.x + xm.x, ei = xk.y - xm.y;  // X[k] + X*[M-k]
+  const float dr = xk.x - xm.x, di = xk.y + xm.y;  // X[k] - X*[M-k]
+  const float orr = w.x * dr + w.y * di, oi = w.x * di - w.y * dr;  // conj(W) (X - X*)
+  return make_float2((er - oi) * inv_n, (ei + orr) * inv_n);
+}
+
+// sample m of the real signal whose packed complex form is transform l of
+// work buffer z
+__device__ __forceinline__ float real_sample(SArr z, int l, int m, int M) {
+  const float2 v = elem(z, l, m >> 1, M);
+  return (m & 1) ? v.y : v.x;
+}
+
+}  // namespace aec

@@ -3,11 +3,15 @@
 Replaces ``aec_tpu/kernels/pallas_gru.py:65`` (``_gru_scan_fused_fwd``,
 ``pallas_call`` at ``:107``) and its custom VJP ``gru_scan_fused``
 (``:141-169``). The kernel is ``csrc/gru.cu``: one CTA per batch row walks
-the T steps with W_hh^T and h in shared memory; a serial recursion, so one
-step's latency bounds it (the source's header has the reckoning). A net too
-wide for one SM (H > 128) takes the kernel's wide path: the same recurrence
-on one persistent grid of co-resident CTAs (``csrc/grid_scan.cuh``, shared
-with K9), each owning a few hidden units, W_hh^T read from L2 every step.
+the T steps with W_hh in registers (each hidden unit's three gate rows
+split over a team of lanes, packed per call by :func:`pack_gru_lanes`) and
+h double-buffered in shared memory; a serial recursion, so one step's
+latency bounds it (the source's header has the reckoning).
+:func:`gru_recurrence_split` is a plain-torch model of its summation order.
+A net too wide for one SM (H > 128) takes the kernel's wide path: the same
+recurrence on one persistent grid of co-resident CTAs
+(``csrc/grid_scan.cuh``, shared with K9), each owning a few hidden units,
+W_hh^T read from L2 every step.
 
 :class:`GruScanFused` does what the JAX custom VJP does: its forward is the
 hoisted input projection as one ``torch.matmul`` (``b_hr`` and ``b_hz``
@@ -53,6 +57,75 @@ def pack_gate_columns(w_hh: torch.Tensor, gates: int, units: int) -> torch.Tenso
     w = F.pad(w_hh.reshape(g, gates, hidden, hidden), (0, 0, 0, nchunk * units - hidden))
     w = w.reshape(g, gates, nchunk, units, hidden).permute(0, 2, 4, 1, 3)
     return w.reshape(g, nchunk, hidden, gates * units).contiguous()
+
+
+def lane_plan(hidden: int) -> tuple[int, int, int]:
+    """K8's layout at H = ``hidden`` <= 128 (``csrc/gru.cu`` repeats it):
+    (P lanes per unit, C weights per lane and gate, unit slots). H <= 32
+    runs one warp, a lane per unit (P = 1, 32 slots); wider nets a team of 4
+    lanes per unit and the slots rounded up to whole warps."""
+    p = 1 if hidden <= 32 else 4
+    c = max(4, 1 << (-(-hidden // p) - 1).bit_length())
+    units = 32 if p == 1 else -(-hidden // 8) * 8
+    return p, c, units
+
+
+def pack_gru_lanes(w_hh: torch.Tensor) -> torch.Tensor:
+    """``W_hh`` (3H, H) -> (3 C/4, threads, 4), the registers of K8's
+    lanes: chunk i of gate g for thread j P + l is ``W_hh[g H + j, 4 (l + P
+    i) + e]``, e < 4, zero past H (:func:`lane_plan`). One op chain per call,
+    never per step."""
+    hidden = w_hh.shape[-1]
+    p, c, units = lane_plan(hidden)
+    w = w_hh.reshape(3, hidden, hidden)
+    if (p * c, units) != (hidden, hidden):
+        w = F.pad(w, (0, p * c - hidden, 0, units - hidden))
+    w = w.reshape(3, units, c // 4, p, 4).permute(0, 2, 1, 3, 4)  # [g, i, j, l, e]
+    return w.reshape(3 * c // 4, units * p, 4).contiguous()
+
+
+def unpack_gru_lanes(packed: torch.Tensor, hidden: int) -> torch.Tensor:
+    """The inverse of :func:`pack_gru_lanes`: -> ``W_hh`` (3H, H)."""
+    p, c, units = lane_plan(hidden)
+    w = packed.reshape(3, c // 4, units, p, 4).permute(0, 2, 1, 3, 4)  # [g, j, i, l, e]
+    w = w.reshape(3, units, p * c)[:, :hidden, :hidden]
+    return w.reshape(3 * hidden, hidden)
+
+
+def gru_recurrence_split(xp: torch.Tensor, packed: torch.Tensor, b_hn: torch.Tensor,
+                         h0: torch.Tensor) -> torch.Tensor:
+    """K8's arithmetic in the kernel's summation order, from its packed
+    weights: each lane's partial dot over its float4 chunks of h (chunk l +
+    P i) into two accumulators by the parity of i, the accumulators added, a
+    team of four summed as the kernel's reduce-scatter does, (s0 + s2) +
+    (s1 + s3), then the gates. A model for the CPU tests (fp32, no fused
+    multiply-add)."""
+    b, hidden = h0.shape
+    p, c, units = lane_plan(hidden)
+    c4 = c // 4
+    w = packed.reshape(3, c4, units, p, 4)
+    h = F.pad(h0, (0, p * c - hidden))
+    hs = []
+    for t in range(xp.shape[1]):
+        hv = h.reshape(b, c4, p, 4)  # float4 chunk i P + l of h at [:, i, l]
+        acc = [h.new_zeros((b, 3, units, p)) for _ in range(2)]
+        for i in range(c4):
+            prod = w[:, i][None] * hv[:, i][:, None, None]  # (b, 3, units, p, 4)
+            acc[i % 2] = (((acc[i % 2] + prod[..., 0]) + prod[..., 1]) + prod[..., 2]) + prod[..., 3]
+        s = acc[0] + acc[1]
+        if p == 4:
+            s = (s[..., 0] + s[..., 2]) + (s[..., 1] + s[..., 3])
+        else:
+            s = s[..., 0]
+        s = s[:, :, :hidden]  # (b, 3, H)
+        xr, xz, xn = torch.split(xp[:, t], hidden, dim=-1)
+        r = torch.sigmoid(xr + s[:, 0])
+        z = torch.sigmoid(xz + s[:, 1])
+        n = torch.tanh(xn + r * (s[:, 2] + b_hn))
+        hn = (1.0 - z) * n + z * h[:, :hidden]
+        hs.append(hn)
+        h = F.pad(hn, (0, p * c - hidden))
+    return torch.stack(hs, dim=1)
 
 
 def folded_projection(params: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -110,8 +183,8 @@ def gru_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hn: torch.Tensor,
 
     A CUDA tensor launches K8 (or raises: not fp32, not contiguous, T = 0,
     a grid the card cannot hold co-resident on the wide path); a CPU tensor
-    takes the plain recurrence. H <= 128 runs one CTA per row, a wider H
-    the wide path.
+    takes the plain recurrence. H <= 128 runs one CTA per row with W_hh in
+    registers, a wider H the wide path.
     """
     if xp.device.type == "cpu":
         return gru_recurrence_plain(xp, w_hh, b_hn, h0)
@@ -121,9 +194,9 @@ def gru_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hn: torch.Tensor,
     dev = xp.device.index
     ys = xp.new_empty((b, t, hidden))
     if hidden <= lib.aec_gru_max_hidden():
-        whh_t = w_hh.detach().T.contiguous()  # held until the launch is enqueued
+        wpk = pack_gru_lanes(w_hh.detach())  # held until the launch is enqueued
         err = lib.aec_gru(
-            _build.ptr(xp), _build.ptr(whh_t), _build.ptr(b_hn), _build.ptr(h0), _build.ptr(ys),
+            _build.ptr(xp), _build.ptr(wpk), _build.ptr(b_hn), _build.ptr(h0), _build.ptr(ys),
             b, t, hidden, dev, _build.stream_of(xp),
         )
     else:

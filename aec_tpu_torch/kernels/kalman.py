@@ -3,10 +3,12 @@
 K1 replaces ``aec_tpu/kernels/pallas_kalman.py:492``
 (``kalman_filter_fused_batched_bl``, ``pallas_call`` at ``:573``; wrapper
 ``kalman_cancel_fused_batched_bl`` at ``:611``). The kernel is
-``csrc/kalman_batched.cu`` on the shared step of ``csrc/bl_common.cuh``: one
-CTA per utterance walks all blocks with the filter state in shared memory.
-It is bound by L2 bandwidth (its DFT bases are re-read every step); the
-source's header has the reckoning and the levers left.
+``csrc/kalman_batched.cu``: one CTA per utterance walks all blocks with the
+filter state in shared memory, its transforms real FFTs in shared memory
+(``csrc/fft.cuh``; the plan and twiddles from :mod:`kernels.fft_plan`). A
+block with a prime factor other than 2, 3 and 5 takes the kernel's dense
+step (``csrc/bl_common.cuh``, DFT bases read from L2) instead; the wrappers
+count which step ran in ``steps``. The source's header has the reckoning.
 
 K12 replaces ``aec_tpu/kernels/pallas_kalman.py:303``
 (``kalman_filter_fused_batched``, ``pallas_call`` at ``:349``), the filter-
@@ -33,6 +35,7 @@ import torch
 from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
 from aec_tpu_torch.kernels import _build
 from aec_tpu_torch.kernels.consts import stage1_consts
+from aec_tpu_torch.kernels.fft_plan import radix_plan, twiddles
 from aec_tpu_torch.linear import overlap_save as ols
 from aec_tpu_torch.linear.kalman import kalman_cancel_plain, kalman_filter
 
@@ -52,8 +55,12 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.aec_kalman_batched, lib.aec_kalman_batched_spectra):
         fn.argtypes = [p, p, p, i, i, *KALMAN_ARGTYPES, i, p]
         fn.restype = ctypes.c_int
-    lib.aec_kalman_smem.argtypes = [i, i]
-    lib.aec_kalman_smem.restype = ctypes.c_longlong
+    lib.aec_kalman_batched_fft.argtypes = [p, p, p, i, i, i, i, p, ctypes.POINTER(i), i, i,
+                                           *[ctypes.c_float] * 8, i, p]
+    lib.aec_kalman_batched_fft.restype = ctypes.c_int
+    for fn in (lib.aec_kalman_smem, lib.aec_kalman_fft_smem):
+        fn.argtypes = [i, i]
+        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -77,13 +84,45 @@ def kalman_operands(cfg: KalmanConfig, device: torch.device, block: int) -> list
     bases of :func:`stage1_consts` (cached per device, so their pointers stay
     valid) and the filter constants."""
     c = stage1_consts(block, device)
-    a2 = cfg.a * cfg.a
     return [
         block, cfg.n_blocks,
         _build.ptr(c["fwd"]), _build.ptr(c["inv_tail"]), _build.ptr(c["inv_head"]),
-        cfg.a, a2, 1.0 - a2, cfg.q_min, cfg.obs_smooth, 1.0 - cfg.obs_smooth,
-        cfg.psi_floor, cfg.init_p,
+        *filter_constants(cfg),
     ]
+
+
+def filter_constants(cfg: KalmanConfig) -> list[float]:
+    """The eight Kalman constants every stage-1 kernel takes."""
+    a2 = cfg.a * cfg.a
+    return [cfg.a, a2, 1.0 - a2, cfg.q_min, cfg.obs_smooth, 1.0 - cfg.obs_smooth, cfg.psi_floor,
+            cfg.init_p]
+
+
+def launch_batched(wrapper, cfg: KalmanConfig, x: torch.Tensor, mic: torch.Tensor,
+                   e: torch.Tensor, block: int, spectra_in: bool) -> None:
+    """Launch K1 (far blocks ``x``) or K12 (far-frame spectra ``x``) over
+    ``mic`` (batch, T * block; K12: batch, T, block) into ``e``: the FFT
+    step where :func:`radix_plan` takes the block, else the dense step; the
+    step that ran is counted in ``wrapper.steps``. Raises if one CTA cannot
+    hold the step's shared memory."""
+    lib, dev = _lib(), x.device
+    batch, t_blocks = mic.shape[0], mic.shape[1] if spectra_in else mic.shape[-1] // block
+    plan = radix_plan(block)
+    what = "the batched Kalman kernel"
+    if plan is None:
+        _build.check_smem(lib.aec_kalman_smem(block, cfg.n_blocks), dev, what)
+        entry = lib.aec_kalman_batched_spectra if spectra_in else lib.aec_kalman_batched
+        err = entry(_build.ptr(x), _build.ptr(mic), _build.ptr(e), batch, t_blocks,
+                    *kalman_operands(cfg, dev, block), dev.index, _build.stream_of(x))
+    else:
+        _build.check_smem(lib.aec_kalman_fft_smem(block, cfg.n_blocks), dev, what)
+        err = lib.aec_kalman_batched_fft(
+            _build.ptr(x), _build.ptr(mic), _build.ptr(e), batch, t_blocks, block, cfg.n_blocks,
+            _build.ptr(twiddles(block, dev)), (ctypes.c_int * len(plan))(*plan), len(plan),
+            int(spectra_in), *filter_constants(cfg), dev.index, _build.stream_of(x),
+        )
+    _build.check(err, "kalman_batched")
+    wrapper.steps["dense" if plan is None else "fft"] += 1
 
 
 def check_inputs(cfg, far: torch.Tensor, mic: torch.Tensor, block: int, ndim: int) -> None:
@@ -132,28 +171,22 @@ def kalman_cancel_fused_batched(
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain loop. ``n`` is zero-padded to a block multiple and the output is
-    cut back to ``n``.
+    cut back to ``n``. ``steps`` counts the launches of the FFT step and of
+    the dense step (a block with a prime factor other than 2, 3, 5).
     """
     if far.device.type == "cpu":
         return {"wav": kalman_cancel_plain(cfg, far, mic, block=block)["wav"]}
-    lib = _lib()
     check_inputs(cfg, far, mic, block, 2)
-    _build.check_smem(lib.aec_kalman_smem(block, cfg.n_blocks), far.device,
-                      "the batched Kalman kernel")
     n = mic.shape[-1]
     farp, micp = ols.pad_to_blocks(far, block), ols.pad_to_blocks(mic, block)
     e = torch.empty_like(micp)
-    err = lib.aec_kalman_batched(
-        _build.ptr(farp), _build.ptr(micp), _build.ptr(e), farp.shape[0],
-        farp.shape[1] // block, *kalman_operands(cfg, far.device, block), far.device.index,
-        _build.stream_of(far),
-    )
-    _build.check(err, "kalman_batched")
+    launch_batched(kalman_cancel_fused_batched, cfg, farp, micp, e, block, spectra_in=False)
     kalman_cancel_fused_batched.launches += 1
     return {"wav": e[:, :n]}
 
 
 kalman_cancel_fused_batched.launches = 0
+kalman_cancel_fused_batched.steps = {"fft": 0, "dense": 0}
 
 
 def kalman_cancel_fused(
@@ -193,12 +226,11 @@ def kalman_filter_fused_batched(
     its waveform wrapper, JAX's ``kalman_cancel_fused_batched``, has the same
     semantics as the ``_bl`` one and is :func:`kalman_cancel_fused_batched`
     here. A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    the plain loop. Limits as K1's: fp32, contiguous, the shared memory of
-    one CTA.
+    the plain loop. Limits and ``steps`` as K1's: fp32, contiguous, the
+    shared memory of one CTA.
     """
     if x_ri.device.type == "cpu":
         return kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks, block=block)
-    lib = _lib()
     if d_blocks.device != x_ri.device or x_ri.device.type != "cuda":
         raise ValueError(
             f"x_ri/d_blocks must be on one CUDA device, got {x_ri.device}, {d_blocks.device}"
@@ -215,16 +247,11 @@ def kalman_filter_fused_batched(
         raise ValueError("x_ri/d_blocks must be contiguous")
     if block < 1 or cfg.n_blocks < 1:
         raise ValueError(f"block and n_blocks must be >= 1, got {block}, {cfg.n_blocks}")
-    _build.check_smem(lib.aec_kalman_smem(block, cfg.n_blocks), x_ri.device,
-                      "the batched Kalman kernel")
     e = torch.empty_like(d_blocks)
-    err = lib.aec_kalman_batched_spectra(
-        _build.ptr(x_ri), _build.ptr(d_blocks), _build.ptr(e), x_ri.shape[0], x_ri.shape[1],
-        *kalman_operands(cfg, x_ri.device, block), x_ri.device.index, _build.stream_of(x_ri),
-    )
-    _build.check(err, "kalman_batched_spectra")
+    launch_batched(kalman_filter_fused_batched, cfg, x_ri, d_blocks, e, block, spectra_in=True)
     kalman_filter_fused_batched.launches += 1
     return e
 
 
 kalman_filter_fused_batched.launches = 0
+kalman_filter_fused_batched.steps = {"fft": 0, "dense": 0}

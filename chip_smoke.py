@@ -12,8 +12,8 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
   version evaluated in fp64 (there and on full-scale noise through four
   untrained nets, beside TF32 products as the lower-precision control);
   ``two_stage_cancel`` on the 8 scenes of ``benchmarks/scenes.py``, graded
-  against the plain (CPU) route; the ``quality="fast"`` route, which runs
-  the whole pipeline as K4.
+  against the plain (CPU) route, K1 on its FFT step; the ``quality="fast"``
+  route, which runs the whole pipeline as K4.
 - Streaming serving (phases 8, 9): K3 against its plain version at
   S = 1024 live streams (bench config ``concurrent_streams``), then the 8
   scenes streamed hop by hop through K3 against the offline result.
@@ -25,10 +25,13 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
   and through the single-stream Kalman route (K6 + K2); K3-NLMS against its
   plain version at S = 1024.
 - Times (phases 6, 10, 15): kernels, plain versions and the paths, with
-  CUDA events, beside the card's name and power limit.
+  CUDA events, beside the card's name and power limit; K1 and K2 also as a
+  batch of one 8.2 s utterance, K1's bound on its FFT step's work beside
+  the dense DFT formulation's.
 - Training (phases 16-19): K8 (the GRU scan) against its plain version at
-  B = 1 x 1001 frames (H = 32 and 128) and B = 16 x 501, its gradients
-  against the plain route's, beside cuDNN's ``nn.GRU``; the trainer of a
+  B = 1 x 1001 frames (H = 32, 64 and 128) and B = 16 x 501, its gradients
+  against the plain route's; the recurrence and the whole forward beside
+  cuDNN's ``nn.GRU`` in turns, with the ratios; the trainer of a
   width-1 LittleNet at ``TrainConfig()``: 5 steps at batch 16 x 8 s (the
   first against the CPU route), validation at batch 1 through K8, a
   checkpoint round trip, 3 batch-1 steps; the width-4 net on one utterance
@@ -73,6 +76,7 @@ import argparse
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -98,11 +102,13 @@ K2_WAV_TOL, K2_MASK_TOL = 1e-4, 1e-5
 # mask bar there is 5e-5, and the control must stay at least 1e-3 off
 K2_LOUD_MASK_TOL, K2_CONTROL_MIN = 5e-5, 1e-3
 ERLE_TOL_DB = 0.1  # kernel route vs plain route, tail ERLE per scene
-# K4 runs K1's and K2's device code in one launch: against the K1 + K2
-# kernel route on the same input it is held to K2's bars. Against the plain
-# composition, linear_wav is K1's output (K1's bar); wav and mask are K2's
-# on an input that already differs by K1's round-off, which the sigmoid mask
-# feels most on quiet residual frames: wav at K1's relative bar, mask at 1e-3
+# K4 runs the dense stage-1 step and K2's device code in one launch. Its
+# linear_wav against K1 (the FFT step) is held to K1's bar; its wav and mask
+# against K2 run on K4's own linear_wav (the same input) to K2's bars.
+# Against the plain composition, linear_wav is at K1's bar; wav and mask are
+# K2's on an input that already differs by stage 1's round-off, which the
+# sigmoid mask feels most on quiet residual frames: wav at K1's relative
+# bar, mask at 1e-3
 K4_WAV_TOL, K4_MASK_TOL = 1e-3, 1e-3
 # K8 vs plain: h lies in [-1, 1]; an fp32 recursion summed in another order
 K8_TOL = 1e-5
@@ -160,6 +166,31 @@ STAGE1_FMA = FRAME * RI + RI * HOP + HOP * RI + 2 * L_PART * RI * HOP
 STAGE2_FMA = (2 * FRAME * RI + 2 * K_BINS * BANDS + 3 * BANDS * 3 * BANDS + 2 * BANDS * BANDS
               + BANDS * BANDS + K_BINS * BANDS + RI * FRAME)
 STAGE1_BASES = 4 * (FRAME * RI + 2 * RI * HOP)  # fwd, inv_tail, inv_head: bytes
+# The FFT step of K1 / K12 (csrc/kalman_batched.cu on csrc/fft.cuh) does less
+# work for the same function: flops of one radix-R butterfly as fft.cuh
+# writes it (a pass after the first also multiplies R - 1 twiddles, 6 flops
+# each), of the real-FFT split per bin, and of the filter algebra per
+# partition bin (predict 9, echo estimate 8, denominator 5, gain 8,
+# covariance 8, constraint update 2) and per bin (psd, E / den)
+DFT_FLOPS = {2: 4, 3: 16, 4: 16, 5: 48, 8: 56}
+SPLIT_FLOPS, ALGEBRA_LK, ALGEBRA_K = 14, 40, 10
+
+
+def stage1_fft_flops(block: int = HOP, l_part: int = L_PART, analysis: bool = True) -> int:
+    """Flops of one FFT step per utterance: 2 + L forward real FFTs of 2B
+    points (far frame, residual, L constraint tails; K12 skips the far
+    frame), 1 + L inverse ones (echo, L constraint heads), the filter
+    algebra and the echo subtraction."""
+    from aec_tpu_torch.kernels.fft_plan import radix_plan
+
+    cfft, ns = 0, 1
+    for r in radix_plan(block):
+        cfft += block // r * (DFT_FLOPS[r] + (6 * (r - 1) if ns > 1 else 0))
+        ns *= r
+    k = block + 1
+    fwd = (1 + analysis + l_part) * (cfft + SPLIT_FLOPS * k)
+    inv = (1 + l_part) * (cfft + SPLIT_FLOPS * block)
+    return fwd + inv + ALGEBRA_LK * l_part * k + ALGEBRA_K * k + block
 STAGE2_BASES = 4 * (FRAME * RI + RI * FRAME + 2 * K_BINS * BANDS + 12 * BANDS * BANDS)
 
 
@@ -189,6 +220,35 @@ def time_once(fn) -> float:
     return start.elapsed_time(end)
 
 
+def stage1_bounds(batch: int, analysis: bool = True) -> tuple[dict, dict]:
+    """K1's bound (K12's without the analysis) for ``batch`` utterances of
+    N samples: on the FFT step's flops (far blocks or spectra, mic in, e
+    out, the twiddle table), and on the dense DFT formulation's FMAs (its
+    bases read once) for comparison."""
+    t = N // HOP
+    x_bytes = 4 * batch * (N if analysis else t * RI)
+    io = x_bytes + 2 * 4 * batch * N
+    fft = bound(batch * t * stage1_fft_flops(analysis=analysis) / 2, io + 4 * FRAME)
+    dense_fma = STAGE1_FMA if analysis else STAGE1_FMA - FRAME * RI
+    return fft, bound(batch * t * dense_fma, io + STAGE1_BASES)
+
+
+def k8_registers(log: str) -> list[tuple[str, str]]:
+    """K8's one-CTA instantiations in the gru build log: (lanes per unit P
+    and weights per lane and gate C, ptxas's registers and spill line)."""
+    out, plan, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"gru_kernelILi(\d+)ELi(\d+)E", line)
+        if m:
+            plan, spill = f"P = {m.group(1)}, C = {m.group(2)}", ""
+        elif plan and "spill" in line:
+            spill = line.split(":")[-1].strip()
+        elif plan and "registers" in line:
+            out.append((plan, f"{line.split(':', 1)[1].strip()}; {spill}"))
+            plan = None
+    return out
+
+
 def gru_bound(b: int, t: int, h: int) -> dict:
     """K8's: B*T*3H*H FMA; xp in, ys out, W_hh^T, b_hn, h0 and h_T."""
     return bound(b * t * 3 * h * h, 4 * (b * t * 4 * h + 3 * h * h + h + 2 * b * h))
@@ -196,7 +256,8 @@ def gru_bound(b: int, t: int, h: int) -> dict:
 
 def bound(fma: float, nbytes: float, peak: float = PEAK_FP32) -> dict:
     """``bound_ms`` and ``bound_by`` of the kernels JSON: ``fma``
-    multiply-adds at ``peak`` operations per second (fp32 unless named)."""
+    multiply-adds (or half as many flops) at ``peak`` operations per second
+    (fp32 unless named)."""
     t_ops, t_bytes = 2 * fma / peak * 1e3, nbytes / PEAK_HBM * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -295,10 +356,18 @@ def leaves(tree) -> list[np.ndarray]:
 def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
     """16. K8 vs its plain version and beside cuDNN's nn.GRU (same weights,
     fp32) at one 16 s utterance (B = 1, T = 1001) for H = 32, 64 and 128 (one
-    CTA per row) and 129 and 512 (the wide path on a grid of CTAs), and at
-    the training batch (B = 16, T = 501, H = 32: the fused route called
-    explicitly, for information; the routing stays JAX's B == 1)."""
-    from aec_tpu_torch.kernels.gru import folded_projection, gru_recurrence, gru_recurrence_plain
+    CTA per row, W_hh in registers) and 129 and 512 (the wide path on a grid
+    of CTAs), and at the training batch (B = 16, T = 501, H = 32: the fused
+    route called explicitly, for information; the routing stays JAX's B ==
+    1). Timed in turns: cuDNN, the recurrence alone (``gru_recurrence`` on
+    the folded projection), the whole forward ``gru_scan_fused`` (projection,
+    packing and recurrence: the same function as ``nn.GRU(x, h0)``), cuDNN."""
+    from aec_tpu_torch.kernels.gru import (
+        folded_projection,
+        gru_recurrence,
+        gru_recurrence_plain,
+        gru_scan_fused,
+    )
     from aec_tpu_torch.ops.gru import gru_init
 
     g = torch.Generator().manual_seed(seed)
@@ -321,16 +390,25 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
             check(ys.shape == (b, t, h) and bool(torch.isfinite(ys).all()), "K8 output")
             err = float((ys - want).abs().max())
             lib_err = float((lib - want).abs().max())
-            t_k = time_ms(lambda: gru_recurrence(xp, params["w_hh"], b_hn, h0), reps)
+            turns = [time_ms(fn, reps) for fn in (
+                lambda: gru(x, h0[None]),
+                lambda: gru_recurrence(xp, params["w_hh"], b_hn, h0),
+                lambda: gru_scan_fused(params, x, h0),
+                lambda: gru(x, h0[None]))]
+            t_k, t_f, t_lib = turns[1], turns[2], (turns[0] + turns[3]) / 2
             t_p = time_ms(lambda: gru_recurrence_plain(xp, params["w_hh"], b_hn, h0), reps)
-            t_lib = time_ms(lambda: gru(x, h0[None]), reps)
         phase("K8 vs plain", f"B = {b}, T = {t}, H = {h}: max|d| = {err:.3e} (bar {K8_TOL:g}); "
               f"cuDNN nn.GRU vs plain {lib_err:.3e} (information)")
         check(err <= K8_TOL, "K8 disagrees with its plain version")
-        phase("time", f"K8 B = {b}, T = {t}, H = {h}: {t_k:.4f} ms (plain {t_p:.2f} ms, cuDNN "
-              f"nn.GRU {t_lib:.4f} ms) [{smi}]")
+        bnd = gru_bound(b, t, h)
+        phase("time", f"K8 B = {b}, T = {t}, H = {h}: recurrence {t_k:.4f} ms, whole forward "
+              f"gru_scan_fused {t_f:.4f} ms; cuDNN nn.GRU {turns[0]:.4f} / {turns[3]:.4f} ms (in "
+              f"turns); ratio to cuDNN: recurrence {t_k / t_lib:.3f}, whole forward "
+              f"{t_f / t_lib:.3f}; plain {t_p:.2f} ms; bound {bnd['bound_ms']:.5f} ms "
+              f"({bnd['bound_by']}) [{smi}]")
         out["err"] = max(out["err"], err)
-        out["shapes"][(b, t, h)] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_lib}
+        out["shapes"][(b, t, h)] = {"ms": t_k, "fused_ms": t_f, "plain_ms": t_p,
+                                    "library_ms": t_lib}
     return out
 
 
@@ -497,6 +575,8 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
         bar = STAGE1_TOL * float(mic.abs().max())
         tag = f"L = {n_blocks}, block {hop}"
         errs = {}
+        steps_before = [dict(fn.steps) for fn in (kalman_cancel_fused_batched,
+                                                   kalman_filter_fused_batched)]
         with torch.no_grad():
             for name, fused, plain, c in (("K1", kalman_cancel_fused_batched, kalman_cancel_plain,
                                            kc),
@@ -517,9 +597,14 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
             errs["K12"] = float((kalman_filter_fused_batched(kc, x_ri, d_blocks, block=hop)
                                  - kalman_filter_fused_batched_plain(kc, x_ri, d_blocks,
                                                                      block=hop)).abs().max())
+            steps = [{k: v - was[k] for k, v in fn.steps.items()} for fn, was in zip(
+                (kalman_cancel_fused_batched, kalman_filter_fused_batched), steps_before)]
             phase("geometry", f"{tag}: 8 scenes x {n}: max|d| vs plain " + ", ".join(
-                f"{k} {v:.3e}" for k, v in errs.items()) + f" (bar {bar:.3e})")
+                f"{k} {v:.3e}" for k, v in errs.items()) + f" (bar {bar:.3e}); steps K1 "
+                f"{steps[0]}, K12 {steps[1]}")
             check(max(errs.values()) <= bar, f"a stage-1 kernel disagrees at {tag}")
+            check(all(st == {"fft": 1, "dense": 0} for st in steps),
+                  f"K1 / K12 did not run the FFT step at {tag}")
 
             lin_b = kalman_cancel_plain(kc, far, mic, block=hop)["wav"].reshape(len(names), -1, hop)
             far_b = far.reshape(len(names), -1, hop)
@@ -569,6 +654,43 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
                 phase("geometry", f"{tag}: two_stage_cancel {route}: launches {counts}; worst "
                       f"|kernel - plain| tail ERLE {worst:.4f} dB (bar {ERLE_TOL_DB} dB) [{smi}]")
                 check(worst <= ERLE_TOL_DB, f"the {route} route disagrees at {tag}")
+
+
+def dense_step_phase(dev, s_far, s_mic) -> None:
+    """21a. K1 and K12 at a block with a prime factor other than 2, 3 and 5
+    (224 = 2^5 7, L = 4) on the 8 scenes: the wrappers take the dense step
+    there, which must agree with the plain loops as the FFT step does."""
+    from aec_tpu_torch.configs import KalmanConfig
+    from aec_tpu_torch.kernels.kalman import (
+        kalman_cancel_fused_batched,
+        kalman_cancel_plain,
+        kalman_filter_fused_batched,
+        kalman_filter_fused_batched_plain,
+    )
+    from aec_tpu_torch.linear import overlap_save as ols
+
+    block, cfg = 224, KalmanConfig(n_blocks=4)
+    n = N // block * block
+    far = torch.from_numpy(np.ascontiguousarray(s_far[:, :n])).to(dev)
+    mic = torch.from_numpy(np.ascontiguousarray(s_mic[:, :n])).to(dev)
+    x_ri = ols.far_end_spectra(far, block).contiguous()
+    d_blocks = mic.reshape(len(s_far), -1, block)
+    fns = (kalman_cancel_fused_batched, kalman_filter_fused_batched)
+    before = [dict(fn.steps) for fn in fns]
+    with torch.no_grad():
+        got = (kalman_cancel_fused_batched(cfg, far, mic, block=block)["wav"],
+               kalman_filter_fused_batched(cfg, x_ri, d_blocks, block=block))
+        torch.cuda.synchronize()
+        want = (kalman_cancel_plain(cfg, far, mic, block=block)["wav"],
+                kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks, block=block))
+    steps = [{k: v - was[k] for k, v in fn.steps.items()} for fn, was in zip(fns, before)]
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    bar = STAGE1_TOL * float(mic.abs().max())
+    phase("geometry", f"L = 4, block {block}: K1 {errs[0]:.3e}, K12 {errs[1]:.3e} vs plain (bar "
+          f"{bar:.3e}); steps K1 {steps[0]}, K12 {steps[1]}")
+    check(all(st == {"fft": 0, "dense": 1} for st in steps),
+          "K1 / K12 did not take the dense step at block 224")
+    check(max(errs) <= bar, "the dense step disagrees with the plain loops at block 224")
 
 
 def largest_l(run) -> tuple[int, str]:
@@ -661,6 +783,9 @@ def limits_phase(dev, net, seed: int, smi: str) -> None:
         with torch.no_grad():
             for name, (run, plain, bars) in cases.items():
                 n_max, refusal = largest_l(lambda n_blocks: run(n_blocks, *tiny))
+                if name in ("K1", "K12"):  # the FFT step's layout keeps the dense step's L
+                    check(n_max >= (24 if hop == 256 else 39),
+                          f"{name} takes fewer partitions at block {hop} than before ({n_max})")
                 if plain is None:
                     stage1_ = name.split("-")[1]
                     cfg = (KalmanConfig if stage1_ == "kalman" else NlmsConfig)(n_blocks=n_max)
@@ -1086,6 +1211,8 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 phase("build", f"{src}: {line.strip()}")
+    for plan, regs in k8_registers(logs.get("gru", "")):
+        phase("build", f"K8 {plan}: {regs}")
 
     cfg = KalmanConfig()
     net = load_npz("checkpoints/little_net_robust.npz", device=dev)
@@ -1133,10 +1260,14 @@ def main() -> None:
     s_far = np.stack([scenes[k][0] for k in names])
     s_mic = np.stack([scenes[k][1] for k in names])
     sf, sm = torch.from_numpy(s_far).to(dev), torch.from_numpy(s_mic).to(dev)
+    steps_before = dict(kalman_cancel_fused_batched.steps)
     out, launches = drive((kalman_cancel_fused_batched, little_net_apply_fused),
                           lambda: two_stage_cancel(net, sf, sm, erb))
-    phase("main path", f"two_stage_cancel 8 x {N}: launches K1 {launches[0]}, K2 {launches[1]}")
+    k1_steps = {k: v - steps_before[k] for k, v in kalman_cancel_fused_batched.steps.items()}
+    phase("main path", f"two_stage_cancel 8 x {N}: launches K1 {launches[0]} (steps {k1_steps}), "
+          f"K2 {launches[1]}")
     check(all(n > 0 for n in launches), "the main path did not go through every kernel")
+    check(k1_steps == {"fft": launches[0], "dense": 0}, "K1 did not run its FFT step")
     out = {k: v.cpu().numpy() for k, v in out.items()}
     check(out["wav"].shape == s_mic.shape and np.isfinite(out["wav"]).all(), "two_stage output")
     plain_ref = two_stage_cancel(load_npz("checkpoints/little_net_robust.npz", device="cpu"),
@@ -1157,32 +1288,51 @@ def main() -> None:
     phase("scenes", f"worst |kernel - plain| = {worst:.4f} dB (bar {ERLE_TOL_DB} dB)")
     check(worst <= ERLE_TOL_DB, "kernel route and plain route disagree in tail ERLE")
 
-    # 6. times at the main path's shape (median of --reps, CUDA events)
+    # 6. times at the main path's shape (median of --reps, CUDA events); K1
+    #    also as a batch of one 8.2 s utterance, as cli/infer runs it
+    f1, m1 = far[:1], mic[:1]
     with torch.no_grad():
         t_k1 = time_ms(lambda: kalman_cancel_fused_batched(cfg, far, mic), args.reps)
         t_p1 = time_ms(lambda: kalman_cancel_plain(cfg, far, mic), args.reps)
+        t_k1_b1 = time_ms(lambda: kalman_cancel_fused_batched(cfg, f1, m1), args.reps)
+        t_p1_b1 = time_ms(lambda: kalman_cancel_plain(cfg, f1, m1), args.reps)
         t_k2 = time_ms(lambda: little_net_apply_fused(net, lin_b, far_b, erb), args.reps)
         t_p2 = time_ms(lambda: little_net_apply_fused_plain(net, lin_b, far_b, erb), args.reps)
+        t_k2_b1 = time_ms(lambda: little_net_apply_fused(net, lin_b[:1], far_b[:1], erb), args.reps)
         t_all = time_ms(lambda: two_stage_cancel(net, far, mic, erb), args.reps)
     xrt = BATCH * N / SR / (t_all / 1e3)
+    k1_bound = {b: stage1_bounds(b) for b in (BATCH, 1)}
     phase("time", f"K1 {t_k1:.2f} ms (plain {t_p1:.2f} ms); K2 {t_k2:.2f} ms (plain {t_p2:.2f} ms)")
+    for b, t_k, t_p in ((BATCH, t_k1, t_p1), (1, t_k1_b1, t_p1_b1)):
+        fft_b, dense_b = k1_bound[b]
+        phase("time", f"K1 B = {b} x {N}: {t_k:.3f} ms (plain {t_p:.2f} ms); bound "
+              f"{fft_b['bound_ms']:.5f} ms ({fft_b['bound_by']}: the FFT step's "
+              f"{stage1_fft_flops()} flops a step); the dense DFT formulation of the TPU "
+              f"kernel, {2 * STAGE1_FMA} flops a step: {dense_b['bound_ms']:.4f} ms [{smi}]")
+    frames = N // HOP + 1
+    k2_b1 = bound(frames * STAGE2_FMA, 3 * N * 4 + frames * BANDS * 4 + STAGE2_BASES)
+    phase("time", f"K2 B = 1 x {N}: {t_k2_b1:.3f} ms; bound {k2_b1['bound_ms']:.5f} ms "
+          f"({k2_b1['bound_by']}) [{smi}]")
     phase("time", f"two_stage_cancel {BATCH} x {N}: {t_all:.2f} ms = {xrt:.1f} x realtime "
           f"[{smi}]")
     print(f"two_stage_ms={t_all:.3f} xrt={xrt:.1f} peak_mem_gb="
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", flush=True)
 
-    # 7. K4 vs the K1 + K2 kernel route and vs its plain composition at the
-    #    full shape; then the fast route
+    # 7. K4 vs K1 and K2 (stage 2 on K4's own stage-1 output) and vs its
+    #    plain composition at the full shape; then the fast route
+    from aec_tpu_torch.kernels.stage2 import little_net_apply_fused_wav
+
     with torch.no_grad():
         f_k = two_stage_fused(net, far, mic, erb)
-        f_c = two_stage_cancel(net, far, mic, erb)
+        f_c = little_net_apply_fused_wav(net, f_k["linear_wav"], far, erb, normalize=False)
+        f_c["linear_wav"] = kalman_cancel_fused_batched(cfg, far, mic)["wav"]
         f_p = two_stage_fused_plain(net, far, mic, erb)
         torch.cuda.synchronize()
     check(f_k["wav"].shape == mic.shape and bool(torch.isfinite(f_k["wav"]).all())
           and f_k["mask"].shape == (BATCH, N // HOP + 1, 32), "K4 output")
     k4_scale = float(f_p["wav"].abs().max())
     for ref, label, bars in (
-        (f_c, "K4 vs K1+K2", (K1_TOL * mic_scale, K2_WAV_TOL * k4_scale, K2_MASK_TOL)),
+        (f_c, "K4 vs K1, K2", (K1_TOL * mic_scale, K2_WAV_TOL * k4_scale, K2_MASK_TOL)),
         (f_p, "K4 vs plain", (K1_TOL * mic_scale, K4_WAV_TOL * k4_scale, K4_MASK_TOL)),
     ):
         errs = [float((f_k[key] - ref[key]).abs().max()) for key in ("linear_wav", "wav", "mask")]
@@ -1465,13 +1615,18 @@ def main() -> None:
             lambda: kalman_cancel_fused_batched(cfg, far, mic))]
         t_k12 = statistics.median(k12_turns[1:3])
         t_p12 = time_ms(lambda: kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks), args.reps)
+    k12_fft, k12_dense = stage1_bounds(BATCH, analysis=False)
     phase("time", f"K12 {BATCH} x {N}: {t_k12:.2f} ms (plain {t_p12:.2f} ms); in turns K1 / K12 / "
-          f"K12 / K1: {' / '.join(f'{t:.2f}' for t in k12_turns)} ms [{smi}]")
+          f"K12 / K1: {' / '.join(f'{t:.2f}' for t in k12_turns)} ms; bound "
+          f"{k12_fft['bound_ms']:.5f} ms ({k12_fft['bound_by']}: the FFT step's "
+          f"{stage1_fft_flops(analysis=False)} flops a step); the dense DFT formulation: "
+          f"{k12_dense['bound_ms']:.4f} ms [{smi}]")
     del x_ri, d_blocks, e12, e1, ep
 
     # 21. the stage-1/2 kernels at other geometries and at their largest
     #     partition counts; 22-23. K9 and the DCCRN path
     geometry_phase(dev, net, names, s_far, s_mic, smi)
+    dense_step_phase(dev, s_far, s_mic)
     limits_phase(dev, net, args.seed, smi)
     lstm = lstm_phase(dev, args.seed, args.reps, smi)
     dccrn = dccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
@@ -1500,7 +1655,7 @@ def main() -> None:
                           + 2 * 2 * T_DCCRN * 1024))
     rows = [
         ("kalman_batched", "kalman_batched.cu", "pallas_kalman.py:492", launches[0], k1_err,
-         t_k1, t_p1, stage1_batch),
+         t_k1, t_p1, k1_bound[BATCH][0]),
         ("stage2", "stage2.cu", "pallas_stage2.py:100", launches[1], k2_err, t_k2, t_p2,
          bound(BATCH * (t_main + 1) * STAGE2_FMA, 3 * BATCH * N * 4 + masks + STAGE2_BASES)),
         ("serving", "serving.cu", "pallas_serving.py:239", k3_launches, k3_err, t_k3, t_p3,
@@ -1521,9 +1676,7 @@ def main() -> None:
         ("gru_scan", "gru.cu", "pallas_gru.py:65", trained["k8_val"], gru["err"], k8["ms"],
          k8["plain_ms"], gru_bound(1, 1001, BANDS)),
         ("kalman_batched_spectra", "kalman_batched.cu", "pallas_kalman.py:303", k12_launches,
-         k12_err, t_k12, t_p12,
-         bound(BATCH * t_main * (STAGE1_FMA - FRAME * RI),
-               4 * BATCH * t_main * (RI + 2 * HOP) + STAGE1_BASES)),
+         k12_err, t_k12, t_p12, stage1_bounds(BATCH, analysis=False)[0]),
         # K9 at one 8.2 s utterance (B = 1, T = 513); launches from the DCCRN path
         ("lstm_grouped", "lstm.cu", "pallas_lstm.py:88", dccrn["k9_launches"], lstm["err"],
          k9["ms"], k9["plain_ms"], k9_bound),

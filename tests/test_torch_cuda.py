@@ -387,6 +387,30 @@ def test_gru_kernel_matches_plain(cuda, b, h):
         torch.testing.assert_close(routed, ys, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("t", [1, 63, 1001])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("h", [1, 7, 32, 64, 100, 128])
+def test_gru_register_kernel_matches_plain(cuda, h, b, t):
+    """K8's one-CTA kernel (W_hh in registers: one warp to H = 32, four
+    lanes a unit above) against its plain recurrence at every lane plan it
+    has, one step, a step short of the routing threshold and a 16 s
+    utterance: h stays in [-1, 1], fp32 in another summation order -> 1e-5
+    absolute."""
+    from aec_tpu_torch.kernels.gru import folded_projection, gru_recurrence_plain
+
+    params, x, h0 = _gru_case(cuda, b, t, h, seed=h + b + t)
+    xp = folded_projection(params, x)
+    b_hn = params["b_hh"][2 * h:]
+    before = gru_recurrence.launches
+    with torch.no_grad():
+        ys = gru_recurrence(xp, params["w_hh"], b_hn, h0)
+        torch.cuda.synchronize()
+        want = gru_recurrence_plain(xp, params["w_hh"], b_hn, h0)
+    assert gru_recurrence.launches == before + 1
+    assert ys.shape == (b, t, h) and bool(torch.isfinite(ys).all())
+    torch.testing.assert_close(ys, want, atol=1e-5, rtol=0)
+
+
 def test_gru_kernel_refuses_what_it_cannot_take(cuda):
     params, x, h0 = _gru_case(cuda, 2, 9, 32)
     from aec_tpu_torch.kernels.gru import folded_projection
@@ -461,6 +485,59 @@ def test_spectra_kernel_matches_k1_and_plain(cuda, scene):
         kalman_filter_fused_batched(cfg, x_ri[:, :, :256].contiguous(), d_blocks)
     with pytest.raises(ValueError, match="shared memory"):
         kalman_filter_fused_batched(KalmanConfig(n_blocks=30), x_ri, d_blocks)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 256])
+@pytest.mark.parametrize("n_blocks", [1, 4, 10, 16])
+@pytest.mark.parametrize("block", [256, 160, 224])
+def test_batched_kalman_steps_match_plain(cuda, scene, block, n_blocks, batch):
+    """K1 and K12 against their plain loops at a batch of one, three and
+    256, blocks 256 and 160 (the FFT step) and 224 = 2^5 7 (the dense step),
+    1 to 16 partitions: 1e-3 of max|mic|; ``steps`` says which step ran."""
+    cfg = KalmanConfig(n_blocks=n_blocks)
+    far, mic = (t.to(cuda) for t in scene(batch, 24 * block + 37))
+    bar = 1e-3 * float(mic.abs().max())
+    step = "dense" if block == 224 else "fft"
+    n = 24 * block
+    x_ri = ols.far_end_spectra(far[:, :n].contiguous(), block).contiguous()
+    d_blocks = mic[:, :n].reshape(batch, -1, block).contiguous()
+    before = [dict(fn.steps) for fn in (kalman_cancel_fused_batched, kalman_filter_fused_batched)]
+    with torch.no_grad():
+        got = kalman_cancel_fused_batched(cfg, far, mic, block=block)["wav"]
+        got12 = kalman_filter_fused_batched(cfg, x_ri, d_blocks, block=block)
+        torch.cuda.synchronize()
+        want = kalman_cancel_plain(cfg, far, mic, block=block)["wav"]
+        want12 = kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks, block=block)
+    for fn, was in zip((kalman_cancel_fused_batched, kalman_filter_fused_batched), before):
+        assert fn.steps[step] == was[step] + 1
+        assert sum(fn.steps.values()) == sum(was.values()) + 1
+    torch.testing.assert_close(got, want, atol=bar, rtol=0)
+    torch.testing.assert_close(got12, want12, atol=bar, rtol=0)
+
+
+@pytest.mark.parametrize("block,step", [(256, "fft"), (160, "fft"), (96, "fft"), (45, "fft"),
+                                        (224, "dense"), (112, "dense"), (1, "dense")])
+def test_batched_kalman_step_selection(cuda, scene, block, step):
+    """The wrappers take the FFT step for a block >= 2 whose only prime
+    factors are 2, 3 and 5, the dense step for any other, and count it in
+    ``steps``; either agrees with the plain loop."""
+    cfg = KalmanConfig(n_blocks=3)
+    far, mic = (t.to(cuda) for t in scene(2, 12 * block))
+    x_ri = ols.far_end_spectra(far, block).contiguous()
+    d_blocks = mic.reshape(2, -1, block)
+    for fn, args in ((kalman_cancel_fused_batched, (far, mic)),
+                     (kalman_filter_fused_batched, (x_ri, d_blocks))):
+        was = dict(fn.steps)
+        with torch.no_grad():
+            out = fn(cfg, *args, block=block)
+        torch.cuda.synchronize()
+        assert {k: v - was[k] for k, v in fn.steps.items()} == {
+            "fft": int(step == "fft"), "dense": int(step == "dense")}
+        assert bool(torch.isfinite(out["wav"] if isinstance(out, dict) else out).all())
+    want = kalman_cancel_plain(cfg, far, mic, block=block)["wav"]
+    with torch.no_grad():
+        got = kalman_cancel_fused_batched(cfg, far, mic, block=block)["wav"]
+    torch.testing.assert_close(got, want, atol=1e-3 * float(mic.abs().max()), rtol=0)
 
 
 def test_entry_points_default_to_the_card(cuda):
@@ -669,7 +746,9 @@ def test_kernels_at_their_largest_partition_count(cuda, scene, kernel, hop):
         n_max = _largest_l(lambda n: _at_partitions(kernel, n, hop, net, erb, *tiny))
         got = _at_partitions(kernel, n_max, hop, net, erb, far, mic)
         want = _at_partitions(kernel, n_max, hop, net, erb, far, mic, plain=True)
-    assert n_max >= (18 if hop == 256 else 38)
+    # K1 and K12 (the FFT step's layout) keep the dense step's largest L
+    floor = {"K1": (24, 39), "K12": (24, 39)}.get(kernel, (18, 38))
+    assert n_max >= floor[hop != 256]
     for key, w in want.items():
         if key == "mask":
             atol = 1e-3

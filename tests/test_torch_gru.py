@@ -13,10 +13,16 @@ import torch
 from aec_tpu.kernels.pallas_gru import _gru_scan_fused_fwd, gru_scan_fused as jax_gru_scan_fused
 from aec_tpu.ops.gru import gru_scan as jax_gru_scan
 from aec_tpu_torch.kernels.gru import (
+    folded_projection,
     gru_recurrence,
+    gru_recurrence_plain,
+    gru_recurrence_split,
     gru_scan_fused,
     gru_scan_fused_plain,
+    lane_plan,
     pack_gate_columns,
+    pack_gru_lanes,
+    unpack_gru_lanes,
 )
 from aec_tpu_torch.ops.gru import gru_init, gru_scan
 
@@ -158,3 +164,55 @@ def test_pack_gate_columns_layout(groups, gates, hidden, units):
                     col = packed[g, c, :, gate * units + j]
                     want = w[g, gate * hidden + unit] if unit < hidden else torch.zeros(hidden)
                     assert torch.equal(col, want)
+
+
+LANE_WIDTHS = [1, 7, 32, 64, 100, 128]
+
+
+@pytest.mark.parametrize("hidden", LANE_WIDTHS)
+def test_pack_gru_lanes_round_trip(hidden):
+    """K8's register packing (H <= 128): unpack(pack(W_hh)) is W_hh, the
+    layout is packed[g C/4 + i, j P + l, e] = W_hh[g H + j, 4 (l + P i) + e]
+    and everything past H is zero."""
+    w = torch.randn(3 * hidden, hidden, generator=torch.Generator().manual_seed(hidden))
+    p, c, units = lane_plan(hidden)
+    packed = pack_gru_lanes(w)
+    assert tuple(packed.shape) == (3 * c // 4, units * p, 4)
+    assert torch.equal(unpack_gru_lanes(packed, hidden), w)
+    assert (units * p) % 32 == 0 and p * c >= hidden
+    padded = torch.zeros(3, units, p * c)
+    padded[:, :hidden, :hidden] = w.reshape(3, hidden, hidden)
+    g = torch.arange(3)[:, None, None, None, None]
+    i = torch.arange(c // 4)[None, :, None, None, None]
+    j = torch.arange(units)[None, None, :, None, None]
+    lane = torch.arange(p)[None, None, None, :, None]
+    e = torch.arange(4)[None, None, None, None, :]
+    want = padded[g, j, 4 * (lane + p * i) + e]
+    got = packed.reshape(3, c // 4, units, p, 4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("hidden", LANE_WIDTHS)
+def test_split_dot_model_matches_plain(rng, hidden, b):
+    """The plain-torch model of K8's summation order (each lane's float4
+    chunks into two accumulators, the team summed by xor shuffles), from the
+    packed weights, against K8's plain recurrence: 1e-6."""
+    _, x, h0, _, tp = _case(rng, b, 9, 16, hidden)
+    xp = folded_projection(tp, torch.from_numpy(x))
+    b_hn = tp["b_hh"][2 * hidden:]
+    got = gru_recurrence_split(xp, pack_gru_lanes(tp["w_hh"]), b_hn, torch.from_numpy(h0))
+    want = gru_recurrence_plain(xp, tp["w_hh"], b_hn, torch.from_numpy(h0))
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("hidden", LANE_WIDTHS)
+def test_split_dot_model_matches_jax_kernel(rng, hidden):
+    """The same model against JAX's fused kernel in interpret mode (2e-6,
+    the JAX suite's own bar, tests/test_pallas_gru.py:21)."""
+    _, x, h0, jp, tp = _case(rng, 2, 7, 16, hidden)
+    want, _ = _gru_scan_fused_fwd(jp, jnp.asarray(x), jnp.asarray(h0), interpret=True, unroll=4)
+    xp = folded_projection(tp, torch.from_numpy(x))
+    got = gru_recurrence_split(xp, pack_gru_lanes(tp["w_hh"]), tp["b_hh"][2 * hidden:],
+                               torch.from_numpy(h0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
