@@ -98,13 +98,13 @@ def filter_constants(cfg: KalmanConfig) -> list[float]:
             cfg.init_p]
 
 
-def launch_batched(wrapper, cfg: KalmanConfig, x: torch.Tensor, mic: torch.Tensor,
-                   e: torch.Tensor, block: int, spectra_in: bool) -> None:
+def launch_batched(cfg: KalmanConfig, x: torch.Tensor, mic: torch.Tensor, e: torch.Tensor,
+                   block: int, spectra_in: bool) -> str:
     """Launch K1 (far blocks ``x``) or K12 (far-frame spectra ``x``) over
     ``mic`` (batch, T * block; K12: batch, T, block) into ``e``: the FFT
-    step where :func:`radix_plan` takes the block, else the dense step; the
-    step that ran is counted in ``wrapper.steps``. Raises if one CTA cannot
-    hold the step's shared memory."""
+    step where :func:`radix_plan` takes the block, else the dense step.
+    Returns the step that ran, ``"fft"`` or ``"dense"``. Raises if one CTA
+    cannot hold the step's shared memory."""
     lib, dev = _lib(), x.device
     batch, t_blocks = mic.shape[0], mic.shape[1] if spectra_in else mic.shape[-1] // block
     plan = radix_plan(block)
@@ -122,7 +122,7 @@ def launch_batched(wrapper, cfg: KalmanConfig, x: torch.Tensor, mic: torch.Tenso
             int(spectra_in), *filter_constants(cfg), dev.index, _build.stream_of(x),
         )
     _build.check(err, "kalman_batched")
-    wrapper.steps["dense" if plan is None else "fft"] += 1
+    return "dense" if plan is None else "fft"
 
 
 def check_inputs(cfg, far: torch.Tensor, mic: torch.Tensor, block: int, ndim: int) -> None:
@@ -180,7 +180,7 @@ def kalman_cancel_fused_batched(
     n = mic.shape[-1]
     farp, micp = ols.pad_to_blocks(far, block), ols.pad_to_blocks(mic, block)
     e = torch.empty_like(micp)
-    launch_batched(kalman_cancel_fused_batched, cfg, farp, micp, e, block, spectra_in=False)
+    kalman_cancel_fused_batched.steps[launch_batched(cfg, farp, micp, e, block, False)] += 1
     kalman_cancel_fused_batched.launches += 1
     return {"wav": e[:, :n]}
 
@@ -248,7 +248,7 @@ def kalman_filter_fused_batched(
     if block < 1 or cfg.n_blocks < 1:
         raise ValueError(f"block and n_blocks must be >= 1, got {block}, {cfg.n_blocks}")
     e = torch.empty_like(d_blocks)
-    launch_batched(kalman_filter_fused_batched, cfg, x_ri, d_blocks, e, block, spectra_in=True)
+    kalman_filter_fused_batched.steps[launch_batched(cfg, x_ri, d_blocks, e, block, True)] += 1
     kalman_filter_fused_batched.launches += 1
     return e
 
