@@ -35,9 +35,9 @@
 //
 // What bounds it. Neither bytes nor FMAs of the whole card: a step is 3H^2
 // FMA on one SM and the steps are serial, so one step's latency sets the
-// pace. At H = 128 the SM must issue 1536 warp FMAs a step (384 cycles on
+// pace. At H = 128 the SM must dispatch 1536 warp FMAs a step (384 cycles on
 // its four schedulers) besides the activations of 16 warps; at H = 32 one
-// warp runs ~100 FMA issues and the chain of three precise activations.
+// warp runs ~100 FMA instructions and the chain of three precise activations.
 // A batch of B rows runs on B SMs in the same time.
 //
 // Wider nets (H > 128, whose W_hh no longer fits one SM's registers: 3 MB at

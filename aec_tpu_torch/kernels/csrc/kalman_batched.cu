@@ -163,7 +163,8 @@ __device__ __forceinline__ void kalman_block_step_fft(const KalmanFftSmem& s, co
   const float inv_n = 1.f / q.frame;
 
   // 1. far-frame analysis: rfft of [prev || cur] into ring slot `head`;
-  //    far ring shift
+  //    far ring shift (2., the predict, ran at the end of the step before;
+  //    the numbers are kalman_block_step's)
   if constexpr (kAnalysis) {
     const SArr z = fft<false>(plan, q, 1, FrameSrc{s.frame}, s.a, s.b, s.tw);
     for (int k = tid; k < K; k += kThreads) {
