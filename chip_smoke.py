@@ -271,6 +271,21 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def pipelined_ms(fn, reps: int) -> float:
+    """ms per call of ``fn`` run ``reps`` times back to back between two
+    CUDA events, after a warm-up: the host enqueues ahead of the card, so
+    a call costs its device time, not the host's share of a lone call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_ms(fn, reps: int) -> float:
     """Median over ``reps`` runs of one call, CUDA events, after a warm-up."""
     fn()
@@ -361,7 +376,9 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
     route called explicitly, for information; the routing stays JAX's B ==
     1). Timed in turns: cuDNN, the recurrence alone (``gru_recurrence`` on
     the folded projection), the whole forward ``gru_scan_fused`` (projection,
-    packing and recurrence: the same function as ``nn.GRU(x, h0)``), cuDNN."""
+    packing and recurrence: the same function as ``nn.GRU(x, h0)``), cuDNN;
+    then the same four with calls back to back (``pipelined_ms``), which
+    leaves out the host's share of a lone call."""
     from aec_tpu_torch.kernels.gru import (
         folded_projection,
         gru_recurrence,
@@ -397,6 +414,11 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
                 lambda: gru(x, h0[None]))]
             t_k, t_f, t_lib = turns[1], turns[2], (turns[0] + turns[3]) / 2
             t_p = time_ms(lambda: gru_recurrence_plain(xp, params["w_hh"], b_hn, h0), reps)
+            piped = [pipelined_ms(fn, 4 * reps) for fn in (
+                lambda: gru(x, h0[None]),
+                lambda: gru_recurrence(xp, params["w_hh"], b_hn, h0),
+                lambda: gru_scan_fused(params, x, h0),
+                lambda: gru(x, h0[None]))]
         phase("K8 vs plain", f"B = {b}, T = {t}, H = {h}: max|d| = {err:.3e} (bar {K8_TOL:g}); "
               f"cuDNN nn.GRU vs plain {lib_err:.3e} (information)")
         check(err <= K8_TOL, "K8 disagrees with its plain version")
@@ -406,6 +428,11 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
               f"turns); ratio to cuDNN: recurrence {t_k / t_lib:.3f}, whole forward "
               f"{t_f / t_lib:.3f}; plain {t_p:.2f} ms; bound {bnd['bound_ms']:.5f} ms "
               f"({bnd['bound_by']}) [{smi}]")
+        p_lib = (piped[0] + piped[3]) / 2
+        phase("time", f"K8 B = {b}, T = {t}, H = {h}, {4 * reps} calls back to back (device "
+              f"time): recurrence {piped[1]:.4f} ms, whole forward {piped[2]:.4f} ms; cuDNN "
+              f"{piped[0]:.4f} / {piped[3]:.4f} ms; ratio to cuDNN {piped[1] / p_lib:.3f}, "
+              f"{piped[2] / p_lib:.3f} [{smi}]")
         out["err"] = max(out["err"], err)
         out["shapes"][(b, t, h)] = {"ms": t_k, "fused_ms": t_f, "plain_ms": t_p,
                                     "library_ms": t_lib}
