@@ -6,7 +6,11 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
   thread-block cluster (``csrc/single_stream.cu``);
 - ``nlms``    — K5, batched NLMS stage 1 (``csrc/nlms_batched.cu``), and K7,
   single-stream NLMS stage 1 (``csrc/single_stream.cu``);
-- ``stage2``  — K2, batched LittleNet stage 2 (``csrc/stage2.cu``);
+- ``stage2``  — K2, batched LittleNet stage 2 as passes over all frames
+  (``csrc/stage2.cu`` on ``csrc/fft.cuh``, its GRU recurrence on K8);
+- ``fft_plan`` — the radix plans and twiddles of the FFTs of K1, K12 and K2,
+  and a plain-torch model of their schedule;
+- ``phase_costs`` — a card tool that times K2's phases with parts cut out;
 - ``serving`` — K3, the streaming serving step for S live streams with a
   Kalman or NLMS stage 1, state in place (``csrc/serving.cu``), with the
   serving state and its migrations;
@@ -22,7 +26,8 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
 - ``consts``  — their constant DFT bases, fp32, cached per device;
 - ``_build``  — ``nvcc`` at first use, ctypes binding, error checks.
 
-``csrc/bl_common.cuh`` holds the per-step device code the kernels share.
+``csrc/bl_common.cuh`` holds the per-step device code the kernels share,
+``csrc/fft.cuh`` the CTA-wide real FFTs.
 A wrapper launches its kernel for a CUDA tensor (or raises) and takes the
 plain version for a CPU tensor; each counts its launches in ``.launches``.
 """

@@ -50,11 +50,15 @@ def stage2_consts(cfg: StftConfig, device: torch.device) -> dict[str, torch.Tens
     analysis  (win, 2K) — windowed analysis DFT of a frame
     synthesis (2K, win) — windowed pinv synthesis
     inv_env   (hop,)    — inverse interior OLA envelope 1/(w²[:hop] + w²[hop:] + 1e-8)
+    window    (win,)    — the window itself (K2's FFT phases apply it to the
+                          frames and to the inverse FFT, which with
+                          window = FFT is the pinv synthesis)
     """
     analysis, synthesis = _bases(cfg)
-    w2 = periodic_window(cfg.win_type, cfg.win_len) ** 2
+    window = periodic_window(cfg.win_type, cfg.win_len)
+    w2 = window ** 2
     inv_env = 1.0 / (w2[: cfg.hop] + w2[cfg.hop :] + 1e-8)
-    mats = {"analysis": analysis, "synthesis": synthesis, "inv_env": inv_env}
+    mats = {"analysis": analysis, "synthesis": synthesis, "inv_env": inv_env, "window": window}
     return {
         name: torch.as_tensor(np.ascontiguousarray(m, dtype=np.float32), device=device)
         for name, m in mats.items()

@@ -5,10 +5,12 @@
 // stage2_frame_step (bl_common.py:452-525). All are CTA-wide functions:
 // every thread of a kThreads-thread block calls them, the state lives in the
 // block's shared memory, and they end with __syncthreads(). The batched
-// kernels (kalman_batched.cu, nlms_batched.cu, stage2.cu) call them once per
-// block / frame; two_stage_block_step calls a stage-1 step and the stage-2
+// stage-1 kernels (kalman_batched.cu's dense step, nlms_batched.cu) call them
+// once per block; two_stage_block_step calls a stage-1 step and the stage-2
 // step back to back on one CTA's shared state for the kernels that run both
-// stages in one launch (two_stage.cu, serving.cu).
+// stages in one launch (two_stage.cu, serving.cu). K2 (stage2.cu) runs its
+// frames as passes over all frames on FFTs instead and shares only the
+// geometry and the shared-memory carving.
 //
 // Geometry. As the JAX kernels read it from the config and the shapes, so
 // these take it at run time (Geom): the stage-1 block B (== the stage-2 hop;

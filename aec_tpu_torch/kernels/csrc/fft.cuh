@@ -1,4 +1,5 @@
-// CTA-wide real FFTs over shared memory, for the FFT step of K1 and K12.
+// CTA-wide real FFTs over shared memory, for the FFT step of K1 and K12 and
+// the analysis and synthesis phases of K2.
 //
 // A real transform of length N = 2B is a complex FFT of length M = B over
 // the even / odd samples packed as (re, im), and a split of its M outputs
@@ -262,6 +263,58 @@ __device__ __forceinline__ float2 inv_split(float2 xk, float2 xm, float2 w, floa
 __device__ __forceinline__ float real_sample(SArr z, int l, int m, int M) {
   const float2 v = elem(z, l, m >> 1, M);
   return (m & 1) ? v.y : v.x;
+}
+
+// Bin k in [0, M] of a real spectrum into transform l of work buffer g,
+// packed as M complex values for PackedInvSrc: slot 0 holds (Re X[0],
+// Re X[M]) (the inverse drops both imaginary parts), slot k in (0, M) X[k].
+__device__ __forceinline__ void pack_bin(SArr g, int l, int k, int M, float2 x) {
+  if (k == 0) {
+    elem(g, l, 0, M).x = x.x;
+  } else if (k == M) {
+    elem(g, l, 0, M).y = x.x;
+  } else {
+    elem(g, l, k, M) = x;
+  }
+}
+
+// the inverse's pre-split of each transform's spectrum packed by pack_bin
+struct PackedInvSrc {
+  SArr g, tw;
+  int M;
+  float inv_n;
+  __device__ __forceinline__ float2 operator()(int l, int k) const {
+    const float2 v = elem(g, l, k, M);
+    const float2 xk = k == 0 ? make_float2(v.x, 0.f) : v;
+    const float2 xm = k == 0 ? make_float2(v.y, 0.f) : elem(g, l, M - k, M);
+    return inv_split(xk, xm, c2(tw, k), inv_n);
+  }
+};
+
+// ---------------------------------------------------------------- plans on the host
+
+// the default geometry's plan, compiled in; kernels/fft_plan.py radix_plan(256)
+using DefaultPlan = FixedPlan<8, 8, 4>;
+
+// The host's plan radix[n_pass] (kernels/fft_plan.py radix_plan) into `plan`:
+// cudaErrorInvalidValue unless every radix is written out and they multiply
+// to `block`.
+inline cudaError_t read_plan(const int* radix, int n_pass, int block, RunPlan& plan) {
+  if (n_pass < 1 || n_pass > kMaxPasses) return cudaErrorInvalidValue;
+  plan.passes = n_pass;
+  int m = 1;
+  for (int i = 0; i < n_pass; ++i) {
+    const int r = radix[i];
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 8) return cudaErrorInvalidValue;
+    plan.radix[i] = r;
+    m *= r;
+  }
+  return m == block ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// whether a plan read by read_plan is DefaultPlan's
+inline bool is_default_plan(const RunPlan& plan) {
+  return plan.passes == 3 && plan.radix[0] == 8 && plan.radix[1] == 8 && plan.radix[2] == 4;
 }
 
 }  // namespace aec

@@ -125,20 +125,6 @@ struct EchoInvSrc {
   }
 };
 
-// the inverse's pre-split of each partition's packed gradient G[l]: slot 0
-// holds (Re G[0], Re G[M]), slot k in (0, M) holds G[k]
-struct GainInvSrc {
-  SArr g, tw;
-  int M;
-  float inv_n;
-  __device__ __forceinline__ float2 operator()(int l, int k) const {
-    const float2 v = elem(g, l, k, M);
-    const float2 xk = k == 0 ? make_float2(v.x, 0.f) : v;
-    const float2 xm = k == 0 ? make_float2(v.y, 0.f) : elem(g, l, M - k, M);
-    return inv_split(xk, xm, c2(tw, k), inv_n);
-  }
-};
-
 // predict W- = aW, P- = a²P + (1-a²)|W|² + q_min of partition bin i, W
 // given (the FFT step predicts at the end of the previous step)
 __device__ __forceinline__ void predict(const KalmanFftSmem& s, int i, float wr, float wi,
@@ -222,14 +208,7 @@ __device__ __forceinline__ void kalman_block_step_fft(const KalmanFftSmem& s, co
     const int xs = ring_slot(head, l, L) * K + k;
     const float xr = s.xr[xs], xi = s.xi[xs], pp = s.p[i];
     const float erd = s.ye[k], eid = s.ye[K + k];
-    const float gr = pp * (xr * erd + xi * eid);
-    if (k == 0) {
-      elem(gb, l, 0, M).x = gr;
-    } else if (k == M) {
-      elem(gb, l, 0, M).y = gr;
-    } else {
-      elem(gb, l, k, M) = make_float2(gr, pp * (xr * eid - xi * erd));
-    }
+    pack_bin(gb, l, k, M, make_float2(pp * (xr * erd + xi * eid), pp * (xr * eid - xi * erd)));
     s.p[i] = fmaxf(pp * (1.f - pp * (xr * xr + xi * xi) / s.den[k]), kp.p_floor);
   }
   __syncthreads();
@@ -237,7 +216,7 @@ __device__ __forceinline__ void kalman_block_step_fft(const KalmanFftSmem& s, co
   // 8-9. constraint, all partitions at once: t[l] = irfft(G[l])[:B];
   //      W[l] = W-[l] + rfft([t[l] || 0]); then block t + 1's prediction
   const SArr go = gb.off == s.a.off ? s.b : s.a;
-  const SArr zh = fft<true>(plan, q, L, GainInvSrc{gb, s.tw, M, inv_n}, go, gb, s.tw);
+  const SArr zh = fft<true>(plan, q, L, PackedInvSrc{gb, s.tw, M, inv_n}, go, gb, s.tw);
   const SArr other = zh.off == s.a.off ? s.b : s.a;
   const SArr zw = fft<false>(plan, q, L, ConstraintTailSrc{zh, M, B}, other, zh, s.tw);
   for (int i = tid; i < L * K; i += kThreads) {
@@ -359,31 +338,18 @@ int launch_dense(const float* far, const float* mic, float* e, int batch, int t_
   });
 }
 
-// the default geometry's plan, compiled in; kernels/fft_plan.py radix_plan(256)
-using DefaultPlan = FixedPlan<8, 8, 4>;
-constexpr int kDefaultRadix[] = {8, 8, 4};
-
 template <bool kSpectraIn>
 int launch_fft(const float* far, const float* mic, float* e, int batch, int t_blocks, int block,
                int n_blocks, const float* tw, const int* radix, int n_pass,
                const KalmanParams& kp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (n_pass < 1 || n_pass > kMaxPasses) return cudaErrorInvalidValue;
-  RunPlan plan{n_pass, {}};
-  int m = 1;
-  for (int i = 0; i < n_pass; ++i) {
-    const int r = radix[i];
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 8) return cudaErrorInvalidValue;
-    plan.radix[i] = r;
-    m *= r;
-  }
-  if (m != block) return cudaErrorInvalidValue;
+  RunPlan plan{};
+  err = read_plan(radix, n_pass, block, plan);
+  if (err != cudaSuccess) return err;
   return with_geom(block, n_blocks, -1, [&](auto q) -> cudaError_t {
     if constexpr (std::is_same_v<decltype(q), DefaultGeom>) {
-      if (n_pass != 3) return cudaErrorInvalidValue;
-      for (int i = 0; i < 3; ++i)
-        if (radix[i] != kDefaultRadix[i]) return cudaErrorInvalidValue;
+      if (!is_default_plan(plan)) return cudaErrorInvalidValue;
       return launch<kSpectraIn>(far, mic, e, batch, t_blocks, q, FftStep<DefaultPlan>{{}, tw},
                                 kp, device, stream);
     } else {

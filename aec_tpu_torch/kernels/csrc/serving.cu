@@ -31,7 +31,7 @@
 // one K2 frame re-read ~5.3 MB of fp32 DFT bases from L2; the state round
 // trip is 2 x ~56 KB from device memory. At S = 1024 that is 116 MB of state
 // (~35 us at the HBM rate) against 5.5 GB of basis reads from L2, so the
-// kernel is bound by each SM's L2 read rate, as K1 and K2 are. Stage 2's
+// kernel is bound by each SM's L2 read rate, as K4 and K5 are. Stage 2's
 // scratch lies over stage 1's (TwoStageSmem), so at the default geometry a
 // CTA takes ~107 KB (Kalman) or ~98 KB (NLMS) of shared memory and two fit on
 // an SM.

@@ -13,12 +13,13 @@
 // (pallas_two_stage.py:101-113). Outputs are slot-aligned as the TPU kernel's
 // (:252-261): lin slot t is block t, the enhanced block of step t is block
 // t - 1 (step 0 completes nothing), and the mask has T + 1 frames, which is
-// K2's frame/OLA schedule (stage2.cu). normalize=False only, as in JAX: the
+// K2's frame/OLA schedule (stage2.cu), each frame on bl_common.cuh's dense
+// stage2_frame_step. normalize=False only, as in JAX: the
 // offline pseudo-norm needs the whole stage-1 output before stage 2 starts.
 //
-// What bounds it. The same per-step work as K1 plus K2 (~4 M FMA and ~5.3 MB
-// of fp32 DFT bases read from L2 per utterance and step), so it is bound by
-// each SM's L2 read rate as they are. Stage 2's scratch lies over stage 1's
+// What bounds it. The dense formulation of a K1 step plus a K2 frame (~4 M
+// FMA and ~5.3 MB of fp32 DFT bases read from L2 per utterance and step), so
+// it is bound by each SM's L2 read rate (K1 and K2 now run FFTs instead). Stage 2's scratch lies over stage 1's
 // (TwoStageSmem): ~107 KB per CTA at the default geometry (carved at run
 // time for the caller's hop, L and bands), so two CTAs share an SM as K1's do, and
 // K2's frames ride in the same waves as K1's steps instead of a second pass.

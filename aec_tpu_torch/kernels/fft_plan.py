@@ -1,6 +1,6 @@
-"""Host side of the FFT-based stage-1 step of K1 and K12 (``csrc/fft.cuh``).
+"""Host side of the FFTs of K1 / K12's stage-1 step and K2's phases (``csrc/fft.cuh``).
 
-The step's five transforms are real FFTs of length N = 2B (B the block):
+Their transforms are real FFTs of length N = 2B (B the block, K2's hop):
 each is a complex FFT of length M = B over the even / odd samples packed as
 (re, im), run as a Stockham auto-sort schedule of radix-8/4/2 passes (and
 radix-5/3 passes where B has those factors), then the real-FFT split of the

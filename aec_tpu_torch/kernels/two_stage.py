@@ -6,8 +6,9 @@ Replaces ``aec_tpu/kernels/pallas_two_stage.py:134`` (``two_stage_fused``,
 ``two_stage_block_step`` of ``csrc/bl_common.cuh``: one CTA per utterance
 walks T + 1 steps with both stages' state in shared memory, and the
 stage-1 block reaches stage 2 in shared memory (device memory sees it only
-as the ``linear_wav`` output). Like K1 and K2 it is bound by each SM's L2
-read rate of the DFT bases; the source's header has the reckoning.
+as the ``linear_wav`` output). It runs the dense formulation of both
+stages, so it is bound by each SM's L2 read rate of the DFT bases, where K1
+and K2 run FFTs; the source's header has the reckoning.
 
 :func:`two_stage_fused_plain` is its plain version: the K1-plain then
 K2-plain composition, which is what the JAX package holds its kernel

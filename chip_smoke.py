@@ -8,7 +8,8 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
 - Offline Kalman (phases 4, 5, 7): each kernel against its plain PyTorch
   version at the main path's full shape (batch 256 x 131,072 samples =
   8.2 s at 16 kHz, L=10 / block 256 / K=257, the width-1 LittleNet of
-  ``checkpoints/little_net_robust.npz``), K2's mask also against the plain
+  ``checkpoints/little_net_robust.npz``; K2 is its phases A and C with K8
+  between them, and the main path counts all three), K2's mask also against the plain
   version evaluated in fp64 (there and on full-scale noise through four
   untrained nets, beside TF32 products as the lower-precision control);
   ``two_stage_cancel`` on the 8 scenes of ``benchmarks/scenes.py``, graded
@@ -26,8 +27,10 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
   plain version at S = 1024.
 - Times (phases 6, 10, 15): kernels, plain versions and the paths, with
   CUDA events, beside the card's name and power limit; K1 and K2 also as a
-  batch of one 8.2 s utterance, K1's bound on its FFT step's work beside
-  the dense DFT formulation's.
+  batch of one 8.2 s utterance (K2 also 16 s), K1's and K2's bounds on
+  their FFT formulations' work beside the dense DFT formulation's; K3 also
+  at the 8 streamed scenes' shape and K6 / K7 also per 8.2 s scene, the
+  shapes their launch counts come from.
 - Training (phases 16-19): K8 (the GRU scan) against its plain version at
   B = 1 x 1001 frames (H = 32, 64 and 128) and B = 16 x 501, its gradients
   against the plain route's; the recurrence and the whole forward beside
@@ -45,7 +48,8 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
   K1, K12, K5, K6, K7, K4 and K3 (both filters) each at the largest
   partition count its wrapper accepts at blocks 256 and 160, against the
   plain versions, and one partition more, which must be refused for
-  shared memory.
+  shared memory. K1, K12 and K2 also at block 224, whose FFT has no radix
+  plan: they must report their dense steps / transforms there.
 - K8 wide (phase 16): H = 64, 128, 129 and 512 beside cuDNN's ``nn.GRU``.
 - DCCRN inference (phases 22-23): K9 (the grouped complex LSTM) at
   ``DccrnConfig()``'s width (I = H = 1024 per part, T = 513) at B = 1 and 8
@@ -102,9 +106,11 @@ K2_WAV_TOL, K2_MASK_TOL = 1e-4, 1e-5
 # mask bar there is 5e-5, and the control must stay at least 1e-3 off
 K2_LOUD_MASK_TOL, K2_CONTROL_MIN = 5e-5, 1e-3
 ERLE_TOL_DB = 0.1  # kernel route vs plain route, tail ERLE per scene
-# K4 runs the dense stage-1 step and K2's device code in one launch. Its
-# linear_wav against K1 (the FFT step) is held to K1's bar; its wav and mask
-# against K2 run on K4's own linear_wav (the same input) to K2's bars.
+# K4 runs the dense stage-1 step and the per-frame dense stage-2 step in one
+# launch. Its linear_wav against K1 (the FFT step) is held to K1's bar; its
+# wav and mask against K2 (FFT phases) run on K4's own linear_wav (the same
+# input) to K2's bars: two fp32 evaluations of one function, as K2 and its
+# plain version are.
 # Against the plain composition, linear_wav is at K1's bar; wav and mask are
 # K2's on an input that already differs by stage 1's round-off, which the
 # sigmoid mask feels most on quiet residual frames: wav at K1's relative
@@ -176,22 +182,49 @@ DFT_FLOPS = {2: 4, 3: 16, 4: 16, 5: 48, 8: 56}
 SPLIT_FLOPS, ALGEBRA_LK, ALGEBRA_K = 14, 40, 10
 
 
-def stage1_fft_flops(block: int = HOP, l_part: int = L_PART, analysis: bool = True) -> int:
-    """Flops of one FFT step per utterance: 2 + L forward real FFTs of 2B
-    points (far frame, residual, L constraint tails; K12 skips the far
-    frame), 1 + L inverse ones (echo, L constraint heads), the filter
-    algebra and the echo subtraction."""
+def complex_fft_flops(block: int) -> int:
+    """Flops of one complex FFT of ``block`` points on fft.cuh's plan."""
     from aec_tpu_torch.kernels.fft_plan import radix_plan
 
     cfft, ns = 0, 1
     for r in radix_plan(block):
         cfft += block // r * (DFT_FLOPS[r] + (6 * (r - 1) if ns > 1 else 0))
         ns *= r
-    k = block + 1
+    return cfft
+
+
+def stage1_fft_flops(block: int = HOP, l_part: int = L_PART, analysis: bool = True) -> int:
+    """Flops of one FFT step per utterance: 2 + L forward real FFTs of 2B
+    points (far frame, residual, L constraint tails; K12 skips the far
+    frame), 1 + L inverse ones (echo, L constraint heads), the filter
+    algebra and the echo subtraction."""
+    cfft, k = complex_fft_flops(block), block + 1
     fwd = (1 + analysis + l_part) * (cfft + SPLIT_FLOPS * k)
     inv = (1 + l_part) * (cfft + SPLIT_FLOPS * block)
     return fwd + inv + ALGEBRA_LK * l_part * k + ALGEBRA_K * k + block
+
+
+def stage2_fft_flops(block: int = HOP, bands: int = BANDS, erb_terms: int | None = None) -> int:
+    """Flops of one LittleNet frame per utterance on K2's FFT formulation
+    (what the function needs; phase C's second forward FFT of the lin frame
+    is the design's and is not counted): 2 forward real FFTs of 2B points
+    (lin and far frames, windowed: 2B multiplies each) and 1 inverse
+    (windowed: 2B), as fft.cuh writes them; magnitudes (5 a bin and frame);
+    the ERB projections over the filterbank's ``erb_terms`` nonzero weights
+    (data-dependent: the ERB matrix's support; all K E if not given), the
+    gain over them and y = gain X (2 K); the GRU's input and hidden
+    projections (6 E^2 + 3 E^2 FMA) and cell (~12 E); lin1 and lin2 (3 E^2
+    FMA); the OLA (3 B)."""
+    cfft, k = complex_fft_flops(block), block + 1
+    nz = k * bands if erb_terms is None else erb_terms
+    fft = 2 * (cfft + SPLIT_FLOPS * k + 2 * block) + cfft + SPLIT_FLOPS * block + 2 * block
+    small = 2 * (2 * nz + nz + 12 * bands * bands) + 2 * k + 12 * bands
+    return fft + 5 * 2 * k + small + 3 * block
+
+
 STAGE2_BASES = 4 * (FRAME * RI + RI * FRAME + 2 * K_BINS * BANDS + 12 * BANDS * BANDS)
+# K2's own constants: window, twiddles, erb and its transpose, the weights
+STAGE2_FFT_CONSTS = 4 * (2 * FRAME + 2 * K_BINS * BANDS + 12 * BANDS * BANDS)
 
 
 def fsn_bound(b: int, t: int, f: int = 161, hf: int = 256, hs: int = 96) -> dict:
@@ -231,6 +264,17 @@ def stage1_bounds(batch: int, analysis: bool = True) -> tuple[dict, dict]:
     fft = bound(batch * t * stage1_fft_flops(analysis=analysis) / 2, io + 4 * FRAME)
     dense_fma = STAGE1_FMA if analysis else STAGE1_FMA - FRAME * RI
     return fft, bound(batch * t * dense_fma, io + STAGE1_BASES)
+
+
+def stage2_bounds(batch: int, n: int, erb_terms: int) -> tuple[dict, dict]:
+    """K2's bound for ``batch`` utterances of ``n`` samples: on its FFT
+    formulation's flops (lin and far in, out and the mask out, its
+    constants), and on the dense DFT formulation's FMAs (its bases read
+    once) for comparison."""
+    frames = n // HOP + 1
+    io = 3 * 4 * batch * n + 4 * batch * frames * BANDS
+    fft = bound(batch * frames * stage2_fft_flops(erb_terms=erb_terms) / 2, io + STAGE2_FFT_CONSTS)
+    return fft, bound(batch * frames * STAGE2_FMA, io + STAGE2_BASES)
 
 
 def k8_registers(log: str) -> list[tuple[str, str]]:
@@ -635,8 +679,11 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
 
             lin_b = kalman_cancel_plain(kc, far, mic, block=hop)["wav"].reshape(len(names), -1, hop)
             far_b = far.reshape(len(names), -1, hop)
+            tr_before = dict(little_net_apply_fused.transforms)
             o_k, m_k = little_net_apply_fused(net, lin_b, far_b, erb, scfg)
             o_p, m_p = little_net_apply_fused_plain(net, lin_b, far_b, erb, scfg)
+            check(little_net_apply_fused.transforms["fft"] == tr_before["fft"] + 1,
+                  f"K2 did not run its FFT phases at {tag}")
             k2 = (float((o_k - o_p).abs().max()), float((m_k - m_p).abs().max()))
             k2_bar = (K2_WAV_TOL * float(o_p.abs().max()), K2_MASK_TOL)
             f_k = two_stage_fused(net, far, mic, erb, kcfg=kc, scfg=scfg)
@@ -683,11 +730,15 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
                 check(worst <= ERLE_TOL_DB, f"the {route} route disagrees at {tag}")
 
 
-def dense_step_phase(dev, s_far, s_mic) -> None:
-    """21a. K1 and K12 at a block with a prime factor other than 2, 3 and 5
-    (224 = 2^5 7, L = 4) on the 8 scenes: the wrappers take the dense step
-    there, which must agree with the plain loops as the FFT step does."""
+def dense_step_phase(dev, net, s_far, s_mic) -> None:
+    """21a. K1, K12 and K2 at a block with a prime factor other than 2, 3
+    and 5 (224 = 2^5 7, L = 4) on the 8 scenes: the wrappers take their dense
+    step / transforms there, which must agree with the plain versions as
+    the FFT ones do."""
     from aec_tpu_torch.configs import KalmanConfig
+    from aec_tpu_torch.dsp.erb import erb_filterbank
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.stage2 import little_net_apply_fused, little_net_apply_fused_plain
     from aec_tpu_torch.kernels.kalman import (
         kalman_cancel_fused_batched,
         kalman_cancel_plain,
@@ -718,6 +769,21 @@ def dense_step_phase(dev, s_far, s_mic) -> None:
     check(all(st == {"fft": 0, "dense": 1} for st in steps),
           "K1 / K12 did not take the dense step at block 224")
     check(max(errs) <= bar, "the dense step disagrees with the plain loops at block 224")
+
+    scfg = StftConfig(2 * block, block, 2 * block)
+    erb = torch.as_tensor(erb_filterbank(n_freqs=scfg.n_freqs), device=dev)
+    lin_b, far_b = want[0].reshape(len(s_far), -1, block), far.reshape(len(s_far), -1, block)
+    before = dict(little_net_apply_fused.transforms)
+    with torch.no_grad():
+        o_k, m_k = little_net_apply_fused(net, lin_b, far_b, erb, scfg)
+        o_p, m_p = little_net_apply_fused_plain(net, lin_b, far_b, erb, scfg)
+    ran = {k: v - before[k] for k, v in little_net_apply_fused.transforms.items()}
+    k2 = (float((o_k - o_p).abs().max()), float((m_k - m_p).abs().max()))
+    k2_bar = (K2_WAV_TOL * float(o_p.abs().max()), K2_MASK_TOL)
+    phase("geometry", f"block {block}: K2 wav {k2[0]:.3e} (bar {k2_bar[0]:.3e}), mask {k2[1]:.3e} "
+          f"(bar {k2_bar[1]:g}) vs plain; transforms {ran}")
+    check(ran == {"fft": 0, "dense": 1}, "K2 did not take its dense transforms at block 224")
+    check(all(e <= b for e, b in zip(k2, k2_bar)), "K2's dense transforms disagree at block 224")
 
 
 def largest_l(run) -> tuple[int, str]:
@@ -1197,6 +1263,7 @@ def main() -> None:
         nlms_cancel_fused_batched,
         nlms_cancel_plain,
     )
+    from aec_tpu_torch.kernels.gru import gru_recurrence
     from aec_tpu_torch.kernels.stage2 import (
         little_net_apply_fused,
         little_net_apply_fused_plain,
@@ -1244,6 +1311,7 @@ def main() -> None:
     cfg = KalmanConfig()
     net = load_npz("checkpoints/little_net_robust.npz", device=dev)
     erb = torch.as_tensor(erb_filterbank(), device=dev)
+    erb_terms = int((erb != 0).sum())  # the ERB matrix's support: K2's bound counts its terms
 
     # 4. each kernel vs its plain version at the main path's full shape
     far, mic = make_batch(dev, args.seed, BATCH, N)
@@ -1271,7 +1339,16 @@ def main() -> None:
               f"mask max|d| = {k2_mask_err:.3e} (bar {K2_MASK_TOL:g})")
         check(k2_err <= K2_WAV_TOL * wav_scale, "K2 wav disagrees with its plain version")
         check(k2_mask_err <= K2_MASK_TOL, "K2 mask disagrees with its plain version")
-        del o_k, o_p, m_k, m_p
+        # as a batch of one (shorter runs of frames per CTA: other seams)
+        o_1, m_1 = little_net_apply_fused(net, lin_b[:1], far_b[:1], erb)
+        torch.cuda.synchronize()
+        k2_b1_err = float((o_1 - o_p[:1]).abs().max())
+        k2_b1_mask = float((m_1 - m_p[:1]).abs().max())
+        phase("K2 vs plain", f"as a batch of one: wav max|d| = {k2_b1_err:.3e}, mask max|d| = "
+              f"{k2_b1_mask:.3e} (the same bars)")
+        check(k2_b1_err <= K2_WAV_TOL * wav_scale and k2_b1_mask <= K2_MASK_TOL,
+              "K2 as a batch of one disagrees with its plain version")
+        del o_k, o_p, m_k, m_p, o_1, m_1
         r = k2_against_fp64(net, lin_b, far_b, erb)
         phase("K2 round-off", f"main path: mask max|d| from fp64: K2 {r['K2']:.3e} (bar "
               f"{K2_MASK_TOL:g}), plain fp32 {r['plain']:.3e}, TF32 products {r['tf32']:.3e} "
@@ -1288,13 +1365,17 @@ def main() -> None:
     s_mic = np.stack([scenes[k][1] for k in names])
     sf, sm = torch.from_numpy(s_far).to(dev), torch.from_numpy(s_mic).to(dev)
     steps_before = dict(kalman_cancel_fused_batched.steps)
-    out, launches = drive((kalman_cancel_fused_batched, little_net_apply_fused),
+    tr_before = dict(little_net_apply_fused.transforms)
+    out, launches = drive((kalman_cancel_fused_batched, little_net_apply_fused, gru_recurrence),
                           lambda: two_stage_cancel(net, sf, sm, erb))
     k1_steps = {k: v - steps_before[k] for k, v in kalman_cancel_fused_batched.steps.items()}
+    k2_tr = {k: v - tr_before[k] for k, v in little_net_apply_fused.transforms.items()}
     phase("main path", f"two_stage_cancel 8 x {N}: launches K1 {launches[0]} (steps {k1_steps}), "
-          f"K2 {launches[1]}")
+          f"K2 {launches[1]} (transforms {k2_tr}), K8 {launches[2]} (K2's phase B)")
     check(all(n > 0 for n in launches), "the main path did not go through every kernel")
     check(k1_steps == {"fft": launches[0], "dense": 0}, "K1 did not run its FFT step")
+    check(k2_tr == {"fft": launches[1], "dense": 0} and launches[2] == launches[1],
+          "K2 did not run its FFT phases with one K8 launch each")
     out = {k: v.cpu().numpy() for k, v in out.items()}
     check(out["wav"].shape == s_mic.shape and np.isfinite(out["wav"]).all(), "two_stage output")
     plain_ref = two_stage_cancel(load_npz("checkpoints/little_net_robust.npz", device="cpu"),
@@ -1326,6 +1407,8 @@ def main() -> None:
         t_k2 = time_ms(lambda: little_net_apply_fused(net, lin_b, far_b, erb), args.reps)
         t_p2 = time_ms(lambda: little_net_apply_fused_plain(net, lin_b, far_b, erb), args.reps)
         t_k2_b1 = time_ms(lambda: little_net_apply_fused(net, lin_b[:1], far_b[:1], erb), args.reps)
+        t_p2_b1 = time_ms(lambda: little_net_apply_fused_plain(net, lin_b[:1], far_b[:1], erb),
+                          args.reps)
         t_all = time_ms(lambda: two_stage_cancel(net, far, mic, erb), args.reps)
     xrt = BATCH * N / SR / (t_all / 1e3)
     k1_bound = {b: stage1_bounds(b) for b in (BATCH, 1)}
@@ -1336,10 +1419,14 @@ def main() -> None:
               f"{fft_b['bound_ms']:.5f} ms ({fft_b['bound_by']}: the FFT step's "
               f"{stage1_fft_flops()} flops a step); the dense DFT formulation of the TPU "
               f"kernel, {2 * STAGE1_FMA} flops a step: {dense_b['bound_ms']:.4f} ms [{smi}]")
-    frames = N // HOP + 1
-    k2_b1 = bound(frames * STAGE2_FMA, 3 * N * 4 + frames * BANDS * 4 + STAGE2_BASES)
-    phase("time", f"K2 B = 1 x {N}: {t_k2_b1:.3f} ms; bound {k2_b1['bound_ms']:.5f} ms "
-          f"({k2_b1['bound_by']}) [{smi}]")
+    k2_bound = {b: stage2_bounds(b, N, erb_terms) for b in (BATCH, 1)}
+    for b, t_k, t_p in ((BATCH, t_k2, t_p2), (1, t_k2_b1, t_p2_b1)):
+        fft_b, dense_b = k2_bound[b]
+        phase("time", f"K2 B = {b} x {N}: {t_k:.3f} ms (plain {t_p:.2f} ms); bound "
+              f"{fft_b['bound_ms']:.5f} ms ({fft_b['bound_by']}: the FFT formulation's "
+              f"{stage2_fft_flops(erb_terms=erb_terms)} flops a frame, the ERB matrix's "
+              f"{erb_terms} nonzero weights); the dense DFT formulation of the TPU kernel, "
+              f"{2 * STAGE2_FMA} flops a frame: {dense_b['bound_ms']:.4f} ms [{smi}]")
     phase("time", f"two_stage_cancel {BATCH} x {N}: {t_all:.2f} ms = {xrt:.1f} x realtime "
           f"[{smi}]")
     print(f"two_stage_ms={t_all:.3f} xrt={xrt:.1f} peak_mem_gb="
@@ -1421,16 +1508,25 @@ def main() -> None:
           f"worst tail ERLE |d| = {s_db:.4f} dB (bar {ERLE_TOL_DB} dB)")
     check(s_rel <= STREAM_TOL and s_db <= ERLE_TOL_DB, "streamed output disagrees with offline")
 
-    # 10. times of K3 and K4 (median of --reps, CUDA events)
+    # 10. times of K3 and K4 (median of --reps, CUDA events); K3 also at the
+    #     streamed scenes' shape (8 streams, one hop), where its launches come from
     blk_f, blk_m = s_far_d[:, :HOP].contiguous(), s_mic_d[:, :HOP].contiguous()
+    scene_f, scene_m = sf[:, :HOP].contiguous(), sm[:, :HOP].contiguous()
     with torch.no_grad():
         t_k3 = time_ms(lambda: serving_step_fused(net, ks, blk_f, blk_m, erb), args.reps)
         t_p3 = time_ms(lambda: serving_step_plain(net, ps, blk_f, blk_m, erb), args.reps)
+        st8 = {k: serving_init(len(names), stage1=k, device=dev) for k in ("kalman", "nlms")}
+        t_k3_8, t_p3_8 = ({k: time_ms(lambda: step(net, st8[k], scene_f, scene_m, erb, stage1=k),
+                                      args.reps) for k in st8}
+                          for step in (serving_step_fused, serving_step_plain))
         t_k4 = time_ms(lambda: two_stage_fused(net, far, mic, erb), args.reps)
         t_p4 = time_ms(lambda: two_stage_fused_plain(net, far, mic, erb), args.reps)
     streams = S_SERVE * (HOP / SR * 1e3) / t_k3
     phase("time", f"K3 S = {S_SERVE}, k = 1: {t_k3:.3f} ms per call (plain {t_p3:.3f} ms) = "
           f"{streams:.0f} concurrent realtime streams [{smi}]")
+    phase("time", f"K3 S = {len(names)} (the streamed scenes), k = 1, per call: Kalman "
+          f"{t_k3_8['kalman']:.3f} ms (plain {t_p3_8['kalman']:.3f} ms), NLMS "
+          f"{t_k3_8['nlms']:.3f} ms (plain {t_p3_8['nlms']:.3f} ms) [{smi}]")
     phase("time", f"K4 {BATCH} x {N}: {t_k4:.2f} ms (composition two_stage_cancel {t_all:.2f} ms, "
           f"plain {t_p4:.2f} ms) [{smi}]")
     print(f"serving_ms={t_k3:.4f} streams={streams:.0f} two_stage_fused_ms={t_k4:.3f}", flush=True)
@@ -1490,12 +1586,13 @@ def main() -> None:
             lambda: two_stage_cancel(net, sf, sm, erb, stage1="nlms"))
         nl_one, (k7_launches, k2_n1) = drive((nlms_cancel_fused, little_net_apply_fused),
                                              lambda: one_by_one(stage1="nlms"))
-        ka_one, (k6_launches, k2_k1) = drive((kalman_cancel_fused, little_net_apply_fused),
-                                             lambda: one_by_one())
+        ka_one, (k6_launches, k2_k1, k8_k1) = drive(
+            (kalman_cancel_fused, little_net_apply_fused, gru_recurrence), lambda: one_by_one())
     phase("nlms path", f"two_stage_cancel(stage1='nlms') 8 x {N}: launches K5 {k5_launches}, "
           f"K2 {k2_nl}; one by one: launches K7 {k7_launches}, K2 {k2_n1}")
     phase("single path", f"two_stage_cancel 8 x [{N}] one by one: launches K6 {k6_launches}, "
-          f"K2 {k2_k1}")
+          f"K2 {k2_k1} (as a batch of one), K8 {k8_k1} (K2's phase B)")
+    check(k8_k1 == k2_k1, "K2 as a batch of one did not run one K8 launch a call")
     check(min(k5_launches, k2_nl, k7_launches, k2_n1, k6_launches, k2_k1) > 0,
           "an NLMS or single-stream path did not go through its kernels")
     nl_ref = two_stage_cancel(load_npz("checkpoints/little_net_robust.npz", device="cpu"),
@@ -1558,6 +1655,11 @@ def main() -> None:
         t_p7 = time_ms(lambda: nlms_cancel_plain(ncfg, f16, m16), args.reps)
         t_k1_one = time_ms(lambda: kalman_cancel_fused_batched(cfg, f16[None], m16[None]),
                            args.reps)
+        # K6, K7 at one 8.2 s scene, the shape of their launches on the scenes
+        t_scene = {fn.__name__: (time_ms(lambda: fn(c, sf[0], sm[0]), args.reps),
+                                 time_ms(lambda: plain(c, sf[0], sm[0]), args.reps))
+                   for fn, plain, c in ((kalman_cancel_fused, kalman_cancel_plain, cfg),
+                                        (nlms_cancel_fused, nlms_cancel_plain, ncfg))}
         lin16 = kalman_cancel_fused(cfg, f16, m16)["wav"].reshape(1, -1, HOP)
         t_k2_one = time_ms(lambda: little_net_apply_fused(net, lin16, f16.reshape(1, -1, HOP), erb),
                            args.reps)
@@ -1573,10 +1675,18 @@ def main() -> None:
     phase("time", f"one 16 s utterance: K6 {t_k6:.3f} ms (plain {t_p6:.2f} ms), K7 {t_k7:.3f} ms "
           f"(plain {t_p7:.2f} ms), one cluster of {single_stream_lib().aec_single_cluster()} "
           f"CTAs; K1 as a batch of one {t_k1_one:.2f} ms [{smi}]")
+    k6_scene, k7_scene = t_scene["kalman_cancel_fused"], t_scene["nlms_cancel_fused"]
+    stage1_scene = bound(N // HOP * STAGE1_FMA, 3 * N * 4 + STAGE1_BASES)
+    phase("time", f"one 8.2 s scene: K6 {k6_scene[0]:.3f} ms (plain {k6_scene[1]:.2f} ms), K7 "
+          f"{k7_scene[0]:.3f} ms (plain {k7_scene[1]:.2f} ms); bound "
+          f"{stage1_scene['bound_ms']:.4f} ms ({stage1_scene['bound_by']}) [{smi}]")
+    k2_one_bound = stage2_bounds(1, N_UTT, erb_terms)
     phase("time", f"two_stage_cancel one 16 s utterance: Kalman {t_utt_k:.2f} ms = "
           f"{utt_s / (t_utt_k / 1e3):.1f} x realtime, NLMS {t_utt_n:.2f} ms = "
           f"{utt_s / (t_utt_n / 1e3):.1f} x realtime; its stage 2, K2 as a batch of one, "
-          f"{t_k2_one:.2f} ms [{smi}]")
+          f"{t_k2_one:.3f} ms (bound {k2_one_bound[0]['bound_ms']:.5f} ms, "
+          f"{k2_one_bound[0]['bound_by']}; dense formulation {k2_one_bound[1]['bound_ms']:.4f} "
+          f"ms) [{smi}]")
     phase("time", f"K3-NLMS S = {S_SERVE}, k = 1: {t_k3n:.3f} ms per call (plain {t_p3n:.3f} ms) "
           f"= {streams_n:.0f} concurrent realtime streams [{smi}]")
     print(f"nlms_batched_ms={t_k5:.3f} kalman_single_ms={t_k6:.4f} nlms_single_ms={t_k7:.4f} "
@@ -1590,8 +1700,6 @@ def main() -> None:
     # 19. the wide-net single-utterance route: the width-4 checkpoint on the 8
     #     scenes one by one (stage 1 on K6, stage 2 offline with its GRU on
     #     K8 at H = 128) against the CPU route
-    from aec_tpu_torch.kernels.gru import gru_recurrence
-
     w4_path = "checkpoints/little_net_dtalk_w4.npz"
     w4 = load_npz(w4_path, device=dev)
     with torch.no_grad():
@@ -1653,7 +1761,7 @@ def main() -> None:
     # 21. the stage-1/2 kernels at other geometries and at their largest
     #     partition counts; 22-23. K9 and the DCCRN path
     geometry_phase(dev, net, names, s_far, s_mic, smi)
-    dense_step_phase(dev, s_far, s_mic)
+    dense_step_phase(dev, net, s_far, s_mic)
     limits_phase(dev, net, args.seed, smi)
     lstm = lstm_phase(dev, args.seed, args.reps, smi)
     dccrn = dccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
@@ -1666,12 +1774,11 @@ def main() -> None:
     #     computes the same function (cuDNN's GRU for K8, its LSTM for K9),
     #     else null (no PyTorch call computes K10's int8 recurrence or
     #     K11's coupled full-band / sub-band recurrence)
-    t_utt = -(-N_UTT // HOP)
     state_bytes = {k: 4 * sum(v.numel() for v in st.values()) // S_SERVE
                    for k, st in (("kalman", ks), ("nlms", ks_n))}
-    serve_io = 3 * S_SERVE * HOP * 4 + STAGE1_BASES + STAGE2_BASES
+    n_serve = len(names)  # K3's row: the streamed scenes' shape, where its launches come from
+    serve_io = 3 * n_serve * HOP * 4 + STAGE1_BASES + STAGE2_BASES
     stage1_batch = bound(BATCH * t_main * STAGE1_FMA, 3 * BATCH * N * 4 + STAGE1_BASES)
-    stage1_one = bound(t_utt * STAGE1_FMA, 3 * N_UTT * 4 + STAGE1_BASES)
     masks = BATCH * (t_main + 1) * BANDS * 4
     k8 = gru["shapes"][(1, 1001, BANDS)]
     k9 = lstm["shapes"][1]
@@ -1684,21 +1791,26 @@ def main() -> None:
         ("kalman_batched", "kalman_batched.cu", "pallas_kalman.py:492", launches[0], k1_err,
          t_k1, t_p1, k1_bound[BATCH][0]),
         ("stage2", "stage2.cu", "pallas_stage2.py:100", launches[1], k2_err, t_k2, t_p2,
-         bound(BATCH * (t_main + 1) * STAGE2_FMA, 3 * BATCH * N * 4 + masks + STAGE2_BASES)),
-        ("serving", "serving.cu", "pallas_serving.py:239", k3_launches, k3_err, t_k3, t_p3,
-         bound(S_SERVE * (STAGE1_FMA + STAGE2_FMA), serve_io + 2 * S_SERVE * state_bytes["kalman"])),
-        ("serving_nlms", "serving.cu", "pallas_serving.py:239", k3n_launches, k3n_err, t_k3n,
-         t_p3n, bound(S_SERVE * (STAGE1_FMA + STAGE2_FMA),
-                      serve_io + 2 * S_SERVE * state_bytes["nlms"])),
+         k2_bound[BATCH][0]),
+        # K2 as a batch of one 8.2 s utterance; launches from the scenes one by one
+        ("stage2_batch_of_one", "stage2.cu", "pallas_stage2.py:100", k2_k1, k2_b1_err, t_k2_b1,
+         t_p2_b1, k2_bound[1][0]),
+        # K3 per one-hop call on the 8 streamed scenes' streams
+        ("serving", "serving.cu", "pallas_serving.py:239", k3_launches, k3_err, t_k3_8["kalman"],
+         t_p3_8["kalman"], bound(n_serve * (STAGE1_FMA + STAGE2_FMA),
+                                 serve_io + 2 * n_serve * state_bytes["kalman"])),
+        ("serving_nlms", "serving.cu", "pallas_serving.py:239", k3n_launches, k3n_err,
+         t_k3_8["nlms"], t_p3_8["nlms"], bound(n_serve * (STAGE1_FMA + STAGE2_FMA),
+                                               serve_io + 2 * n_serve * state_bytes["nlms"])),
         ("two_stage", "two_stage.cu", "pallas_two_stage.py:134", k4_launches, k4_err, t_k4, t_p4,
          bound(BATCH * (t_main * STAGE1_FMA + (t_main + 1) * STAGE2_FMA),
                4 * BATCH * N * 4 + masks + STAGE1_BASES + STAGE2_BASES)),
         ("nlms_batched", "nlms_batched.cu", "pallas_nlms.py:242", k5_launches, k5_err, t_k5, t_p5,
          stage1_batch),
         ("kalman_single", "single_stream.cu", "pallas_kalman.py:150", k6_launches,
-         single_err["K6"], t_k6, t_p6, stage1_one),
+         single_err["K6"], *k6_scene, stage1_scene),
         ("nlms_single", "single_stream.cu", "pallas_nlms.py:94", k7_launches, single_err["K7"],
-         t_k7, t_p7, stage1_one),
+         *k7_scene, stage1_scene),
         # K8 at one 16 s utterance, H = 32; launches from the trainer's validation
         ("gru_scan", "gru.cu", "pallas_gru.py:65", trained["k8_val"], gru["err"], k8["ms"],
          k8["plain_ms"], gru_bound(1, 1001, BANDS)),

@@ -92,14 +92,64 @@ def test_stage2_kernel_matches_plain(cuda, scene, gain_norm):
     net = load_npz(ROBUST).to(cuda)
     erb = torch.from_numpy(erb_filterbank()).to(cuda)
     lin, far = (t.to(cuda).reshape(4, -1, 256) for t in scene(4, 40 * 256))
-    before = little_net_apply_fused.launches
+    before = little_net_apply_fused.launches, gru_recurrence.launches
     with torch.no_grad():
         out, mask = little_net_apply_fused(net, lin, far, erb, gain_norm=gain_norm)
         torch.cuda.synchronize()
         want_out, want_mask = little_net_apply_fused_plain(net, lin, far, erb, gain_norm=gain_norm)
-    assert little_net_apply_fused.launches == before + 1
+    # phases A and C, and the recurrence (phase B) on K8
+    assert (little_net_apply_fused.launches, gru_recurrence.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
     assert out.shape == (4, 40, 256) and mask.shape == (4, 41, 32)
     # fp32 round-off through DFT, GRU and pinv synthesis
+    torch.testing.assert_close(out, want_out, atol=1e-4 * float(want_out.abs().max()), rtol=0)
+    torch.testing.assert_close(mask, want_mask, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("batch,t_blocks,hop,bands,gain_norm,transforms", [
+    (256, 512, 256, 32, False, "fft"),  # the main path: 256 x 8.2 s
+    (256, 1000, 256, 32, True, "fft"),  # 256 x 16 s
+    (3, 512, 256, 32, True, "fft"),
+    (3, 1000, 256, 32, False, "fft"),
+    (1, 512, 256, 32, False, "fft"),  # a batch of one, as the one-utterance route runs it
+    (1, 1000, 256, 32, True, "fft"),
+    (4, 60, 160, 32, True, "fft"),  # the 320 / 160 / 320 STFT: plan 8, 4, 5
+    (4, 60, 224, 32, False, "dense"),  # 224 = 2^5 7: no FFT plan
+    (2, 60, 256, 64, True, "fft"),  # E = 64: K8's four-lane path
+    (3, 1, 256, 32, False, "fft"),  # Tb = 1: the first and the flush frame only
+    (2, 20, 1024, 32, True, "fft"),  # a long hop: runs shortened to fit shared memory
+    (2, 20, 896, 32, False, "dense"),  # 896 = 2^7 7, long and without a plan
+])
+def test_stage2_kernel_shapes_match_plain(cuda, batch, t_blocks, hop, bands, gain_norm,
+                                          transforms):
+    """K2's phases against its plain version at the batches, lengths, hops
+    and band counts its routes give it, at the kernel's bars; the wrapper
+    counts the transforms that ran (FFTs, or dense ones for a hop without
+    a radix plan) and one K8 launch per call. An untrained net keeps the
+    mask off its rails (the robust checkpoint mutes this synthetic input to
+    a mask of 0); the input level falls with the hop so the ERB features,
+    sums over more bins, stay in the main path's range."""
+    from aec_tpu_torch.dsp.stft import StftConfig
+
+    cfg = StftConfig(2 * hop, hop, 2 * hop)
+    g = torch.Generator(device=cuda).manual_seed(batch * t_blocks + hop + bands)
+    net = little_net_init(bands, generator=torch.Generator().manual_seed(2), device=cuda)
+    erb = torch.from_numpy(erb_filterbank(n_freqs=cfg.n_freqs, n_bands=bands)).to(cuda)
+    level = 0.25 * 256 / hop
+    far = level * torch.randn(batch, t_blocks, hop, generator=g, device=cuda)
+    # a residual echo of the far end over a near-end floor
+    lin = 0.3 * far + 0.05 * level * torch.randn(batch, t_blocks, hop, generator=g, device=cuda)
+    before = (dict(little_net_apply_fused.transforms), gru_recurrence.launches)
+    with torch.no_grad():
+        out, mask = little_net_apply_fused(net, lin, far, erb, cfg, gain_norm=gain_norm)
+        torch.cuda.synchronize()
+        want_out, want_mask = little_net_apply_fused_plain(net, lin, far, erb, cfg,
+                                                           gain_norm=gain_norm)
+    ran = {k: v - before[0][k] for k, v in little_net_apply_fused.transforms.items()}
+    assert ran == {"fft": int(transforms == "fft"), "dense": int(transforms == "dense")}
+    assert gru_recurrence.launches == before[1] + 1
+    assert out.shape == lin.shape and mask.shape == (batch, t_blocks + 1, bands)
+    assert 0.05 < float(want_mask.mean()) < 0.95
     torch.testing.assert_close(out, want_out, atol=1e-4 * float(want_out.abs().max()), rtol=0)
     torch.testing.assert_close(mask, want_mask, atol=1e-5, rtol=0)
 
@@ -117,9 +167,10 @@ def test_two_stage_kernel_route_matches_cpu_route(cuda, scene):
     net = load_npz(ROBUST, device="cpu")
     want = two_stage_cancel(net, far, mic, erb_filterbank())
     k1, k2 = kalman_cancel_fused_batched.launches, little_net_apply_fused.launches
+    k8 = gru_recurrence.launches
     got = two_stage_cancel(net.to(cuda), far.to(cuda), mic.to(cuda), erb_filterbank())
     assert kalman_cancel_fused_batched.launches == k1 + 1
-    assert little_net_apply_fused.launches == k2 + 1
+    assert little_net_apply_fused.launches == k2 + 1 and gru_recurrence.launches == k8 + 1
     for key in ("linear_wav", "wav"):
         w = want[key]
         torch.testing.assert_close(got[key].cpu(), w, atol=1e-3 * float(w.abs().max()), rtol=0)
@@ -130,6 +181,7 @@ def test_two_stage_kernel_route_matches_cpu_route(cuda, scene):
     assert one["wav"].shape == (64 * 256,)
     assert kalman_cancel_fused_batched.launches == k1 + 1
     assert kalman_cancel_fused.launches == k6 + 1 and little_net_apply_fused.launches == k2 + 2
+    assert gru_recurrence.launches == k8 + 2  # K2's phase B
 
 
 def _leaf_close(got, want, rel, what):

@@ -108,3 +108,38 @@ def test_other_radices(rng, block):
     spec = _ri(torch.fft.rfft(x.double())).float()
     _close(fft_plan.irfft(spec, block, "head"), x[:, :block])
     _close(fft_plan.irfft(spec, block, "tail"), x[:, block:])
+
+
+# ---------------------------------------------------------------- K2's transforms
+
+
+@pytest.mark.parametrize("block,plan", [(256, (8, 8, 4)), (160, (8, 4, 5))])
+def test_stage2_analysis_matches_windowed_basis(rng, block, plan):
+    """K2's analysis: the model's rfft of the window times a frame equals
+    stage2_consts' windowed analysis basis, for 2 x 3 frames."""
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.consts import stage2_consts
+
+    assert fft_plan.radix_plan(block) == plan
+    c = stage2_consts(StftConfig(2 * block, block, 2 * block), CPU)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 2 * block)).astype(np.float32))
+    _close(fft_plan.rfft(x * c["window"], block), x @ c["analysis"])
+
+
+@pytest.mark.parametrize("block,plan", [(256, (8, 8, 4)), (160, (8, 4, 5))])
+def test_stage2_synthesis_matches_pinv_basis(rng, block, plan):
+    """K2's synthesis: the window times the model's inverse (head and tail)
+    equals stage2_consts' pinv synthesis basis on 4 spectra whose bins 0
+    and K - 1 carry imaginary parts, which both ignore."""
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.consts import stage2_consts
+
+    assert fft_plan.radix_plan(block) == plan
+    c = stage2_consts(StftConfig(2 * block, block, 2 * block), CPU)
+    k = block + 1
+    spec = rng.standard_normal((4, 2 * k)).astype(np.float32)
+    assert (spec[:, k] != 0).all() and (spec[:, 2 * k - 1] != 0).all()
+    st = torch.from_numpy(spec)
+    got = c["window"] * torch.cat([fft_plan.irfft(st, block, "head"),
+                                   fft_plan.irfft(st, block, "tail")], dim=-1)
+    _close(got, st @ c["synthesis"])
