@@ -8,13 +8,18 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
   single-stream NLMS stage 1 (``csrc/single_stream.cu``);
 - ``stage2``  — K2, batched LittleNet stage 2 as passes over all frames
   (``csrc/stage2.cu`` on ``csrc/fft.cuh``, its GRU recurrence on K8);
-- ``fft_plan`` — the radix plans and twiddles of the FFTs of K1, K12 and K2,
-  and a plain-torch model of their schedule;
+- ``fft_plan`` — the radix plans and twiddles of the FFTs of K1, K12, K2, K3
+  and K4, and a plain-torch model of their schedule;
 - ``phase_costs`` — a card tool that times K2's phases with parts cut out;
 - ``serving`` — K3, the streaming serving step for S live streams with a
   Kalman or NLMS stage 1, state in place (``csrc/serving.cu``), with the
   serving state and its migrations;
 - ``two_stage`` — K4, both stages in one launch (``csrc/two_stage.cu``);
+- ``hop`` — the two-stage hop K3 and K4 share (``csrc/hop.cuh``): the
+  launch constants prepared once per net and geometry, and a plain-torch
+  model of the hop on FFTs;
+- ``serving_costs`` — a card tool that splits a K3 call's time between the
+  host and the kernel;
 - ``gru``     — K8, the GRU recurrence (``csrc/gru.cu``), and the autograd
   Function of the fused GRU scan;
 - ``lstm``    — K9, DCCRN's grouped complex-LSTM recurrence (``csrc/lstm.cu``
@@ -26,8 +31,10 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
 - ``consts``  — their constant DFT bases, fp32, cached per device;
 - ``_build``  — ``nvcc`` at first use, ctypes binding, error checks.
 
-``csrc/bl_common.cuh`` holds the per-step device code the kernels share,
-``csrc/fft.cuh`` the CTA-wide real FFTs.
+``csrc/bl_common.cuh`` holds the geometry, the shared-memory carving and
+the dense per-step device code, ``csrc/fft.cuh`` the CTA-wide real FFTs,
+``csrc/stage1_fft.cuh`` the stage-1 steps on them, ``csrc/stage2_fft.cuh``
+the stage-2 pieces on them.
 A wrapper launches its kernel for a CUDA tensor (or raises) and takes the
 plain version for a CPU tensor; each counts its launches in ``.launches``.
 """

@@ -1,16 +1,21 @@
-// Shared per-step device code of the stage-1 and stage-2 CUDA kernels.
+// Shared per-step device code of the stage-1 and stage-2 CUDA kernels: the
+// geometry, the shared-memory carving, and the dense formulation of the
+// per-step functions.
 //
 // Counterpart of aec_tpu/kernels/bl_common.py: kalman_block_step
 // (bl_common.py:248-365), nlms_block_step (bl_common.py:368-449) and
-// stage2_frame_step (bl_common.py:452-525). All are CTA-wide functions:
-// every thread of a kThreads-thread block calls them, the state lives in the
-// block's shared memory, and they end with __syncthreads(). The batched
-// stage-1 kernels (kalman_batched.cu's dense step, nlms_batched.cu) call them
-// once per block; two_stage_block_step calls a stage-1 step and the stage-2
-// step back to back on one CTA's shared state for the kernels that run both
-// stages in one launch (two_stage.cu, serving.cu). K2 (stage2.cu) runs its
-// frames as passes over all frames on FFTs instead and shares only the
-// geometry and the shared-memory carving.
+// stage2_frame_step (bl_common.py:452-525), with their transforms as dense
+// products over DFT bases. All are CTA-wide functions: every thread of a
+// kThreads-thread block calls them, the state lives in the block's shared
+// memory, and they end with __syncthreads(). K5 (nlms_batched.cu) and K6 /
+// K7 (single_stream.cu) run the dense stage-1 steps; K1 / K12, K3 and K4
+// run them, and two_stage_block_step (the dense two-stage hop), only for a
+// block with a prime factor other than 2, 3 and 5, which has no FFT plan.
+// Every other geometry of those kernels runs the same algebra on real FFTs:
+// stage1_fft.cuh (the stage-1 steps), stage2_fft.cuh (one LittleNet frame,
+// and the pieces K2's phases share) and hop.cuh (the two-stage hop of K3
+// and K4), which reuse this header's geometry, carving, filter parameters,
+// stage-2 state and the hop's hand-off.
 //
 // Geometry. As the JAX kernels read it from the config and the shapes, so
 // these take it at run time (Geom): the stage-1 block B (== the stage-2 hop;
@@ -34,7 +39,7 @@
 //
 // Every product is plain fp32 (FFMA): the TPU kernels' bf16 hi/lo splits and
 // separate Nyquist column existed for the bf16 matrix unit and are not needed
-// here. Transforms are dense products with constant DFT bases read from
+// here. The dense transforms are products with constant DFT bases read from
 // global memory (L2-resident); the sums over the L filter partitions ride in
 // registers, kLC partitions per pass over a basis (the last pass of a larger
 // L in chunks of 4, 2, 1), so at L <= kLC each basis element is read once per
@@ -520,6 +525,9 @@ struct Stage2Weights {
   const float* __restrict__ w2_t;       // (E, E)
   const float* __restrict__ b2;         // (E)
   const float* __restrict__ inv_env;    // (B) inverse interior OLA envelope
+  // the FFT frame's (stage2_fft.cuh): the window, erb's support
+  const float* __restrict__ window;     // (2B)
+  const int* __restrict__ sup;          // (2E + 2K), as stage2_fft.cuh's support_kernel
 };
 
 // What recurs from frame to frame.
@@ -713,8 +721,9 @@ constexpr int kMoments = 5;  // mic², e, e², far, far² summed over a block
 // MONITOR_SMOOTH and 1 - MONITOR_SMOOTH, each rounded to fp32 as JAX does
 constexpr float kMonitorKeep = 0.99f, kMonitorRate = 0.01f;
 
-// Both stages' state on one CTA; S1 is the stage-1 filter's state
-// (KalmanSmem or NlmsSmem). Stage 2's per-frame scratch lies over stage 1's
+// Both stages' state on one CTA for the dense hop (hop.cuh's TwoStageFftSmem
+// is the FFT hop's); S1 is the stage-1 filter's state (KalmanSmem or
+// NlmsSmem). Stage 2's per-frame scratch lies over stage 1's
 // update buffer `g` where it fits (L * 2K floats; at the default geometry
 // 5,140 against 3,148): g is dead once a stage-1 step has returned and is
 // fully rewritten by the next one before it is read. That keeps the block at
@@ -749,62 +758,79 @@ __device__ __forceinline__ float norm_scalar(float total, float sumsq, float cou
   return __fdiv_rn(mean, __fsqrt_rn(fmaxf(var, 1e-12f)));
 }
 
-// One two-stage hop on one CTA's state (pallas_serving.py:173-222,
-// pallas_two_stage.py:97-122): the stage-1 block update (Kalman or NLMS, by
-// the state's type; P its parameters), its cancelled block handed to stage 2
-// in shared memory with the far block, then the LittleNet frame. Before the
-// call s1.frame[B:] holds far block t and s1.e mic block t; after it s1.e
-// holds the stage-1 block, x.out the enhanced block t - 1 and x.mask this
-// frame's mask. With `moments` the block's sums fold into s.nm: the monitor
-// rows always, the running moments only when `normalize`, whose current
-// scalars then offset stage 2's analysis frames.
+// The hand-off of a two-stage hop (pallas_serving.py:173-222,
+// pallas_two_stage.py:97-122) after its stage-1 step: the stage-1 block e
+// and the far block (the stage-1 frame's upper half) become stage 2's
+// current blocks. With `moments` the block's sums fold into nm: the monitor
+// rows always (mic2 the mic block's power, summed by each thread before the
+// stage-1 step), the running moments only when `normalize`, whose current
+// scalars are returned (off_lin, off_far) to offset stage 2's analysis
+// frames; (0, 0) otherwise. Ends with a barrier.
+template <class G>
+__device__ __forceinline__ float2 hand_off(SArr e, SArr frame, const Stage2State& s2, SArr nm,
+                                           SArr red, const G& q, float mic2, bool moments,
+                                           bool normalize) {
+  const int tid = threadIdx.x, B = q.block;
+  for (int j = tid; j < B; j += kThreads) {
+    s2.lin[B + j] = e[j];
+    s2.far[B + j] = frame[B + j];
+  }
+  if (!moments) {
+    __syncthreads();
+    return make_float2(0.f, 0.f);
+  }
+  float v[kMoments] = {mic2, 0.f, 0.f, 0.f, 0.f};
+  for (int j = tid; j < B; j += kThreads) {
+    const float ej = e[j], f = frame[B + j];
+    v[1] += ej; v[2] += ej * ej; v[3] += f; v[4] += f * f;
+  }
+#pragma unroll
+  for (int m = 0; m < kMoments; ++m) {  // every warp whole: idle lanes add 0
+    const float sum = warp_sum(v[m]);
+    if (tid % 32 == 0) red[(tid / 32) * kMoments + m] = sum;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float sum[kMoments] = {};
+    for (int g = 0; g < kWarps; ++g)
+#pragma unroll
+      for (int m = 0; m < kMoments; ++m) sum[m] += red[g * kMoments + m];
+    nm[5] = kMonitorKeep * nm[5] + kMonitorRate * (sum[0] / B);
+    nm[6] = kMonitorKeep * nm[6] + kMonitorRate * (sum[2] / B);
+    if (normalize) {
+      nm[0] += static_cast<float>(B);
+#pragma unroll
+      for (int m = 1; m < kMoments; ++m) nm[m] += sum[m];
+    }
+  }
+  __syncthreads();
+  if (!normalize) return make_float2(0.f, 0.f);
+  return make_float2(norm_scalar(nm[1], nm[2], nm[0]), norm_scalar(nm[3], nm[4], nm[0]));
+}
+
+// the power of mic block e summed over this thread's samples
+template <class G>
+__device__ __forceinline__ float block_power(SArr e, const G& q) {
+  float mic2 = 0.f;
+  for (int j = threadIdx.x; j < q.block; j += kThreads) mic2 += e[j] * e[j];
+  return mic2;
+}
+
+// One two-stage hop on one CTA's state with the dense steps: the stage-1
+// block update (Kalman or NLMS, by the state's type; P its parameters), the
+// hand-off, then the LittleNet frame. Before the call s1.frame[B:] holds far
+// block t and s1.e mic block t; after it s1.e holds the stage-1 block, x.out
+// the enhanced block t - 1 and x.mask this frame's mask. `moments`,
+// `normalize` as hand_off's. hop.cuh's two_stage_block_step_fft is the same
+// hop on FFTs.
 template <class S1, class P, class G>
 __device__ __forceinline__ void two_stage_block_step(const TwoStageSmem<S1>& s, const G& q, int t,
                                      const P& kp, const Stage1Bases& bs, const Stage2Weights& w,
                                      bool gain_norm, bool moments, bool normalize) {
-  const int tid = threadIdx.x, B = q.block;
-  float mic2 = 0.f;  // s1.e becomes the residual
-  for (int j = tid; j < B; j += kThreads) mic2 += s.s1.e[j] * s.s1.e[j];
+  const float mic2 = block_power(s.s1.e, q);  // s1.e becomes the residual
   stage1_block_step(s.s1, q, t, kp, bs);
-  for (int j = tid; j < B; j += kThreads) {
-    s.s2.lin[B + j] = s.s1.e[j];
-    s.s2.far[B + j] = s.s1.frame[B + j];
-  }
-  float off_lin = 0.f, off_far = 0.f;
-  if (moments) {
-    float v[kMoments] = {mic2, 0.f, 0.f, 0.f, 0.f};
-    for (int j = tid; j < B; j += kThreads) {
-      const float e = s.s1.e[j], f = s.s1.frame[B + j];
-      v[1] += e; v[2] += e * e; v[3] += f; v[4] += f * f;
-    }
-#pragma unroll
-    for (int m = 0; m < kMoments; ++m) {  // every warp whole: idle lanes add 0
-      const float sum = warp_sum(v[m]);
-      if (tid % 32 == 0) s.red[(tid / 32) * kMoments + m] = sum;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float sum[kMoments] = {};
-      for (int g = 0; g < kWarps; ++g)
-#pragma unroll
-        for (int m = 0; m < kMoments; ++m) sum[m] += s.red[g * kMoments + m];
-      s.nm[5] = kMonitorKeep * s.nm[5] + kMonitorRate * (sum[0] / B);
-      s.nm[6] = kMonitorKeep * s.nm[6] + kMonitorRate * (sum[2] / B);
-      if (normalize) {
-        s.nm[0] += static_cast<float>(B);
-#pragma unroll
-        for (int m = 1; m < kMoments; ++m) s.nm[m] += sum[m];
-      }
-    }
-    __syncthreads();
-    if (normalize) {
-      off_lin = norm_scalar(s.nm[1], s.nm[2], s.nm[0]);
-      off_far = norm_scalar(s.nm[3], s.nm[4], s.nm[0]);
-    }
-  } else {
-    __syncthreads();
-  }
-  stage2_frame_step(s.s2, s.x, q, w, gain_norm, off_lin, off_far);
+  const float2 off = hand_off(s.s1.e, s.s1.frame, s.s2, s.nm, s.red, q, mic2, moments, normalize);
+  stage2_frame_step(s.s2, s.x, q, w, gain_norm, off.x, off.y);
 }
 
 // ---------------------------------------------------------------- launches

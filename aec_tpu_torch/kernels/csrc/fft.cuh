@@ -1,5 +1,6 @@
-// CTA-wide real FFTs over shared memory, for the FFT step of K1 and K12 and
-// the analysis and synthesis phases of K2.
+// CTA-wide real FFTs over shared memory, for the stage-1 FFT steps of K1,
+// K12 and K3 (stage1_fft.cuh), the analysis and synthesis phases of K2 and
+// the one-frame stage 2 of K3 and K4 (stage2_fft.cuh).
 //
 // A real transform of length N = 2B is a complex FFT of length M = B over
 // the even / odd samples packed as (re, im), and a split of its M outputs

@@ -51,174 +51,11 @@
 // at the HBM rate), against a bound of ~0.13 ms. As a batch of one K8's 513
 // serial steps are ~90 % of the device time.
 
-#include "fft.cuh"
+#include "stage2_fft.cuh"
 
 using namespace aec;
 
 namespace {
-
-constexpr int kMaxRun = 8;  // frames per CTA, at most (kernels/stage2.py MAX_RUN)
-
-// raw sample m of the frame [block f-1 || block f] of transform l: lin
-// frames f0 .. f0 + n - 1 for l < n, far frames for l >= n (x1), zero past
-// the signal's `len` samples and before its start
-struct FrameAt {
-  const float* __restrict__ x0;
-  const float* __restrict__ x1;
-  int f0, n, hop, len;
-  __device__ __forceinline__ float operator()(int l, int m) const {
-    const bool second = l >= n;
-    const int s = (f0 + (second ? l - n : l) - 1) * hop + m;
-    return s >= 0 && s < len ? (second ? x1 : x0)[s] : 0.f;
-  }
-};
-
-// z[i] = (w[2i] x[2i], w[2i+1] x[2i+1]) of the windowed frame of transform l
-template <class Frame>
-struct WindowedSrc {
-  Frame fr;
-  SArr win;
-  __device__ __forceinline__ float2 operator()(int l, int i) const {
-    return make_float2(win[2 * i] * fr(l, 2 * i), win[2 * i + 1] * fr(l, 2 * i + 1));
-  }
-};
-
-// The support of the ERB matrix erb (K, E), into sup: for each band e the
-// first and one past the last bin k with erb[k][e] != 0 (sup[e], sup[E + e];
-// K and 0 for an empty band), then the same for each bin k over the bands
-// (sup[2E + k], sup[2E + K + k]). Phases A and C sum over erb's support
-// only: they skip exact zeros, so the sums equal the dense ones in the same
-// order, at ~1/16 of the work (each bin lies in at most two ERB bands).
-// One CTA.
-template <class G>
-__global__ void __launch_bounds__(kThreads)
-support_kernel(const float* __restrict__ erb, int* __restrict__ sup, G q) {
-  const int K = q.bins, E = q.bands;
-  int* s = reinterpret_cast<int*>(aec_smem4);  // (2E + 2K)
-  for (int i = threadIdx.x; i < 2 * (E + K); i += kThreads)
-    s[i] = i < E ? K : i < 2 * E ? 0 : i < 2 * E + K ? E : 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < K * E; i += kThreads) {
-    if (erb[i] == 0.f) continue;
-    const int k = i / E, e = i - k * E;
-    atomicMin(s + e, k);
-    atomicMax(s + E + e, k + 1);
-    atomicMin(s + 2 * E + k, e);
-    atomicMax(s + 2 * E + K + k, e + 1);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * (E + K); i += kThreads) sup[i] = s[i];
-}
-
-// Real FFTs of 2 hop points on fft.cuh. Work buffers hold transform l at
-// complex offset l M (M = hop).
-template <class Plan>
-struct FftTr {
-  Plan plan;
-  const float* __restrict__ tw;      // (B, 2) W_2B^m, m < B
-  const float* __restrict__ window;  // (2B) analysis / synthesis window
-
-  // the twiddles and the window into shared memory (no barrier)
-  template <class G>
-  __device__ __forceinline__ void init(const G& q, SArr s_tw, SArr s_win) const {
-    for (int i = threadIdx.x; i < q.frame; i += kThreads) {
-      s_tw[i] = tw[i];
-      s_win[i] = window[i];
-    }
-  }
-  // L forward transforms of the windowed frames; returns the result buffer
-  template <class G, class Frame>
-  __device__ __forceinline__ SArr forward(const G& q, int L, const Frame& fr, SArr a, SArr b,
-                                          SArr s_tw, SArr s_win) const {
-    return fft<false>(plan, q, L, WindowedSrc<Frame>{fr, s_win}, a, b, s_tw);
-  }
-  template <class G>
-  __device__ __forceinline__ float2 bin(const G& q, SArr z, int l, int k, SArr s_tw) const {
-    return fwd_split(z, l, k, q.block, s_tw);
-  }
-  template <class G>
-  __device__ __forceinline__ void put(const G& q, SArr y, int l, int k, float2 v) const {
-    pack_bin(y, l, k, q.block, v);
-  }
-  // L inverse transforms of the spectra put in y, into dst (y is overwritten)
-  template <class G>
-  __device__ __forceinline__ SArr inverse(const G& q, int L, SArr y, SArr dst, SArr s_tw) const {
-    return fft<true>(plan, q, L, PackedInvSrc{y, s_tw, q.block, 1.f / q.frame}, dst, y, s_tw);
-  }
-  // sample m of transform l's synthesis frame, windowed
-  template <class G>
-  __device__ __forceinline__ float syn(const G& q, SArr z, int l, int m, SArr s_win) const {
-    return s_win[m] * real_sample(z, l, m, q.block);
-  }
-};
-
-// Dense transforms over the stage-2 bases, for a hop without an FFT plan:
-// frames and syntheses at stride 2B, spectra [re || im] at stride 2K.
-struct DenseTr {
-  const float* __restrict__ analysis;   // (2B, 2K) windowed analysis DFT
-  const float* __restrict__ synthesis;  // (2K, 2B) windowed pinv synthesis
-
-  template <class G>
-  __device__ __forceinline__ void init(const G&, SArr, SArr) const {}
-  // the raw frames into a, then their spectra into b (each basis element
-  // read once for the run's L transforms)
-  template <class G, class Frame>
-  __device__ __forceinline__ SArr forward(const G& q, int L, const Frame& fr, SArr a, SArr b,
-                                          SArr, SArr) const {
-    const int N = q.frame, ri = q.ri;
-    for (int i = threadIdx.x; i < L * N; i += kThreads) a[i] = fr(i / N, i % N);
-    __syncthreads();
-    for (int c = threadIdx.x; c < ri; c += kThreads) {
-      float acc[2 * kMaxRun] = {};
-      for (int m = 0; m < N; ++m) {
-        const float v = analysis[m * ri + c];
-#pragma unroll
-        for (int l = 0; l < 2 * kMaxRun; ++l)
-          if (l < L) acc[l] = fmaf(a[l * N + m], v, acc[l]);
-      }
-#pragma unroll
-      for (int l = 0; l < 2 * kMaxRun; ++l)
-        if (l < L) b[l * ri + c] = acc[l];
-    }
-    __syncthreads();
-    return b;
-  }
-  template <class G>
-  __device__ __forceinline__ float2 bin(const G& q, SArr z, int l, int k, SArr) const {
-    return make_float2(z[l * q.ri + k], z[l * q.ri + q.bins + k]);
-  }
-  template <class G>
-  __device__ __forceinline__ void put(const G& q, SArr y, int l, int k, float2 v) const {
-    y[l * q.ri + k] = v.x;
-    y[l * q.ri + q.bins + k] = v.y;
-  }
-  // the real and imaginary halves summed apart, as bl_common.cuh's step 9
-  template <class G>
-  __device__ __forceinline__ SArr inverse(const G& q, int L, SArr y, SArr dst, SArr) const {
-    const int N = q.frame, K = q.bins, ri = q.ri;
-    for (int m = threadIdx.x; m < N; m += kThreads) {
-      float re[kMaxRun + 1] = {}, im[kMaxRun + 1] = {};
-      for (int c = 0; c < K; ++c) {
-        const float br = synthesis[c * N + m], bi = synthesis[(K + c) * N + m];
-#pragma unroll
-        for (int l = 0; l < kMaxRun + 1; ++l)
-          if (l < L) {
-            re[l] = fmaf(y[l * ri + c], br, re[l]);
-            im[l] = fmaf(y[l * ri + K + c], bi, im[l]);
-          }
-      }
-#pragma unroll
-      for (int l = 0; l < kMaxRun + 1; ++l)
-        if (l < L) dst[l * N + m] = re[l] + im[l];
-    }
-    __syncthreads();
-    return dst;
-  }
-  template <class G>
-  __device__ __forceinline__ float syn(const G& q, SArr z, int l, int m, SArr) const {
-    return z[l * q.frame + m];
-  }
-};
 
 // ---------------------------------------------------------------- A. analyse
 

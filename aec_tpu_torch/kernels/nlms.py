@@ -55,15 +55,19 @@ def _lib() -> ctypes.CDLL:
 
 def nlms_operands(cfg: NlmsConfig, device: torch.device, block: int) -> list:
     """The stage-1 kernel arguments for NLMS: the geometry, the bases of
-    :func:`stage1_consts` (cached per device) and the eight constants of
-    ``NlmsParams`` in ``csrc/bl_common.cuh``."""
+    :func:`stage1_consts` (cached per device) and :func:`nlms_constants`."""
     c = stage1_consts(block, device)
     return [
         block, cfg.n_blocks,
         _build.ptr(c["fwd"]), _build.ptr(c["inv_tail"]), _build.ptr(c["inv_head"]),
-        cfg.mu, cfg.eps, cfg.power_smooth, 1.0 - cfg.power_smooth, cfg.eps_rel, cfg.beta,
-        cfg.err_smooth, 1.0 - cfg.err_smooth,
+        *nlms_constants(cfg),
     ]
+
+
+def nlms_constants(cfg: NlmsConfig) -> list[float]:
+    """The eight constants of ``NlmsParams`` in ``csrc/bl_common.cuh``."""
+    return [cfg.mu, cfg.eps, cfg.power_smooth, 1.0 - cfg.power_smooth, cfg.eps_rel, cfg.beta,
+            cfg.err_smooth, 1.0 - cfg.err_smooth]
 
 
 def nlms_cancel_fused_batched(

@@ -5,12 +5,15 @@ Replaces ``aec_tpu/kernels/pallas_serving.py:239`` (``serving_step_fused``,
 k >= 1 hops of 16 ms per call: per stream and hop one stage-1 block update
 (Kalman or NLMS, ``stage1``), its cancelled block handed to one LittleNet
 frame, with the one-hop output lag of ``pipeline/streaming``. The kernel is
-``csrc/serving.cu`` on ``two_stage_block_step`` of ``csrc/bl_common.cuh``,
-one template over the filter: one CTA per stream loads the stream's state
-(~56 KB with Kalman, ~47 KB with NLMS) into shared memory, runs the k hops,
-and writes the state back in place. It is bound by each SM's L2 read rate
-of the DFT bases, not by the state round trip; the source's header has the
-reckoning and the levers left.
+``csrc/serving.cu`` on the two-stage hop of ``csrc/hop.cuh``, one template
+over the filter: one CTA per stream loads the stream's state (~56 KB with
+Kalman, ~47 KB with NLMS) into shared memory, runs the k hops with both
+stages' transforms as real FFTs in shared memory, and writes the state back
+in place. A hop with a prime factor other than 2, 3 and 5 runs the dense
+hop (DFT bases read from L2) instead; ``steps`` counts which ran. Each
+call's constants (weights transposed, ERB support, plan, shared-memory
+check) are prepared once and cached (:func:`kernels.hop.prepare`), so a
+call checks its inputs and launches. The source's header has the reckoning.
 
 ``ServingState`` keeps the JAX leaf names in a per-stream contiguous
 layout (the JAX layout put streams in TPU lanes): ``wr, wi, xbr, xbi`` are
@@ -27,9 +30,11 @@ inverses.
 
 :func:`serving_step_plain` is K3's plain version (``pipeline/streaming``'s
 step plus the monitor rows), which :func:`serving_step_fused` takes for CPU
-tensors only. The JAX wrapper's TPU knobs (``tile``, ``interpret``,
-``dot_mode``, ``vmem_limit_mb``) have no meaning here and are left out:
-every product is plain fp32, the JAX ``dot_mode="high"`` grade.
+tensors only; :func:`serving_step_modeled` is a plain-torch model of the
+kernel's FFT route for the CPU tests. The JAX wrapper's TPU knobs
+(``tile``, ``interpret``, ``dot_mode``, ``vmem_limit_mb``) have no meaning
+here and are left out: every product is plain fp32, the JAX
+``dot_mode="high"`` grade.
 """
 
 from __future__ import annotations
@@ -41,10 +46,8 @@ import torch
 
 from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
 from aec_tpu_torch.dsp.stft import StftConfig
-from aec_tpu_torch.kernels import _build
-from aec_tpu_torch.kernels.kalman import KALMAN_ARGTYPES, kalman_operands
-from aec_tpu_torch.kernels.nlms import nlms_operands
-from aec_tpu_torch.kernels.stage2 import STAGE2_ARGTYPES, check_net, stage2_operands
+from aec_tpu_torch.kernels import _build, hop
+from aec_tpu_torch.kernels.hop import MONITOR_SMOOTH
 from aec_tpu_torch.models.little_net import LittleNet
 from aec_tpu_torch.pipeline.streaming import _check_stage1, _stream_step_core
 
@@ -53,10 +56,6 @@ ServingState = dict[str, torch.Tensor]
 _KEYS = ("wr", "wi", "p", "xbr", "xbi", "psi", "fprev", "h", "tail", "prev_lin",
          "prev_far", "nm")
 _NM_ROWS = 8
-
-# per-block EMA coefficient of the serving health monitor (16 ms blocks ->
-# ~1.6 s time constant), as the JAX package
-MONITOR_SMOOTH = 0.99
 
 
 def _check_serving_stage1(stage1: str) -> None:
@@ -83,17 +82,13 @@ def _init_values(kcfg, stage1: str) -> dict[str, float]:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("serving")
     p, i = ctypes.c_void_p, ctypes.c_int
-    # Kalman and NLMS take the same arguments (eight filter constants each):
-    # streams and blocks, the stage-1 geometry, the bands, the stage-1 and
-    # stage-2 operands
-    for fn in (lib.aec_serving, lib.aec_serving_nlms):
-        fn.argtypes = [
-            p, p, p, *[p] * len(_KEYS), i, i, *KALMAN_ARGTYPES[:2], i, *KALMAN_ARGTYPES[2:],
-            *STAGE2_ARGTYPES, i, i, i, p,
-        ]
-        fn.restype = ctypes.c_int
-    lib.aec_serving_smem.argtypes = [i, i, i, i]
+    # the prepared constants, the filter, far, mic, out, the 12 state
+    # pointers, streams and blocks, the flags, the device and the stream
+    lib.aec_serving.argtypes = [p, i, p, p, p, ctypes.POINTER(p), i, i, i, i, i, p]
+    lib.aec_serving.restype = ctypes.c_int
+    lib.aec_serving_smem.argtypes = [i, i, i, i, i]
     lib.aec_serving_smem.restype = ctypes.c_longlong
+    hop.check_consts(lib)
     return lib
 
 
@@ -256,27 +251,85 @@ def serving_step_plain(
     return state, torch.cat(outs, -1)
 
 
-def _check(net: LittleNet, state: ServingState, far: torch.Tensor, mic: torch.Tensor,
-           erb: torch.Tensor, kcfg, scfg: StftConfig, stage1: str) -> None:
-    dev = far.device
-    tensors = {"far": far, "mic": mic, **state}
-    if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
-        raise ValueError(f"far, mic and every state leaf must be on one CUDA device, got {dev}")
-    for key, t in tensors.items():
-        if t.dtype != torch.float32 or not t.is_contiguous():
+@torch.no_grad()
+def serving_step_modeled(
+    net: LittleNet,
+    state: ServingState,
+    far: torch.Tensor,  # (S, k * hop)
+    mic: torch.Tensor,
+    erb: torch.Tensor,
+    kcfg: KalmanConfig | NlmsConfig | None = None,
+    scfg: StftConfig = StftConfig(),
+    *,
+    normalize: bool = False,
+    gain_norm: bool = False,
+    stage1: str = "kalman",
+) -> tuple[ServingState, torch.Tensor]:
+    """A plain-torch model of K3's FFT route for the CPU tests, with
+    :func:`serving_step_plain`'s signature; the state is updated in place.
+    As the kernel: the load (age a into ring slot L - 1 - a, a Kalman W, P
+    predicted once), k hops of :func:`kernels.hop.hop_model`, the last one
+    leaving the posterior, and the store (slot (k - 1 - l) mod L back to age
+    l)."""
+    _check_serving_stage1(stage1)
+    kb = _blocks(far, mic, state, scfg.hop)
+    erb = torch.as_tensor(erb, dtype=torch.float32, device=far.device)
+    kcfg, h = _filter_cfg(kcfg, stage1), scfg.hop
+    L = kcfg.n_blocks
+    load = [L - 1 - a for a in range(L)]  # the slot of age a
+    s = {"wr": state["wr"].clone(), "wi": state["wi"].clone(), "psi": state["psi"].clone(),
+         "xr": torch.empty_like(state["xbr"]), "xi": torch.empty_like(state["xbi"]),
+         "frame": torch.cat([state["fprev"]] * 2, -1),
+         "lin": torch.cat([state["prev_lin"]] * 2, -1),
+         "far": torch.cat([state["prev_far"]] * 2, -1), "h": state["h"].clone(),
+         "tail": state["tail"].clone(), "nm": state["nm"].clone()}
+    s["xr"][:, load], s["xi"][:, load] = state["xbr"], state["xbi"]
+    if stage1 == "kalman":
+        s["p"] = state["p"].clone()
+        hop.predict_model(kcfg, s, s["wr"], s["wi"])
+    else:
+        s["power"] = state["p"].clone()
+    outs = []
+    for u in range(kb):
+        blk = slice(u * h, (u + 1) * h)
+        s["frame"] = torch.cat([s["frame"][:, :h], far[:, blk]], -1)
+        s["e"] = mic[:, blk]
+        outs.append(hop.hop_model(net, kcfg, s, u, erb, scfg, gain_norm, True, normalize,
+                                  u == kb - 1)[0])
+    store = [(kb - 1 - l) % L for l in range(L)]
+    new = {"wr": s["wr"], "wi": s["wi"], "p": s["p"] if stage1 == "kalman" else s["power"],
+           "xbr": s["xr"][:, store], "xbi": s["xi"][:, store], "psi": s["psi"],
+           "fprev": s["frame"][:, :h], "h": s["h"], "tail": s["tail"],
+           "prev_lin": s["lin"][:, :h], "prev_far": s["far"][:, :h], "nm": s["nm"]}
+    for key in _KEYS:
+        state[key].copy_(new[key])
+    return state, torch.cat(outs, -1)
+
+
+def _check(state: ServingState, far: torch.Tensor, mic: torch.Tensor, kcfg, scfg: StftConfig,
+           bands: int, stage1: str) -> tuple[int, list[int]]:
+    """Raise unless far, mic and the state are what the kernel takes; ->
+    (the blocks per stream, the state leaves' addresses in ``_KEYS`` order)."""
+    kb = _blocks(far, mic, state, scfg.hop)
+    dev, f32 = far.device, torch.float32
+    s, l, k, h = far.shape[0], kcfg.n_blocks, scfg.n_freqs, scfg.hop
+    lk, sk, sh = (s, l, k), (s, k), (s, h)
+    want = (lk, lk, lk if stage1 == "kalman" else sk, lk, lk, sk, sh, (s, bands), sh, sh, sh,
+            (s, _NM_ROWS))
+    ptrs = []
+    for key, shape in zip(_KEYS, want):
+        t = state[key]
+        if t.device != dev or t.dtype != f32 or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"state[{key!r}] must be a contiguous float32 {shape} tensor on the "
+                             f"inputs' CUDA device {dev}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+        ptrs.append(t.data_ptr())
+    for key, t in (("far", far), ("mic", mic)):
+        if t.dtype != f32 or not t.is_contiguous():
             raise ValueError(f"{key} must be a contiguous float32 tensor")
-    if kcfg.n_blocks < 1:
-        raise ValueError(f"n_blocks must be >= 1, got {kcfg.n_blocks}")
-    check_net(net, erb, scfg, dev)
-    s, l, k, hop, e = far.shape[0], kcfg.n_blocks, scfg.n_freqs, scfg.hop, net.hidden
-    want = {key: (s, l, k) for key in ("wr", "wi", "p", "xbr", "xbi")}
-    if stage1 == "nlms":
-        want["p"] = (s, k)
-    want.update(psi=(s, k), fprev=(s, hop), h=(s, e), tail=(s, hop), prev_lin=(s, hop),
-                prev_far=(s, hop), nm=(s, _NM_ROWS))
-    for key, shape in want.items():
-        if tuple(state[key].shape) != shape:
-            raise ValueError(f"state[{key!r}] must be {shape}, got {tuple(state[key].shape)}")
+    if mic.device != dev:
+        raise ValueError(f"far and mic must be on one CUDA device, got {dev}, {mic.device}")
+    return kb, ptrs
 
 
 def serving_step_fused(
@@ -307,34 +360,36 @@ def serving_step_fused(
     ``gain_norm`` the scale-sane ERB synthesis. ``stage1`` ("kalman" or
     "nlms") must name the filter the state was built for, ``kcfg`` its
     config. A CUDA tensor launches K3 (or raises); a CPU tensor takes
-    :func:`serving_step_plain`.
+    :func:`serving_step_plain`. ``steps`` counts the launches on FFTs and on
+    the dense hop. The net's weights and ``erb`` are prepared once
+    (:func:`kernels.hop.prepare`: pass ``erb`` as a float32 tensor on the
+    card, or it is copied there and prepared again on every call).
     """
     if far.device.type == "cpu":
         return serving_step_plain(net, state, far, mic, erb, kcfg, scfg, normalize=normalize,
                                   gain_norm=gain_norm, stage1=stage1)
     _check_serving_stage1(stage1)
     kcfg = _filter_cfg(kcfg, stage1)
-    erb = torch.as_tensor(erb, dtype=torch.float32, device=far.device)
-    lib = _lib()
-    kb = _blocks(far, mic, state, scfg.hop)
-    _check(net, state, far, mic, erb, kcfg, scfg, stage1)
-    bands = erb.shape[-1]
-    _build.check_smem(
-        lib.aec_serving_smem(scfg.hop, kcfg.n_blocks, bands, int(stage1 == "nlms")), far.device,
+    dev = far.device
+    erb = torch.as_tensor(erb, dtype=torch.float32, device=dev)
+    lib, nlms = _lib(), int(stage1 == "nlms")
+    prep = hop.prepare(
+        net, erb, kcfg, scfg, dev,
+        lambda fft: lib.aec_serving_smem(scfg.hop, kcfg.n_blocks, erb.shape[-1], nlms, int(fft)),
         "the serving kernel")
+    kb, ptrs = _check(state, far, mic, kcfg, scfg, erb.shape[-1], stage1)
     out = torch.empty_like(far)
-    keep = stage2_operands(net, erb, scfg)
-    entry, operands = (lib.aec_serving, kalman_operands) if stage1 == "kalman" else (
-        lib.aec_serving_nlms, nlms_operands)
-    s1 = operands(kcfg, far.device, scfg.hop)
-    err = entry(
-        _build.ptr(far), _build.ptr(mic), _build.ptr(out), *(_build.ptr(state[k]) for k in _KEYS),
-        far.shape[0], kb, *s1[:2], bands, *s1[2:], *map(_build.ptr, keep),
-        int(gain_norm), int(normalize), far.device.index, _build.stream_of(far),
+    err = lib.aec_serving(
+        prep.ref, nlms, far.data_ptr(), mic.data_ptr(), out.data_ptr(),
+        (ctypes.c_void_p * len(_KEYS))(*ptrs),
+        far.shape[0], kb, int(gain_norm), int(normalize), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "serving")
+    serving_step_fused.steps[prep.step] += 1
     serving_step_fused.launches += 1
     return state, out
 
 
 serving_step_fused.launches = 0
+serving_step_fused.steps = {"fft": 0, "dense": 0}

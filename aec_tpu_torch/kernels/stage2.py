@@ -45,9 +45,6 @@ from aec_tpu_torch.kernels.gru import folded_projection, gru_recurrence, gru_rec
 from aec_tpu_torch.models.little_net import LittleNet, _pseudo_norm
 from aec_tpu_torch.ops.gru import gru_cell
 
-# ctypes types of the stage-2 arguments the per-frame kernels (K3, K4) take:
-# the 13 tensors of :func:`stage2_operands`
-STAGE2_ARGTYPES = [ctypes.c_void_p] * 13
 # CTAs a phase should have per SM before its runs of frames grow
 CTAS_PER_SM = 1
 MAX_RUN = 8  # frames per CTA, at most (csrc/stage2.cu kMaxRun)
@@ -124,22 +121,6 @@ def check_net(net: LittleNet, erb: torch.Tensor, cfg: StftConfig,
             f"the stage-2 kernels need a width-1 LittleNet (GRU hidden = ERB bands) and erb "
             f"(K = {cfg.n_freqs}, E), got erb {tuple(erb.shape)} and GRU hidden {net.hidden}"
         )
-
-
-def stage2_operands(net: LittleNet, erb: torch.Tensor, cfg: StftConfig) -> list[torch.Tensor]:
-    """The 13 stage-2 kernel operands (``Stage2Weights`` in bl_common.cuh),
-    weights transposed to (in, out). The caller holds the list until the
-    launch is enqueued; temporaries freed after it are reused only by later
-    work on the same stream, so stream order keeps them valid for it."""
-    c = stage2_consts(cfg, erb.device)
-    gp = {k: v.detach() for k, v in net.gru_params().items()}
-    return [
-        c["analysis"], c["synthesis"], erb.contiguous(), erb.T.contiguous(),
-        gp["w_ih"].T.contiguous(), gp["w_hh"].T.contiguous(), gp["b_ih"], gp["b_hh"],
-        net.linear1.weight.detach().T.contiguous(), net.linear1.bias.detach(),
-        net.linear2.weight.detach().T.contiguous(), net.linear2.bias.detach(),
-        c["inv_env"],
-    ]
 
 
 def _check(net: LittleNet, lin: torch.Tensor, far: torch.Tensor, erb: torch.Tensor,

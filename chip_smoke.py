@@ -14,10 +14,14 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
   untrained nets, beside TF32 products as the lower-precision control);
   ``two_stage_cancel`` on the 8 scenes of ``benchmarks/scenes.py``, graded
   against the plain (CPU) route, K1 on its FFT step; the ``quality="fast"``
-  route, which runs the whole pipeline as K4.
+  route, which runs the whole pipeline as K4 (also at batch 1 and 3
+  against its plain version); K4 must report its FFT hop.
 - Streaming serving (phases 8, 9): K3 against its plain version at
-  S = 1024 live streams (bench config ``concurrent_streams``), then the 8
-  scenes streamed hop by hop through K3 against the offline result.
+  S = 1024 live streams (bench config ``concurrent_streams``), at S = 1
+  and 8 with ``normalize`` and ``gain_norm`` (k = 1 and 4, both filters),
+  after an in-place change to a weight (the prepared constants must
+  follow it), then the 8 scenes streamed hop by hop through K3 against the
+  offline result; K3 must report its FFT hop.
 - NLMS and single utterances (phases 11-14): K5 (batched NLMS) at the main
   shape, K6 / K7 (single-stream Kalman / NLMS on one thread-block cluster)
   on one 16 s utterance (bench configs #1 and #2) and a hop-fractional one,
@@ -28,9 +32,12 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
 - Times (phases 6, 10, 15): kernels, plain versions and the paths, with
   CUDA events, beside the card's name and power limit; K1 and K2 also as a
   batch of one 8.2 s utterance (K2 also 16 s), K1's and K2's bounds on
-  their FFT formulations' work beside the dense DFT formulation's; K3 also
-  at the 8 streamed scenes' shape and K6 / K7 also per 8.2 s scene, the
-  shapes their launch counts come from.
+  their FFT formulations' work beside the dense DFT formulation's; K3 per
+  one-hop call at the 8 streamed scenes' shape (where its launch count
+  comes from) and at S = 1024, per filter: the call (CUDA events, the card
+  idle before it) beside the kernel's device time (``torch.profiler``), so
+  the host's share shows; K3's and K4's bounds on their FFT formulation
+  (K3's bytes the state round trip); K6 / K7 also per 8.2 s scene.
 - Training (phases 16-19): K8 (the GRU scan) against its plain version at
   B = 1 x 1001 frames (H = 32, 64 and 128) and B = 16 x 501, its gradients
   against the plain route's; the recurrence and the whole forward beside
@@ -48,8 +55,9 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
   K1, K12, K5, K6, K7, K4 and K3 (both filters) each at the largest
   partition count its wrapper accepts at blocks 256 and 160, against the
   plain versions, and one partition more, which must be refused for
-  shared memory. K1, K12 and K2 also at block 224, whose FFT has no radix
-  plan: they must report their dense steps / transforms there.
+  shared memory. K1, K12, K2, K3 (both filters) and K4 also at block 224,
+  whose FFT has no radix plan: they must report their dense steps /
+  transforms / hops there, and their FFT ones at every other geometry.
 - K8 wide (phase 16): H = 64, 128, 129 and 512 beside cuDNN's ``nn.GRU``.
 - DCCRN inference (phases 22-23): K9 (the grouped complex LSTM) at
   ``DccrnConfig()``'s width (I = H = 1024 per part, T = 513) at B = 1 and 8
@@ -106,11 +114,11 @@ K2_WAV_TOL, K2_MASK_TOL = 1e-4, 1e-5
 # mask bar there is 5e-5, and the control must stay at least 1e-3 off
 K2_LOUD_MASK_TOL, K2_CONTROL_MIN = 5e-5, 1e-3
 ERLE_TOL_DB = 0.1  # kernel route vs plain route, tail ERLE per scene
-# K4 runs the dense stage-1 step and the per-frame dense stage-2 step in one
-# launch. Its linear_wav against K1 (the FFT step) is held to K1's bar; its
-# wav and mask against K2 (FFT phases) run on K4's own linear_wav (the same
-# input) to K2's bars: two fp32 evaluations of one function, as K2 and its
-# plain version are.
+# K4 runs K1's FFT step and a LittleNet frame on FFTs per hop in one launch.
+# Its linear_wav against K1 is held to K1's bar; its wav and mask against K2
+# (the frames as FFT passes over all frames, the GRU on K8) run on K4's own
+# linear_wav (the same input) to K2's bars: two fp32 evaluations of one
+# function, as K2 and its plain version are.
 # Against the plain composition, linear_wav is at K1's bar; wav and mask are
 # K2's on an input that already differs by stage 1's round-off, which the
 # sigmoid mask feels most on quiet residual frames: wav at K1's relative
@@ -139,6 +147,10 @@ N_UTT = 256000  # bench configs #1 and #2: one 16 s utterance
 N_FRAC = 40 * HOP + 77  # a hop-fractional single utterance
 # the other geometries the stage-1/2 kernels take: (partitions, block == hop)
 GEOMETRIES = ((4, 256), (16, 256), (10, 160))
+# the largest partition counts of the dense layouts at blocks 256 and 160,
+# which the FFT layouts may not fall below
+LARGEST_L = {"K1": (24, 39), "K12": (24, 39), "K4": (23, 38), "K3-kalman": (23, 38),
+             "K3-nlms": (26, 43)}
 # K9 vs plain: h lies in [-1, 1]; an fp32 recursion summed in another order
 K9_TOL = 1e-5
 # the DCCRN enhancer, kernel route vs plain route: K1's round-off enters
@@ -225,6 +237,35 @@ def stage2_fft_flops(block: int = HOP, bands: int = BANDS, erb_terms: int | None
 STAGE2_BASES = 4 * (FRAME * RI + RI * FRAME + 2 * K_BINS * BANDS + 12 * BANDS * BANDS)
 # K2's own constants: window, twiddles, erb and its transpose, the weights
 STAGE2_FFT_CONSTS = 4 * (2 * FRAME + 2 * K_BINS * BANDS + 12 * BANDS * BANDS)
+
+
+def hop_flops(erb_terms: int, l_part: int = L_PART) -> int:
+    """Flops of one two-stage hop of K3 / K4 (csrc/hop.cuh) per stream on
+    FFTs: K1's FFT step and one LittleNet frame on K2's FFT formulation."""
+    return stage1_fft_flops(l_part=l_part) + stage2_fft_flops(erb_terms=erb_terms)
+
+
+def serving_bounds(streams: int, state_bytes: int, erb_terms: int) -> tuple[dict, dict]:
+    """K3's bound for one one-hop call of ``streams`` streams: on the FFT
+    hop's flops, its bytes the state round trip (``state_bytes`` a stream,
+    read and written once), far and mic in, out, and the constants (the
+    twiddles, window and stage-2 weights); and on the dense formulation's
+    FMAs with its bases, for comparison."""
+    io = 3 * 4 * streams * HOP + 2 * streams * state_bytes
+    fft = bound(streams * hop_flops(erb_terms) / 2, io + 4 * FRAME + STAGE2_FFT_CONSTS)
+    return fft, bound(streams * (STAGE1_FMA + STAGE2_FMA), io + STAGE1_BASES + STAGE2_BASES)
+
+
+def two_stage_bounds(batch: int, erb_terms: int) -> tuple[dict, dict]:
+    """K4's bound for ``batch`` utterances of N samples: T FFT hops and the
+    flush frame (far and mic in, wav, linear_wav and the mask out, the
+    constants); and the dense formulation's, for comparison."""
+    t = N // HOP
+    io = 4 * batch * N * 4 + batch * (t + 1) * BANDS * 4
+    flops = batch * (t * hop_flops(erb_terms) + stage2_fft_flops(erb_terms=erb_terms))
+    fft = bound(flops / 2, io + 4 * FRAME + STAGE2_FFT_CONSTS)
+    return fft, bound(batch * (t * STAGE1_FMA + (t + 1) * STAGE2_FMA),
+                      io + STAGE1_BASES + STAGE2_BASES)
 
 
 def fsn_bound(b: int, t: int, f: int = 161, hf: int = 256, hs: int = 96) -> dict:
@@ -400,6 +441,43 @@ def serve_pair(net, erb, far, mic, k_calls, stage1="kalman", hop=HOP, **kw):
         rel, err = max(rel, d / max(float(op.abs().max()), 1e-9)), max(err, d)
         lo += k * hop
     return ks, ps, rel, err
+
+
+def cache_phase(net, erb, far, mic) -> None:
+    """8a. K3's prepared constants follow the weights: 4 one-hop calls of 8
+    streams on a copy of the net, two of its weights changed in place before
+    the third (as an optimizer step or ``load_state_dict`` changes them),
+    each call against the plain version with the weights of the moment; the
+    change must move the output by more than the bar, so a launch on stale
+    constants would fail."""
+    from aec_tpu_torch.kernels.serving import serving_init, serving_step_fused, serving_step_plain
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-9)
+
+    mine, s = copy.deepcopy(net), 8
+    ks, ps = (serving_init(s, device=far.device) for _ in range(2))
+    errs, moved = [], 0.0
+    with torch.no_grad():
+        for u in range(4):
+            fb = far[:s, u * HOP:(u + 1) * HOP].contiguous()
+            mb = mic[:s, u * HOP:(u + 1) * HOP].contiguous()
+            if u == 2:
+                mine.linear2.bias.add_(0.5)
+                mine.gru1.weight_hh_l0.mul_(0.9)
+                before = {k: v.clone() for k, v in ps.items()}
+                _, stale = serving_step_plain(net, before, fb, mb, erb)
+            ks, ok = serving_step_fused(mine, ks, fb, mb, erb)
+            ps, op = serving_step_plain(mine, ps, fb, mb, erb)
+            errs.append(rel(ok, op))
+            if u == 2:
+                moved = rel(op, stale)
+        leaf, leaf_rel = state_err(ks, ps)
+    phase("K3 vs plain", f"weights changed in place after 2 calls: out {max(errs):.3e}, worst "
+          f"state leaf {leaf} {leaf_rel:.3e} (bar {K3_TOL:g}); the change moved the output by "
+          f"{moved:.3e} of scale")
+    check(max(errs) <= K3_TOL and leaf_rel <= K3_TOL and moved > 10 * K3_TOL,
+          "K3 did not follow an in-place change to the weights")
 
 
 def leaves(tree) -> list[np.ndarray]:
@@ -627,8 +705,9 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
         nlms_cancel_fused_batched,
         nlms_cancel_plain,
     )
+    from aec_tpu_torch.kernels.serving import serving_step_fused
     from aec_tpu_torch.kernels.stage2 import little_net_apply_fused, little_net_apply_fused_plain
-    from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
+    from aec_tpu_torch.kernels.two_stage import two_stage_fused
     from aec_tpu_torch.linear import overlap_save as ols
     from aec_tpu_torch.pipeline.two_stage import two_stage_cancel
     from aec_tpu_torch.utils.weights import load_npz
@@ -686,8 +765,18 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
                   f"K2 did not run its FFT phases at {tag}")
             k2 = (float((o_k - o_p).abs().max()), float((m_k - m_p).abs().max()))
             k2_bar = (K2_WAV_TOL * float(o_p.abs().max()), K2_MASK_TOL)
+            # K4 stage by stage against the plain versions on the same inputs:
+            # linear_wav against K1's plain loop, wav and mask against K2's
+            # plain recurrence on K4's own linear_wav (K4's stage 1 is K1's
+            # FFT step, held to plain at K1's bar above; a scene that
+            # amplifies stage 1's fp32 round-off would otherwise reach the
+            # mask through stage 2's input)
+            hops_before = [dict(fn.steps) for fn in (two_stage_fused, serving_step_fused)]
             f_k = two_stage_fused(net, far, mic, erb, kcfg=kc, scfg=scfg)
-            f_p = two_stage_fused_plain(net, far, mic, erb, kcfg=kc, scfg=scfg)
+            o_p4, m_p4 = little_net_apply_fused_plain(
+                net, f_k["linear_wav"].reshape(len(names), -1, hop), far_b, erb, scfg)
+            f_p = {"linear_wav": lin_b.reshape(len(names), -1), "wav": o_p4.reshape(len(names), -1),
+                   "mask": m_p4}
             k4 = [float((f_k[key] - f_p[key]).abs().max()) for key in ("linear_wav", "wav", "mask")]
             k4_bar = (bar, K4_WAV_TOL * float(f_p["wav"].abs().max()), K4_MASK_TOL)
             phase("geometry", f"{tag}: K2 wav {k2[0]:.3e} (bar {k2_bar[0]:.3e}), mask {k2[1]:.3e} "
@@ -704,6 +793,11 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
                 phase("geometry", f"{tag}: K3-{stage1} 8 streams, 40 x k=1 + 4 x k=4: out "
                       f"{rel:.3e}, worst state leaf {leaf} {leaf_rel:.3e} (bar {K3_TOL:g})")
                 check(rel <= K3_TOL and leaf_rel <= K3_TOL, f"K3-{stage1} disagrees at {tag}")
+            hops = [{k: v - was[k] for k, v in fn.steps.items()} for fn, was in zip(
+                (two_stage_fused, serving_step_fused), hops_before)]
+            phase("geometry", f"{tag}: hops K4 {hops[0]}, K3 {hops[1]}")
+            check(hops == [{"fft": 1, "dense": 0}, {"fft": 88, "dense": 0}],
+                  f"K3 / K4 did not run their FFT hops at {tag}")
 
             routes = {
                 "batch K1 + K2": ((kalman_cancel_fused_batched, little_net_apply_fused),
@@ -731,11 +825,11 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
 
 
 def dense_step_phase(dev, net, s_far, s_mic) -> None:
-    """21a. K1, K12 and K2 at a block with a prime factor other than 2, 3
-    and 5 (224 = 2^5 7, L = 4) on the 8 scenes: the wrappers take their dense
-    step / transforms there, which must agree with the plain versions as
-    the FFT ones do."""
-    from aec_tpu_torch.configs import KalmanConfig
+    """21a. K1, K12, K2, K4 and K3 (both filters) at a block with a prime
+    factor other than 2, 3 and 5 (224 = 2^5 7, L = 4) on the 8 scenes: the
+    wrappers take their dense step / transforms / hop there, which must
+    agree with the plain versions as the FFT ones do."""
+    from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
     from aec_tpu_torch.dsp.stft import StftConfig
     from aec_tpu_torch.kernels.stage2 import little_net_apply_fused, little_net_apply_fused_plain
@@ -745,6 +839,8 @@ def dense_step_phase(dev, net, s_far, s_mic) -> None:
         kalman_filter_fused_batched,
         kalman_filter_fused_batched_plain,
     )
+    from aec_tpu_torch.kernels.serving import serving_step_fused
+    from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
     from aec_tpu_torch.linear import overlap_save as ols
 
     block, cfg = 224, KalmanConfig(n_blocks=4)
@@ -784,6 +880,32 @@ def dense_step_phase(dev, net, s_far, s_mic) -> None:
           f"(bar {k2_bar[1]:g}) vs plain; transforms {ran}")
     check(ran == {"fft": 0, "dense": 1}, "K2 did not take its dense transforms at block 224")
     check(all(e <= b for e, b in zip(k2, k2_bar)), "K2's dense transforms disagree at block 224")
+
+    before = [dict(fn.steps) for fn in (two_stage_fused, serving_step_fused)]
+    with torch.no_grad():
+        f_k = two_stage_fused(net, far, mic, erb, kcfg=cfg, scfg=scfg)
+        f_p = two_stage_fused_plain(net, far, mic, erb, kcfg=cfg, scfg=scfg)
+        k4 = [float((f_k[key] - f_p[key]).abs().max()) for key in ("linear_wav", "wav", "mask")]
+        k4_bar = (bar, K4_WAV_TOL * float(f_p["wav"].abs().max()), K4_MASK_TOL)
+        k3 = {}
+        for stage1, c in (("kalman", cfg), ("nlms", NlmsConfig(n_blocks=4))):
+            ks, ps, rel, _ = serve_pair(net, erb, far, mic, [1] * 10 + [4] * 3, hop=block,
+                                        stage1=stage1, kcfg=c, scfg=scfg, normalize=True,
+                                        gain_norm=True)
+            k3[stage1] = (rel, *state_err(ks, ps))
+    hops = [{k: v - was[k] for k, v in fn.steps.items()} for fn, was in zip(
+        (two_stage_fused, serving_step_fused), before)]
+    phase("geometry", f"L = 4, block {block}: K4 " + ", ".join(
+        f"{key} {e:.3e} (bar {b:.3e})"
+        for key, e, b in zip(("linear_wav", "wav", "mask"), k4, k4_bar))
+        + "; " + "; ".join(f"K3-{k} out {v[0]:.3e}, worst state leaf {v[1]} {v[2]:.3e}"
+                           for k, v in k3.items()) + f" (bar {K3_TOL:g}); hops K4 {hops[0]}, K3 "
+        f"{hops[1]}")
+    check(hops == [{"fft": 0, "dense": 1}, {"fft": 0, "dense": 26}],
+          "K3 / K4 did not take their dense hops at block 224")
+    check(all(e <= b for e, b in zip(k4, k4_bar)), "K4's dense hop disagrees at block 224")
+    check(all(v[0] <= K3_TOL and v[2] <= K3_TOL for v in k3.values()),
+          "K3's dense hop disagrees at block 224")
 
 
 def largest_l(run) -> tuple[int, str]:
@@ -876,8 +998,9 @@ def limits_phase(dev, net, seed: int, smi: str) -> None:
         with torch.no_grad():
             for name, (run, plain, bars) in cases.items():
                 n_max, refusal = largest_l(lambda n_blocks: run(n_blocks, *tiny))
-                if name in ("K1", "K12"):  # the FFT step's layout keeps the dense step's L
-                    check(n_max >= (24 if hop == 256 else 39),
+                floor = LARGEST_L.get(name)  # the FFT layouts keep the dense ones' L
+                if floor:
+                    check(n_max >= floor[hop != 256],
                           f"{name} takes fewer partitions at block {hop} than before ({n_max})")
                 if plain is None:
                     stage1_ = name.split("-")[1]
@@ -1436,14 +1559,18 @@ def main() -> None:
     #    plain composition at the full shape; then the fast route
     from aec_tpu_torch.kernels.stage2 import little_net_apply_fused_wav
 
+    k4_steps = dict(two_stage_fused.steps)
     with torch.no_grad():
         f_k = two_stage_fused(net, far, mic, erb)
+        k4_steps = {k: v - k4_steps[k] for k, v in two_stage_fused.steps.items()}
         f_c = little_net_apply_fused_wav(net, f_k["linear_wav"], far, erb, normalize=False)
         f_c["linear_wav"] = kalman_cancel_fused_batched(cfg, far, mic)["wav"]
         f_p = two_stage_fused_plain(net, far, mic, erb)
         torch.cuda.synchronize()
     check(f_k["wav"].shape == mic.shape and bool(torch.isfinite(f_k["wav"]).all())
           and f_k["mask"].shape == (BATCH, N // HOP + 1, 32), "K4 output")
+    phase("K4", f"{BATCH} x {N}: steps {k4_steps}")
+    check(k4_steps == {"fft": 1, "dense": 0}, "K4 did not run its FFT hop")
     k4_scale = float(f_p["wav"].abs().max())
     for ref, label, bars in (
         (f_c, "K4 vs K1, K2", (K1_TOL * mic_scale, K2_WAV_TOL * k4_scale, K2_MASK_TOL)),
@@ -1455,6 +1582,17 @@ def main() -> None:
         check(all(e <= b for e, b in zip(errs, bars)), f"{label}: K4 disagrees")
     k4_err = errs[1]
     del f_k, f_c, f_p
+    with torch.no_grad():  # K4 at batch 1 and 3 (CTAs that do not fill the card)
+        for b in (1, 3):
+            got = two_stage_fused(net, far[:b], mic[:b], erb)
+            want = two_stage_fused_plain(net, far[:b], mic[:b], erb)
+            bars = (K1_TOL * mic_scale, K4_WAV_TOL * float(want["wav"].abs().max()), K4_MASK_TOL)
+            errs = [float((got[key] - want[key]).abs().max())
+                    for key in ("linear_wav", "wav", "mask")]
+            phase("K4 vs plain", f"batch {b}: " + ", ".join(
+                f"{key} max|d| = {e:.3e} (bar {v:.3e})" for key, e, v in
+                zip(("linear_wav", "wav", "mask"), errs, bars)))
+            check(all(e <= v for e, v in zip(errs, bars)), f"K4 disagrees at batch {b}")
     fast, (k4_launches,) = drive((two_stage_fused,),
                                  lambda: two_stage_cancel(net, sf, sm, erb, quality="fast"))
     phase("fast path", f"two_stage_cancel(quality='fast') 8 x {N}: launches K4 {k4_launches}")
@@ -1468,9 +1606,12 @@ def main() -> None:
 
     # 8. K3 vs plain at S = 1024 live streams: 64 one-hop calls, one k = 4 call
     s_far_d, s_mic_d = make_batch(dev, args.seed + 1, S_SERVE, 68 * HOP)
+    k3_steps = dict(serving_step_fused.steps)
     with torch.no_grad():
         ks, ps, k3_rel, k3_err = serve_pair(net, erb, s_far_d, s_mic_d, [1] * 64 + [4])
         torch.cuda.synchronize()
+        k3_steps = {k: v - k3_steps[k] for k, v in serving_step_fused.steps.items()}
+        check(k3_steps == {"fft": 65, "dense": 0}, f"K3 did not run its FFT hop: {k3_steps}")
         leaf, leaf_rel = state_err(ks, ps)
         phase("K3 vs plain", f"S = {S_SERVE}, 64 x k=1 + 1 x k=4: out max|d| / scale = "
               f"{k3_rel:.3e}, worst state leaf {leaf} {leaf_rel:.3e} (bar {K3_TOL:g})")
@@ -1483,6 +1624,18 @@ def main() -> None:
               f"{n_rel:.3e}, worst state leaf {leaf_n} {leaf_n_rel:.3e} (bar {K3_TOL:g})")
         check(n_rel <= K3_TOL and leaf_n_rel <= K3_TOL,
               "K3 (normalize, gain_norm) disagrees with its plain version")
+        for stage1 in ("kalman", "nlms"):  # a stream alone and the scenes' 8, both options
+            for s in (1, 8):
+                ks_s, ps_s, s_rel, _ = serve_pair(net, erb, s_far_d[:s], s_mic_d[:s],
+                                                  [1] * 6 + [4] * 3, stage1=stage1,
+                                                  normalize=True, gain_norm=True)
+                leaf_s, leaf_s_rel = state_err(ks_s, ps_s)
+                phase("K3 vs plain", f"{stage1}, S = {s}, normalize + gain_norm, 6 x k=1 + "
+                      f"3 x k=4: out {s_rel:.3e}, worst state leaf {leaf_s} {leaf_s_rel:.3e} "
+                      f"(bar {K3_TOL:g})")
+                check(s_rel <= K3_TOL and leaf_s_rel <= K3_TOL,
+                      f"K3-{stage1} disagrees with its plain version at S = {s}")
+        cache_phase(net, erb, s_far_d, s_mic_d)
 
     # 9. the serving path: the 8 scenes streamed hop by hop through K3, then
     #     serving_state_to_stream + stream_flush, against offline two_stage_cancel
@@ -1508,27 +1661,42 @@ def main() -> None:
           f"worst tail ERLE |d| = {s_db:.4f} dB (bar {ERLE_TOL_DB} dB)")
     check(s_rel <= STREAM_TOL and s_db <= ERLE_TOL_DB, "streamed output disagrees with offline")
 
-    # 10. times of K3 and K4 (median of --reps, CUDA events); K3 also at the
-    #     streamed scenes' shape (8 streams, one hop), where its launches come from
+    # 10. times of K3 and K4 (median of --reps, CUDA events). K3 per one-hop
+    #     call at the streamed scenes' shape (8 streams, where its launches
+    #     come from) and at S = 1024, per filter: the call with the card idle
+    #     before it, and the kernel's device time (torch.profiler)
+    from aec_tpu_torch.kernels import serving_costs
+
     blk_f, blk_m = s_far_d[:, :HOP].contiguous(), s_mic_d[:, :HOP].contiguous()
     scene_f, scene_m = sf[:, :HOP].contiguous(), sm[:, :HOP].contiguous()
+    k3_costs = {(stage1, s): serving_costs.costs(net, erb, s, stage1, 4 * args.reps)
+                for stage1 in ("kalman", "nlms") for s in (len(names), S_SERVE)}
     with torch.no_grad():
-        t_k3 = time_ms(lambda: serving_step_fused(net, ks, blk_f, blk_m, erb), args.reps)
         t_p3 = time_ms(lambda: serving_step_plain(net, ps, blk_f, blk_m, erb), args.reps)
         st8 = {k: serving_init(len(names), stage1=k, device=dev) for k in ("kalman", "nlms")}
-        t_k3_8, t_p3_8 = ({k: time_ms(lambda: step(net, st8[k], scene_f, scene_m, erb, stage1=k),
-                                      args.reps) for k in st8}
-                          for step in (serving_step_fused, serving_step_plain))
+        t_p3_8 = {k: time_ms(lambda: serving_step_plain(net, st8[k], scene_f, scene_m, erb,
+                                                        stage1=k), args.reps) for k in st8}
         t_k4 = time_ms(lambda: two_stage_fused(net, far, mic, erb), args.reps)
         t_p4 = time_ms(lambda: two_stage_fused_plain(net, far, mic, erb), args.reps)
+    t_k3 = k3_costs[("kalman", S_SERVE)]["call_ms"]
     streams = S_SERVE * (HOP / SR * 1e3) / t_k3
-    phase("time", f"K3 S = {S_SERVE}, k = 1: {t_k3:.3f} ms per call (plain {t_p3:.3f} ms) = "
-          f"{streams:.0f} concurrent realtime streams [{smi}]")
-    phase("time", f"K3 S = {len(names)} (the streamed scenes), k = 1, per call: Kalman "
-          f"{t_k3_8['kalman']:.3f} ms (plain {t_p3_8['kalman']:.3f} ms), NLMS "
-          f"{t_k3_8['nlms']:.3f} ms (plain {t_p3_8['nlms']:.3f} ms) [{smi}]")
+    state_bytes = {k: 4 * sum(v.numel() for v in serving_init(1, stage1=k, device=dev).values())
+                   for k in ("kalman", "nlms")}
+    for (stage1, s), c in k3_costs.items():
+        fft_b, dense_b = serving_bounds(s, state_bytes[stage1], erb_terms)
+        phase("time", f"K3-{stage1} S = {s}, k = 1: {c['call_ms']:.4f} ms per call, kernel "
+              f"{c['kernel_ms']:.4f} ms (device time), host {100 * c['host_share']:.1f} % of the "
+              f"call = {s * (HOP / SR * 1e3) / c['call_ms']:.0f} concurrent realtime streams; "
+              f"bound {fft_b['bound_ms']:.5f} ms ({fft_b['bound_by']}: {hop_flops(erb_terms)} "
+              f"flops a hop, {state_bytes[stage1]} B of state a stream each way); the dense "
+              f"formulation: {dense_b['bound_ms']:.4f} ms [{smi}]")
+    phase("time", f"K3 plain version per one-hop call: S = {S_SERVE} {t_p3:.3f} ms; S = "
+          f"{len(names)} Kalman {t_p3_8['kalman']:.3f} ms, NLMS {t_p3_8['nlms']:.3f} ms [{smi}]")
+    k4_bounds = two_stage_bounds(BATCH, erb_terms)
     phase("time", f"K4 {BATCH} x {N}: {t_k4:.2f} ms (composition two_stage_cancel {t_all:.2f} ms, "
-          f"plain {t_p4:.2f} ms) [{smi}]")
+          f"plain {t_p4:.2f} ms); bound {k4_bounds[0]['bound_ms']:.4f} ms "
+          f"({k4_bounds[0]['bound_by']}: {hop_flops(erb_terms)} flops a hop); the dense "
+          f"formulation: {k4_bounds[1]['bound_ms']:.3f} ms [{smi}]")
     print(f"serving_ms={t_k3:.4f} streams={streams:.0f} two_stage_fused_ms={t_k4:.3f}", flush=True)
 
     # 11. K5 vs its plain version at the main path's full shape
@@ -1629,10 +1797,13 @@ def main() -> None:
           f"streamed vs offline max|d| / scale = {sn_rel:.3e} (bar {STREAM_TOL:g}), worst tail "
           f"ERLE |d| = {sn_db:.4f} dB (bar {ERLE_TOL_DB} dB)")
     check(sn_rel <= STREAM_TOL and sn_db <= ERLE_TOL_DB, "NLMS streamed output disagrees with offline")
+    k3n_steps = dict(serving_step_fused.steps)
     with torch.no_grad():
         ks_n, ps_n, k3n_rel, k3n_err = serve_pair(net, erb, s_far_d, s_mic_d, [1] * 64 + [4],
                                                   stage1="nlms")
         torch.cuda.synchronize()
+    k3n_steps = {k: v - k3n_steps[k] for k, v in serving_step_fused.steps.items()}
+    check(k3n_steps == {"fft": 65, "dense": 0}, f"K3-NLMS did not run its FFT hop: {k3n_steps}")
     leaf, leaf_rel = state_err(ks_n, ps_n)
     phase("K3-NLMS vs plain", f"S = {S_SERVE}, 64 x k=1 + 1 x k=4: out max|d| / scale = "
           f"{k3n_rel:.3e}, worst state leaf {leaf} {leaf_rel:.3e} (bar {K3_TOL:g})")
@@ -1665,10 +1836,9 @@ def main() -> None:
                            args.reps)
         t_utt_k = time_ms(lambda: two_stage_cancel(net, f16, m16, erb), args.reps)
         t_utt_n = time_ms(lambda: two_stage_cancel(net, f16, m16, erb, stage1="nlms"), args.reps)
-        t_k3n = time_ms(lambda: serving_step_fused(net, ks_n, blk_f, blk_m, erb, stage1="nlms"),
-                        args.reps)
         t_p3n = time_ms(lambda: serving_step_plain(net, ps_n, blk_f, blk_m, erb, stage1="nlms"),
                         args.reps)
+    t_k3n = k3_costs[("nlms", S_SERVE)]["call_ms"]
     streams_n = S_SERVE * (HOP / SR * 1e3) / t_k3n
     phase("time", f"K5 {BATCH} x {N}: {t_k5:.2f} ms (plain {t_p5:.2f} ms); in turns K1 / K5 / K5 / "
           f"K1: {' / '.join(f'{t:.2f}' for t in turns)} ms [{smi}]")
@@ -1774,12 +1944,8 @@ def main() -> None:
     #     computes the same function (cuDNN's GRU for K8, its LSTM for K9),
     #     else null (no PyTorch call computes K10's int8 recurrence or
     #     K11's coupled full-band / sub-band recurrence)
-    state_bytes = {k: 4 * sum(v.numel() for v in st.values()) // S_SERVE
-                   for k, st in (("kalman", ks), ("nlms", ks_n))}
     n_serve = len(names)  # K3's row: the streamed scenes' shape, where its launches come from
-    serve_io = 3 * n_serve * HOP * 4 + STAGE1_BASES + STAGE2_BASES
     stage1_batch = bound(BATCH * t_main * STAGE1_FMA, 3 * BATCH * N * 4 + STAGE1_BASES)
-    masks = BATCH * (t_main + 1) * BANDS * 4
     k8 = gru["shapes"][(1, 1001, BANDS)]
     k9 = lstm["shapes"][1]
     # K9 per layer at B = 1: 2 groups x 2 rows x 4H x H FMA per frame; xp in,
@@ -1795,16 +1961,16 @@ def main() -> None:
         # K2 as a batch of one 8.2 s utterance; launches from the scenes one by one
         ("stage2_batch_of_one", "stage2.cu", "pallas_stage2.py:100", k2_k1, k2_b1_err, t_k2_b1,
          t_p2_b1, k2_bound[1][0]),
-        # K3 per one-hop call on the 8 streamed scenes' streams
-        ("serving", "serving.cu", "pallas_serving.py:239", k3_launches, k3_err, t_k3_8["kalman"],
-         t_p3_8["kalman"], bound(n_serve * (STAGE1_FMA + STAGE2_FMA),
-                                 serve_io + 2 * n_serve * state_bytes["kalman"])),
+        # K3 per one-hop call on the 8 streamed scenes' streams: the kernel's
+        # device time (the call's, host included, is in the time phase)
+        ("serving", "serving.cu", "pallas_serving.py:239", k3_launches, k3_err,
+         k3_costs[("kalman", n_serve)]["kernel_ms"], t_p3_8["kalman"],
+         serving_bounds(n_serve, state_bytes["kalman"], erb_terms)[0]),
         ("serving_nlms", "serving.cu", "pallas_serving.py:239", k3n_launches, k3n_err,
-         t_k3_8["nlms"], t_p3_8["nlms"], bound(n_serve * (STAGE1_FMA + STAGE2_FMA),
-                                               serve_io + 2 * n_serve * state_bytes["nlms"])),
+         k3_costs[("nlms", n_serve)]["kernel_ms"], t_p3_8["nlms"],
+         serving_bounds(n_serve, state_bytes["nlms"], erb_terms)[0]),
         ("two_stage", "two_stage.cu", "pallas_two_stage.py:134", k4_launches, k4_err, t_k4, t_p4,
-         bound(BATCH * (t_main * STAGE1_FMA + (t_main + 1) * STAGE2_FMA),
-               4 * BATCH * N * 4 + masks + STAGE1_BASES + STAGE2_BASES)),
+         k4_bounds[0]),
         ("nlms_batched", "nlms_batched.cu", "pallas_nlms.py:242", k5_launches, k5_err, t_k5, t_p5,
          stage1_batch),
         ("kalman_single", "single_stream.cu", "pallas_kalman.py:150", k6_launches,

@@ -247,6 +247,129 @@ def test_serving_kernel_refuses_what_it_cannot_take(cuda, scene):
                            serving_init(2, e_bands=32, device=cuda), far, mic, erb)
 
 
+@pytest.mark.parametrize("stage1", ["kalman", "nlms"])
+@pytest.mark.parametrize("s,k", [(1, 1), (1, 4), (8, 1), (8, 4), (1024, 1), (1024, 4)])
+def test_serving_kernel_streams_with_options(cuda, scene, stage1, s, k):
+    """K3 at a stream alone, at the 8 of the streamed scenes and at 1024, k
+    = 1 and 4, with normalize and gain_norm, both filters: 3 calls against
+    serving_step_plain at 1e-3 of scale (outputs and every state leaf); the
+    FFT hop counted in ``steps``."""
+    from aec_tpu_torch.kernels.serving import serving_init, serving_step_fused, serving_step_plain
+
+    net = load_npz(ROBUST).to(cuda)
+    erb = torch.from_numpy(erb_filterbank()).to(cuda)
+    far, mic = (t.to(cuda) for t in scene(s, 3 * k * 256))
+    ks, ps = (serving_init(s, stage1=stage1, device=cuda) for _ in range(2))
+    before = dict(serving_step_fused.steps)
+    kw = {"stage1": stage1, "normalize": True, "gain_norm": True}
+    with torch.no_grad():
+        for c in range(3):
+            cols = slice(c * k * 256, (c + 1) * k * 256)
+            fb, mb = far[:, cols].contiguous(), mic[:, cols].contiguous()
+            ks, ok = serving_step_fused(net, ks, fb, mb, erb, **kw)
+            ps, op = serving_step_plain(net, ps, fb, mb, erb, **kw)
+            torch.testing.assert_close(ok, op, atol=1e-3 * float(op.abs().max()), rtol=0)
+    assert serving_step_fused.steps == {**before, "fft": before["fft"] + 3}
+    _leaf_close(ks, ps, 1e-3, "state")
+
+
+def test_serving_kernel_follows_in_place_weight_changes(cuda, scene):
+    """K3's prepared constants are keyed on the weights' addresses and
+    versions: after an in-place change to two weights (as an optimizer step
+    makes) and after ``load_state_dict`` of the old weights, each next call
+    gives the net's output of the moment, which differs from the previous
+    weights' by far more than the bar."""
+    import copy
+
+    from aec_tpu_torch.kernels.serving import serving_init, serving_step_fused, serving_step_plain
+
+    net = load_npz(ROBUST).to(cuda)
+    old = copy.deepcopy(net)
+    erb = torch.from_numpy(erb_filterbank()).to(cuda)
+    far, mic = (t.to(cuda) for t in scene(4, 6 * 256))
+    ks, ps = serving_init(4, device=cuda), serving_init(4, device=cuda)
+    with torch.no_grad():
+        for u in range(6):
+            fb, mb = (t[:, u * 256:(u + 1) * 256].contiguous() for t in (far, mic))
+            if u == 2:
+                net.linear2.bias.add_(0.5)
+                net.gru1.weight_hh_l0.mul_(0.9)
+                previous = old
+            if u == 4:
+                previous = copy.deepcopy(net)
+                net.load_state_dict(old.state_dict())
+            was = {key: v.clone() for key, v in ps.items()}
+            ks, ok = serving_step_fused(net, ks, fb, mb, erb)
+            ps, op = serving_step_plain(net, ps, fb, mb, erb)
+            bar = 1e-3 * float(op.abs().max())
+            torch.testing.assert_close(ok, op, atol=bar, rtol=0)
+            if u in (2, 4):  # what a launch on the previous weights would give
+                _, stale = serving_step_plain(previous, was, fb, mb, erb)
+                assert float((op - stale).abs().max()) > 10 * bar
+    _leaf_close(ks, ps, 1e-3, "state")
+
+
+@pytest.mark.parametrize("batch", [1, 3, 256])
+def test_two_stage_kernel_batches(cuda, scene, batch):
+    """K4 at batch 1, 3 and 256 (CTAs from far fewer than the card holds to
+    about as many) against the plain composition at the bars of
+    test_two_stage_kernel_matches_plain (mask at the geometry tests' 1e-3);
+    the FFT hop counted."""
+    from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
+
+    net = load_npz(ROBUST).to(cuda)
+    erb = torch.from_numpy(erb_filterbank()).to(cuda)
+    far, mic = (t.to(cuda) for t in scene(batch, 24 * 256))
+    before = dict(two_stage_fused.steps)
+    with torch.no_grad():
+        got = two_stage_fused(net, far, mic, erb)
+        want = two_stage_fused_plain(net, far, mic, erb)
+    assert two_stage_fused.steps == {**before, "fft": before["fft"] + 1}
+    torch.testing.assert_close(got["linear_wav"], want["linear_wav"],
+                               atol=1e-3 * float(mic.abs().max()), rtol=0)
+    torch.testing.assert_close(got["wav"], want["wav"],
+                               atol=1e-3 * float(want["wav"].abs().max()), rtol=0)
+    torch.testing.assert_close(got["mask"], want["mask"], atol=1e-3, rtol=0)
+
+
+def test_serving_and_two_stage_take_the_dense_hop_at_block_224(cuda, scene):
+    """At block 224 (= 2^5 7: no radix plan) K3 (both filters) and K4 run
+    the dense hop, count it in ``steps``, and agree with their plain
+    versions at the geometry tests' bars."""
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.serving import serving_init, serving_step_fused, serving_step_plain
+    from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
+
+    hop = 224
+    scfg = StftConfig(2 * hop, hop, 2 * hop)
+    net = load_npz(ROBUST).to(cuda)
+    erb = torch.from_numpy(erb_filterbank(n_freqs=scfg.n_freqs)).to(cuda)
+    far, mic = (t.to(cuda) for t in scene(3, 12 * hop))
+    kcfg = KalmanConfig(n_blocks=4)
+    before = dict(two_stage_fused.steps), dict(serving_step_fused.steps)
+    with torch.no_grad():
+        got = two_stage_fused(net, far, mic, erb, kcfg=kcfg, scfg=scfg)
+        want = two_stage_fused_plain(net, far, mic, erb, kcfg=kcfg, scfg=scfg)
+        torch.testing.assert_close(got["linear_wav"], want["linear_wav"],
+                                   atol=1e-3 * float(mic.abs().max()), rtol=0)
+        torch.testing.assert_close(got["wav"], want["wav"],
+                                   atol=1e-3 * float(want["wav"].abs().max()), rtol=0)
+        torch.testing.assert_close(got["mask"], want["mask"], atol=1e-3, rtol=0)
+        for stage1, cfg in (("kalman", kcfg), ("nlms", NlmsConfig(n_blocks=4))):
+            ks, ps = (serving_init(3, kcfg=cfg, scfg=scfg, stage1=stage1, device=cuda)
+                      for _ in range(2))
+            for u in range(0, 12 * hop, 3 * hop):
+                fb, mb = far[:, u:u + 3 * hop].contiguous(), mic[:, u:u + 3 * hop].contiguous()
+                ks, o_k = serving_step_fused(net, ks, fb, mb, erb, cfg, scfg, stage1=stage1,
+                                             normalize=True)
+                ps, o_p = serving_step_plain(net, ps, fb, mb, erb, cfg, scfg, stage1=stage1,
+                                             normalize=True)
+                torch.testing.assert_close(o_k, o_p, atol=1e-3 * float(o_p.abs().max()), rtol=0)
+            _leaf_close(ks, ps, 1e-3, f"{stage1} state")
+    assert two_stage_fused.steps == {**before[0], "dense": before[0]["dense"] + 1}
+    assert serving_step_fused.steps == {**before[1], "dense": before[1]["dense"] + 8}
+
+
 @pytest.mark.parametrize("gain_norm", [False, True])
 def test_two_stage_kernel_matches_plain(cuda, scene, gain_norm):
     """K4 vs the K1-plain + K2-plain composition: linear_wav at K1's bar,
@@ -673,6 +796,7 @@ def test_two_stage_and_serving_kernels_take_every_geometry(cuda, scene, n_blocks
         w_out, w_mask = little_net_apply_fused_plain(net, lin, fb, erb, scfg)
         torch.testing.assert_close(out, w_out, atol=1e-4 * float(w_out.abs().max()), rtol=0)
         torch.testing.assert_close(mask, w_mask, atol=1e-5, rtol=0)
+        hops = dict(two_stage_fused.steps), dict(serving_step_fused.steps)
         got = two_stage_fused(net, far, mic, erb, kcfg=kcfg, scfg=scfg)
         want = two_stage_fused_plain(net, far, mic, erb, kcfg=kcfg, scfg=scfg)
         torch.testing.assert_close(got["linear_wav"], want["linear_wav"],
@@ -693,6 +817,8 @@ def test_two_stage_and_serving_kernels_take_every_geometry(cuda, scene, n_blocks
             for key in ks:
                 torch.testing.assert_close(ks[key], ps[key], rtol=0,
                                            atol=1e-3 * max(float(ps[key].abs().max()), 1e-9))
+        assert two_stage_fused.steps == {**hops[0], "fft": hops[0]["fft"] + 1}
+        assert serving_step_fused.steps == {**hops[1], "fft": hops[1]["fft"] + 8}
 
 
 def test_two_stage_cancel_at_hop_160_runs_its_kernels(cuda, scene):
@@ -799,7 +925,8 @@ def test_kernels_at_their_largest_partition_count(cuda, scene, kernel, hop):
         got = _at_partitions(kernel, n_max, hop, net, erb, far, mic)
         want = _at_partitions(kernel, n_max, hop, net, erb, far, mic, plain=True)
     # K1 and K12 (the FFT step's layout) keep the dense step's largest L
-    floor = {"K1": (24, 39), "K12": (24, 39)}.get(kernel, (18, 38))
+    floor = {"K1": (24, 39), "K12": (24, 39), "K4": (23, 38), "K3-kalman": (23, 38),
+             "K3-nlms": (26, 43)}.get(kernel, (18, 38))
     assert n_max >= floor[hop != 256]
     for key, w in want.items():
         if key == "mask":
