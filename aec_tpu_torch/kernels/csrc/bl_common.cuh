@@ -527,7 +527,7 @@ struct Stage2Weights {
   const float* __restrict__ inv_env;    // (B) inverse interior OLA envelope
   // the FFT frame's (stage2_fft.cuh): the window, erb's support
   const float* __restrict__ window;     // (2B)
-  const int* __restrict__ sup;          // (2E + 2K), as stage2_fft.cuh's support_kernel
+  const int* __restrict__ sup;          // (2E + 2K), kernels/stage2.py erb_support
 };
 
 // What recurs from frame to frame.

@@ -201,17 +201,6 @@ size_t hop_smem(int block, int n_blocks, int bands, bool fft) {
              : smem_bytes<TwoStageSmem<typename Filter<P>::Dense>>(q);
 }
 
-// set_smem once per kernel and device: `raised` is the caller's record for
-// this kernel (a launch of the same kernel at a smaller layout skips it)
-inline cudaError_t raise_smem(const void* kernel, size_t bytes, int device, size_t* raised) {
-  constexpr int kDevices = 64;
-  const bool known = device >= 0 && device < kDevices;
-  if (known && raised[device] >= bytes) return cudaSuccess;
-  const cudaError_t err = set_smem(kernel, bytes, device);
-  if (err == cudaSuccess && known) raised[device] = bytes;
-  return err;
-}
-
 }  // namespace aec
 
 // sizeof(HopConsts), for the host's mirror of it (each library that

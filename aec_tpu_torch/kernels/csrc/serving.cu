@@ -150,9 +150,8 @@ int launch(const HopConsts& c, const float* far, const float* mic, float* out,
   return with_hop<P>(c, [&](auto q, auto hop) {
     using Hop = decltype(hop);
     auto kernel = serving_kernel<Hop, P, decltype(q)>;
-    static size_t raised[64] = {};
     const size_t smem = smem_bytes<typename Hop::Smem>(q);
-    const cudaError_t e2 = raise_smem(reinterpret_cast<const void*>(kernel), smem, device, raised);
+    const cudaError_t e2 = set_smem(reinterpret_cast<const void*>(kernel), smem, device);
     if (e2 != cudaSuccess || streams == 0 || k_blocks == 0) return e2;
     kernel<<<streams, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         far, mic, out, g, k_blocks, q, hop, kp, c.w, gain_norm, normalize);

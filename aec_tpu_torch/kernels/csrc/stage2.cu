@@ -6,8 +6,8 @@
 //
 // Design. Of a LittleNet frame only the GRU state h recurs; the OLA tail is
 // the previous frame's synthesis. So the frames run in three phases, and
-// only the middle one is serial in time (a one-CTA support_kernel first
-// finds the ERB matrix's nonzero ranges, which A and C sum over):
+// only the middle one is serial in time (A and C sum over the ERB matrix's
+// nonzero ranges, which the host finds once per matrix):
 //   A. "analyse" (this file): CTAs parallel over (utterance, run of frames).
 //      For each frame f in [0, Tb] of its run a CTA windows the frames
 //      [block f-1 || block f] of lin and far (zero blocks past both edges),
@@ -61,7 +61,7 @@ namespace {
 
 struct AnalyseWeights {
   const float* __restrict__ erb;     // (K, E)
-  const int* __restrict__ sup;       // erb's support (support_kernel)
+  const int* __restrict__ sup;       // erb's support (kernels/stage2.py)
   const float* __restrict__ w_ih_t;  // (2E, 3E)
   const float* __restrict__ b_ih;    // (3E)
   const float* __restrict__ b_hh;    // (3E): b_hr, b_hz folded into xp
@@ -152,7 +152,7 @@ analyse_kernel(const float* __restrict__ lin, const float* __restrict__ far,
 // ---------------------------------------------------------------- C. synthesise
 
 struct SynthWeights {
-  const int* __restrict__ sup;        // erb's support (support_kernel)
+  const int* __restrict__ sup;        // erb's support (kernels/stage2.py)
   const float* __restrict__ erb_t;    // (E, K)
   const float* __restrict__ w1_t;     // (2E, E) on [h || me]
   const float* __restrict__ b1;       // (E)
@@ -308,7 +308,7 @@ extern "C" long long aec_stage2_smem(int hop, int bands, int run, int synthesise
 extern "C" int aec_stage2_analyse(const float* lin, const float* far, float* me, float* xp,
                                   int batch, int t_blocks, int hop, int bands, int run,
                                   const float* tw, const float* window, const int* radix,
-                                  int n_pass, const float* analysis, const float* erb, int* sup,
+                                  int n_pass, const float* analysis, const float* erb, const int* sup,
                                   const float* w_ih_t, const float* b_ih, const float* b_hh,
                                   int device, void* stream) {
   const AnalyseWeights w{erb, sup, w_ih_t, b_ih, b_hh};
@@ -318,7 +318,6 @@ extern "C" int aec_stage2_analyse(const float* lin, const float* far, float* me,
     const auto kernel = analyse_kernel<decltype(q), decltype(tr)>;
     return launch<AnalyseSmem>(reinterpret_cast<const void*>(kernel), q, batch, t_blocks, run,
                                device, [&](unsigned ctas, size_t smem) {
-      support_kernel<<<1, kThreads, 2 * (q.bins + q.bands) * sizeof(int), st>>>(erb, sup, q);
       kernel<<<ctas, kThreads, smem, st>>>(lin, far, me, xp, t_blocks, run, q, tr, w);
     });
   });

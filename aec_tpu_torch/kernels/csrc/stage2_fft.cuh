@@ -4,9 +4,14 @@
 //
 // Shared with K2: the frame loaders (FrameAt, WindowedSrc), the transform
 // policies of K2's phases (FftTr on fft.cuh; DenseTr over the stage-2 bases
-// for a hop without a radix plan) and the ERB matrix's support ranges
-// (support_kernel), over which the ERB projections and the back-projection
-// gain sum.
+// for a hop without a radix plan). The ERB projections and the
+// back-projection gain sum over the ERB matrix's support ranges, which the
+// host finds once per matrix (kernels/stage2.py erb_support): for each band
+// e the first and one past the last bin k with erb[k][e] != 0 (sup[e],
+// sup[E + e]; K and 0 for an empty band), then the same for each bin k over
+// the bands (sup[2E + k], sup[2E + K + k]). Skipping only exact zeros, the
+// sums equal the dense ones in the same order, at ~1/16 of the work (each
+// bin lies in at most two ERB bands).
 //
 // stage2_frame_step_fft is one LittleNet frame with the algebra and rounding
 // contract of bl_common.cuh's dense stage2_frame_step: the windowed real
@@ -50,33 +55,6 @@ struct WindowedSrc {
     return make_float2(win[2 * i] * fr(l, 2 * i), win[2 * i + 1] * fr(l, 2 * i + 1));
   }
 };
-
-// The support of the ERB matrix erb (K, E), into sup: for each band e the
-// first and one past the last bin k with erb[k][e] != 0 (sup[e], sup[E + e];
-// K and 0 for an empty band), then the same for each bin k over the bands
-// (sup[2E + k], sup[2E + K + k]). Phases A and C sum over erb's support
-// only: they skip exact zeros, so the sums equal the dense ones in the same
-// order, at ~1/16 of the work (each bin lies in at most two ERB bands).
-// One CTA.
-template <class G>
-__global__ void __launch_bounds__(kThreads)
-support_kernel(const float* __restrict__ erb, int* __restrict__ sup, G q) {
-  const int K = q.bins, E = q.bands;
-  int* s = reinterpret_cast<int*>(aec_smem4);  // (2E + 2K)
-  for (int i = threadIdx.x; i < 2 * (E + K); i += kThreads)
-    s[i] = i < E ? K : i < 2 * E ? 0 : i < 2 * E + K ? E : 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < K * E; i += kThreads) {
-    if (erb[i] == 0.f) continue;
-    const int k = i / E, e = i - k * E;
-    atomicMin(s + e, k);
-    atomicMax(s + E + e, k + 1);
-    atomicMin(s + 2 * E + k, e);
-    atomicMax(s + 2 * E + K + k, e + 1);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * (E + K); i += kThreads) sup[i] = s[i];
-}
 
 // Real FFTs of 2 hop points on fft.cuh. Work buffers hold transform l at
 // complex offset l M (M = hop).

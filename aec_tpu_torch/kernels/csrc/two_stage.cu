@@ -105,9 +105,8 @@ extern "C" int aec_two_stage(const HopConsts* c, const float* far, const float* 
   return with_hop<KalmanParams>(*c, [&](auto q, auto hop) {
     using Hop = decltype(hop);
     auto kernel = two_stage_kernel<Hop, decltype(q)>;
-    static size_t raised[64] = {};
     const size_t smem = smem_bytes<typename Hop::Smem>(q);
-    const cudaError_t e2 = raise_smem(reinterpret_cast<const void*>(kernel), smem, device, raised);
+    const cudaError_t e2 = set_smem(reinterpret_cast<const void*>(kernel), smem, device);
     if (e2 != cudaSuccess || batch == 0) return e2;
     kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         far, mic, out, lin, mask, t_blocks, q, hop, kp, c->w, gain_norm);

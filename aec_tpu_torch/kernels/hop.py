@@ -39,7 +39,7 @@ from aec_tpu_torch.kernels import _build, fft_plan
 from aec_tpu_torch.kernels.consts import stage1_consts, stage2_consts
 from aec_tpu_torch.kernels.kalman import filter_constants
 from aec_tpu_torch.kernels.nlms import nlms_constants
-from aec_tpu_torch.kernels.stage2 import check_net
+from aec_tpu_torch.kernels.stage2 import check_net, erb_support
 from aec_tpu_torch.models.little_net import LittleNet
 from aec_tpu_torch.ops.gru import gru_cell
 from aec_tpu_torch.pipeline.streaming import _norm_scalar as norm_scalar
@@ -89,25 +89,6 @@ def check_consts(lib: ctypes.CDLL) -> None:
     if size != ctypes.sizeof(HopConsts):
         raise RuntimeError(f"HopConsts is {size} B in the kernel library and "
                            f"{ctypes.sizeof(HopConsts)} B in kernels/hop.py")
-
-
-def erb_support(erb: torch.Tensor) -> torch.Tensor:
-    """The ERB matrix's (K, E) support as int32 (2E + 2K,), as
-    ``csrc/stage2_fft.cuh``'s ``support_kernel`` computes it: for each band
-    the first and one past the last bin with a nonzero weight (K and 0 for
-    an empty band), then the same for each bin over the bands (E and 0)."""
-    nz = erb != 0
-    k, e = nz.shape
-
-    def ranges(m: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-        idx = torch.arange(n, device=m.device)[:, None]  # along dim 0 of m (n, cols)
-        lo = torch.where(m, idx, n).amin(0)
-        hi = torch.where(m, idx + 1, 0).amax(0)
-        return lo, hi
-
-    b_lo, b_hi = ranges(nz, k)
-    k_lo, k_hi = ranges(nz.T, e)
-    return torch.cat([b_lo, b_hi, k_lo, k_hi]).to(torch.int32)
 
 
 def _stage2_tensors(net: LittleNet, erb: torch.Tensor, scfg: StftConfig) -> dict:

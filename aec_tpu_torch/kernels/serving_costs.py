@@ -38,7 +38,8 @@ def kernel_ms(fn, reps: int, name: str) -> float:
 
 
 def call_ms(fn, reps: int) -> float:
-    """Median ms of one call between two CUDA events, the card idle before it."""
+    """Median ms of one call between two CUDA events, the card idle before
+    it (after a warm-up call); ``chip_smoke.py`` times its calls with it."""
     fn()
     times = []
     for _ in range(reps):

@@ -4,8 +4,8 @@ Replaces ``aec_tpu/kernels/pallas_stage2.py:100`` (``little_net_apply_fused``,
 ``pallas_call`` at ``:164``; wrapper ``little_net_apply_fused_wav`` at
 ``:207``). Of a LittleNet frame only the GRU state recurs, so the kernel runs
 as three phases (``csrc/stage2.cu``'s header has the design and the
-reckoning; phase A's entry first launches one CTA that finds the ERB
-matrix's nonzero ranges):
+reckoning; phases A and C sum over the ERB matrix's nonzero ranges,
+:func:`erb_support`, made once per ERB matrix):
 
 - A, "analyse": CTAs parallel over (utterance, run of frames): real FFTs of
   the windowed lin and far frames (``csrc/fft.cuh``, plan and twiddles from
@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +49,7 @@ from aec_tpu_torch.ops.gru import gru_cell
 # CTAs a phase should have per SM before its runs of frames grow
 CTAS_PER_SM = 1
 MAX_RUN = 8  # frames per CTA, at most (csrc/stage2.cu kMaxRun)
+SUPPORTS_KEPT = 8  # ERB supports cached, newest last
 
 
 @functools.cache
@@ -62,6 +64,36 @@ def _lib() -> ctypes.CDLL:
     lib.aec_stage2_smem.argtypes = [i, i, i, i]
     lib.aec_stage2_smem.restype = ctypes.c_longlong
     return lib
+
+
+_SUPPORTS: OrderedDict = OrderedDict()
+
+
+def erb_support(erb: torch.Tensor) -> torch.Tensor:
+    """The ERB matrix's (K, E) support as int32 (2E + 2K,) on its device,
+    which the stage-2 device code (K2's phases, the K3 / K4 frame) sums
+    over: for each band the first and one past the last bin with a nonzero
+    weight (K and 0 for an empty band), then the same for each bin over the
+    bands (E and 0). Cached on ``erb``'s ``data_ptr()``, ``_version`` and
+    shape; an entry holds ``erb``, so no other tensor takes its address
+    while it lives."""
+    key = (erb.device, erb.data_ptr(), erb._version, erb.shape)
+    hit = _SUPPORTS.get(key)
+    if hit is not None:
+        _SUPPORTS.move_to_end(key)
+        return hit[1]
+    nz = erb != 0
+    k, e = nz.shape
+
+    def ranges(m: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        idx = torch.arange(n, device=m.device)[:, None]  # along dim 0 of m (n, cols)
+        return torch.where(m, idx, n).amin(0), torch.where(m, idx + 1, 0).amax(0)
+
+    sup = torch.cat([*ranges(nz, k), *ranges(nz.T, e)]).to(torch.int32)
+    _SUPPORTS[key] = (erb, sup)
+    while len(_SUPPORTS) > SUPPORTS_KEPT:
+        _SUPPORTS.popitem(last=False)
+    return sup
 
 
 def little_net_apply_fused_plain(
@@ -174,7 +206,7 @@ def launch_phases(lib: ctypes.CDLL, net: LittleNet, lin: torch.Tensor, far: torc
 
     me = lin.new_empty((b, frames, bands))
     xp = lin.new_empty((b, frames, 3 * bands))
-    sup = torch.empty(2 * (bands + hop + 1), dtype=torch.int32, device=dev)  # erb's support
+    sup = erb_support(erb)
     keep = [erb.contiguous(), sup, gp["w_ih"].T.contiguous(), gp["b_ih"], gp["b_hh"]]
     err = lib.aec_stage2_analyse(
         _build.ptr(lin), _build.ptr(far), _build.ptr(me), _build.ptr(xp), *geometry, *transforms,

@@ -70,13 +70,14 @@ def two_stage_fused_plain(
 ) -> dict[str, torch.Tensor]:
     """Plain version of K4: K1's plain block loop, then K2's plain frame
     recurrence on its output. (B, n) -> {wav, linear_wav (B, n), mask
-    (B, n / hop + 1, E)}."""
+    (B, n / hop + 1, E)}, in the inputs' dtype (a float64 net and inputs
+    give the fp64 evaluation the kernel's round-off is measured against)."""
     t_blocks = _t_blocks(far, mic, scfg)
     lin = kalman_cancel_plain(kcfg, far, mic, block=scfg.hop)["wav"]
     b = far.shape[0]
     out, mask = little_net_apply_fused_plain(
         net, lin.reshape(b, t_blocks, scfg.hop), far.reshape(b, t_blocks, scfg.hop),
-        torch.as_tensor(erb, dtype=torch.float32, device=far.device), scfg,
+        torch.as_tensor(erb, dtype=far.dtype, device=far.device), scfg,
         gain_norm=gain_norm,
     )
     return {"wav": out.reshape(b, -1), "linear_wav": lin, "mask": mask}

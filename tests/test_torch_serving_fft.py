@@ -18,8 +18,8 @@ from aec_tpu.kernels.pallas_two_stage import two_stage_fused as jax_two_stage_fu
 from aec_tpu.models.little_net import little_net_init
 from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
 from aec_tpu_torch.dsp.stft import StftConfig
-from aec_tpu_torch.kernels import hop as thop
 from aec_tpu_torch.kernels import serving as tsv
+from aec_tpu_torch.kernels import stage2 as tstage2
 from aec_tpu_torch.kernels.two_stage import two_stage_fused_modeled, two_stage_fused_plain
 from aec_tpu_torch.utils.weights import load_npz, params_from_jax
 
@@ -50,19 +50,22 @@ def _close(got, want, bar, what):
 
 
 # (filter, partitions, blocks per call) at the 160-sample hop, with
-# normalize and gain_norm
-SERVING_CASES = [("kalman", 4, 1), ("kalman", 16, 3), ("nlms", 4, 3), ("nlms", 16, 1)]
+# normalize and gain_norm: against the plain version, and against JAX's
+# interpret-mode kernel where ``jax`` (one compile each, ~6 s; the two cover
+# both filters, both partition counts and both call lengths)
+SERVING_CASES = [("kalman", 4, 1, False), ("kalman", 16, 3, True), ("nlms", 4, 1, True),
+                 ("nlms", 4, 3, False), ("nlms", 16, 1, False), ("kalman", 16, 1, False)]
 
 
-@pytest.mark.parametrize("stage1,n_blocks,k", SERVING_CASES)
-def test_serving_model_matches_plain_and_jax_kernel(rng, stage1, n_blocks, k):
+@pytest.mark.parametrize("stage1,n_blocks,k,with_jax", SERVING_CASES)
+def test_serving_model_matches_plain_and_jax_kernel(rng, stage1, n_blocks, k, with_jax):
     """K3's FFT route modelled in torch (``serving_step_modeled``: fft_plan's
     transforms, the ring in the kernel's slots, a Kalman state predicted
     between hops) over 4 or 6 hops of 2 streams, against ``serving_step_plain``
-    and JAX's interpret-mode kernel at ``dot_mode="high"``: output blocks at
-    2e-4 of scale, every state leaf (through serving_state_to_stream) at
-    3e-4 of scale, 3e-3 for NLMS against JAX (the bars of
-    tests/test_torch_serving.py)."""
+    and, ``with_jax``, JAX's interpret-mode kernel at ``dot_mode="high"``:
+    output blocks at 2e-4 of scale, every state leaf (through
+    serving_state_to_stream) at 3e-4 of scale, 3e-3 for NLMS against JAX
+    (the bars of tests/test_torch_serving.py)."""
     kw = {"normalize": True, "gain_norm": True, "stage1": stage1}
     hop = 160
     scfg, jscfg = StftConfig(2 * hop, hop, 2 * hop), JaxStftConfig(2 * hop, hop, 2 * hop)
@@ -76,7 +79,7 @@ def test_serving_model_matches_plain_and_jax_kernel(rng, stage1, n_blocks, k):
     far, mic = _echo(rng, S, hops * hop)
     model, plain = (tsv.serving_init(S, kcfg=kcfg, scfg=scfg, stage1=stage1, device="cpu")
                     for _ in range(2))
-    js = jsv.serving_init(S, tile=S, kcfg=jkcfg, scfg=jscfg, stage1=stage1)
+    js = jsv.serving_init(S, tile=S, kcfg=jkcfg, scfg=jscfg, stage1=stage1) if with_jax else None
     outs = {"model": [], "plain": [], "jax": []}
     for lo in range(0, hops * hop, k * hop):
         fb, mb = far[:, lo:lo + k * hop], mic[:, lo:lo + k * hop]
@@ -86,12 +89,14 @@ def test_serving_model_matches_plain_and_jax_kernel(rng, stage1, n_blocks, k):
         plain, o = tsv.serving_step_plain(net, plain, torch.from_numpy(fb), torch.from_numpy(mb),
                                           erb, kcfg, scfg, **kw)
         outs["plain"].append(o.numpy())
-        js, o = jsv.serving_step_fused(params, js, jnp.asarray(fb), jnp.asarray(mb),
-                                       jnp.asarray(erb), jkcfg, jscfg, interpret=True,
-                                       dot_mode="high", **kw)
-        outs["jax"].append(np.asarray(o))
+        if with_jax:
+            js, o = jsv.serving_step_fused(params, js, jnp.asarray(fb), jnp.asarray(mb),
+                                           jnp.asarray(erb), jkcfg, jscfg, interpret=True,
+                                           dot_mode="high", **kw)
+            outs["jax"].append(np.asarray(o))
     got = np.concatenate(outs["model"], -1)
-    for ref, state_bar in (("plain", 3e-4), ("jax", 3e-4 if stage1 == "kalman" else 3e-3)):
+    refs = (("plain", 3e-4), ("jax", 3e-4 if stage1 == "kalman" else 3e-3))
+    for ref, state_bar in refs[:1 + with_jax]:
         want = np.concatenate(outs[ref], -1)
         assert got.shape == want.shape == (S, hops * hop)
         for t in range(hops):
@@ -157,12 +162,12 @@ def test_two_stage_model_matches_plain_and_jax_kernel(rng, hop, n_blocks, t_bloc
 
 @pytest.mark.parametrize("n_freqs,bands", [(257, 32), (161, 32), (257, 64)])
 def test_erb_support_is_the_nonzero_ranges(n_freqs, bands):
-    """The ERB support K3 and K4 read: per band and per bin, the first and
+    """The ERB support K2, K3 and K4 read: per band and per bin, the first and
     one past the last nonzero index; sums over those ranges equal the dense
     sums, and an empty row or column reads (n, 0)."""
     erb = erb_filterbank(n_freqs=n_freqs, n_bands=bands).astype(np.float32)
     erb[:, 3] = 0.0  # an empty band
-    sup = thop.erb_support(torch.from_numpy(erb)).numpy()
+    sup = tstage2.erb_support(torch.from_numpy(erb)).numpy()
     assert sup.dtype == np.int32 and sup.shape == (2 * (bands + n_freqs),)
     nz = erb != 0
     for e in range(bands):
@@ -197,3 +202,17 @@ def test_cpu_wrappers_count_no_steps(rng):
     two_stage_fused(net, torch.from_numpy(far), torch.from_numpy(mic), erb_filterbank())
     assert counts == (dict(tsv.serving_step_fused.steps), dict(two_stage_fused.steps),
                       tsv.serving_step_fused.launches, two_stage_fused.launches)
+
+
+def test_erb_support_is_cached_until_the_matrix_changes():
+    """The support is made once per ERB matrix: a second call returns the
+    cached tensor; an in-place change to the matrix (its version moves)
+    gives the new matrix's support."""
+    erb = torch.from_numpy(erb_filterbank().astype(np.float32))
+    first = tstage2.erb_support(erb)
+    assert tstage2.erb_support(erb) is first
+    erb[:, 0] = 0.0  # band 0 emptied in place
+    again = tstage2.erb_support(erb)
+    assert again is not first
+    assert (int(again[0]), int(again[32])) == (erb.shape[0], 0)
+    assert torch.equal(again[1:32], first[1:32])
