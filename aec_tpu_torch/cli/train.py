@@ -4,9 +4,9 @@
   python -m aec_tpu_torch.cli.train --tr_list lists/tr_list.txt --cv_file cv.ex \\
       --ckpt_dir exp [--resume_model exp/models/latest.npz] [--device cpu]
 
-``--model little_net`` is ported; the other families (ROADMAP A1 for
-two_layer_gru and dccrn, A2 for the rest), ``--mesh`` (A10) and
-``--device_cache`` (A7) exit with an error naming the item that brings them.
+``--model little_net`` is ported; the other families (ROADMAP A1),
+``--mesh`` (A6) and ``--device_cache`` (A3) exit with an error naming the
+item that brings them.
 """
 
 from __future__ import annotations
@@ -48,13 +48,12 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     if args.model != "little_net":
-        item = "A1" if args.model in ("two_layer_gru", "dccrn") else "A2"
-        p.error(f"--model {args.model}: training the model zoo is ROADMAP item {item}; the port "
+        p.error(f"--model {args.model}: training the model zoo is ROADMAP item A1; the port "
                 "trains little_net")
     if args.mesh:
-        p.error("--mesh: the port's parallel layer is ROADMAP item A10")
+        p.error("--mesh: the port's parallel layer is ROADMAP item A6")
     if args.device_cache:
-        p.error("--device_cache: the port's device-resident corpus is ROADMAP item A7")
+        p.error("--device_cache: the port's device-resident corpus is ROADMAP item A3")
     get_logger(__name__).info("Arguments:\n%s", pprint.pformat(vars(args)))
 
     cfg = TrainConfig(lr=args.lr, batch_size=args.batch_size, max_n_epochs=args.max_n_epochs)

@@ -22,10 +22,14 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
   host and the kernel;
 - ``gru``     — K8, the GRU recurrence (``csrc/gru.cu``), and the autograd
   Function of the fused GRU scan;
-- ``lstm``    — K9, DCCRN's grouped complex-LSTM recurrence (``csrc/lstm.cu``
-  on ``csrc/grid_scan.cuh``), and its autograd Function;
+- ``lstm``    — K9, DCCRN's grouped complex-LSTM recurrence (``csrc/lstm.cu``,
+  W_hh held on chip, packed once per weight tensor), and its autograd
+  Function;
 - ``lstm_int8`` — K10, the int8 LSTM recurrence of ATT-CCRN's bottleneck
-  (``csrc/lstm_int8.cu``);
+  (``csrc/lstm_int8.cu``, the codes held on chip, quantized and laid out
+  once per weight tensor);
+- ``lstm_costs`` — a card tool that times K9's and K10's steps with their
+  dots cut out;
 - ``fullsubnet`` — K11, FullSubNet's joint full-band / sub-band LSTM
   recurrence (``csrc/fullsubnet.cu``), and its autograd Function;
 - ``consts``  — their constant DFT bases, fp32, cached per device;

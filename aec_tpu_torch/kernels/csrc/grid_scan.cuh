@@ -1,20 +1,17 @@
 // A gated recurrence on one persistent grid of co-resident CTAs.
 //
-// The device code of K9 (lstm.cu, the grouped complex LSTM) and of K8's wide
-// path (gru.cu, H > 128). Both recurrences are too wide for one SM: the
-// fp32 W_hh of DCCRN's two LSTM groups is 33.6 MB at H = 1024, K8's W_hh^T
-// 3 MB at H = 512. So the hidden units are split over the grid, and each
-// step is
+// The device code of K8's wide path (gru.cu, H > 128), whose W_hh^T (3 MB
+// at H = 512) is too wide for one SM's registers. So the hidden units are
+// split over the grid, and each step is
 //
 //   1. every CTA loads its group's h_{t-1} (R rows x H) from a ping-pong
 //      buffer in device memory into shared memory;
 //   2. it forms the gate pre-activations of its U hidden units for all R
 //      rows: the NG gate columns of W_hh^T of each unit, H x (NG U) floats
-//      packed contiguous per CTA by the wrapper, read from L2 (W_hh fits the
-//      50 MB L2; no CTA's or cluster's shared memory holds it in fp32), the
-//      H-long dots split over k-slices of threads, rows in registers;
+//      packed contiguous per CTA by the wrapper, read from L2, the H-long
+//      dots split over k-slices of threads, rows in registers;
 //   3. it combines the gates (Cell) and writes h_t to the other buffer and
-//      to the output, carrying c (LSTM) in shared memory;
+//      to the output;
 //   4. one grid-wide barrier (cooperative launch, so the grid is co-resident
 //      or the launch is refused).
 //
@@ -25,12 +22,12 @@
 // in another summation order than a matmul, so a kernel agrees with its plain
 // version to fp32 round-off carried through the recursion.
 //
-// What bounds it. The work per step is G R NG H^2 FMA (K9 at B = 1: 16.8 M)
-// over the whole card; the bytes per step are W_hh (33.6 MB for K9) from L2.
-// One step costs the slowest SM's read of its W slice from L2 plus one grid
-// barrier, serial in time; levers left for later: a bf16 W resident in
-// shared memory (127 KB per SM for K9) or in registers, and a split of the
-// barrier into per-group flags.
+// What bounds it. The work per step is G R NG H^2 FMA over the whole card;
+// the bytes per step are W_hh^T from L2. One step costs the slowest SM's
+// read of its W slice from L2 plus one grid barrier, serial in time. K9
+// (lstm.cu), which began on this code, now holds its W_hh on chip across the
+// time loop and waits at a barrier per group; the same moves are the levers
+// left for this path.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -45,7 +42,7 @@ constexpr int kGridThreads = 256;
 struct GridArgs {
   const float* __restrict__ xp;  // (G, R, T, NG H)
   const float* __restrict__ wp;  // (G, nchunk, H, NG U)
-  const float* __restrict__ bias;  // GRU: b_hn (H); LSTM: unused
+  const float* __restrict__ bias;  // b_hn (H)
   float* ys;                     // (G, R, T, H)
   float* hbuf;                   // (2, G, R, H)
   int rows, t_steps, hidden, units, nchunk;
@@ -53,32 +50,12 @@ struct GridArgs {
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
-// nn.LSTM's cell, gates [i; f; g; o]; c carried in shared memory
-struct LstmCell {
-  static constexpr int kGates = 4;
-  static constexpr bool kCarry = true;
-  __device__ static float step(const float* x, const float* pre, int U, int H, float h_prev,
-                               float* c, float bias) {
-    (void)h_prev;
-    (void)bias;
-    const float i = sigmoid_f(x[0] + pre[0]);
-    const float f = sigmoid_f(x[H] + pre[U]);
-    const float g = tanhf(x[2 * H] + pre[2 * U]);
-    const float o = sigmoid_f(x[3 * H] + pre[3 * U]);
-    const float c_new = f * *c + i * g;
-    *c = c_new;
-    return o * tanhf(c_new);
-  }
-};
-
 // nn.GRU's cell, gates [r; z; n], b_hn inside the reset product (the other
 // hidden biases are folded into xp)
 struct GruCell {
   static constexpr int kGates = 3;
-  static constexpr bool kCarry = false;
   __device__ static float step(const float* x, const float* pre, int U, int H, float h_prev,
-                               float* c, float b_hn) {
-    (void)c;
+                               float b_hn) {
     const float r = sigmoid_f(x[0] + pre[0]);
     const float z = sigmoid_f(x[H] + pre[U]);
     const float n = tanhf(x[2 * H] + r * (pre[2 * U] + b_hn));
@@ -86,12 +63,11 @@ struct GruCell {
   }
 };
 
-// shared floats of one CTA: h (R, H), k-slice partials, pre-activations, c
+// shared floats of one CTA: h (R, H), k-slice partials, pre-activations
 template <class Cell>
 __host__ __device__ inline size_t grid_smem_floats(int rows, int hidden, int units) {
   const int cols = Cell::kGates * units, nks = kGridThreads / cols;
-  return size_t(rows) * hidden + size_t(nks) * rows * cols + size_t(rows) * cols +
-         (Cell::kCarry ? size_t(rows) * units : 0);
+  return size_t(rows) * hidden + size_t(nks) * rows * cols + size_t(rows) * cols;
 }
 
 template <class Cell, int RT>
@@ -105,15 +81,12 @@ grid_scan_kernel(GridArgs a) {
   float* hs = reinterpret_cast<float*>(smem_raw);  // (R, H)
   float* part = hs + size_t(R) * H;                // (nks, R, cols)
   float* pre = part + size_t(nks) * R * cols;      // (R, cols)
-  float* cs = pre + size_t(R) * cols;              // (R, U)
   const int G = gridDim.x / a.nchunk;
   const float* w = a.wp + (size_t(g) * a.nchunk + chunk) * H * cols;
   const int tid = threadIdx.x, col = tid % cols, ks = tid / cols;
   const int k0 = ks * H / nks, k1 = (ks + 1) * H / nks;
   cg::grid_group grid = cg::this_grid();
 
-  if (Cell::kCarry)
-    for (int i = tid; i < R * U; i += kGridThreads) cs[i] = 0.f;
   for (int t = 0; t < T; ++t) {
     const float* h_prev = a.hbuf + (size_t(t & 1) * G + g) * R * H;
     float* h_next = a.hbuf + (size_t((t + 1) & 1) * G + g) * R * H;
@@ -151,7 +124,7 @@ grid_scan_kernel(GridArgs a) {
       const int r = i / U, j = i - r * U, unit = chunk * U + j;
       if (unit < H) {
         const float* x = a.xp + ((size_t(g) * R + r) * T + t) * NG * H + unit;
-        const float h = Cell::step(x, pre + r * cols + j, U, H, hs[r * H + unit], cs + i,
+        const float h = Cell::step(x, pre + r * cols + j, U, H, hs[r * H + unit],
                                    a.bias ? a.bias[unit] : 0.f);
         h_next[r * H + unit] = h;
         a.ys[((size_t(g) * R + r) * T + t) * H + unit] = h;

@@ -42,7 +42,7 @@
 //
 // Wider nets (H > 128, whose W_hh no longer fits one SM's registers: 3 MB at
 // H = 512) take the wide path, the same recurrence on one persistent grid of
-// co-resident CTAs (grid_scan.cuh, shared with K9): each CTA owns U hidden
+// co-resident CTAs (grid_scan.cuh): each CTA owns U hidden
 // units and their 3 gate columns of W_hh^T, read from L2 every step, and one
 // grid barrier ends each step.
 

@@ -10,7 +10,7 @@ latency bounds it (the source's header has the reckoning).
 :func:`gru_recurrence_split` is a plain-torch model of its summation order.
 A net too wide for one SM (H > 128) takes the kernel's wide path: the same
 recurrence on one persistent grid of co-resident CTAs
-(``csrc/grid_scan.cuh``, shared with K9), each owning a few hidden units,
+(``csrc/grid_scan.cuh``), each owning a few hidden units,
 W_hh^T read from L2 every step.
 
 :class:`GruScanFused` does what the JAX custom VJP does: its forward is the

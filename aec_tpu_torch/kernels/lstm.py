@@ -2,11 +2,22 @@
 
 Replaces ``aec_tpu/kernels/pallas_lstm.py:88`` (``_grouped_lstm_fused_fwd``,
 ``pallas_call`` at ``:123``) and its custom VJP ``complex_lstm_scan_fused``
-(``:160-184``, backward ``:341-350``). The kernel is ``csrc/lstm.cu`` on
-``csrc/grid_scan.cuh``: one persistent grid of co-resident CTAs, each owning
-a few (group, hidden unit) pairs and their four gate columns of W_hh^T (read
-from L2 every step), one grid barrier per step (the source's header has the
-reckoning).
+(``:160-184``, backward ``:341-350``). The kernel is ``csrc/lstm.cu``: one
+persistent grid of co-resident CTAs, each owning a few (group, hidden unit)
+pairs and their four gate columns of W_hh^T, held on chip across the time
+loop (registers, then shared memory; from L2 each step only where a large
+batch's h leaves the shared memory short), each group's CTAs waiting only
+for their own group's h, exchanged in words that carry the step they are
+for (the source's header has the reckoning).
+
+Host side. :func:`grouped_plan` chooses each thread's column and k-slice
+and where its quads of W lie; :func:`pack_grouped` builds that layout once
+per weight tensor: it is cached keyed on each group's W_hh ``data_ptr()``
+and ``_version`` (an entry holds the tensors, so no other tensor can take
+their addresses while it lives), so an in-place change (``copy_``, an
+optimizer step) makes the next call pack again. :func:`unpack_grouped` and
+:func:`grouped_recurrence_modeled` model the layout and the kernel's
+summation order in plain torch for the CPU tests.
 
 As in JAX, the input projections of the four naive-complex paths and both
 biases are one matmul outside the kernel (:func:`grouped_projection`): two
@@ -26,12 +37,15 @@ launches K9 or raises, a CPU tensor takes the plain recurrence).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from collections import OrderedDict
+from collections.abc import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from aec_tpu_torch.kernels import _build
-from aec_tpu_torch.kernels.gru import pack_gate_columns
 from aec_tpu_torch.ops.lstm import (
     GROUPS,
     complex_lstm_scan,
@@ -42,65 +56,246 @@ from aec_tpu_torch.ops.lstm import (
 )
 
 _KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+THREADS, WARPS, LANES = 512, 16, 32
+REG_QUADS = 16  # float4 quads of W a thread holds in registers (csrc/lstm.cu kRegQuads)
+CACHE_SIZE = 4
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("lstm")
+    return bind(_build.load("lstm"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' types on a build of ``csrc/lstm.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aec_lstm.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.aec_lstm.argtypes = [p] * 4 + [i] * 12 + [p]
     lib.aec_lstm.restype = ctypes.c_int
-    lib.aec_lstm_units.argtypes = [i, i, i, i]
-    lib.aec_lstm_units.restype = ctypes.c_int
-    lib.aec_lstm_smem.argtypes = [i, i, i]
-    lib.aec_lstm_smem.restype = ctypes.c_longlong
+    if lib.aec_lstm_reg_quads() != REG_QUADS:
+        raise RuntimeError("csrc/lstm.cu holds another number of register quads than "
+                           "kernels/lstm.py packs")
     return lib
 
 
-def _check(xp: torch.Tensor, w_hh: torch.Tensor) -> None:
-    if xp.device.type != "cuda" or w_hh.device != xp.device:
-        raise ValueError(f"xp and w_hh must be on one CUDA device, got {xp.device}, {w_hh.device}")
-    if xp.dtype != torch.float32 or w_hh.dtype != torch.float32:
-        raise TypeError(f"xp and w_hh must be float32, got {xp.dtype}, {w_hh.dtype}")
-    if xp.ndim != 4 or w_hh.ndim != 3:
-        raise ValueError(f"want xp (G, R, T, 4H) and w_hh (G, 4H, H), got {tuple(xp.shape)}, "
-                         f"{tuple(w_hh.shape)}")
+def lstm_smem(rows: int, hp: int, units: int, cw: int, jsm: int) -> int:
+    """Shared memory of one CTA, bytes (``csrc/lstm.cu`` lstm_smem): W's
+    shared quads, the group's h, the gates' sums, c."""
+    return 4 * (jsm * cw * THREADS * 4 + rows * hp + rows * WARPS * cw + rows * units)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedPlan:
+    """Where K9 keeps W_hh^T. CTA c = g nchunk + chunk owns units [chunk U,
+    chunk U + U) of group g, and its 4U gate columns (column gate U + j: that
+    gate of unit chunk U + j) go to the warps, ``cw`` each: warp w sums
+    columns w cw + i (i < cw), and its lane l holds their quads l + 32 j
+    (j < ``npos``, the positions) of W_hh^T's column, k = 4 (l + 32 j) + e.
+    A lane's quads of position j lie in registers for j < ``jreg``, in shared
+    memory for j < ``jreg + jsm``, else they are read from L2 each step."""
+
+    groups: int
+    rows: int
+    hidden: int
+    hp: int  # H padded to whole quads
+    units: int
+    nchunk: int
+    cw: int
+    npos: int
+    jreg: int
+    jsm: int
+    smem: int  # bytes of shared memory a CTA
+
+    @property
+    def ctas(self) -> int:
+        return self.groups * self.nchunk
+
+    def split(self) -> dict[str, int]:
+        """Bytes of W a CTA holds in registers and shared memory, and reads
+        from L2 each step."""
+        pos = self.cw * THREADS * 16
+        return {"registers": self.jreg * pos, "shared": self.jsm * pos,
+                "l2": (self.npos - self.jreg - self.jsm) * pos}
+
+
+def grouped_plan(groups: int, rows: int, hidden: int, sms: int, smem_optin: int,
+                 reg_quads: int = REG_QUADS) -> GroupedPlan:
+    """K9's layout for G = ``groups`` recurrences of R = ``rows`` rows at H =
+    ``hidden`` on a card of ``sms`` SMs giving a CTA ``smem_optin`` bytes of
+    shared memory: about one CTA per SM (at most 64 units), the columns
+    spread over the 16 warps (``cw`` a power of two), each lane's first
+    ``reg_quads`` quads in registers, then as many in shared memory as fit
+    beside h, the gates' sums and c (which must fit; the wrapper raises
+    otherwise)."""
+    units = min(-(-groups * hidden // sms), 64)
+    cw = 1 << (-(-4 * units // WARPS) - 1).bit_length()
+    nchunk = -(-hidden // units)
+    hp = -(-hidden // 4) * 4
+    npos = -(-hp // (4 * LANES))
+    jreg = min(reg_quads // cw, npos)
+    fixed = lstm_smem(rows, hp, units, cw, 0)
+    jsm = max(0, min(npos - jreg, (smem_optin - fixed) // (cw * THREADS * 16)))
+    return GroupedPlan(groups, rows, hidden, hp, units, nchunk, cw, npos, jreg, jsm,
+                       lstm_smem(rows, hp, units, cw, jsm))
+
+
+def pack_grouped(w_hh: torch.Tensor, plan: GroupedPlan) -> torch.Tensor:
+    """``W_hh`` (G, 4H, H) -> (ctas, npos cw, 512, 4), as :class:`GroupedPlan`
+    places it: quad j cw + i of thread w 32 + l of CTA g nchunk + chunk is
+    ``W_hh[g][gate H + chunk U + u, 4 (l + 32 j) + e]``, e < 4, for column
+    w cw + i = gate U + u; zero past H and for the columns past 4U. One op
+    chain per weight tensor, never per call."""
+    g, u, h, cw, npos = plan.groups, plan.units, plan.hidden, plan.cw, plan.npos
+    w = F.pad(w_hh.reshape(g, 4, h, h), (0, 4 * LANES * npos - h, 0, plan.nchunk * u - h))
+    w = w.reshape(g, 4, plan.nchunk, u, npos, LANES, 4).transpose(1, 2)
+    w = w.reshape(g, plan.nchunk, 4 * u, npos, LANES, 4)
+    w = F.pad(w, (0, 0, 0, 0, 0, 0, 0, WARPS * cw - 4 * u))
+    w = w.reshape(g, plan.nchunk, WARPS, cw, npos, LANES, 4).permute(0, 1, 4, 3, 2, 5, 6)
+    return w.reshape(plan.ctas, npos * cw, THREADS, 4).contiguous()
+
+
+def unpack_grouped(packed: torch.Tensor, plan: GroupedPlan) -> torch.Tensor:
+    """The inverse of :func:`pack_grouped`: -> ``W_hh`` (G, 4H, H)."""
+    g, u, h, cw, npos = plan.groups, plan.units, plan.hidden, plan.cw, plan.npos
+    w = packed.reshape(g, plan.nchunk, npos, cw, WARPS, LANES, 4).permute(0, 1, 4, 3, 2, 5, 6)
+    w = w.reshape(g, plan.nchunk, WARPS * cw, npos, LANES, 4)[:, :, :4 * u]
+    w = w.reshape(g, plan.nchunk, 4, u, npos * LANES * 4).transpose(1, 2)
+    return w.reshape(g, 4, plan.nchunk * u, -1)[:, :, :h, :h].reshape(g, 4 * h, h)
+
+
+def grouped_recurrence_modeled(xp: torch.Tensor, packed: torch.Tensor,
+                               plan: GroupedPlan) -> torch.Tensor:
+    """K9's recurrence from the layout, in the kernel's summation order: each
+    lane's dot over its quads l, l + 32, ... in k order (registers, then
+    shared memory, then L2; fp32 products and sums here, FMAs in the
+    kernel), the warp's 32 lanes summed as a tree whose first level pairs
+    lanes l and l + 16, then the gates. A model for the CPU tests: xp
+    (G, R, T, 4H) -> ys (G, R, T, H)."""
+    g, r, t, _ = xp.shape
+    u, h, cw, npos, nchunk = plan.units, plan.hidden, plan.cw, plan.npos, plan.nchunk
+    w = packed.reshape(g, nchunk, npos, cw, WARPS, LANES, 4).permute(0, 1, 4, 3, 5, 2, 6)
+    w = w.reshape(g, nchunk, 1, WARPS, cw, LANES, npos * 4)  # [g, chunk, -, w, i, l, k]
+    k = npos * LANES * 4
+    hs = xp.new_zeros((g, r, k))
+    c = xp.new_zeros((g, r, nchunk * u))
+    ys = []
+    for i in range(t):
+        hv = hs.reshape(g, r, npos, LANES, 4).transpose(2, 3).reshape(g, 1, r, 1, 1, LANES, -1)
+        acc = xp.new_zeros((g, nchunk, r, WARPS, cw, LANES))
+        for kk in range(npos * 4):  # registers, shared memory, L2: one k order
+            acc = acc + hv[..., kk] * w[..., kk]
+        for half in (16, 8, 4, 2, 1):
+            acc = acc[..., :half] + acc[..., half:]
+        pre = acc[..., 0].reshape(g, nchunk, r, WARPS * cw)[..., :4 * u]
+        pre = pre.reshape(g, nchunk, r, 4, u).permute(0, 2, 3, 1, 4).reshape(g, r, 4, nchunk * u)
+        x = F.pad(xp[:, :, i].reshape(g, r, 4, h), (0, nchunk * u - h))
+        gi, gf, gg, go = (x[:, :, n] + pre[:, :, n] for n in range(4))
+        c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+        hn = torch.sigmoid(go) * torch.tanh(c)
+        ys.append(hn[..., :h])
+        hs = F.pad(hn[..., :h], (0, k - h))
+    return torch.stack(ys, dim=2)
+
+
+# ---------------------------------------------------------------- prepared once
+
+_PACKED: OrderedDict = OrderedDict()
+
+
+def clear_cache() -> None:
+    """Forget every packed W_hh."""
+    _PACKED.clear()
+
+
+def packed_weights(w_hh: Sequence[torch.Tensor], plan: GroupedPlan) -> torch.Tensor:
+    """:func:`pack_grouped` of the groups' W_hh (each (4H, H), or one
+    stacked (G, 4H, H)), cached keyed on each tensor's ``data_ptr()`` and
+    ``_version`` and the plan's layout (the entry holds the tensors)."""
+    layout = (plan.units, plan.nchunk, plan.cw, plan.npos)
+    key = (*((w.data_ptr(), w._version, tuple(w.shape), w.dtype, w.device) for w in w_hh),
+           layout)
+    hit = _PACKED.get(key)
+    if hit is not None:
+        _PACKED.move_to_end(key)
+        return hit[0]
+    stack = torch.stack([w.detach() for w in w_hh]) if w_hh[0].ndim == 2 else w_hh[0].detach()
+    _PACKED[key] = (pack_grouped(stack, plan), list(w_hh))
+    while len(_PACKED) > CACHE_SIZE:
+        _PACKED.popitem(last=False)
+    return _PACKED[key][0]
+
+
+# ---------------------------------------------------------------- the wrapper
+
+
+def _groups(w_hh) -> list[torch.Tensor]:
+    return [w_hh] if isinstance(w_hh, torch.Tensor) else list(w_hh)
+
+
+def _check(xp: torch.Tensor, w_hh: list[torch.Tensor]) -> None:
+    if xp.device.type != "cuda" or any(w.device != xp.device for w in w_hh):
+        raise ValueError(f"xp and w_hh must be on one CUDA device, got {xp.device}, "
+                         f"{[str(w.device) for w in w_hh]}")
+    if xp.dtype != torch.float32 or any(w.dtype != torch.float32 for w in w_hh):
+        raise TypeError(f"xp and w_hh must be float32, got {xp.dtype}, "
+                        f"{[w.dtype for w in w_hh]}")
+    shapes = [tuple(w.shape) for w in w_hh]
+    if xp.ndim != 4 or not (len(w_hh) == 1 and len(shapes[0]) == 3
+                            or all(len(s) == 2 for s in shapes)):
+        raise ValueError(f"want xp (G, R, T, 4H) and w_hh (G, 4H, H) or G of (4H, H), got "
+                         f"{tuple(xp.shape)}, {shapes}")
     g, _, steps, h4 = xp.shape
-    hidden = w_hh.shape[-1]
-    if h4 != 4 * hidden or tuple(w_hh.shape) != (g, h4, hidden) or steps < 1:
-        raise ValueError(f"want xp (G, R, T >= 1, 4H) and w_hh (G, 4H, H), got "
-                         f"{tuple(xp.shape)}, {tuple(w_hh.shape)}")
+    hidden = h4 // 4
+    want = [(g, h4, hidden)] if len(shapes[0]) == 3 else [(h4, hidden)] * g
+    if h4 != 4 * hidden or shapes != want or steps < 1:
+        raise ValueError(f"want xp (G, R, T >= 1, 4H) and w_hh (G, 4H, H) or G of (4H, H), got "
+                         f"{tuple(xp.shape)}, {shapes}")
     if not xp.is_contiguous():
         raise ValueError("xp must be contiguous")
 
 
-def grouped_lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+def card_plan(groups: int, rows: int, hidden: int, device: torch.device) -> GroupedPlan:
+    """:func:`grouped_plan` for this card."""
+    props = torch.cuda.get_device_properties(device)
+    return grouped_plan(groups, rows, hidden, props.multi_processor_count,
+                        props.shared_memory_per_block_optin)
+
+
+def grouped_lstm_recurrence(xp: torch.Tensor,
+                            w_hh: torch.Tensor | Sequence[torch.Tensor]) -> torch.Tensor:
     """The grouped LSTM recurrence over the hoisted projection ``xp``
-    (G, R, T, 4H) (:func:`grouped_projection`) with ``w_hh`` (G, 4H, H) ->
-    ys (G, R, T, H), from zero state.
+    (G, R, T, 4H) (:func:`grouped_projection`) with ``w_hh`` (G, 4H, H), or
+    the G groups' (4H, H) tensors -> ys (G, R, T, H), from zero state.
 
     A CUDA tensor launches K9 (or raises: not fp32, not contiguous, T = 0, a
     group's h that one CTA's shared memory cannot hold, a grid the card
-    cannot hold co-resident); a CPU tensor takes the plain recurrence.
+    cannot hold co-resident), with W_hh packed at its first call and cached;
+    a CPU tensor takes the plain recurrence.
     """
+    ws = _groups(w_hh)
     if xp.device.type == "cpu":
-        return grouped_lstm_recurrence_plain(xp, w_hh)
-    _check(xp, w_hh)
-    lib = _lib()
+        return grouped_lstm_recurrence_plain(xp, ws[0] if len(ws) == 1 else torch.stack(ws))
+    _check(xp, ws)
+    g, r, _, h4 = xp.shape
+    plan = card_plan(g, r, h4 // 4, xp.device)
+    _build.check_smem(plan.smem, xp.device, "the grouped LSTM kernel (a group's h in every CTA)")
+    ys = launch(_lib(), plan, xp, packed_weights(ws, plan), xp.device.index,
+                _build.stream_of(xp))
+    grouped_lstm_recurrence.launches += 1
+    return ys
+
+
+def launch(lib, plan: GroupedPlan, xp: torch.Tensor, packed: torch.Tensor, dev: int,
+           stream) -> torch.Tensor:
+    """One launch of ``lib``'s K9 at ``plan`` on checked inputs -> ys."""
     g, r, t, h4 = xp.shape
-    hidden, dev = h4 // 4, xp.device.index
-    units = lib.aec_lstm_units(g, r, hidden, dev)
-    _build.check_smem(lib.aec_lstm_smem(r, hidden, units), xp.device,
-                      "the grouped LSTM kernel (a group's h in every CTA)")
-    wp = pack_gate_columns(w_hh.detach(), 4, units)  # held until the launch is enqueued
-    hbuf = xp.new_zeros((2, g, r, hidden))
+    hidden = h4 // 4
+    hbuf = torch.zeros(2 * (2 * g * r * plan.hp + g), dtype=torch.int32, device=xp.device)
     ys = xp.new_empty((g, r, t, hidden))
     err = lib.aec_lstm(
-        _build.ptr(xp), _build.ptr(wp), _build.ptr(hbuf), _build.ptr(ys),
-        g, r, t, hidden, units, dev, _build.stream_of(xp),
+        _build.ptr(xp), _build.ptr(packed), _build.ptr(hbuf), _build.ptr(ys), g, r, t, hidden,
+        plan.hp, plan.units, plan.nchunk, plan.cw, plan.npos, plan.jreg, plan.jsm, dev, stream,
     )
     _build.check(err, "lstm")
-    grouped_lstm_recurrence.launches += 1
     return ys
 
 
@@ -126,7 +321,7 @@ class ComplexLstmScanFused(torch.autograd.Function):
     def forward(ctx, real, imag, *weights):
         params = _params(weights)
         xp = grouped_projection(params, torch.cat([real, imag], dim=0))
-        ys = grouped_lstm_recurrence(xp.contiguous(), stacked(params, "w_hh"))
+        ys = grouped_lstm_recurrence(xp.contiguous(), [params[g]["w_hh"] for g in GROUPS])
         ctx.save_for_backward(real, imag, *weights)
         return recombine(ys, real.shape[0])
 

@@ -89,17 +89,20 @@ def kalman_filter(
     cfg: KalmanConfig,
     x_spec: torch.Tensor,
     d_blocks: torch.Tensor,
+    state: dict[str, torch.Tensor] | None = None,
     *,
     block: int = 256,
     constrain: bool = True,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Filter sequences: far ri spectra [..., T, 2K], mic blocks [..., T, B]
     -> (e [..., T, B], final state). A Python loop over the T blocks from
-    :func:`kalman_init`'s state."""
-    state = kalman_init(
-        cfg, x_spec.shape[-1] // 2, batch_shape=x_spec.shape[:-2],
-        device=x_spec.device, dtype=x_spec.dtype,
-    )
+    ``state`` (a filter resumed where an earlier call left it), or from
+    :func:`kalman_init`'s state when it is None."""
+    if state is None:
+        state = kalman_init(
+            cfg, x_spec.shape[-1] // 2, batch_shape=x_spec.shape[:-2],
+            device=x_spec.device, dtype=x_spec.dtype,
+        )
     e_blocks = torch.empty_like(d_blocks)
     for t in range(x_spec.shape[-2]):
         state, e_blocks[..., t, :] = kalman_step(

@@ -104,8 +104,10 @@ def lstm_scan(
 
     The int8 branch routes by ``int8_kernel``: None runs kernel K10
     (``kernels/lstm_int8.py``) on a CUDA tensor, from any initial state, B
-    and H, and the plain loop (:func:`lstm_int8_recurrence_plain`, K10's
-    plain version) on a CPU tensor; True keeps the refusals of JAX's
+    and H, with W_hh's codes and their on-chip layout built once per weight
+    tensor and cached (``lstm_int8.quantized``), and the plain loop
+    (:func:`lstm_int8_recurrence_plain`, K10's plain version, quantizing
+    every call) on a CPU tensor; True keeps the refusals of JAX's
     int8-resident kernel (``pallas_lstm.lstm_int8_fused``: zero initial
     state, H % 128 == 0), then routes as None does; False is the plain loop
     on any device. A CUDA call that K10 cannot take raises. JAX's TPU int8
@@ -130,12 +132,13 @@ def lstm_scan(
                 "int8_kernel=True needs zero initial state and 128-aligned hidden dim "
                 f"(got h0/c0 set or hidden={hidden})"
             )
+        if x.is_cuda and int8_kernel is not False:
+            from aec_tpu_torch.kernels.lstm_int8 import lstm_int8_recurrence, quantized
+
+            w_q, out_scale = quantized(params["w_hh"])
+            return lstm_int8_recurrence(x_proj, w_q, out_scale, b_hh, h0, c0)
         w_q, w_scale = quantize_rows_int8(params["w_hh"])
         out_scale = (w_scale / 127.0).to(x.dtype)
-        if x.is_cuda and int8_kernel is not False:
-            from aec_tpu_torch.kernels.lstm_int8 import lstm_int8_recurrence
-
-            return lstm_int8_recurrence(x_proj, w_q, out_scale, b_hh, h0, c0)
         return lstm_int8_recurrence_plain(x_proj, w_q, out_scale, b_hh, h0, c0)
     if rdt is not None:
         w_hh_t = params["w_hh"].T.to(rdt).to(x.dtype)  # cast ONCE

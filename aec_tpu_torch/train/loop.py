@@ -189,10 +189,10 @@ class Trainer:
 
     def __post_init__(self):
         if self.use_mesh:
-            raise NotImplementedError("use_mesh: the port's parallel layer is ROADMAP item A10")
+            raise NotImplementedError("use_mesh: the port's parallel layer is ROADMAP item A6")
         if self.device_cache:
             raise NotImplementedError("device_cache: the port's device-resident corpus is "
-                                      "ROADMAP item A7")
+                                      "ROADMAP item A3")
         # once-per-epoch validation/checkpoint cadence
         self.logging_period = self.cfg.logging_period or max(
             len(self.tr_list) // self.cfg.batch_size, 1

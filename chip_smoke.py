@@ -3,7 +3,9 @@
     python3 chip_smoke.py [--seed N] [--reps N]
 
 Runs ``aec_tpu_torch`` (never JAX): builds the ten CUDA sources in the
-checkout (twelve kernels), in parallel, and drives every user-facing path.
+checkout (twelve kernels), and the variants of K9's and K10's sources that
+``kernels/lstm_costs.py`` times, all in parallel, and drives every
+user-facing path.
 
 - Offline Kalman (phases 4, 5, 7): each kernel against its plain PyTorch
   version at the main path's full shape (batch 256 x 131,072 samples =
@@ -64,10 +66,15 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
   every fp32 evaluation's mask lies farthest from fp64.
 - K8 wide (phase 16): H = 64, 128, 129 and 512 beside cuDNN's ``nn.GRU``.
 - DCCRN inference (phases 22-23): K9 (the grouped complex LSTM) at
-  ``DccrnConfig()``'s width (I = H = 1024 per part, T = 513) at B = 1 and 8
-  against its plain version, beside the plain scan and cuDNN's ``nn.LSTM``;
-  ``cli/infer``'s DCCRN enhancer (Kalman stage 1) on the 8 scenes one by
-  one, kernel route (K1 + K9) against the plain route, cuDNN's TF32 off.
+  ``DccrnConfig()``'s width (I = H = 1024 per part, T = 513) at B = 1 and
+  16 (the largest B routed) against its plain version, beside the plain
+  scan and cuDNN's ``nn.LSTM``; its time per step, where its weights lie
+  (registers, shared memory, L2), the same kernel with its dots cut out
+  (``kernels/lstm_costs.py``: the barrier, h's exchange and the cells) and
+  ptxas's registers and spills; ``cli/infer``'s DCCRN enhancer (Kalman
+  stage 1) on the 8 scenes one by one, kernel route (K1 + K9) against the
+  plain route, cuDNN's TF32 off, its call timed with the packed weights
+  cold and warm beside K9's device time in it.
 - FullSubNet inference (phase 24): K11 (the joint full-band / sub-band
   LSTM recurrence) at ``FullSubNetConfig()``'s widths over 820 frames (8.2 s
   at hop 160) at B = 1 and 4 against its plain joint loop; ``cli/infer``'s
@@ -75,9 +82,12 @@ checkout (twelve kernels), in parallel, and drives every user-facing path.
   route (K1 + K11) against the plain route.
 - ATT-CCRN inference (phase 25): K10 (the int8 LSTM recurrence) at the
   bottleneck's H = 4096, T = 513 against the plain int8 loop, with the count
-  of h's int8 codes that differ; ``cli/infer``'s ATT-CCRN enhancer
-  (``--lstm_dtype auto``: int8 on the card) on the 8 scenes, kernel route
-  (K1 + K10) against the plain route, and its wav SNR against the f32 route.
+  of h's int8 codes that differ, its time per step, where its codes lie, the
+  kernel with its dots cut out and ptxas's registers and spills;
+  ``cli/infer``'s ATT-CCRN enhancer (``--lstm_dtype auto``: int8 on the
+  card) on the 8 scenes, kernel route (K1 + K10) against the plain route,
+  and its wav SNR against the f32 route; its call timed with the codes
+  cold and warm beside K10's device time in it.
 
 One line per phase; the first failure exits nonzero (nothing is caught).
 The second-to-last line is the ``kernels`` JSON (each kernel's launches on
@@ -1180,22 +1190,26 @@ def k4_roundoff_phase(dev, net, seed: int) -> None:
     check(not k4_composition_ok(r, "tf32", bars), "the TF32 control passes the K4 check")
 
 
-def lstm_phase(dev, seed: int, reps: int, smi: str) -> dict:
+def lstm_phase(dev, seed: int, reps: int, smi: str, costs: list[dict]) -> dict:
     """22. K9 at DccrnConfig()'s width (two groups, I = H = 1024, T = 513)
-    at B = 1 and B = 8 against its plain version; times beside the plain
-    scan and cuDNN's nn.LSTM (one call per group over the 2B rows with K9's
-    weights; it also does the input projection K9 leaves to a matmul)."""
+    at B = 1 and B = 16 (the largest B ``complex_lstm_scan`` routes to it)
+    against its plain version; times beside the plain scan and cuDNN's
+    nn.LSTM (one call per group over the 2B rows with K9's weights; it also
+    does the input projection K9 leaves to a matmul); then ``costs``' K9
+    rows (kernels/lstm_costs.py): the time per step, whole and with the dots
+    cut out, where the weights lie, ptxas's registers and spills."""
     from aec_tpu_torch.kernels.lstm import (
         grouped_lstm_recurrence,
         grouped_lstm_recurrence_plain,
         grouped_projection,
         stacked,
     )
+    from aec_tpu_torch.kernels.lstm_costs import report
     from aec_tpu_torch.ops.lstm import complex_lstm_init
 
     g = torch.Generator().manual_seed(seed)
     out = {"err": 0.0, "shapes": {}}
-    for b in (1, 8):
+    for b in (1, 16):
         params = complex_lstm_init(2048, 2048, generator=g, device=dev)
         r, i = (torch.randn(b, T_DCCRN, 1024, generator=g).to(dev) for _ in range(2))
         x2 = torch.cat([r, i], 0)
@@ -1224,11 +1238,14 @@ def lstm_phase(dev, seed: int, reps: int, smi: str) -> dict:
         phase("K9 vs plain", f"B = {b}, T = {T_DCCRN}, H = 1024, 2 groups: max|d| = {err:.3e} "
               f"(bar {K9_TOL:g}); cuDNN nn.LSTM vs plain {lib_err:.3e} (information)")
         check(err <= K9_TOL, "K9 disagrees with its plain version")
-        phase("time", f"K9 B = {b}, T = {T_DCCRN}: {t_k:.3f} ms (plain {t_p:.2f} ms, cuDNN "
-              f"nn.LSTM x 2 groups {t_lib:.3f} ms) [{smi}]")
+        phase("time", f"K9 B = {b}, T = {T_DCCRN}: {t_k:.3f} ms = {t_k / T_DCCRN * 1e3:.2f} us a "
+              f"step (plain {t_p:.2f} ms, cuDNN nn.LSTM x 2 groups {t_lib:.3f} ms) [{smi}]")
         out["err"] = max(out["err"], err)
         out["shapes"][b] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_lib}
         del params, xp, w, ys, want, lib, lstms
+    for row in costs:
+        if row["kernel"] == "K9":
+            phase("K9 step", f"{report(row)} [{smi}]")
     return out
 
 
@@ -1239,12 +1256,16 @@ def dccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
     by one (batch 1, as cli/infer's loader gives them). The kernel route
     runs K1 once and K9 twice (one launch per complex-LSTM layer) per
     utterance; its plain version is the same path with Kalman's plain loop
-    and the plain complex-LSTM scan, on the card."""
+    and the plain complex-LSTM scan, on the card. The call is timed with
+    W_hh packed (warm) and once packing it first (cold), beside K9's device
+    time in a call (torch.profiler)."""
     from aec_tpu_torch.cli.infer import _make_enhancer, _tree_to
     from aec_tpu_torch.configs import KalmanConfig
     from aec_tpu_torch.dsp.stft import StftConfig
     from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched, kalman_cancel_plain
+    from aec_tpu_torch.kernels.lstm import clear_cache as clear_k9
     from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.kernels.serving_costs import kernel_ms
     from aec_tpu_torch.models.dccrn import DccrnConfig, dccrn_apply, dccrn_init
     from aec_tpu_torch.train import checkpoints
 
@@ -1276,10 +1297,14 @@ def dccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
             check(got[i].shape == (1, N) and bool(torch.isfinite(got[i]).all()), "DCCRN wav")
             worst = max(worst, float((got[i] - want).abs().max()) / float(want.abs().max()))
         t_utt = time_ms(lambda: enhance(sf[:1], sm[:1]), reps)
+        t_cold = time_once(lambda: (clear_k9(), enhance(sf[:1], sm[:1])))
+        t_k9 = kernel_ms(lambda: enhance(sf[:1], sm[:1]), reps, "lstm_kernel")
         t_plain = time_ms(lambda: plain_route(0), max(1, reps // 2))
     phase("dccrn path", f"kernel vs plain route: worst max|d| / scale = {worst:.3e} (bar "
           f"{DCCRN_WAV_TOL:g}); {t_utt:.2f} ms per 8.2 s utterance = "
           f"{N / SR / (t_utt / 1e3):.1f} x realtime (plain route {t_plain:.1f} ms) [{smi}]")
+    phase("dccrn path", f"the call with W_hh packed (warm) {t_utt:.2f} ms, packing it first "
+          f"(cold) {t_cold:.2f} ms; K9's device time in a call {t_k9:.3f} ms (2 launches) [{smi}]")
     check(worst <= DCCRN_WAV_TOL, "the DCCRN kernel route disagrees with its plain route")
     print(f"dccrn_utt_ms={t_utt:.3f}", flush=True)
     return {"k9_launches": k9}
@@ -1365,19 +1390,25 @@ def fullsubnet_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
     return out
 
 
-def att_ccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
+def att_ccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str, costs: list[dict]) -> dict:
     """25. K10 at ATT-CCRN's bottleneck (H = 4096, T = 513, B = 1) against the
     plain int8 loop, with the count of h's codes that differ, timed beside it
     (the plain loop once: its float64 product streams 537 MB a step) and,
-    for information, the f32 plain loop; cli/infer's ATT-CCRN enhancer
-    (att_ccrn_init, seed 0; --lstm_dtype auto, int8 on the card) on the 8
-    scenes, K1 + K10 per utterance, against the plain route (Kalman's plain
-    loop, the plain int8 loop), and its wav SNR against the f32 route."""
+    for information, the f32 plain loop; ``costs``' K10 row
+    (kernels/lstm_costs.py); cli/infer's ATT-CCRN enhancer (att_ccrn_init,
+    seed 0; --lstm_dtype auto, int8 on the card) on the 8 scenes, K1 + K10
+    per utterance, against the plain route (Kalman's plain loop, the plain
+    int8 loop), and its wav SNR against the f32 route; the call timed with
+    the codes and their layout built (warm) and once building them first
+    (cold), beside K10's device time in a call (torch.profiler)."""
     from aec_tpu_torch.cli.infer import _make_enhancer, _tree_to
     from aec_tpu_torch.configs import KalmanConfig
     from aec_tpu_torch.dsp.stft import StftConfig
     from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched, kalman_cancel_plain
+    from aec_tpu_torch.kernels.lstm_costs import report
+    from aec_tpu_torch.kernels.lstm_int8 import clear_cache as clear_k10
     from aec_tpu_torch.kernels.lstm_int8 import lstm_int8_recurrence
+    from aec_tpu_torch.kernels.serving_costs import kernel_ms
     from aec_tpu_torch.models.att_ccrn import AttCcrnConfig, att_ccrn_apply, att_ccrn_init
     from aec_tpu_torch.ops.lstm import (
         lstm_init,
@@ -1410,9 +1441,13 @@ def att_ccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
     phase("K10 vs plain", f"B = 1, T = {T_DCCRN}, H = {h}: max|d| = {err:.3e} (bar {K10_TOL:g}); "
           f"codes of h that differ: {flips} of {ys.numel()}")
     check(err <= K10_TOL, "K10 disagrees with its plain version")
-    phase("time", f"K10 B = 1, T = {T_DCCRN}, H = {h}: {t_k:.3f} ms (plain int8 loop {t_p:.2f} ms "
-          f"once; f32 plain loop {t_f32:.2f} ms, information; the per-step restream of 67 MB "
-          f"of codes from HBM alone: {T_DCCRN * 4 * h * h / PEAK_HBM * 1e3:.2f} ms) [{smi}]")
+    phase("time", f"K10 B = 1, T = {T_DCCRN}, H = {h}: {t_k:.3f} ms = {t_k / T_DCCRN * 1e3:.2f} "
+          f"us a step (plain int8 loop {t_p:.2f} ms once; f32 plain loop {t_f32:.2f} ms, "
+          f"information; the 67 MB of codes read from HBM every step alone would take "
+          f"{T_DCCRN * 4 * h * h / PEAK_HBM * 1e3:.2f} ms) [{smi}]")
+    for row in costs:
+        if row["kernel"] == "K10":
+            phase("K10 step", f"{report(row)} [{smi}]")
     out = {"err": err, "flips": flips, "ms": t_k, "plain_ms": t_p}
     del lp, x, xp, w_q, args, ys, want
 
@@ -1449,6 +1484,8 @@ def att_ccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
             noise = float(((got[i] - ref) ** 2).sum())
             snrs.append(10 * np.log10(float((ref ** 2).sum()) / noise) if noise else np.inf)
         t_utt = time_ms(lambda: enhance(sf[:1], sm[:1]), reps)
+        t_cold = time_once(lambda: (clear_k10(), enhance(sf[:1], sm[:1])))
+        t_k10 = kernel_ms(lambda: enhance(sf[:1], sm[:1]), reps, "lstm_int8_kernel")
         t_plain = time_once(lambda: plain_route(0))
         t_f32 = time_ms(lambda: enhance_f32(sf[:1], sm[:1]), 1)
     phase("att_ccrn path", "int8 route vs f32 route, wav SNR dB: " + ", ".join(
@@ -1457,6 +1494,9 @@ def att_ccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
           f"{ENHANCER_WAV_TOL:g}); {t_utt:.2f} ms per 8.2 s utterance = "
           f"{N / SR / (t_utt / 1e3):.1f} x realtime (plain route {t_plain:.1f} ms once; f32 route "
           f"{t_f32:.1f} ms) [{smi}]")
+    phase("att_ccrn path", f"the call with the codes prepared (warm) {t_utt:.2f} ms, quantizing "
+          f"and laying them out first (cold) {t_cold:.2f} ms; K10's device time in a call "
+          f"{t_k10:.3f} ms [{smi}]")
     check(worst <= ENHANCER_WAV_TOL, "the ATT-CCRN kernel route disagrees with its plain route")
     check(min(snrs) >= INT8_SNR_MIN_DB, "the ATT-CCRN int8 route is off its f32 route")
     out["launches"] = k10
@@ -1474,7 +1514,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
-    from aec_tpu_torch.kernels import _build
+    from aec_tpu_torch.kernels import _build, lstm_costs
     from aec_tpu_torch.kernels.kalman import (
         kalman_cancel_fused,
         kalman_cancel_fused_batched,
@@ -1523,8 +1563,10 @@ def main() -> None:
 
     # 3. build the kernels from the checkout's sources (one nvcc per source, in parallel)
     t0 = time.perf_counter()
+    cost_builds = lstm_costs.start_build()  # K9 and K10 whole and without their dots
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
                         "single_stream", "gru", "lstm", "fullsubnet", "lstm_int8")
+    cost_libs = lstm_costs.finish_build(cost_builds)
     build_s = time.perf_counter() - t0
     phase("build", f"{build_s:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for src, log in sorted(logs.items()):
@@ -2037,11 +2079,13 @@ def main() -> None:
     k4_roundoff_phase(dev, net, args.seed)
     dense_step_phase(dev, net, s_far, s_mic)
     limits_phase(dev, net, args.seed, smi)
-    lstm = lstm_phase(dev, args.seed, args.reps, smi)
+    with torch.no_grad():
+        step_costs = lstm_costs.costs(cost_libs, args.reps, args.seed)
+    lstm = lstm_phase(dev, args.seed, args.reps, smi, step_costs)
     dccrn = dccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
     # 24-25. K11 and the FullSubNet path; K10 and the ATT-CCRN path
     fsn = fullsubnet_phase(dev, names, s_far, s_mic, args.reps, smi)
-    att = att_ccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
+    att = att_ccrn_phase(dev, names, s_far, s_mic, args.reps, smi, step_costs)
 
     # 26. the kernels of the paths, with this run's numbers; bounds from
     #     this run's shapes (module top); library_ms where one PyTorch call

@@ -980,11 +980,12 @@ def _clstm_case(cuda, b, t, width=2048, seed=0):
     return params, r, i
 
 
-@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("b", [1, 8, 16])
 def test_lstm_kernel_matches_plain(cuda, b):
     """K9 at DCCRN's full width (I = H = 1024 per part) over T = 513 frames
-    vs its plain version: h in [-1, 1], fp32 in another summation order ->
-    1e-5 absolute."""
+    vs its plain version, at B = 1 (W_hh all on chip), 8 and 16 (the largest
+    B routed: part of W_hh read from L2 each step): h in [-1, 1], fp32 in
+    another summation order -> 1e-5 absolute."""
     from aec_tpu_torch.kernels.lstm import (
         complex_lstm_scan_fused,
         complex_lstm_scan_fused_plain,
@@ -1035,6 +1036,34 @@ def test_lstm_kernel_gradients_equal_plain_route(cuda):
         grads[fused] = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), leaves)
     for a, w in zip(grads[None], grads[False]):
         torch.testing.assert_close(a, w, atol=1e-5 * float(w.abs().max()), rtol=0)
+
+
+def test_lstm_packed_weights_follow_in_place_changes(cuda):
+    """K9 packs W_hh into its on-chip layout once per weight tensor and
+    caches it; an in-place change to a group's W_hh (an optimizer step, a
+    ``copy_``) makes the next call pack again: every call equals the plain
+    route on the weights it was given, and a repeated call reuses the
+    packed tensor."""
+    from aec_tpu_torch.kernels.lstm import (
+        card_plan,
+        complex_lstm_scan_fused,
+        complex_lstm_scan_fused_plain,
+        packed_weights,
+    )
+
+    params, r, i = _clstm_case(cuda, 1, 96, width=512)
+    groups = [params[g]["w_hh"] for g in ("real", "imag")]
+    plan = card_plan(2, 2, 256, cuda)
+    with torch.no_grad():
+        first = complex_lstm_scan_fused(params, r, i)
+        assert packed_weights(groups, plan) is packed_weights(groups, plan)
+        for a, w in zip(first, complex_lstm_scan_fused_plain(params, r, i)):
+            torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
+        params["imag"]["w_hh"].mul_(-0.5)
+        second = complex_lstm_scan_fused(params, r, i)
+        for a, w, f in zip(second, complex_lstm_scan_fused_plain(params, r, i), first):
+            torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
+            assert float((a - f).abs().max()) > 1e-3
 
 
 def test_dccrn_enhancer_runs_k1_and_k9(cuda, scene, tmp_path):
@@ -1154,10 +1183,13 @@ def _int8_case(cuda, h, b, t, seed=0):
 
 
 @pytest.mark.parametrize("h,b,t", [(128, 1, 40), (1024, 1, 64), (4096, 1, 64), (1024, 3, 32),
-                                   (100, 2, 20), (4096, 9, 8)])
+                                   (100, 2, 20), (4096, 9, 8), (4096, 3, 16), (4096, 8, 16),
+                                   (1000, 3, 24), (9000, 1, 6)])
 def test_int8_kernel_matches_plain(cuda, h, b, t):
-    """K10 against the plain int8 loop, ATT-CCRN's H = 4096 included, B > 1
-    and an H that is no multiple of 16, from zero and from a given state.
+    """K10 against the plain int8 loop, ATT-CCRN's H = 4096 included (its
+    codes in registers, shared memory and L2), B > 1, an H that is no
+    multiple of 16 and one too wide for codes in registers (H = 9000: 72
+    units a CTA), from zero and from a given state.
     The kernel repeats the loop's operations in its order, so a code of h
     flips only if a transcendental differs by an ulp near a half; a flip
     moves one h_q by 1/127: 1e-2 absolute."""
@@ -1178,6 +1210,34 @@ def test_int8_kernel_matches_plain(cuda, h, b, t):
         torch.testing.assert_close(ys, want, atol=1e-2, rtol=0)
         torch.testing.assert_close(c_t, cw, atol=1e-2, rtol=0)
         assert torch.equal(h_t, ys[:, -1])
+
+
+def test_int8_prepared_codes_follow_in_place_changes(cuda):
+    """K10's codes (``lstm_scan``'s quantization of W_hh) and their on-chip
+    layout are built once per tensor and cached; an in-place change to W_hh
+    or to the codes makes the next call build them again: every call equals
+    the plain int8 loop on the weights it was given (1e-2, one flipped code
+    of h), and a repeated call reuses the codes."""
+    from aec_tpu_torch.kernels.lstm_int8 import lstm_int8_recurrence, quantized
+    from aec_tpu_torch.ops.lstm import lstm_int8_recurrence_plain, lstm_scan
+
+    params, x, (xp, w_q, scale, b_hh) = _int8_case(cuda, 1024, 2, 24)
+    with torch.no_grad():
+        first, _ = lstm_scan(params, x, recurrent_dtype="int8")
+        assert quantized(params["w_hh"])[0] is quantized(params["w_hh"])[0]
+        want, _ = lstm_scan(params, x, recurrent_dtype="int8", int8_kernel=False)
+        torch.testing.assert_close(first, want, atol=1e-2, rtol=0)
+        params["w_hh"].mul_(-0.5)
+        second, _ = lstm_scan(params, x, recurrent_dtype="int8")
+        want, _ = lstm_scan(params, x, recurrent_dtype="int8", int8_kernel=False)
+        torch.testing.assert_close(second, want, atol=1e-2, rtol=0)
+        assert float((second - first).abs().max()) > 1e-2
+        state = [torch.zeros(2, 1024, device=cuda)] * 2
+        lstm_int8_recurrence(xp, w_q, scale, b_hh, *state)
+        w_q.neg_()
+        got, _ = lstm_int8_recurrence(xp, w_q, scale, b_hh, *state)
+        want, _ = lstm_int8_recurrence_plain(xp, w_q, scale, b_hh, *state)
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
 
 
 def test_int8_lstm_scan_routes_to_k10(cuda):

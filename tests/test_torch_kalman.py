@@ -12,6 +12,7 @@ from aec_tpu.kernels.pallas_kalman import kalman_cancel_fused as jax_kalman_canc
 from aec_tpu.kernels.pallas_kalman import kalman_cancel_fused_batched_bl
 from aec_tpu.linear import overlap_save as jols
 from aec_tpu.linear.kalman import kalman_cancel as jax_kalman_cancel
+from aec_tpu.linear.kalman import kalman_filter as jax_kalman_filter
 from aec_tpu_torch.configs import KalmanConfig
 from aec_tpu_torch.kernels.kalman import (
     kalman_cancel_fused,
@@ -20,7 +21,7 @@ from aec_tpu_torch.kernels.kalman import (
     kalman_filter_fused_batched_plain,
 )
 from aec_tpu_torch.linear import overlap_save as tols
-from aec_tpu_torch.linear.kalman import kalman_cancel, kalman_cancel_plain
+from aec_tpu_torch.linear.kalman import kalman_cancel, kalman_cancel_plain, kalman_filter
 
 
 def _scene(rng, b=5, n=16 * 256):
@@ -65,6 +66,31 @@ def test_kalman_cancel_matches_jax_scan(rng):
         out_t["state"]["psi"].numpy(), np.asarray(out_j["state"]["psi"]), rtol=2e-3, atol=1e-9
     )
 
+
+
+def test_kalman_filter_resumes_from_a_state(rng):
+    """``kalman_filter``'s optional ``state``, JAX's fourth parameter: one
+    utterance filtered in two halves, the state carried over, equals one
+    pass (the same operations in the same order: bit for bit), and the
+    second half equals JAX's ``kalman_filter`` given the same state at this
+    file's bar (2e-4 of scale)."""
+    cfg = KalmanConfig()
+    far, mic = _scene(rng, b=1, n=24 * 256)
+    x = np.array(jols.far_end_spectra(jnp.asarray(far[0]), 256))
+    d = mic[0].reshape(-1, 256)
+    xt, dt = torch.from_numpy(x), torch.from_numpy(d)
+    half = x.shape[0] // 2
+    e_all, s_all = kalman_filter(cfg, xt, dt)
+    e1, s1 = kalman_filter(cfg, xt[:half], dt[:half])
+    e2, s2 = kalman_filter(cfg, xt[half:], dt[half:], s1)
+    assert torch.equal(torch.cat([e1, e2]), e_all)
+    assert sorted(s2) == sorted(s_all) and all(torch.equal(s2[k], s_all[k]) for k in s_all)
+    e_j, s_j = jax_kalman_filter(JaxKalmanConfig(), jnp.asarray(x[half:]), jnp.asarray(d[half:]),
+                                 {k: jnp.asarray(v.numpy()) for k, v in s1.items()})
+    want = np.asarray(e_j)
+    np.testing.assert_allclose(e2.numpy(), want, atol=2e-4 * float(np.abs(want).max()))
+    w_j = np.asarray(s_j["w"])
+    np.testing.assert_allclose(s2["w"].numpy(), w_j, atol=2e-4 * np.abs(w_j).max())
 
 def test_kalman_matches_jax_batched_kernel(rng):
     """Same block bookkeeping as the TPU kernel K1 replaces (interpret mode,

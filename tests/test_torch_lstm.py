@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from aec_tpu.kernels.pallas_lstm import _grouped_lstm_fused_fwd
+from aec_tpu.kernels.pallas_lstm import _grouped_lstm_fused_fwd, lstm_int8_fused
 from aec_tpu.ops import lstm as jl
 from aec_tpu_torch.kernels import lstm as kl
 from aec_tpu_torch.kernels import lstm_int8 as k10
@@ -281,3 +281,154 @@ def test_routing_on_the_cpu(rng):
         b = tl.complex_lstm_scan(tp, torch.from_numpy(r), torch.from_numpy(im), fused=False)
     assert kl.grouped_lstm_recurrence.launches == before
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---------------------------------------------------------------- on-chip layouts of K10 and K9
+# The H100's 132 SMs and 227 KB of shared memory a CTA; the small plans keep
+# fewer chunks in registers and less shared memory, so that small nets still
+# put codes (K10) or quads (K9) in all three places.
+H100 = (132, 232448)
+
+
+def _int8_plans(h, b):
+    """K10 plans at H = h: the card's (everything in registers at these
+    widths), two SMs without register codes (a shared / L2 split), and
+    16 units a CTA with a quarter of the register chunks (registers, shared
+    memory and L2 where H > 512), each with room for half its other chunks
+    in shared memory."""
+    plans = [k10.int8_plan(h, b, *H100)]
+    for sms, quads in ((2, 0), (-(-h // 16), 4)):
+        p0 = k10.int8_plan(h, b, sms, 0, quads)
+        plans.append(k10.int8_plan(h, b, sms, p0.smem + p0.rs * 16 * max(1, p0.nrest // 2),
+                                   quads))
+    return plans
+
+
+@pytest.mark.parametrize("h", [64, 100, 600, 1100])
+def test_int8_layout_reassembles_the_codes(rng, h):
+    """K10's layout holds every code of W_hh once: unpacked, it gives the
+    codes back exactly, and its three parts (registers, shared memory, L2)
+    together hold the CTA's rows."""
+    w = rng.standard_normal((4 * h, h)).astype(np.float32)
+    w_q, _ = tl.quantize_rows_int8(torch.from_numpy(w))
+    seen = set()
+    for plan in _int8_plans(h, 1):
+        reg, rest = k10.pack_int8(w_q, plan, plan.rpw * plan.cr)
+        assert tuple(rest.shape) == (plan.ctas, plan.rs, plan.nrest, 16)
+        assert torch.equal(k10.unpack_int8(reg, rest, plan), w_q)
+        assert plan.kreg + plan.nrest == plan.nk16 and 0 <= plan.ksm <= plan.nrest
+        seen.add(tuple(v > 0 for v in plan.split().values()))
+    if h > 512:
+        assert (True, True, True) in seen  # registers, shared memory and L2 all used
+
+
+@pytest.mark.parametrize("h,b", [(64, 1), (96, 3), (100, 1), (100, 3)])
+def test_int8_layout_model_equals_plain_loop(rng, h, b):
+    """The model of K10's dots from its layout (the register, shared and L2
+    parts summed exactly) gives the plain int8 loop bit for bit, from a
+    given state, at every plan."""
+    p = _lstm_params(rng, 8, h)
+    tp = _both(p)[1]
+    w_q, scale = tl.quantize_rows_int8(tp["w_hh"])
+    xp = torch.from_numpy(rng.standard_normal((b, 9, 4 * h)).astype(np.float32))
+    h0 = torch.from_numpy((0.5 * rng.standard_normal((b, h))).astype(np.float32))
+    c0 = torch.from_numpy(rng.standard_normal((b, h)).astype(np.float32))
+    args = (scale / 127.0, tp["b_hh"], h0, c0)
+    want, (hw, cw) = tl.lstm_int8_recurrence_plain(xp, w_q, *args)
+    for plan in _int8_plans(h, b):
+        quads = k10.REG_QUADS if plan.rpw == 0 else plan.rpw * plan.cr
+        reg, rest = k10.pack_int8(w_q, plan, quads)
+        got, (hg, cg) = k10.lstm_int8_recurrence_modeled(xp, reg, rest, plan, *args)
+        assert torch.equal(got, want) and torch.equal(cg, cw) and torch.equal(hg, hw)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_int8_layout_model_matches_jax_kernel(rng, b):
+    """The model of K10's layout against JAX's int8-resident kernel in
+    interpret mode (which takes zero state and H % 128 == 0) at the JAX
+    suite's bar, 1e-5 of scale."""
+    h = 128
+    p = _lstm_params(rng, 16, h)
+    x = (0.3 * rng.standard_normal((b, 10, 16))).astype(np.float32)
+    jp, tp = _both(p)
+    w_q_j, scale_j = jl.quantize_rows_int8(jp["w_hh"])
+    xp_j = jnp.asarray(x) @ jp["w_ih"].T + jp["b_ih"]
+    ys_j, c_j = lstm_int8_fused(w_q_j.T, scale_j / 127.0, xp_j + jp["b_hh"], interpret=True)
+    want, want_c = np.asarray(ys_j), np.asarray(c_j)
+    w_q, scale = tl.quantize_rows_int8(tp["w_hh"])
+    xp = torch.matmul(torch.from_numpy(x), tp["w_ih"].T) + tp["b_ih"]
+    zeros = torch.zeros(b, h)
+    for plan in _int8_plans(h, b):
+        quads = k10.REG_QUADS if plan.rpw == 0 else plan.rpw * plan.cr
+        reg, rest = k10.pack_int8(w_q, plan, quads)
+        got, (_, c) = k10.lstm_int8_recurrence_modeled(xp, reg, rest, plan, scale / 127.0,
+                                                       tp["b_hh"], zeros, zeros)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * float(np.abs(want).max()))
+        np.testing.assert_allclose(c.numpy(), want_c,
+                                   atol=1e-5 * max(float(np.abs(want_c).max()), 1.0))
+
+
+def _grouped_plans(h, r):
+    """K9 plans at H = h, R = r rows: the card's, and fewer SMs with fewer
+    register quads and room for one position of shared quads (registers,
+    shared memory and L2 all used where H > 256)."""
+    plans = [kl.grouped_plan(2, r, h, *H100)]
+    for sms, quads in ((20, 8), (10, 16)):
+        p0 = kl.grouped_plan(2, r, h, sms, 0, quads)
+        plans.append(kl.grouped_plan(2, r, h, sms, p0.smem + p0.cw * kl.THREADS * 16, quads))
+    return plans
+
+
+@pytest.mark.parametrize("h", [64, 96, 100, 300])
+def test_grouped_layout_reassembles_w_hh(rng, h):
+    """K9's layout holds every weight of both groups once: unpacked, it
+    gives W_hh back exactly; the small plans use all three places."""
+    w = torch.from_numpy(rng.standard_normal((2, 4 * h, h)).astype(np.float32))
+    for i, plan in enumerate(_grouped_plans(h, 2)):
+        packed = kl.pack_grouped(w, plan)
+        assert tuple(packed.shape) == (plan.ctas, plan.npos * plan.cw, kl.THREADS, 4)
+        assert torch.equal(kl.unpack_grouped(packed, plan), w)
+        if i and h > 256:
+            assert all(v > 0 for v in plan.split().values())
+
+
+@pytest.mark.parametrize("h,b", [(64, 1), (96, 3), (100, 1), (300, 1)])
+def test_grouped_layout_model_matches_plain_and_jax(rng, h, b):
+    """The model of K9 from its layout, in the kernel's summation order
+    (each lane's quads in k order, the warp's lanes as a tree), against
+    the plain grouped recurrence at fp32 round-off (1e-5) and JAX's kernel
+    in interpret mode at JAX's own bar, 5e-3 of scale (its TPU kernel
+    rounds h and W_hh to bf16)."""
+    params, r, im = _complex_case(rng, b, 12, 8, h)
+    jp, tp = _both(params)
+    stack = lambda k: jnp.stack([jp["real"][k], jp["imag"][k]])  # noqa: E731
+    x2 = np.concatenate([r, im], 0)
+    want_k = np.asarray(_grouped_lstm_fused_fwd(stack("w_ih"), stack("w_hh"), stack("b_ih"),
+                                                stack("b_hh"), jnp.asarray(x2), interpret=True))
+    xp = kl.grouped_projection(tp, torch.from_numpy(x2))
+    w = kl.stacked(tp, "w_hh")
+    want = tl.grouped_lstm_recurrence_plain(xp, w)
+    scale = float(np.abs(want_k).max())
+    for plan in _grouped_plans(h, 2 * b):
+        got = kl.grouped_recurrence_modeled(xp, kl.pack_grouped(w, plan), plan)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), want_k, atol=5e-3 * scale)
+
+
+def test_layouts_at_the_paths_shapes():
+    """The plans the card takes on the paths (H100: 132 SMs, 227 KB a CTA):
+    K10 at ATT-CCRN's H = 4096, B = 1 holds 128 KB of each CTA's 512 KB of
+    codes in registers and 220 KB in shared memory, reading 164 KB from L2
+    a step (21 MB over the grid, not the 67 MB); K9 at DCCRN's H = 1024
+    holds all of W_hh on chip at B = 1 and, at B = 16, where h takes 128 KB,
+    still 192 KB of each CTA's 256 KB."""
+    p = k10.int8_plan(4096, 1, *H100)
+    assert (p.units, p.ctas, p.rpw, p.kreg, p.ksm) == (32, 128, 8, 64, 110)
+    assert p.split() == {"registers": 131072, "shared": 225280, "l2": 167936}
+    assert p.smem <= H100[1]
+    one = kl.grouped_plan(2, 2, 1024, *H100)
+    assert (one.units, one.ctas, one.cw, one.npos, one.jreg, one.jsm) == (16, 128, 4, 8, 4, 4)
+    assert one.split() == {"registers": 131072, "shared": 131072, "l2": 0}
+    wide = kl.grouped_plan(2, 32, 1024, *H100)
+    assert wide.split() == {"registers": 131072, "shared": 65536, "l2": 65536}
+    assert wide.smem <= H100[1] and one.smem <= H100[1]

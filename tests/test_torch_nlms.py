@@ -10,10 +10,12 @@ import torch
 from aec_tpu.configs import NlmsConfig as JaxNlmsConfig
 from aec_tpu.kernels.pallas_nlms import nlms_cancel_fused as jax_nlms_cancel_fused
 from aec_tpu.kernels.pallas_nlms import nlms_cancel_fused_batched_bl
+from aec_tpu.linear import overlap_save as jols
 from aec_tpu.linear.nlms import nlms_cancel as jax_nlms_cancel
+from aec_tpu.linear.nlms import nlms_filter as jax_nlms_filter
 from aec_tpu_torch.configs import NlmsConfig
 from aec_tpu_torch.kernels.nlms import nlms_cancel_fused, nlms_cancel_fused_batched
-from aec_tpu_torch.linear.nlms import nlms_cancel, nlms_cancel_plain
+from aec_tpu_torch.linear.nlms import nlms_cancel, nlms_cancel_plain, nlms_filter
 
 CLASSIC = {"eps_rel": 0.0, "beta": 0.0}  # the textbook update
 
@@ -54,6 +56,30 @@ def test_nlms_cancel_matches_jax_scan(rng, overrides):
         assert out_t["state"][key].shape == out_j["state"][key].shape, key
         _close(out_t["state"][key].numpy(), out_j["state"][key], 2e-4, key)
 
+
+
+def test_nlms_filter_resumes_from_a_state(rng):
+    """``nlms_filter``'s optional ``state``, JAX's fourth parameter: one
+    utterance filtered in two halves, the state carried over, equals one
+    pass (the same operations in the same order: bit for bit), and the
+    second half and its final state equal JAX's ``nlms_filter`` given the
+    same state at this file's bar (2e-4 of scale)."""
+    cfg = NlmsConfig()
+    far, mic = _scene(rng, b=1)
+    x = np.array(jols.far_end_spectra(jnp.asarray(far[0]), 256))
+    d = mic[0].reshape(-1, 256)
+    xt, dt = torch.from_numpy(x), torch.from_numpy(d)
+    half = x.shape[0] // 2
+    e_all, s_all = nlms_filter(cfg, xt, dt)
+    e1, s1 = nlms_filter(cfg, xt[:half], dt[:half])
+    e2, s2 = nlms_filter(cfg, xt[half:], dt[half:], s1)
+    assert torch.equal(torch.cat([e1, e2]), e_all)
+    assert sorted(s2) == sorted(s_all) and all(torch.equal(s2[k], s_all[k]) for k in s_all)
+    e_j, s_j = jax_nlms_filter(JaxNlmsConfig(), jnp.asarray(x[half:]), jnp.asarray(d[half:]),
+                               {k: jnp.asarray(v.numpy()) for k, v in s1.items()})
+    _close(e2.numpy(), e_j, 2e-4, "e")
+    for key in ("w", "power", "psi", "x_buf"):
+        _close(s2[key].numpy(), s_j[key], 2e-4, key)
 
 def test_unconstrained_matches_jax(rng):
     far, mic = _scene(rng, b=2, n=12 * 256)
