@@ -7,15 +7,16 @@
 // stage2_frame_step (bl_common.py:452-525), with their transforms as dense
 // products over DFT bases. All are CTA-wide functions: every thread of a
 // kThreads-thread block calls them, the state lives in the block's shared
-// memory, and they end with __syncthreads(). K5 (nlms_batched.cu) and K6 /
-// K7 (single_stream.cu) run the dense stage-1 steps; K1 / K12, K3 and K4
-// run them, and two_stage_block_step (the dense two-stage hop), only for a
-// block with a prime factor other than 2, 3 and 5, which has no FFT plan.
-// Every other geometry of those kernels runs the same algebra on real FFTs:
+// memory, and they end with __syncthreads(). K1 / K12, K5, K3 and K4 run
+// them, and two_stage_block_step (the dense two-stage hop), only for a block
+// with a prime factor other than 2, 3 and 5, which has no FFT plan (K6 / K7
+// then run their dense transforms on a cluster, single_stream.cu). Every
+// other geometry of those kernels runs the same algebra on real FFTs:
 // stage1_fft.cuh (the stage-1 steps), stage2_fft.cuh (one LittleNet frame,
-// and the pieces K2's phases share) and hop.cuh (the two-stage hop of K3
-// and K4), which reuse this header's geometry, carving, filter parameters,
-// stage-2 state and the hop's hand-off.
+// and the pieces K2's phases share), hop.cuh (the two-stage hop of K3 and
+// K4) and single_stream.cu (one utterance on one CTA), which reuse this
+// header's geometry, carving, filter parameters, stage-2 state and the
+// hop's hand-off.
 //
 // Geometry. As the JAX kernels read it from the config and the shapes, so
 // these take it at run time (Geom): the stage-1 block B (== the stage-2 hop;

@@ -1,6 +1,7 @@
 // CTA-wide real FFTs over shared memory, for the stage-1 FFT steps of K1,
-// K12 and K3 (stage1_fft.cuh), the analysis and synthesis phases of K2 and
-// the one-frame stage 2 of K3 and K4 (stage2_fft.cuh).
+// K12, K5 and K3 (stage1_fft.cuh), the analysis and synthesis phases of K2
+// and the one-frame stage 2 of K3 and K4 (stage2_fft.cuh); and the same
+// schedule run by one warp on one transform, for K6 / K7 (single_stream.cu).
 //
 // A real transform of length N = 2B is a complex FFT of length M = B over
 // the even / odd samples packed as (re, im), and a split of its M outputs
@@ -161,25 +162,44 @@ struct BufSrc {
   __device__ __forceinline__ float2 operator()(int l, int i) const { return elem(a, l, i, m); }
 };
 
+// element i of transform l of a work buffer of M-point transforms, in
+// natural order
+struct NatDst {
+  SArr a;
+  int m;
+  __device__ __forceinline__ float2& operator()(int l, int i) const { return elem(a, l, i, m); }
+};
+
+// Butterfly j of a Stockham pass of radix R over transform l of M points:
+// src(l, i) -> dst(l, i), the twiddle of input r from tw(r, m) with
+// m = 2 r k M / (Ns R) (W_2M^m).
+template <int R, bool kInv, class Src, class Dst, class Tw>
+__device__ __forceinline__ void butterfly(int M, int l, int j, int ns, const Src& src,
+                                          const Dst& dst, const Tw& tw) {
+  const int mr = M / R, span = ns * R, step = M / span, k = j % ns;
+  float2 v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = src(l, j + r * mr);
+  if (ns > 1) {
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], tw(r, 2 * r * k * step));
+  }
+  Dft<R, kInv>::run(v);
+  const int d = (j / ns) * span + k;
+#pragma unroll
+  for (int r = 0; r < R; ++r) dst(l, d + r * ns) = v[r];
+}
+
 // One Stockham pass of radix R over L transforms of M = q.block points:
 // src(l, i) -> work buffer dst. No barrier.
 template <int R, bool kInv, class G, class Src>
 __device__ __forceinline__ void fft_pass(const G& q, int L, int ns, const Src& src, SArr dst,
                                          SArr tw) {
-  const int M = q.block, mr = M / R, span = ns * R, step = M / span;
+  const int M = q.block, mr = M / R;
   for (int w = threadIdx.x; w < L * mr; w += kThreads) {
-    const int l = w / mr, j = w - l * mr, k = j % ns;
-    float2 v[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = src(l, j + r * mr);
-    if (ns > 1) {
-#pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], twiddle<kInv>(tw, 2 * r * k * step, M));
-    }
-    Dft<R, kInv>::run(v);
-    const int d = (j / ns) * span + k;
-#pragma unroll
-    for (int r = 0; r < R; ++r) elem(dst, l, d + r * ns, M) = v[r];
+    const int l = w / mr;
+    butterfly<R, kInv>(M, l, w - l * mr, ns, src, NatDst{dst, M},
+                       [&](int, int m) { return twiddle<kInv>(tw, m, M); });
   }
 }
 
@@ -234,18 +254,160 @@ __device__ __forceinline__ SArr fft(const RunPlan& p, const G& q, int L, const S
   return dst;
 }
 
+// ---------------------------------------------------------------- one warp's transforms
+
+// The same schedule run by the 32 lanes of one warp on one transform (the
+// single-stream kernels, single_stream.cu): a pass is a loop strided by the
+// warp over its butterflies, and a __syncwarp takes the place of the CTA
+// barrier, so a transform costs no __syncthreads. src(0, i) is read by the
+// first pass; the buffers alternate as fft's do. One warp issues every
+// instruction of its transform, so the transform is bound by its
+// instruction count: on a fixed plan (the default geometry) each lane holds
+// the twiddles of its butterflies in registers (WarpTw, loaded once), and
+// the index arithmetic folds to constants; on a run-time plan they come
+// from the table.
+
+// the twiddles of one lane's butterflies on a fixed plan of M points, for the
+// passes from the one after Ns points on (the first pass takes none)
+template <int M, int Ns, int... Rs>
+struct WarpTw {
+  __device__ __forceinline__ void load(SArr, int) {}
+};
+
+template <int M, int Ns, int R, int... Rs>
+struct WarpTw<M, Ns, R, Rs...> {
+  static constexpr int kB = (M / R + 31) / 32;  // butterflies a lane
+  float2 w[kB][R - 1];                         // forward: W_2M^(2 r k M / (Ns R))
+  WarpTw<M, Ns * R, Rs...> next;
+  __device__ __forceinline__ void load(SArr tw, int lane) {
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      const int k = (lane + 32 * b) % Ns;
+#pragma unroll
+      for (int r = 1; r < R; ++r) w[b][r - 1] = twiddle<false>(tw, 2 * r * k * (M / (Ns * R)), M);
+    }
+    next.load(tw, lane);
+  }
+};
+
+// a fixed plan's lane twiddles, loaded from the table (every lane calls it)
+template <class G, int R0, int... Rs>
+__device__ __forceinline__ WarpTw<G::block, R0, Rs...> warp_twiddles(const FixedPlan<R0, Rs...>&,
+                                                                     const G&, SArr tw, int lane) {
+  WarpTw<G::block, R0, Rs...> w;
+  w.load(tw, lane);
+  return w;
+}
+
+// ... a run-time plan's are the table
+template <class G>
+__device__ __forceinline__ SArr warp_twiddles(const RunPlan&, const G&, SArr tw, int) {
+  return tw;
+}
+
+template <bool kInv, class G, class Src, int Ns, int R, int... Rs>
+__device__ __forceinline__ SArr warp_fft_fixed(const G& q, int lane, const Src& src, SArr dst,
+                                               SArr other,
+                                               const WarpTw<G::block, Ns, R, Rs...>& w) {
+  constexpr int M = G::block;
+#pragma unroll
+  for (int b = 0; b < WarpTw<M, Ns, R, Rs...>::kB; ++b) {
+    const int j = lane + 32 * b;
+    if (j < M / R)
+      butterfly<R, kInv>(M, 0, j, Ns, src, NatDst{dst, M}, [&](int r, int) {
+        const float2 t = w.w[b][r - 1];
+        return kInv ? make_float2(t.x, -t.y) : t;
+      });
+  }
+  __syncwarp();
+  if constexpr (sizeof...(Rs) == 0) {
+    return dst;
+  } else {
+    return warp_fft_fixed<kInv>(q, lane, BufSrc{dst, M}, other, dst, w.next);
+  }
+}
+
+// One complex FFT of M = q.block points by the calling warp (every lane
+// calls it; `lane` is its lane) on a fixed plan, with the lane's twiddles:
+// as fft with L = 1, ends with __syncwarp.
+template <bool kInv, class G, class Src, int R0, int... Rs>
+__device__ __forceinline__ SArr warp_fft(const FixedPlan<R0, Rs...>&, const G& q, int lane,
+                                         const Src& src, SArr dst, SArr other,
+                                         const WarpTw<G::block, R0, Rs...>& w) {
+  constexpr int M = G::block;
+  for (int j = lane; j < M / R0; j += 32)  // the first pass: no twiddles
+    butterfly<R0, kInv>(M, 0, j, 1, src, NatDst{dst, M}, [](int, int) { return float2{}; });
+  __syncwarp();
+  if constexpr (sizeof...(Rs) == 0) {
+    return dst;
+  } else {
+    return warp_fft_fixed<kInv>(q, lane, BufSrc{dst, M}, other, dst, w);
+  }
+}
+
+template <int R, bool kInv, class G, class Src>
+__device__ __forceinline__ void warp_pass(const G& q, int lane, int ns, const Src& src, SArr dst,
+                                          SArr tw) {
+  const int M = q.block;
+  for (int j = lane; j < M / R; j += 32)
+    butterfly<R, kInv>(M, 0, j, ns, src, NatDst{dst, M},
+                       [&](int, int m) { return twiddle<kInv>(tw, m, M); });
+  __syncwarp();
+}
+
+template <bool kInv, class G, class Src>
+__device__ __forceinline__ void warp_pass_any(int radix, const G& q, int lane, int ns,
+                                              const Src& src, SArr dst, SArr tw) {
+  switch (radix) {
+    case 8: warp_pass<8, kInv>(q, lane, ns, src, dst, tw); break;
+    case 4: warp_pass<4, kInv>(q, lane, ns, src, dst, tw); break;
+    case 2: warp_pass<2, kInv>(q, lane, ns, src, dst, tw); break;
+    case 5: warp_pass<5, kInv>(q, lane, ns, src, dst, tw); break;
+    default: warp_pass<3, kInv>(q, lane, ns, src, dst, tw); break;
+  }
+}
+
+// ... on a run-time plan, with the twiddle table
+template <bool kInv, class G, class Src>
+__device__ __forceinline__ SArr warp_fft(const RunPlan& p, const G& q, int lane, const Src& src,
+                                         SArr dst, SArr other, SArr tw) {
+  warp_pass_any<kInv>(p.radix[0], q, lane, 1, src, dst, tw);
+  int ns = p.radix[0];
+  for (int i = 1; i < p.passes; ++i) {
+    const SArr from = dst;
+    dst = other;
+    other = from;
+    warp_pass_any<kInv>(p.radix[i], q, lane, ns, BufSrc{from, q.block}, dst, tw);
+    ns *= p.radix[i];
+  }
+  return dst;
+}
+
 // ---------------------------------------------------------------- real-FFT splits
 
 // Bin k in [0, M] of the real FFT whose half-length complex FFT is
 // transform l of work buffer z: X[k] = (Z[k] + Z*[M-k]) / 2 - i W_N^k (Z[k]
 // - Z*[M-k]) / 2, indices mod M.
-__device__ __forceinline__ float2 fwd_split(SArr z, int l, int k, int M, SArr tw) {
-  const float2 a = elem(z, l, k == M ? 0 : k, M);
-  const float2 b = elem(z, l, k == 0 ? 0 : M - k, M);  // Z[M-k], conjugated below
+__device__ __forceinline__ float2 split_bin(float2 a, float2 b, float2 w) {
   const float sr = a.x + b.x, si = a.y - b.y;             // Z[k] + Z*[M-k]
   const float fr = 0.5f * (a.y + b.y), fi = -0.5f * (a.x - b.x);  // -i (Z[k] - Z*[M-k]) / 2
-  const float2 w = k < M ? c2(tw, k) : make_float2(-1.f, 0.f);
   return make_float2(0.5f * sr + (w.x * fr - w.y * fi), 0.5f * si + (w.x * fi + w.y * fr));
+}
+
+__device__ __forceinline__ float2 fwd_split(SArr z, int l, int k, int M, SArr tw) {
+  const float2 a = elem(z, l, k == M ? 0 : k, M);
+  const float2 b = elem(z, l, k == 0 ? 0 : M - k, M);  // Z[M-k], conjugated in split_bin
+  return split_bin(a, b, k < M ? c2(tw, k) : make_float2(-1.f, 0.f));
+}
+
+// Bins k and M - k of the same (k in [0, M/2]; k = 0 gives bins 0 and M),
+// from one read of Z[k] and Z[M-k]: xm is bin M - k (when M - k == k, bin
+// k again).
+__device__ __forceinline__ void fwd_split_pair(SArr z, int k, int M, SArr tw, float2& xk,
+                                               float2& xm) {
+  const float2 a = c2(z, k), b = c2(z, k == 0 ? 0 : M - k);
+  xk = split_bin(a, b, c2(tw, k));
+  xm = split_bin(b, a, k == 0 ? make_float2(-1.f, 0.f) : c2(tw, M - k));
 }
 
 // The inverse's pre-split for k in [0, M): Z'[k] = ((X[k] + X*[M-k]) + i
@@ -291,6 +453,17 @@ struct PackedInvSrc {
     return inv_split(xk, xm, c2(tw, k), inv_n);
   }
 };
+
+// the buffer that holds a transform's result: dst after an odd number of
+// passes, else other (fft and warp_fft alternate between the two)
+template <int... Rs>
+__device__ __forceinline__ SArr fft_result(const FixedPlan<Rs...>&, SArr dst, SArr other) {
+  return sizeof...(Rs) % 2 ? dst : other;
+}
+
+__device__ __forceinline__ SArr fft_result(const RunPlan& p, SArr dst, SArr other) {
+  return p.passes % 2 ? dst : other;
+}
 
 // ---------------------------------------------------------------- plans on the host
 

@@ -1,21 +1,72 @@
 // Kernels K6 and K7: one utterance through the Kalman (K6) or NLMS (K7)
-// stage 1 on one thread-block cluster.
+// stage 1.
 //
 // Replaces aec_tpu/kernels/pallas_kalman.py:150 kalman_filter_fused
 // (pallas_call at :178) and aec_tpu/kernels/pallas_nlms.py:94
 // nlms_filter_fused (pallas_call at :121), the single-stream TPU kernels that
 // JAX routes every 1-D call to. One template over the filter, two C entry
-// points. JAX computes the far spectra outside its kernel; here the far-frame
-// analysis is fused as in K1, so the function is waveform in, waveform out.
+// points per route. JAX computes the far spectra outside its kernel; here
+// the far-frame analysis is fused as in K1, so the function is waveform in,
+// waveform out.
 //
-// Design: latency of one stream, not throughput. The recursion is serial in
-// time, so one utterance can only be spread over bins: a cluster of C = 16
-// CTAs (the non-portable maximum, one CTA per SM) splits the K = B + 1 bins,
-// CTA r owning [r K / C, (r + 1) K / C): 16 or 17 bins at B = 256 (257 is
-// prime, so the last slice is longer). The geometry (block, L) is the
-// caller's and the layout is carved at run time; the launch asks
-// cudaOccupancyMaxActiveClusters first, and a card that cannot place the
-// cluster (shared memory per CTA, cluster size) refuses the call.
+// The FFT route: one utterance on one CTA. The recursion is serial in time
+// and a step's work is small (~0.35 M flops at the default geometry, ~1 us
+// of one SM's FMA rate), so what sets the time is the chain of dependent
+// phases, not the flops. Each step is the algebra of bl_common.cuh's
+// kalman_block_step / nlms_block_step line for line, on real FFTs of length
+// 2B (fft.cuh's schedule and edge rules, K1's plan and twiddles), but every
+// transform is run by ONE warp (fft.cuh warp_fft: the passes separated by
+// __syncwarp, no CTA barrier inside a transform) in a pair of work buffers
+// private to that warp. A step is four phases and four CTA barriers, each
+// at a true dependency across bins or partitions:
+//   1. all threads, per bin: the staged far spectrum X_t into its ring slot;
+//      the echo estimate y = sum_l W[l] X[l], and the part of the gain's
+//      denominator that does not wait for the residual (Kalman: sum_l
+//      |X[l]|^2 P-[l]; NLMS: the smoothed far power and its per-warp sums
+//      for the mean over bins). Barrier: y is whole.
+//   2. warp 0: echo synthesis irfft(y), e = d - irfft(y)[B:] (written out)
+//      and the residual's transform. Barrier.
+//   3. all threads, per bin: psi, the denominator, E / den. Barrier.
+//   4. jobs, one per warp in turn: partition l's gradient (pre-split for the
+//      inverse as it is formed, bins k and M - k in one lane), its
+//      constraint (the irfft head, the rfft of [head || 0]) and its update
+//      of W[l] (Kalman: P[l], and block t + 1's prediction), all in one
+//      warp; and one more job, the far-frame analysis of block t + 1 into a
+//      staging spectrum. Each thread also stores the next blocks' far and
+//      mic samples it loaded into registers a step earlier. Barrier: the
+//      next step's echo estimate reads every partition.
+// K1 as a batch of one runs the same step with ~21 CTA barriers (one per
+// radix pass). The L constraint pairs need no (L, 2B) work buffers: a warp
+// holds one partition at a time. The far blocks sit in a ring of three (the
+// analysis of block t + 1 reads blocks t and t + 1 while block t + 2 is
+// stored), the mic blocks in a ring of two. On the default geometry each
+// lane holds its butterflies' twiddles in registers (fft.cuh WarpTw).
+//
+// What bounds it. One warp issues every instruction of its transform, so a
+// 256-point transform is bound by one warp's instruction latency (~1,000
+// cycles at the default geometry), and phase 4 by the SM's four schedulers'
+// issue: at L = 10 it is 11 jobs of ~1,600 instructions a lane (two
+// transforms, the gradient and pre-split, the split and update), three of
+// them on one scheduler. Read on the card, a step of K6 is ~5.5 us: phase 4
+// ~3.6, phase 2 ~1.1, phase 1 ~0.6, phase 3 ~0.25, the stores ~0.1, the
+// four barriers themselves ~0.05 (kernels/single_costs.py: the transforms
+// cut out, and cycles by phase; PERF.md has the split).
+// Kalman's covariance update multiplies by 1 / den, a reciprocal a bin, where
+// kalman_block_step divides by den.
+//
+// Largest L. Per partition the state alone: W re/im, the ring re/im (and
+// Kalman's P): 5K floats for Kalman, 4K for NLMS; beside it min(17, L + 1)
+// warps' work buffers of 2 x 2B floats and ~9 B fixed. In 227 KB a CTA: K6
+// 29 at block 256 and 56 at 160, K7 36 and 69 (the dense route's cluster
+// held 18 and 46, 18 and 47).
+//
+// The dense route, a block with a prime factor other than 2, 3 and 5 (e.g.
+// 224 = 2^5 7), which has no radix plan: one utterance on one thread-block
+// cluster of C = 16 CTAs (the non-portable maximum, one CTA per SM) that
+// split the K = B + 1 bins, CTA r owning [r K / C, (r + 1) K / C), on dense
+// transforms over the slices of the DFT bases each CTA holds in shared
+// memory. The launch asks cudaOccupancyMaxActiveClusters first, and a card
+// that cannot place the cluster refuses the call.
 // Per step everything per bin (predict / far power, gain, psi, the update)
 // is CTA-local, and so are the own columns of the far-frame and residual
 // analyses (each CTA holds the whole frame and block). The only cross-bin
@@ -30,21 +81,15 @@
 //   X3 after the spans are reduced: every CTA gathers the other spans.
 // Each exchange is a cluster.sync() between the writes and the remote
 // reads; every buffer read remotely at one exchange is written again only
-// after a later one, so three syncs per step order all of it.
+// after a later one, so three syncs per step order all of it. Its step is
+// latency-bound too: 14 CTA barriers and 3 cluster syncs.
 //
-// What bounds it. Per step ~3.16 M FMA (K1's transforms) over 16 SMs, about
-// 200 K per CTA, plus three cluster barriers and ~9 K remote reads per CTA;
-// each CTA's slices of the three bases (at B = 256: fwd 512 x 34 columns,
-// inv_tail / inv_head 34 x 256 rows: 139 KB of its ~192 KB) stay in shared
-// memory for
-// the whole launch, so nothing streams from L2 (the roof of K1-K5, PERF.md
-// section 5). The card's own bound for the work (the FMAs over all 132 SMs)
-// is far below what one cluster can reach: the step's latency - the serial
-// chain of products, block barriers and cluster exchanges - sets the time.
+// The wrappers (kernels/kalman.py, kernels/nlms.py) pick the route from the
+// geometry and count which one ran.
 
 #include <cooperative_groups.h>
 
-#include "bl_common.cuh"
+#include "stage1_fft.cuh"
 
 namespace cg = cooperative_groups;
 using namespace aec;
@@ -420,8 +465,342 @@ int launch(const float* far, const float* mic, float* out, int t_blocks, int blo
            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return with_geom(block, n_blocks, -1, [&](auto q) {
-    return launch_geom<kNlms>(far, mic, out, t_blocks, q, bs, kp, np, device, stream);
+  // a block without a radix plan is never the default geometry's
+  return launch_geom<kNlms>(far, mic, out, t_blocks, make_geom(block, n_blocks, 0), bs, kp, np,
+                            device, stream);
+}
+
+// ---------------------------------------------------------------- the FFT route: one CTA
+
+// Per-utterance state and work buffers of the one-CTA FFT step.
+template <bool kNlms>
+struct SingleFftSmem {
+  SArr w;         // (L, K) complex filter
+  SArr p;         // (L, K) Kalman covariance
+  SArr x;         // (L, K) complex far-spectrum ring (slot t % L holds block t)
+  SArr power;     // (K) NLMS smoothed far power
+  SArr psi, den;  // (K) residual psd; Kalman: sum_l |X|^2 P-, then 1 / den; NLMS: 1 / den
+  SArr ye;        // (K) complex echo estimate y, then E / den (Kalman) or E (NLMS)
+  SArr xn;        // (K) complex: the next block's far-frame spectrum
+  SArr far3;      // (3, B) far blocks: block t in slot t % 3
+  SArr mic2;      // (2, B) mic blocks: block t in slot t % 2
+  SArr tw;        // (B) complex: W_2B^m, m in [0, B)
+  SArr red;       // (kWarps) NLMS: per-warp sums of the far power
+  SArr work;      // (jobs, 2, B) complex: each job warp's two FFT work buffers
+  int jobs;       // warps that take jobs: min(kWarps, L + 1)
+  template <class G>
+  __host__ __device__ SingleFftSmem(Carve& c, const G& q) {
+    const size_t lk = size_t(q.L) * q.bins;
+    w = c.take(2 * lk); p = c.take(kNlms ? 0 : lk); x = c.take(2 * lk);
+    power = c.take(kNlms ? q.bins : 0); psi = c.take(q.bins); den = c.take(q.bins);
+    ye = c.take(q.ri); xn = c.take(q.ri);
+    far3 = c.take(3 * size_t(q.block)); mic2 = c.take(2 * size_t(q.block));
+    tw = c.take(q.frame);
+    red = c.take(kWarps);
+    jobs = q.L + 1 < kWarps ? q.L + 1 : kWarps;
+    work = c.take(size_t(jobs) * 2 * q.frame);
+  }
+};
+
+// the inverse's pre-split of y, K complex bins (EchoInvSrc's algebra)
+struct EchoInvSrcC {
+  SArr y, tw;
+  int M;
+  float inv_n;
+  __device__ __forceinline__ float2 operator()(int, int k) const {
+    float2 xk = c2(y, k), xm = c2(y, M - k);  // bin K - 1 when k == 0
+    if (k == 0) {
+      xk.y = 0.f;
+      xm.y = 0.f;
+    }
+    return inv_split(xk, xm, c2(tw, k), inv_n);
+  }
+};
+
+// z[n] = (x[2n], x[2n+1]) of the frame [prev || cur], two far blocks
+struct FarFrameSrc {
+  SArr prev, cur;
+  int B;
+  __device__ __forceinline__ float sample(int m) const { return m < B ? prev[m] : cur[m - B]; }
+  __device__ __forceinline__ float2 operator()(int, int n) const {
+    return make_float2(sample(2 * n), sample(2 * n + 1));
+  }
+};
+
+// z[n] of [0_B || e] with e = d - irfft(y)[B:] formed on the way (the echo
+// synthesis's tail from its inverse zy) and written out: every sample of e
+// is read by one work item of the first pass
+struct ResidualOutSrc {
+  SArr d, zy;
+  float* out;
+  int B;
+  __device__ __forceinline__ float sample(int m) const {
+    if (m < B) return 0.f;
+    const float v = d[m - B] - real_sample(zy, 0, m, B);
+    out[m - B] = v;
+    return v;
+  }
+  __device__ __forceinline__ float2 operator()(int, int n) const {
+    return make_float2(sample(2 * n), sample(2 * n + 1));
+  }
+};
+
+template <bool kNlms, class G, class Plan>
+__global__ void __launch_bounds__(kThreads, 1)
+single_fft_kernel(const float* __restrict__ far, const float* __restrict__ mic,
+                  float* __restrict__ out, int t_blocks, G q, Plan plan,
+                  const float* __restrict__ twd, KalmanParams kp, NlmsParams np) {
+  Carve carve;
+  const SingleFftSmem<kNlms> s(carve, q);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int B = q.block, K = q.bins, L = q.L, M = q.block, F = q.frame;
+  const float inv_n = 1.f / F;
+  const auto work = [&](int w, int i) { return s.work + (2 * w + i) * F; };
+  // the slot of far block t, for t >= -1 (block -1 shares block 2's)
+  const auto far_of = [&](int t) { return s.far3 + ((t + 3) % 3) * B; };
+  const auto mic_of = [&](int t) { return s.mic2 + (t & 1) * B; };
+  const auto sample = [&](const float* x, int t, int j) {
+    return t < t_blocks ? x[static_cast<size_t>(t) * B + j] : 0.f;
+  };
+
+  // the initial state (Kalman: W, P as block 0's prediction), the twiddles,
+  // far blocks -1 (zero), 0 and 1, mic block 0; then X_0 by warp 0
+  for (int i = tid; i < L * K; i += kThreads) {
+    c2(s.w, i) = make_float2(0.f, 0.f);
+    c2(s.x, i) = make_float2(0.f, 0.f);
+    if constexpr (!kNlms) {  // kalman_fft_init's predict from W = 0, P = init_p
+      const float w0 = 0.f;
+      s.p[i] = kp.a2 * kp.init_p + kp.one_minus_a2 * (w0 * w0 + w0 * w0) + kp.q_min;
+    }
+  }
+  for (int k = tid; k < K; k += kThreads) {
+    s.psi[k] = kNlms ? 0.f : kp.p_floor;
+    if constexpr (kNlms) s.power[k] = 0.f;
+  }
+  for (int i = tid; i < F; i += kThreads) s.tw[i] = twd[i];
+  for (int j = tid; j < B; j += kThreads) {
+    far_of(-1)[j] = 0.f;
+    far_of(0)[j] = sample(far, 0, j);
+    far_of(1)[j] = sample(far, 1, j);
+    mic_of(0)[j] = sample(mic, 0, j);
+  }
+  __syncthreads();
+  const auto wtw = warp_twiddles(plan, q, s.tw, lane);  // this lane's, or the table
+
+  // the far-frame analysis of block t, rfft([t - 1 || t]), by warp w into xn
+  const auto analysis = [&](int t, int w) {
+    const SArr z = warp_fft<false>(plan, q, lane, FarFrameSrc{far_of(t - 1), far_of(t), B},
+                                   work(w, 0), work(w, 1), wtw);
+    for (int k = lane; 2 * k <= M; k += 32) {  // bins k and M - k
+      float2 xk, xm;
+      fwd_split_pair(z, k, M, s.tw, xk, xm);
+      c2(s.xn, k) = xk;
+      c2(s.xn, M - k) = xm;
+    }
+  };
+
+  // partition l's gradient, constraint and update by warp w (step t's ring
+  // head); Kalman also block t + 1's prediction of W[l], P[l]. Each lane
+  // takes bins k and M - k together: the inverse's pre-split (PackedInvSrc's
+  // algebra) and the forward's split (fwd_split's) each read both.
+  const auto constrain = [&](int l, int head, int w) {
+    const SArr a = work(w, 0), b = work(w, 1);
+    const int xs = ring_slot(head, l, L) * K, ws = l * K;
+    // gradient P- conj(X) E / den (Kalman; and the posterior P) or
+    // conj(X) E / den (NLMS) of bin k
+    const auto grad = [&](int k) {
+      const float2 xv = c2(s.x, xs + k), ev = c2(s.ye, k);
+      const float xr = xv.x, xi = xv.y, er = ev.x, ei = ev.y, inv = s.den[k];
+      if constexpr (kNlms) {
+        return make_float2((xr * er + xi * ei) * inv, (xr * ei - xi * er) * inv);
+      } else {
+        const float pp = s.p[ws + k];
+        s.p[ws + k] = fmaxf(pp * (1.f - pp * (xr * xr + xi * xi) * inv), kp.p_floor);
+        return make_float2(pp * (xr * er + xi * ei), pp * (xr * ei - xi * er));
+      }
+    };
+    // W[l] += its constrained update x (Kalman: then block t + 1's prediction)
+    const auto update = [&](int k, float2 x) {
+      const int i = ws + k;
+      const float2 wv = c2(s.w, i);
+      if constexpr (kNlms) {
+        c2(s.w, i) = make_float2(wv.x + np.mu * x.x, wv.y + np.mu * x.y);
+      } else {
+        const float wr = wv.x + x.x, wi = wv.y + x.y;
+        s.p[i] = kp.a2 * s.p[i] + kp.one_minus_a2 * (wr * wr + wi * wi) + kp.q_min;
+        c2(s.w, i) = make_float2(kp.a * wr, kp.a * wi);
+      }
+    };
+    for (int k = lane; 2 * k <= M; k += 32) {
+      const int m = M - k;
+      const float2 gk = grad(k), gm = m == k ? gk : grad(m);
+      if (k == 0) {  // the inverse drops the imaginary parts of bins 0 and M
+        c2(a, 0) = inv_split(make_float2(gk.x, 0.f), make_float2(gm.x, 0.f), c2(s.tw, 0), inv_n);
+      } else {
+        c2(a, k) = inv_split(gk, gm, c2(s.tw, k), inv_n);
+        if (m != k) c2(a, m) = inv_split(gm, gk, c2(s.tw, m), inv_n);
+      }
+    }
+    __syncwarp();
+#ifdef AEC_NO_CONSTRAINT_FFT  // kernels/single_costs.py: the constraint without its transforms
+    const SArr zw = a;
+    (void)b;
+#else
+    const SArr zh = warp_fft<true>(plan, q, lane, BufSrc{a, M}, b, a, wtw);
+    const SArr zo = zh.off == a.off ? b : a;
+    const SArr zw = warp_fft<false>(plan, q, lane, ConstraintTailSrc{zh, M, B}, zo, zh, wtw);
+#endif
+    for (int k = lane; 2 * k <= M; k += 32) {
+      float2 xk, xm;
+      fwd_split_pair(zw, k, M, s.tw, xk, xm);
+      update(k, xk);
+      if (M - k != k) update(M - k, xm);
+    }
+  };
+
+  if (warp == 0) analysis(0, 0);
+  // thread tid's sample of far block t + 2 and mic block t + 1, loaded
+  // during step t - 1 and stored during step t (the rest of a block wider
+  // than the CTA is loaded where it is stored)
+  float fx = 0.f, fm = 0.f;
+  const auto fetch = [&](int t) {
+    if (tid < B) {
+      fx = sample(far, t + 2, tid);
+      fm = sample(mic, t + 1, tid);
+    }
+  };
+  fetch(0);
+  __syncthreads();
+
+  for (int t = 0; t < t_blocks; ++t) {
+    const int head = t % L;
+
+    // 1. X_t into its ring slot; per bin the echo estimate y = sum_l W[l] X[l]
+    //    and Kalman's sum_l |X[l]|^2 P-[l] or NLMS's smoothed far power (and
+    //    its per-warp sums)
+    float pw = 0.f;
+    for (int k = tid; k < K; k += kThreads) {
+      c2(s.x, head * K + k) = c2(s.xn, k);
+      float yr = 0.f, yi = 0.f, acc = 0.f;
+      for (int l = 0; l < L; ++l) {
+        const int ws = l * K + k;
+        const float2 xv = c2(s.x, ring_slot(head, l, L) * K + k), wv = c2(s.w, ws);
+        const float xr = xv.x, xi = xv.y;
+        if constexpr (kNlms) acc += xr * xr + xi * xi;
+        else acc += (xr * xr + xi * xi) * s.p[ws];
+        yr += wv.x * xr - wv.y * xi;
+        yi += wv.x * xi + wv.y * xr;
+      }
+      if constexpr (kNlms) {
+        const float pk = np.ps * s.power[k] + np.one_minus_ps * acc;
+        s.power[k] = pk;
+        pw += pk;
+      } else {
+        s.den[k] = acc;
+      }
+      c2(s.ye, k) = make_float2(yr, yi);
+    }
+    if constexpr (kNlms) {  // every warp whole: lanes past the last bin add 0
+      const float sum = warp_sum(pw);
+      if (lane == 0) s.red[warp] = sum;
+    }
+    __syncthreads();
+
+    // 2. warp 0: echo synthesis irfft(y); e = d - irfft(y)[B:] (out) and the
+    //    residual spectrum E = rfft([0 || e])
+    const SArr zy = fft_result(plan, work(0, 0), work(0, 1));
+    const SArr zo = zy.off == work(0, 0).off ? work(0, 1) : work(0, 0);
+    const SArr zr = fft_result(plan, zo, zy);
+    if (warp == 0) {
+#ifndef AEC_NO_ECHO_FFT  // kernels/single_costs.py: the echo and residual without transforms
+      warp_fft<true>(plan, q, lane, EchoInvSrcC{s.ye, s.tw, M, inv_n}, work(0, 0), work(0, 1),
+                     wtw);
+      warp_fft<false>(plan, q, lane,
+                      ResidualOutSrc{mic_of(t), zy, out + static_cast<size_t>(t) * B, B}, zo, zy,
+                      wtw);
+#endif
+    }
+    __syncthreads();
+
+    // 3. all threads, per bin: psi, den, E / den (Kalman) or 1 / den (NLMS)
+    {
+      float total = 0.f;
+      if constexpr (kNlms) {
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) total += s.red[w];
+      }
+      for (int k = tid; k < K; k += kThreads) {
+        const float2 res = fwd_split(zr, 0, k, M, s.tw);
+        const float er = res.x, ei = res.y;
+        if constexpr (kNlms) {
+          const float psi = np.es * s.psi[k] + np.one_minus_es * (er * er + ei * ei);
+          s.psi[k] = psi;
+          s.den[k] = 1.f / (s.power[k] + np.eps + np.eps_rel * (total / K) + np.beta * psi);
+          c2(s.ye, k) = res;
+        } else {
+          const float psi =
+              fmaxf(kp.obs * s.psi[k] + kp.one_minus_obs * (er * er + ei * ei), kp.p_floor);
+          s.psi[k] = psi;
+          const float inv = 1.f / (s.den[k] + 2.f * psi);
+          s.den[k] = inv;
+          c2(s.ye, k) = make_float2(er * inv, ei * inv);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 4. jobs 0..L-1 the partitions, job L the analysis of block t + 1, one
+    //    warp each in turn; every thread stores its prefetched samples
+    if (warp < s.jobs) {
+      for (int j = warp; j <= L; j += s.jobs) {
+        __syncwarp();  // the warp's buffers are free
+        if (j < L) constrain(j, head, warp);
+        else if (t + 1 < t_blocks) analysis(t + 1, warp);
+      }
+    }
+    if (tid < B) {
+      far_of(t + 2)[tid] = fx;
+      mic_of(t + 1)[tid] = fm;
+    }
+    for (int j = tid + kThreads; j < B; j += kThreads) {
+      far_of(t + 2)[j] = sample(far, t + 2, j);
+      mic_of(t + 1)[j] = sample(mic, t + 1, j);
+    }
+    if (t + 1 < t_blocks) fetch(t + 1);
+    __syncthreads();
+  }
+}
+
+template <bool kNlms, class G, class Plan>
+cudaError_t launch_fft_geom(const float* far, const float* mic, float* out, int t_blocks,
+                            const G& q, const Plan& plan, const float* tw, const KalmanParams& kp,
+                            const NlmsParams& np, int device, void* stream) {
+  auto kernel = single_fft_kernel<kNlms, G, Plan>;
+  const size_t smem = smem_bytes<SingleFftSmem<kNlms>>(q);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem, device);
+  if (err != cudaSuccess || t_blocks == 0) return err;
+  kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(far, mic, out, t_blocks, q,
+                                                                   plan, tw, kp, np);
+  return cudaGetLastError();
+}
+
+template <bool kNlms>
+int launch_fft(const float* far, const float* mic, float* out, int t_blocks, int block,
+               int n_blocks, const float* tw, const int* radix, int n_pass,
+               const KalmanParams& kp, const NlmsParams& np, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  RunPlan plan{};
+  err = read_plan(radix, n_pass, block, plan);
+  if (err != cudaSuccess) return err;
+  return with_geom(block, n_blocks, -1, [&](auto q) -> cudaError_t {
+    if constexpr (std::is_same_v<decltype(q), DefaultGeom>) {
+      if (!is_default_plan(plan)) return cudaErrorInvalidValue;
+      return launch_fft_geom<kNlms>(far, mic, out, t_blocks, q, DefaultPlan{}, tw, kp, np, device,
+                                    stream);
+    } else {
+      return launch_fft_geom<kNlms>(far, mic, out, t_blocks, q, plan, tw, kp, np, device, stream);
+    }
   });
 }
 
@@ -454,4 +833,33 @@ extern "C" int aec_nlms_single(const float* far, const float* mic, float* out, i
   const NlmsParams np{mu, eps, ps, one_minus_ps, eps_rel, beta, es, one_minus_es};
   return launch<true>(far, mic, out, t_blocks, block, n_blocks,
                       Stage1Bases{fwd, inv_tail, inv_head}, KalmanParams{}, np, device, stream);
+}
+
+// The FFT route's shared memory of its one CTA at this geometry, bytes.
+extern "C" long long aec_single_fft_smem(int block, int n_blocks, int nlms) {
+  const Geom q = make_geom(block, n_blocks, 0);
+  return static_cast<long long>(nlms ? smem_bytes<SingleFftSmem<true>>(q)
+                                     : smem_bytes<SingleFftSmem<false>>(q));
+}
+
+// The FFT route: tw (B, 2) the twiddle table, radix[n_pass] the plan of
+// kernels/fft_plan.py.
+extern "C" int aec_kalman_single_fft(const float* far, const float* mic, float* out, int t_blocks,
+                                     int block, int n_blocks, const float* tw, const int* radix,
+                                     int n_pass, float a, float a2, float one_minus_a2,
+                                     float q_min, float obs, float one_minus_obs, float floor_,
+                                     float init_p, int device, void* stream) {
+  const KalmanParams kp{a, a2, one_minus_a2, q_min, obs, one_minus_obs, floor_, init_p};
+  return launch_fft<false>(far, mic, out, t_blocks, block, n_blocks, tw, radix, n_pass, kp,
+                           NlmsParams{}, device, stream);
+}
+
+extern "C" int aec_nlms_single_fft(const float* far, const float* mic, float* out, int t_blocks,
+                                   int block, int n_blocks, const float* tw, const int* radix,
+                                   int n_pass, float mu, float eps, float ps, float one_minus_ps,
+                                   float eps_rel, float beta, float es, float one_minus_es,
+                                   int device, void* stream) {
+  const NlmsParams np{mu, eps, ps, one_minus_ps, eps_rel, beta, es, one_minus_es};
+  return launch_fft<true>(far, mic, out, t_blocks, block, n_blocks, tw, radix, n_pass,
+                          KalmanParams{}, np, device, stream);
 }

@@ -1,7 +1,8 @@
 // The stage-1 block updates on real FFTs in shared memory, for both filters.
 //
 // kalman_block_step_fft is K1 / K12's step (kalman_batched.cu) and the
-// Kalman stage 1 of K3 and K4 (hop.cuh); nlms_block_step_fft is K3-NLMS's.
+// Kalman stage 1 of K3 and K4 (hop.cuh); nlms_block_step_fft is K5's
+// (nlms_batched.cu) and K3-NLMS's.
 // Each keeps the filter algebra of its dense counterpart in bl_common.cuh
 // (kalman_block_step, nlms_block_step) line for line and replaces the dense
 // DFT products by real FFTs of length 2B (fft.cuh): the far-frame analysis,
@@ -246,6 +247,16 @@ struct NlmsFftSmem {
     red = c.take(kWarps);
   }
 };
+
+// the NLMS filter's initial state (no barrier)
+template <class G>
+__device__ __forceinline__ void nlms_fft_init(const NlmsFftSmem& s, const G& q) {
+  zero_filter(s, q);
+  for (int i = threadIdx.x; i < q.bins; i += kThreads) {
+    s.power[i] = 0.f;
+    s.psi[i] = 0.f;
+  }
+}
 
 // One MDF block update on FFTs (the algebra of bl_common.cuh's
 // nlms_block_step; equations: aec_tpu/linear/nlms.py:20-22, 59-102): the

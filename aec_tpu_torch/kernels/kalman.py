@@ -17,9 +17,12 @@ load each step's spectrum in place of the in-kernel analysis.
 
 K6 replaces ``aec_tpu/kernels/pallas_kalman.py:150`` (``kalman_filter_fused``,
 ``pallas_call`` at ``:178``; wrapper ``kalman_cancel_fused`` at ``:646``),
-the single-stream kernel: ``csrc/single_stream.cu`` runs one utterance on
-one thread-block cluster of 16 CTAs that split the bins (the same source is
-K7, the NLMS single-stream kernel of ``kernels/nlms.py``).
+the single-stream kernel, ``csrc/single_stream.cu`` (the same source is K7,
+the NLMS single-stream kernel of ``kernels/nlms.py``). Where the block has a
+radix plan it runs one utterance on one CTA, K1's FFT step with every
+transform in one warp and four CTA barriers a step; a block without one
+takes the dense route, one thread-block cluster of 16 CTAs that split the
+bins. ``steps`` counts which ran (:func:`step_for` picks it).
 
 Their plain version is the block loop of ``linear/kalman.py``
 (:func:`kalman_cancel_plain`), which the wrappers take for CPU tensors only.
@@ -42,10 +45,14 @@ from aec_tpu_torch.linear.kalman import kalman_cancel_plain, kalman_filter
 __all__ = ["kalman_cancel_fused", "kalman_cancel_fused_batched", "kalman_cancel_plain",
            "kalman_filter_fused_batched", "kalman_filter_fused_batched_plain"]
 
-# ctypes types of the stage-1 arguments every kernel takes: the block and the
-# partition count, the three bases, then the eight filter constants (see
-# :func:`kalman_operands`)
+# ctypes types of the stage-1 arguments every dense-step kernel takes: the
+# block and the partition count, the three bases, then the eight filter
+# constants (see :func:`stage1_operands`)
 KALMAN_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 8
+# ... and every FFT-step kernel: the block and the partition count, the
+# twiddle table, the radix plan and its length, the eight constants
+FFT_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                                     ctypes.c_int] + [ctypes.c_float] * 8
 
 
 @functools.cache
@@ -66,29 +73,35 @@ def _lib() -> ctypes.CDLL:
 
 @functools.cache
 def single_stream_lib() -> ctypes.CDLL:
-    """``csrc/single_stream.cu``: K6 (``aec_kalman_single``) and K7
-    (``aec_nlms_single``); ``aec_single_cluster()`` is their cluster size."""
-    lib = _build.load("single_stream")
+    """``csrc/single_stream.cu``: K6 and K7, the FFT route on one CTA
+    (``aec_kalman_single_fft``, ``aec_nlms_single_fft``) and the dense route
+    on one cluster (``aec_kalman_single``, ``aec_nlms_single``;
+    ``aec_single_cluster()`` is its cluster size)."""
+    return bind_single(_build.load("single_stream"))
+
+
+def bind_single(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/single_stream.cu``) with its entries'
+    argument and result types set."""
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.aec_kalman_single, lib.aec_nlms_single):
         fn.argtypes = [p, p, p, i, *KALMAN_ARGTYPES, i, p]
         fn.restype = ctypes.c_int
+    for fn in (lib.aec_kalman_single_fft, lib.aec_nlms_single_fft):
+        fn.argtypes = [p, p, p, i, *FFT_ARGTYPES, i, p]
+        fn.restype = ctypes.c_int
     lib.aec_single_cluster.restype = ctypes.c_int
-    lib.aec_single_smem.argtypes = [i, i, i]
-    lib.aec_single_smem.restype = ctypes.c_longlong
+    for fn in (lib.aec_single_smem, lib.aec_single_fft_smem):
+        fn.argtypes = [i, i, i]
+        fn.restype = ctypes.c_longlong
     return lib
 
 
-def kalman_operands(cfg: KalmanConfig, device: torch.device, block: int) -> list:
-    """The stage-1 kernel arguments of ``KALMAN_ARGTYPES``: the geometry, the
-    bases of :func:`stage1_consts` (cached per device, so their pointers stay
-    valid) and the filter constants."""
-    c = stage1_consts(block, device)
-    return [
-        block, cfg.n_blocks,
-        _build.ptr(c["fwd"]), _build.ptr(c["inv_tail"]), _build.ptr(c["inv_head"]),
-        *filter_constants(cfg),
-    ]
+def step_for(block: int) -> str:
+    """The step every stage-1 kernel takes at this block: ``"fft"`` where
+    :func:`radix_plan` takes it (a block >= 2 whose prime factors are 2, 3
+    and 5), else ``"dense"``."""
+    return "dense" if radix_plan(block) is None else "fft"
 
 
 def filter_constants(cfg: KalmanConfig) -> list[float]:
@@ -98,31 +111,59 @@ def filter_constants(cfg: KalmanConfig) -> list[float]:
             cfg.init_p]
 
 
+def nlms_constants(cfg: NlmsConfig) -> list[float]:
+    """The eight constants of ``NlmsParams`` in ``csrc/bl_common.cuh``."""
+    return [cfg.mu, cfg.eps, cfg.power_smooth, 1.0 - cfg.power_smooth, cfg.eps_rel, cfg.beta,
+            cfg.err_smooth, 1.0 - cfg.err_smooth]
+
+
+def stage1_constants(cfg) -> list[float]:
+    """The filter's eight constants: NLMS's for an ``NlmsConfig``, else Kalman's."""
+    return nlms_constants(cfg) if isinstance(cfg, NlmsConfig) else filter_constants(cfg)
+
+
+def stage1_operands(cfg, device: torch.device, block: int) -> list:
+    """The dense-step arguments of ``KALMAN_ARGTYPES``: the geometry, the
+    bases of :func:`stage1_consts` (cached per device, so their pointers stay
+    valid) and the filter's constants."""
+    c = stage1_consts(block, device)
+    return [
+        block, cfg.n_blocks,
+        _build.ptr(c["fwd"]), _build.ptr(c["inv_tail"]), _build.ptr(c["inv_head"]),
+        *stage1_constants(cfg),
+    ]
+
+
+def fft_operands(cfg, device: torch.device, block: int) -> list:
+    """The FFT-step arguments of ``FFT_ARGTYPES``: the geometry, the twiddle
+    table (cached per device), the radix plan and the filter's constants."""
+    plan = radix_plan(block)
+    return [block, cfg.n_blocks, _build.ptr(twiddles(block, device)),
+            (ctypes.c_int * len(plan))(*plan), len(plan), *stage1_constants(cfg)]
+
+
 def launch_batched(cfg: KalmanConfig, x: torch.Tensor, mic: torch.Tensor, e: torch.Tensor,
                    block: int, spectra_in: bool) -> str:
     """Launch K1 (far blocks ``x``) or K12 (far-frame spectra ``x``) over
-    ``mic`` (batch, T * block; K12: batch, T, block) into ``e``: the FFT
-    step where :func:`radix_plan` takes the block, else the dense step.
-    Returns the step that ran, ``"fft"`` or ``"dense"``. Raises if one CTA
-    cannot hold the step's shared memory."""
+    ``mic`` (batch, T * block; K12: batch, T, block) into ``e``: the step of
+    :func:`step_for`. Returns the step that ran, ``"fft"`` or ``"dense"``.
+    Raises if one CTA cannot hold the step's shared memory."""
     lib, dev = _lib(), x.device
     batch, t_blocks = mic.shape[0], mic.shape[1] if spectra_in else mic.shape[-1] // block
-    plan = radix_plan(block)
+    step = step_for(block)
     what = "the batched Kalman kernel"
-    if plan is None:
+    head = (_build.ptr(x), _build.ptr(mic), _build.ptr(e), batch, t_blocks)
+    if step == "dense":
         _build.check_smem(lib.aec_kalman_smem(block, cfg.n_blocks), dev, what)
         entry = lib.aec_kalman_batched_spectra if spectra_in else lib.aec_kalman_batched
-        err = entry(_build.ptr(x), _build.ptr(mic), _build.ptr(e), batch, t_blocks,
-                    *kalman_operands(cfg, dev, block), dev.index, _build.stream_of(x))
+        err = entry(*head, *stage1_operands(cfg, dev, block), dev.index, _build.stream_of(x))
     else:
         _build.check_smem(lib.aec_kalman_fft_smem(block, cfg.n_blocks), dev, what)
-        err = lib.aec_kalman_batched_fft(
-            _build.ptr(x), _build.ptr(mic), _build.ptr(e), batch, t_blocks, block, cfg.n_blocks,
-            _build.ptr(twiddles(block, dev)), (ctypes.c_int * len(plan))(*plan), len(plan),
-            int(spectra_in), *filter_constants(cfg), dev.index, _build.stream_of(x),
-        )
+        ops = fft_operands(cfg, dev, block)  # spectra_in goes between the plan and the constants
+        err = lib.aec_kalman_batched_fft(*head, *ops[:5], int(spectra_in), *ops[5:], dev.index,
+                                         _build.stream_of(x))
     _build.check(err, "kalman_batched")
-    return "dense" if plan is None else "fft"
+    return step
 
 
 def check_inputs(cfg, far: torch.Tensor, mic: torch.Tensor, block: int, ndim: int) -> None:
@@ -142,26 +183,33 @@ def check_inputs(cfg, far: torch.Tensor, mic: torch.Tensor, block: int, ndim: in
         raise ValueError(f"block and n_blocks must be >= 1, got {block}, {cfg.n_blocks}")
 
 
-def launch_single(entry, operands: list, cfg, far: torch.Tensor, mic: torch.Tensor,
-                  block: int) -> torch.Tensor:
-    """One utterance through a single-stream cluster kernel (K6 or K7) ->
-    e [n]. Raises if a CTA of the cluster cannot hold its share of the state
-    and bases, or if the card cannot place the cluster."""
+def launch_single(cfg, far: torch.Tensor, mic: torch.Tensor, block: int,
+                  lib: ctypes.CDLL | None = None) -> tuple[torch.Tensor, str]:
+    """One utterance through K6 (a ``KalmanConfig``) or K7 (an ``NlmsConfig``)
+    -> (e [n], the step that ran): the FFT route on one CTA where
+    :func:`step_for` says ``"fft"``, else the dense route on one cluster.
+    Raises if a CTA cannot hold its layout, or if the card cannot place the
+    cluster. ``lib`` is another build of the source (``single_costs``)."""
     check_inputs(cfg, far, mic, block, 1)
-    lib = single_stream_lib()
+    lib, dev = lib or single_stream_lib(), far.device
     nlms = isinstance(cfg, NlmsConfig)
-    _build.check_smem(lib.aec_single_smem(block, cfg.n_blocks, int(nlms)), far.device,
-                      f"the single-stream {'NLMS' if nlms else 'Kalman'} kernel (one CTA of "
-                      f"{lib.aec_single_cluster()})")
+    what = f"the single-stream {'NLMS' if nlms else 'Kalman'} kernel"
     n = mic.shape[-1]
     farp, micp = ols.pad_to_blocks(far, block), ols.pad_to_blocks(mic, block)
     e = torch.empty_like(micp)
-    err = entry(
-        _build.ptr(farp), _build.ptr(micp), _build.ptr(e), farp.shape[0] // block, *operands,
-        far.device.index, _build.stream_of(far),
-    )
-    _build.check(err, "single_stream")
-    return e[:n]
+    head = (_build.ptr(farp), _build.ptr(micp), _build.ptr(e), farp.shape[0] // block)
+    step = step_for(block)
+    if step == "fft":
+        _build.check_smem(lib.aec_single_fft_smem(block, cfg.n_blocks, int(nlms)), dev, what)
+        entry = lib.aec_nlms_single_fft if nlms else lib.aec_kalman_single_fft
+        operands = fft_operands(cfg, dev, block)
+    else:
+        _build.check_smem(lib.aec_single_smem(block, cfg.n_blocks, int(nlms)), dev,
+                          f"{what}'s dense route (one CTA of {lib.aec_single_cluster()})")
+        entry = lib.aec_nlms_single if nlms else lib.aec_kalman_single
+        operands = stage1_operands(cfg, dev, block)
+    _build.check(entry(*head, *operands, dev.index, _build.stream_of(far)), "single_stream")
+    return e[:n], step
 
 
 def kalman_cancel_fused_batched(
@@ -192,20 +240,24 @@ kalman_cancel_fused_batched.steps = {"fft": 0, "dense": 0}
 def kalman_cancel_fused(
     cfg: KalmanConfig, far: torch.Tensor, mic: torch.Tensor, *, block: int = 256,
 ) -> dict[str, torch.Tensor]:
-    """far/mic [n] -> {"wav": echo-cancelled [n]} on K6, one cluster.
+    """far/mic [n] -> {"wav": echo-cancelled [n]} on K6.
 
     A CUDA tensor launches the kernel (or raises, also when the card cannot
-    place the cluster); a CPU tensor takes the plain loop.
+    place the dense route's cluster); a CPU tensor takes the plain loop.
+    ``steps`` counts the launches of the FFT route (one CTA) and of the
+    dense route (one cluster; a block with a prime factor other than 2, 3,
+    5).
     """
     if far.device.type == "cpu":
         return {"wav": kalman_cancel_plain(cfg, far, mic, block=block)["wav"]}
-    e = launch_single(single_stream_lib().aec_kalman_single,
-                      kalman_operands(cfg, far.device, block), cfg, far, mic, block)
+    e, step = launch_single(cfg, far, mic, block)
+    kalman_cancel_fused.steps[step] += 1
     kalman_cancel_fused.launches += 1
     return {"wav": e}
 
 
 kalman_cancel_fused.launches = 0
+kalman_cancel_fused.steps = {"fft": 0, "dense": 0}
 
 
 def kalman_filter_fused_batched_plain(

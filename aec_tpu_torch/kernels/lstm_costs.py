@@ -76,13 +76,13 @@ def finish_build(procs: dict) -> dict[tuple[str, str], tuple[ctypes.CDLL, str]]:
     return libs
 
 
-def registers(log: str, kernel: str) -> str:
+def registers(log: str, *kernel: str) -> str:
     """ptxas's registers and spill line for the instantiation whose mangled
-    name contains ``kernel``."""
+    name contains every string of ``kernel``."""
     spill, hit = "", False
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
-            hit = kernel in line
+            hit = all(k in line for k in kernel)
         elif hit and "spill" in line:
             spill = line.strip()
         elif hit and "registers" in line:

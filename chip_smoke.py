@@ -25,9 +25,10 @@ user-facing path.
   follow it), then the 8 scenes streamed hop by hop through K3 against the
   offline result; K3 must report its FFT hop.
 - NLMS and single utterances (phases 11-14): K5 (batched NLMS) at the main
-  shape, K6 / K7 (single-stream Kalman / NLMS on one thread-block cluster)
+  shape, K6 / K7 (single-stream Kalman / NLMS, one utterance on one CTA)
   on one 16 s utterance (bench configs #1 and #2) and a hop-fractional one,
-  twice with other inputs; the 8 scenes with ``stage1="nlms"`` through the
+  twice with other inputs; each must report its FFT step; the 8 scenes
+  with ``stage1="nlms"`` through the
   batched (K5 + K2), single-stream (K7 + K2) and serving (K3-NLMS) routes,
   and through the single-stream Kalman route (K6 + K2); K3-NLMS against its
   plain version at S = 1024.
@@ -39,7 +40,11 @@ user-facing path.
   comes from) and at S = 1024, per filter: the call (CUDA events, the card
   idle before it) beside the kernel's device time (``torch.profiler``), so
   the host's share shows; K3's and K4's bounds on their FFT formulation
-  (K3's bytes the state round trip); K6 / K7 also per 8.2 s scene.
+  (K3's bytes the state round trip); K6 / K7 also per 8.2 s scene, and
+  their µs a step whole and with the constraint's or the echo's transforms
+  cut out (``kernels/single_costs.py``); K5's and K6 / K7's bounds on the
+  FFT formulation beside the dense one, and ptxas's registers and spills
+  for their default instantiations.
 - Training (phases 16-19): K8 (the GRU scan) against its plain version at
   B = 1 x 1001 frames (H = 32, 64 and 128) and B = 16 x 501, its gradients
   against the plain route's; the recurrence and the whole forward beside
@@ -57,9 +62,10 @@ user-facing path.
   K1, K12, K5, K6, K7, K4 and K3 (both filters) each at the largest
   partition count its wrapper accepts at blocks 256 and 160, against the
   plain versions, and one partition more, which must be refused for
-  shared memory. K1, K12, K2, K3 (both filters) and K4 also at block 224,
-  whose FFT has no radix plan: they must report their dense steps /
-  transforms / hops there, and their FFT ones at every other geometry.
+  shared memory. K1, K12, K5, K6, K7, K2, K3 (both filters) and K4 also at
+  block 224, whose FFT has no radix plan: they must report their dense
+  steps / routes / transforms / hops there, and their FFT ones at every
+  other geometry.
   K4 against the plain composition at each geometry is also read against
   the composition's fp64 evaluation, with TF32 products as the control;
   on the bulk_delay scene at block 160 (three seeds, K4 twice), where
@@ -175,10 +181,11 @@ N_UTT = 256000  # bench configs #1 and #2: one 16 s utterance
 N_FRAC = 40 * HOP + 77  # a hop-fractional single utterance
 # the other geometries the stage-1/2 kernels take: (partitions, block == hop)
 GEOMETRIES = ((4, 256), (16, 256), (10, 160))
-# the largest partition counts of the dense layouts at blocks 256 and 160,
-# which the FFT layouts may not fall below
-LARGEST_L = {"K1": (24, 39), "K12": (24, 39), "K4": (23, 38), "K3-kalman": (23, 38),
-             "K3-nlms": (26, 43)}
+# the largest partition counts the FFT layouts hold at blocks 256 and 160,
+# none below its kernel's dense layout (K6 / K7's cluster held 18 / 46 and
+# 18 / 47)
+LARGEST_L = {"K1": (24, 39), "K12": (24, 39), "K5": (27, 43), "K6": (29, 56), "K7": (36, 69),
+             "K4": (23, 38), "K3-kalman": (23, 38), "K3-nlms": (26, 43)}
 # K9 vs plain: h lies in [-1, 1]; an fp32 recursion summed in another order
 K9_TOL = 1e-5
 # the DCCRN enhancer, kernel route vs plain route: K1's round-off enters
@@ -220,6 +227,10 @@ STAGE1_BASES = 4 * (FRAME * RI + 2 * RI * HOP)  # fwd, inv_tail, inv_head: bytes
 # covariance 8, constraint update 2) and per bin (psd, E / den)
 DFT_FLOPS = {2: 4, 3: 16, 4: 16, 5: 48, 8: 56}
 SPLIT_FLOPS, ALGEBRA_LK, ALGEBRA_K = 14, 40, 10
+# NLMS's filter algebra (K5, K7): per partition bin the far power 3, echo
+# estimate 8, gradient 8 and update 4; per bin the power's smoothing and
+# mean 4, psd 6, the denominator and its reciprocal 6
+NLMS_ALGEBRA_LK, NLMS_ALGEBRA_K = 23, 16
 
 
 def complex_fft_flops(block: int) -> int:
@@ -233,15 +244,17 @@ def complex_fft_flops(block: int) -> int:
     return cfft
 
 
-def stage1_fft_flops(block: int = HOP, l_part: int = L_PART, analysis: bool = True) -> int:
+def stage1_fft_flops(block: int = HOP, l_part: int = L_PART, analysis: bool = True,
+                     nlms: bool = False) -> int:
     """Flops of one FFT step per utterance: 2 + L forward real FFTs of 2B
     points (far frame, residual, L constraint tails; K12 skips the far
     frame), 1 + L inverse ones (echo, L constraint heads), the filter
-    algebra and the echo subtraction."""
+    algebra (Kalman's, or NLMS's) and the echo subtraction."""
     cfft, k = complex_fft_flops(block), block + 1
     fwd = (1 + analysis + l_part) * (cfft + SPLIT_FLOPS * k)
     inv = (1 + l_part) * (cfft + SPLIT_FLOPS * block)
-    return fwd + inv + ALGEBRA_LK * l_part * k + ALGEBRA_K * k + block
+    lk, per_k = (NLMS_ALGEBRA_LK, NLMS_ALGEBRA_K) if nlms else (ALGEBRA_LK, ALGEBRA_K)
+    return fwd + inv + lk * l_part * k + per_k * k + block
 
 
 def stage2_fft_flops(block: int = HOP, bands: int = BANDS, erb_terms: int | None = None) -> int:
@@ -322,15 +335,17 @@ def time_once(fn) -> float:
     return start.elapsed_time(end)
 
 
-def stage1_bounds(batch: int, analysis: bool = True) -> tuple[dict, dict]:
-    """K1's bound (K12's without the analysis) for ``batch`` utterances of
-    N samples: on the FFT step's flops (far blocks or spectra, mic in, e
-    out, the twiddle table), and on the dense DFT formulation's FMAs (its
-    bases read once) for comparison."""
-    t = N // HOP
-    x_bytes = 4 * batch * (N if analysis else t * RI)
-    io = x_bytes + 2 * 4 * batch * N
-    fft = bound(batch * t * stage1_fft_flops(analysis=analysis) / 2, io + 4 * FRAME)
+def stage1_bounds(batch: int, analysis: bool = True, nlms: bool = False,
+                  n: int = N) -> tuple[dict, dict]:
+    """K1's bound (K12's without the analysis; K5's with NLMS's algebra; K6's
+    and K7's at batch 1) for ``batch`` utterances of ``n`` samples: on the
+    FFT step's flops (far blocks or spectra, mic in, e out, the twiddle
+    table), and on the dense DFT formulation's FMAs (its bases read once)
+    for comparison."""
+    t = n // HOP
+    x_bytes = 4 * batch * (n if analysis else t * RI)
+    io = x_bytes + 2 * 4 * batch * n
+    fft = bound(batch * t * stage1_fft_flops(analysis=analysis, nlms=nlms) / 2, io + 4 * FRAME)
     dense_fma = STAGE1_FMA if analysis else STAGE1_FMA - FRAME * RI
     return fft, bound(batch * t * dense_fma, io + STAGE1_BASES)
 
@@ -739,8 +754,9 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
         bar = STAGE1_TOL * float(mic.abs().max())
         tag = f"L = {n_blocks}, block {hop}"
         errs = {}
-        steps_before = [dict(fn.steps) for fn in (kalman_cancel_fused_batched,
-                                                   kalman_filter_fused_batched)]
+        stepped = (kalman_cancel_fused_batched, kalman_filter_fused_batched,
+                   nlms_cancel_fused_batched, kalman_cancel_fused, nlms_cancel_fused)
+        steps_before = [dict(fn.steps) for fn in stepped]
         with torch.no_grad():
             for name, fused, plain, c in (("K1", kalman_cancel_fused_batched, kalman_cancel_plain,
                                            kc),
@@ -762,13 +778,13 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
                                  - kalman_filter_fused_batched_plain(kc, x_ri, d_blocks,
                                                                      block=hop)).abs().max())
             steps = [{k: v - was[k] for k, v in fn.steps.items()} for fn, was in zip(
-                (kalman_cancel_fused_batched, kalman_filter_fused_batched), steps_before)]
+                stepped, steps_before)]
             phase("geometry", f"{tag}: 8 scenes x {n}: max|d| vs plain " + ", ".join(
-                f"{k} {v:.3e}" for k, v in errs.items()) + f" (bar {bar:.3e}); steps K1 "
-                f"{steps[0]}, K12 {steps[1]}")
+                f"{k} {v:.3e}" for k, v in errs.items()) + f" (bar {bar:.3e}); steps " + ", ".join(
+                f"{k} {st}" for k, st in zip(("K1", "K12", "K5", "K6", "K7"), steps)))
             check(max(errs.values()) <= bar, f"a stage-1 kernel disagrees at {tag}")
-            check(all(st == {"fft": 1, "dense": 0} for st in steps),
-                  f"K1 / K12 did not run the FFT step at {tag}")
+            check(steps == [{"fft": c, "dense": 0} for c in (1, 1, 1, 2, 2)],
+                  f"K1, K12, K5, K6 or K7 did not run the FFT step at {tag}")
 
             lin_b = kalman_cancel_plain(kc, far, mic, block=hop)["wav"].reshape(len(names), -1, hop)
             far_b = far.reshape(len(names), -1, hop)
@@ -843,45 +859,62 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
 
 
 def dense_step_phase(dev, net, s_far, s_mic) -> None:
-    """21a. K1, K12, K2, K4 and K3 (both filters) at a block with a prime
-    factor other than 2, 3 and 5 (224 = 2^5 7, L = 4) on the 8 scenes: the
-    wrappers take their dense step / transforms / hop there, which must
-    agree with the plain versions as the FFT ones do."""
+    """21a. K1, K12, K5, K6, K7, K2, K4 and K3 (both filters) at a block with
+    a prime factor other than 2, 3 and 5 (224 = 2^5 7, L = 4) on the 8
+    scenes (K6, K7 on two of them): the wrappers take their dense step /
+    route / transforms / hop there, which must agree with the plain
+    versions as the FFT ones do."""
     from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
     from aec_tpu_torch.dsp.stft import StftConfig
     from aec_tpu_torch.kernels.stage2 import little_net_apply_fused, little_net_apply_fused_plain
     from aec_tpu_torch.kernels.kalman import (
+        kalman_cancel_fused,
         kalman_cancel_fused_batched,
         kalman_cancel_plain,
         kalman_filter_fused_batched,
         kalman_filter_fused_batched_plain,
     )
+    from aec_tpu_torch.kernels.nlms import (
+        nlms_cancel_fused,
+        nlms_cancel_fused_batched,
+        nlms_cancel_plain,
+    )
     from aec_tpu_torch.kernels.serving import serving_step_fused
     from aec_tpu_torch.kernels.two_stage import two_stage_fused, two_stage_fused_plain
     from aec_tpu_torch.linear import overlap_save as ols
 
-    block, cfg = 224, KalmanConfig(n_blocks=4)
+    block, cfg, ncfg = 224, KalmanConfig(n_blocks=4), NlmsConfig(n_blocks=4)
     n = N // block * block
     far = torch.from_numpy(np.ascontiguousarray(s_far[:, :n])).to(dev)
     mic = torch.from_numpy(np.ascontiguousarray(s_mic[:, :n])).to(dev)
     x_ri = ols.far_end_spectra(far, block).contiguous()
     d_blocks = mic.reshape(len(s_far), -1, block)
-    fns = (kalman_cancel_fused_batched, kalman_filter_fused_batched)
+    fns = (kalman_cancel_fused_batched, kalman_filter_fused_batched, nlms_cancel_fused_batched,
+           kalman_cancel_fused, nlms_cancel_fused)
     before = [dict(fn.steps) for fn in fns]
     with torch.no_grad():
         got = (kalman_cancel_fused_batched(cfg, far, mic, block=block)["wav"],
-               kalman_filter_fused_batched(cfg, x_ri, d_blocks, block=block))
+               kalman_filter_fused_batched(cfg, x_ri, d_blocks, block=block),
+               nlms_cancel_fused_batched(ncfg, far, mic, block=block)["wav"],
+               torch.stack([kalman_cancel_fused(cfg, far[i], mic[i], block=block)["wav"]
+                            for i in range(2)]),
+               torch.stack([nlms_cancel_fused(ncfg, far[i], mic[i], block=block)["wav"]
+                            for i in range(2)]))
         torch.cuda.synchronize()
         want = (kalman_cancel_plain(cfg, far, mic, block=block)["wav"],
-                kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks, block=block))
+                kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks, block=block),
+                nlms_cancel_plain(ncfg, far, mic, block=block)["wav"])
+        want = (*want, want[0][:2], want[2][:2])
     steps = [{k: v - was[k] for k, v in fn.steps.items()} for fn, was in zip(fns, before)]
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
     bar = STAGE1_TOL * float(mic.abs().max())
-    phase("geometry", f"L = 4, block {block}: K1 {errs[0]:.3e}, K12 {errs[1]:.3e} vs plain (bar "
-          f"{bar:.3e}); steps K1 {steps[0]}, K12 {steps[1]}")
-    check(all(st == {"fft": 0, "dense": 1} for st in steps),
-          "K1 / K12 did not take the dense step at block 224")
+    names = ("K1", "K12", "K5", "K6", "K7")
+    phase("geometry", f"L = 4, block {block}: " + ", ".join(
+        f"{k} {e:.3e}" for k, e in zip(names, errs)) + f" vs plain (bar {bar:.3e}); steps "
+        + ", ".join(f"{k} {st}" for k, st in zip(names, steps)))
+    check(steps == [{"fft": 0, "dense": c} for c in (1, 1, 1, 2, 2)],
+          "K1, K12, K5, K6 or K7 did not take the dense step at block 224")
     check(max(errs) <= bar, "the dense step disagrees with the plain loops at block 224")
 
     scfg = StftConfig(2 * block, block, 2 * block)
@@ -1514,14 +1547,13 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
-    from aec_tpu_torch.kernels import _build, lstm_costs
+    from aec_tpu_torch.kernels import _build, lstm_costs, single_costs
     from aec_tpu_torch.kernels.kalman import (
         kalman_cancel_fused,
         kalman_cancel_fused_batched,
         kalman_cancel_plain,
         kalman_filter_fused_batched,
         kalman_filter_fused_batched_plain,
-        single_stream_lib,
     )
     from aec_tpu_torch.linear import overlap_save as ols
     from aec_tpu_torch.kernels.nlms import (
@@ -1564,9 +1596,11 @@ def main() -> None:
     # 3. build the kernels from the checkout's sources (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     cost_builds = lstm_costs.start_build()  # K9 and K10 whole and without their dots
+    single_builds = single_costs.start_build()  # K6 / K7 whole and without transforms
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
                         "single_stream", "gru", "lstm", "fullsubnet", "lstm_int8")
     cost_libs = lstm_costs.finish_build(cost_builds)
+    single_libs = single_costs.finish_build(single_builds)
     build_s = time.perf_counter() - t0
     phase("build", f"{build_s:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for src, log in sorted(logs.items()):
@@ -1844,26 +1878,30 @@ def main() -> None:
           f"formulation: {k4_bounds[1]['bound_ms']:.3f} ms [{smi}]")
     print(f"serving_ms={t_k3:.4f} streams={streams:.0f} two_stage_fused_ms={t_k4:.3f}", flush=True)
 
-    # 11. K5 vs its plain version at the main path's full shape
+    # 11. K5 vs its plain version at the main path's full shape, on its FFT step
     ncfg = NlmsConfig()
+    was = dict(nlms_cancel_fused_batched.steps)
     with torch.no_grad():
         e_k = nlms_cancel_fused_batched(ncfg, far, mic)["wav"]
         e_p = nlms_cancel_plain(ncfg, far, mic)["wav"]
         torch.cuda.synchronize()
+    k5_step = {k: v - was[k] for k, v in nlms_cancel_fused_batched.steps.items()}
     k5_err = float((e_k - e_p).abs().max())
     check(e_k.shape == mic.shape and bool(torch.isfinite(e_k).all()), "K5 output")
     phase("K5 vs plain", f"{BATCH} x {N}, NlmsConfig(): max|d| = {k5_err:.3e}, bar "
-          f"{STAGE1_TOL:g} x max|mic| = {STAGE1_TOL * mic_scale:.3e}")
+          f"{STAGE1_TOL:g} x max|mic| = {STAGE1_TOL * mic_scale:.3e}; steps {k5_step}")
     check(k5_err <= STAGE1_TOL * mic_scale, "K5 disagrees with its plain version")
+    check(k5_step == {"fft": 1, "dense": 0}, "K5 did not run its FFT step")
     del e_k, e_p
 
     # 12. K6 and K7 vs plain on one 16 s utterance and a hop-fractional one,
-    #     twice with other inputs (a race between the cluster's exchanges
-    #     would show as a small, input-dependent error); K6 also against K1
-    #     as a batch of one, the route it replaces
+    #     twice with other inputs (a race between the warps' phases would
+    #     show as a small, input-dependent error); K6 also against K1 as a
+    #     batch of one, the route it replaces; both on their FFT route
     single = {"K6": (kalman_cancel_fused, kalman_cancel_plain, cfg),
               "K7": (nlms_cancel_fused, nlms_cancel_plain, ncfg)}
     single_err = dict.fromkeys(single, 0.0)
+    was = [dict(fused.steps) for fused, _, _ in single.values()]
     with torch.no_grad():
         for rep in range(2):
             for n in (N_UTT, N_FRAC):
@@ -1884,6 +1922,11 @@ def main() -> None:
                         check(e1 <= bar, "K6 disagrees with K1 as a batch of one")
                     phase(f"{label} vs plain", msg)
                     check(err <= bar, f"{label} disagrees with its plain version")
+    single_steps = [{k: v - w[k] for k, v in fused.steps.items()}
+                    for (fused, _, _), w in zip(single.values(), was)]
+    phase("single vs plain", f"steps K6 {single_steps[0]}, K7 {single_steps[1]}")
+    check(all(st == {"fft": 4, "dense": 0} for st in single_steps),
+          "K6 / K7 did not run their FFT route")
 
     # 13. the 8 scenes with stage1="nlms": batched (K5 + K2), one by one on
     #     the single-stream route (K7 + K2), against the plain route on the
@@ -1893,6 +1936,8 @@ def main() -> None:
         outs = [two_stage_cancel(net, sf[i], sm[i], erb, **kw) for i in range(len(names))]
         return {key: torch.stack([o[key] for o in outs]) for key in ("wav", "linear_wav")}
 
+    stage1_fns = (nlms_cancel_fused_batched, nlms_cancel_fused, kalman_cancel_fused)
+    was = [dict(fn.steps) for fn in stage1_fns]
     with torch.no_grad():
         nl_out, (k5_launches, k2_nl) = drive(
             (nlms_cancel_fused_batched, little_net_apply_fused),
@@ -1901,11 +1946,15 @@ def main() -> None:
                                              lambda: one_by_one(stage1="nlms"))
         ka_one, (k6_launches, k2_k1, k8_k1) = drive(
             (kalman_cancel_fused, little_net_apply_fused, gru_recurrence), lambda: one_by_one())
+    route_steps = [{k: v - w[k] for k, v in fn.steps.items()} for fn, w in zip(stage1_fns, was)]
     phase("nlms path", f"two_stage_cancel(stage1='nlms') 8 x {N}: launches K5 {k5_launches}, "
-          f"K2 {k2_nl}; one by one: launches K7 {k7_launches}, K2 {k2_n1}")
+          f"K2 {k2_nl}; one by one: launches K7 {k7_launches}, K2 {k2_n1}; steps K5 "
+          f"{route_steps[0]}, K7 {route_steps[1]}")
     phase("single path", f"two_stage_cancel 8 x [{N}] one by one: launches K6 {k6_launches}, "
-          f"K2 {k2_k1} (as a batch of one), K8 {k8_k1} (K2's phase B)")
+          f"K2 {k2_k1} (as a batch of one), K8 {k8_k1} (K2's phase B); steps K6 {route_steps[2]}")
     check(k8_k1 == k2_k1, "K2 as a batch of one did not run one K8 launch a call")
+    check(all(st["dense"] == 0 and st["fft"] > 0 for st in route_steps),
+          "K5, K6 or K7 did not run its FFT step on the scenes")
     check(min(k5_launches, k2_nl, k7_launches, k2_n1, k6_launches, k2_k1) > 0,
           "an NLMS or single-stream path did not go through its kernels")
     nl_ref = two_stage_cancel(load_npz("checkpoints/little_net_robust.npz", device="cpu"),
@@ -1954,9 +2003,9 @@ def main() -> None:
           f"{k3n_rel:.3e}, worst state leaf {leaf} {leaf_rel:.3e} (bar {K3_TOL:g})")
     check(k3n_rel <= K3_TOL and leaf_rel <= K3_TOL, "K3-NLMS disagrees with its plain version")
 
-    # 15. times of K5 (in turns with K1: K1, K5, K5, K1), K6, K7, the
-    #     single-utterance paths and their stage 2 alone, and K3-NLMS
-    #     (median of --reps, CUDA events)
+    # 15. times of K5 (in turns with K1: K1, K5, K5, K1), K6, K7 (also per
+    #     step, whole and cut), the single-utterance paths and their stage 2
+    #     alone, and K3-NLMS (median of --reps, CUDA events)
     f16, m16 = (t[0] for t in make_batch(dev, args.seed + 20, 1, N_UTT))
     utt_s = N_UTT / SR
     with torch.no_grad():
@@ -1981,20 +2030,35 @@ def main() -> None:
                            args.reps)
         t_utt_k = time_ms(lambda: two_stage_cancel(net, f16, m16, erb), args.reps)
         t_utt_n = time_ms(lambda: two_stage_cancel(net, f16, m16, erb, stage1="nlms"), args.reps)
+        # the batched NLMS route at the main shape: K5 + K2
+        t_nlms_batch = time_ms(lambda: two_stage_cancel(net, far, mic, erb, stage1="nlms"),
+                               args.reps)
         t_p3n = time_ms(lambda: serving_step_plain(net, ps_n, blk_f, blk_m, erb, stage1="nlms"),
                         args.reps)
     t_k3n = k3_costs[("nlms", S_SERVE)]["call_ms"]
     streams_n = S_SERVE * (HOP / SR * 1e3) / t_k3n
+    k5_bounds = stage1_bounds(BATCH, nlms=True)
+    k5_regs = lstm_costs.registers(logs.get("nlms_batched", ""), "nlms_batched_kernel", "FftStep",
+                                   "FixedGeomILi256ELi10ELi32E")
+    phase("time", f"two_stage_cancel(stage1='nlms') {BATCH} x {N} (K5 + K2): "
+          f"{t_nlms_batch:.2f} ms = {BATCH * N / SR / (t_nlms_batch / 1e3):.1f} x realtime [{smi}]")
     phase("time", f"K5 {BATCH} x {N}: {t_k5:.2f} ms (plain {t_p5:.2f} ms); in turns K1 / K5 / K5 / "
-          f"K1: {' / '.join(f'{t:.2f}' for t in turns)} ms [{smi}]")
+          f"K1: {' / '.join(f'{t:.2f}' for t in turns)} ms; bound "
+          f"{k5_bounds[0]['bound_ms']:.4f} ms ({k5_bounds[0]['bound_by']}: the FFT step's "
+          f"{stage1_fft_flops(nlms=True)} flops a step); the dense DFT formulation: "
+          f"{k5_bounds[1]['bound_ms']:.3f} ms; ptxas {k5_regs} [{smi}]")
     phase("time", f"one 16 s utterance: K6 {t_k6:.3f} ms (plain {t_p6:.2f} ms), K7 {t_k7:.3f} ms "
-          f"(plain {t_p7:.2f} ms), one cluster of {single_stream_lib().aec_single_cluster()} "
-          f"CTAs; K1 as a batch of one {t_k1_one:.2f} ms [{smi}]")
+          f"(plain {t_p7:.2f} ms), one CTA each; K1 as a batch of one {t_k1_one:.2f} ms [{smi}]")
     k6_scene, k7_scene = t_scene["kalman_cancel_fused"], t_scene["nlms_cancel_fused"]
-    stage1_scene = bound(N // HOP * STAGE1_FMA, 3 * N * 4 + STAGE1_BASES)
+    k6_bounds, k7_bounds = stage1_bounds(1), stage1_bounds(1, nlms=True)
     phase("time", f"one 8.2 s scene: K6 {k6_scene[0]:.3f} ms (plain {k6_scene[1]:.2f} ms), K7 "
-          f"{k7_scene[0]:.3f} ms (plain {k7_scene[1]:.2f} ms); bound "
-          f"{stage1_scene['bound_ms']:.4f} ms ({stage1_scene['bound_by']}) [{smi}]")
+          f"{k7_scene[0]:.3f} ms (plain {k7_scene[1]:.2f} ms); bounds on the FFT formulation K6 "
+          f"{k6_bounds[0]['bound_ms']:.5f} ms, K7 {k7_bounds[0]['bound_ms']:.5f} ms "
+          f"({k6_bounds[0]['bound_by']}); the dense DFT formulation: "
+          f"{k6_bounds[1]['bound_ms']:.4f} ms [{smi}]")
+    with torch.no_grad():
+        for row in single_costs.costs(single_libs, args.reps, args.seed):
+            phase("time", f"{single_costs.report(row)} [{smi}]")
     k2_one_bound = stage2_bounds(1, N_UTT, erb_terms)
     phase("time", f"two_stage_cancel one 16 s utterance: Kalman {t_utt_k:.2f} ms = "
           f"{utt_s / (t_utt_k / 1e3):.1f} x realtime, NLMS {t_utt_n:.2f} ms = "
@@ -2093,7 +2157,6 @@ def main() -> None:
     #     else null (no PyTorch call computes K10's int8 recurrence or
     #     K11's coupled full-band / sub-band recurrence)
     n_serve = len(names)  # K3's row: the streamed scenes' shape, where its launches come from
-    stage1_batch = bound(BATCH * t_main * STAGE1_FMA, 3 * BATCH * N * 4 + STAGE1_BASES)
     k8 = gru["shapes"][(1, 1001, BANDS)]
     k9 = lstm["shapes"][1]
     # K9 per layer at B = 1: 2 groups x 2 rows x 4H x H FMA per frame; xp in,
@@ -2120,11 +2183,12 @@ def main() -> None:
         ("two_stage", "two_stage.cu", "pallas_two_stage.py:134", k4_launches, k4_err, t_k4, t_p4,
          k4_bounds[0]),
         ("nlms_batched", "nlms_batched.cu", "pallas_nlms.py:242", k5_launches, k5_err, t_k5, t_p5,
-         stage1_batch),
+         k5_bounds[0]),
+        # K6, K7 per 8.2 s scene, the shape of their launches on the scenes
         ("kalman_single", "single_stream.cu", "pallas_kalman.py:150", k6_launches,
-         single_err["K6"], *k6_scene, stage1_scene),
+         single_err["K6"], *k6_scene, k6_bounds[0]),
         ("nlms_single", "single_stream.cu", "pallas_nlms.py:94", k7_launches, single_err["K7"],
-         *k7_scene, stage1_scene),
+         *k7_scene, k7_bounds[0]),
         # K8 at one 16 s utterance, H = 32; launches from the trainer's validation
         ("gru_scan", "gru.cu", "pallas_gru.py:65", trained["k8_val"], gru["err"], k8["ms"],
          k8["plain_ms"], gru_bound(1, 1001, BANDS)),
@@ -2142,14 +2206,19 @@ def main() -> None:
     ]
     # cuDNN's nn.GRU and nn.LSTM with the kernels' weights
     library_ms = {"gru_scan": k8["library_ms"], "lstm_grouped": k9["library_ms"]}
-    # K3's kernel alone (torch.profiler device time), beside its call's ms
+    # K3's kernel alone (torch.profiler device time), beside its call's ms;
+    # K5, K6, K7: the dense formulation's bound beside the FFT one, and the
+    # step that ran on their paths
     kernel_ms = {"serving": k3_costs[("kalman", n_serve)]["kernel_ms"],
                  "serving_nlms": k3_costs[("nlms", n_serve)]["kernel_ms"]}
+    extra = {kernel: {"dense_bound_ms": b[1]["bound_ms"], "step": "fft"} for kernel, b in (
+        ("nlms_batched", k5_bounds), ("kalman_single", k6_bounds), ("nlms_single", k7_bounds))}
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"aec_tpu/kernels/{tpu}", "launches": n, "max_abs_err": err, "ms": ms,
          "plain_ms": plain_ms, **bnd, "library_ms": library_ms.get(kernel),
-         **({"kernel_ms": kernel_ms[kernel]} if kernel in kernel_ms else {})}
+         **({"kernel_ms": kernel_ms[kernel]} if kernel in kernel_ms else {}),
+         **extra.get(kernel, {})}
         for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
     ]}), flush=True)
     # 27. the result

@@ -437,8 +437,9 @@ def test_nlms_kernel_matches_plain(cuda, scene):
 @pytest.mark.parametrize("which", ["kalman", "nlms"])
 def test_single_stream_kernels_match_plain(cuda, which, seed):
     """K6 / K7 vs the plain loop on one hop-fractional utterance, twice with
-    other inputs (a race between the cluster's exchanges would show as a
-    small, input-dependent error); K6 also against K1 as a batch of one."""
+    other inputs (a race between the warps' phases would show as a small,
+    input-dependent error); K6 also against K1 as a batch of one (the same
+    FFT step, its transforms in one warp each)."""
     rng = np.random.default_rng(seed)
     n = 96 * 256 + 51
     far = rng.standard_normal(n).astype(np.float32)
@@ -470,8 +471,8 @@ def test_stage1_kernels_refuse_what_they_cannot_take(cuda, scene):
              (kalman_cancel_fused, KalmanConfig, far[0], mic[0]),
              (nlms_cancel_fused, NlmsConfig, far[0], mic[0]))
     for fn, cfg, f, m in cases:
-        with pytest.raises(ValueError, match="shared memory"):
-            fn(cfg(n_blocks=30), f, m)
+        with pytest.raises(ValueError, match="shared memory"):  # above 27 (K5), 29 (K6), 36 (K7)
+            fn(cfg(n_blocks=40), f, m)
         with pytest.raises(ValueError, match="CUDA"):  # no silent plain run
             fn(cfg(), f, m.cpu())
         with pytest.raises(ValueError, match="contiguous"):
@@ -688,6 +689,54 @@ def test_batched_kalman_steps_match_plain(cuda, scene, block, n_blocks, batch):
         assert sum(fn.steps.values()) == sum(was.values()) + 1
     torch.testing.assert_close(got, want, atol=bar, rtol=0)
     torch.testing.assert_close(got12, want12, atol=bar, rtol=0)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 256])
+@pytest.mark.parametrize("n_blocks", [1, 4, 10, 16])
+@pytest.mark.parametrize("block", [256, 160, 224])
+def test_batched_nlms_steps_match_plain(cuda, scene, block, n_blocks, batch):
+    """K5 against its plain loop at a batch of one, three and 256, blocks
+    256 and 160 (the FFT step) and 224 = 2^5 7 (the dense step), 1 to 16
+    partitions: K1's bar of 1e-3 of max|mic|; ``steps`` says which step
+    ran."""
+    cfg = NlmsConfig(n_blocks=n_blocks)
+    far, mic = (t.to(cuda) for t in scene(batch, 24 * block + 37))
+    step = "dense" if block == 224 else "fft"
+    was = dict(nlms_cancel_fused_batched.steps)
+    with torch.no_grad():
+        got = nlms_cancel_fused_batched(cfg, far, mic, block=block)["wav"]
+        torch.cuda.synchronize()
+        want = nlms_cancel_plain(cfg, far, mic, block=block)["wav"]
+    assert {k: v - was[k] for k, v in nlms_cancel_fused_batched.steps.items()} == {
+        "fft": int(step == "fft"), "dense": int(step == "dense")}
+    torch.testing.assert_close(got, want, atol=1e-3 * float(mic.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 4, 10, 16])
+@pytest.mark.parametrize("block", [256, 160, 224])
+@pytest.mark.parametrize("which", ["kalman", "nlms"])
+def test_single_stream_steps_match_plain(cuda, scene, which, block, n_blocks):
+    """K6 / K7 against their plain loops on one hop-fractional utterance at
+    blocks 256 and 160 (the FFT route on one CTA) and 224 (the dense route
+    on one cluster), 1 to 16 partitions: K1's bar of 1e-3 of max|mic|;
+    ``steps`` says which route ran. K6 also against K1 as a batch of one."""
+    cfg = KalmanConfig(n_blocks=n_blocks) if which == "kalman" else NlmsConfig(n_blocks=n_blocks)
+    fused, plain = ((kalman_cancel_fused, kalman_cancel_plain) if which == "kalman"
+                    else (nlms_cancel_fused, nlms_cancel_plain))
+    far, mic = (t.to(cuda)[0].contiguous() for t in scene(1, 40 * block + 37))
+    step = "dense" if block == 224 else "fft"
+    bar = 1e-3 * float(mic.abs().max())
+    was = dict(fused.steps)
+    with torch.no_grad():
+        got = fused(cfg, far, mic, block=block)["wav"]
+        torch.cuda.synchronize()
+        want = plain(cfg, far, mic, block=block)["wav"]
+        assert {k: v - was[k] for k, v in fused.steps.items()} == {
+            "fft": int(step == "fft"), "dense": int(step == "dense")}
+        torch.testing.assert_close(got, want, atol=bar, rtol=0)
+        if which == "kalman":
+            k1 = kalman_cancel_fused_batched(cfg, far[None], mic[None], block=block)["wav"][0]
+            torch.testing.assert_close(got, k1, atol=bar, rtol=0)
 
 
 @pytest.mark.parametrize("block,step", [(256, "fft"), (160, "fft"), (96, "fft"), (45, "fft"),
@@ -924,9 +973,10 @@ def test_kernels_at_their_largest_partition_count(cuda, scene, kernel, hop):
         n_max = _largest_l(lambda n: _at_partitions(kernel, n, hop, net, erb, *tiny))
         got = _at_partitions(kernel, n_max, hop, net, erb, far, mic)
         want = _at_partitions(kernel, n_max, hop, net, erb, far, mic, plain=True)
-    # K1 and K12 (the FFT step's layout) keep the dense step's largest L
-    floor = {"K1": (24, 39), "K12": (24, 39), "K4": (23, 38), "K3-kalman": (23, 38),
-             "K3-nlms": (26, 43)}.get(kernel, (18, 38))
+    # the FFT layouts' largest L at blocks 256 and 160, each at or above what
+    # the kernel's dense layout held (K6 / K7's cluster: 18 / 46, 18 / 47)
+    floor = {"K1": (24, 39), "K12": (24, 39), "K5": (27, 43), "K6": (29, 56), "K7": (36, 69),
+             "K4": (23, 38), "K3-kalman": (23, 38), "K3-nlms": (26, 43)}[kernel]
     assert n_max >= floor[hop != 256]
     for key, w in want.items():
         if key == "mask":

@@ -33,6 +33,17 @@ def test_radix_plan(block, plan):
     assert fft_plan.radix_plan(block) == plan
 
 
+@pytest.mark.parametrize("block,step", [(256, "fft"), (160, "fft"), (96, "fft"), (45, "fft"),
+                                        (224, "dense"), (112, "dense"), (1, "dense")])
+def test_stage1_step_by_geometry(block, step):
+    """The step every stage-1 kernel (K1 / K12, K5, K6 / K7) takes at a
+    block: the FFT step where the block has a radix plan, else the dense one
+    (K6 / K7: the one-CTA route and the cluster route)."""
+    from aec_tpu_torch.kernels.kalman import step_for
+
+    assert step_for(block) == step
+
+
 def test_twiddle_table_is_rounded_float64():
     t = fft_plan.twiddles(256, CPU)
     m = np.arange(256)

@@ -138,31 +138,44 @@ def test_spectra_in_entry_matches_jax_kernel(rng):
     np.testing.assert_allclose(got.reshape(mic.shape).numpy(), want_wav, atol=2e-4 * scale)
 
 
-def test_single_stream_matches_jax_kernel(rng):
+@pytest.mark.parametrize("block,n_blocks", [(256, 10), (160, 4)])
+def test_single_stream_matches_jax_kernel(rng, block, n_blocks):
     """A 1-D input through the single-stream wrapper (the plain loop on the
     CPU) vs the TPU kernel K6 replaces, in interpret mode at "high", on a
-    hop-fractional length; 2e-4 of scale, the JAX suite's bar."""
-    far, mic = _scene(rng, b=1, n=20 * 256 + 77)
+    hop-fractional length, at the default geometry and at block 160 with 4
+    partitions; 2e-4 of scale, the JAX suite's bar."""
+    n = 20 * block + 77
+    far, mic = _scene(rng, b=1, n=n)
     want = np.asarray(
-        jax_kalman_cancel_fused(JaxKalmanConfig(), jnp.asarray(far[0]), jnp.asarray(mic[0]),
-                                interpret=True, dot_mode="high")["wav"]
+        jax_kalman_cancel_fused(JaxKalmanConfig(n_blocks=n_blocks), jnp.asarray(far[0]),
+                                jnp.asarray(mic[0]), block=block, interpret=True,
+                                dot_mode="high")["wav"]
     )
     before = kalman_cancel_fused.launches
-    got = kalman_cancel_fused(KalmanConfig(), torch.from_numpy(far[0]), torch.from_numpy(mic[0]))
+    got = kalman_cancel_fused(KalmanConfig(n_blocks=n_blocks), torch.from_numpy(far[0]),
+                              torch.from_numpy(mic[0]), block=block)
     assert kalman_cancel_fused.launches == before
-    assert got["wav"].shape == want.shape == (20 * 256 + 77,)
+    assert got["wav"].shape == want.shape == (n,)
     np.testing.assert_allclose(got["wav"].numpy(), want, atol=2e-4 * np.abs(want).max())
 
 
 def test_wrapper_takes_plain_version_on_cpu(rng):
+    """K1 and K6 on CPU tensors run the plain loop: no launch counted, no
+    step counted."""
     cfg = KalmanConfig()
     far, mic = _scene(rng, b=2, n=6 * 256 + 17)  # hop-fractional length: padded
-    before = kalman_cancel_fused_batched.launches
+    before = kalman_cancel_fused_batched.launches, kalman_cancel_fused.launches
+    steps = dict(kalman_cancel_fused_batched.steps), dict(kalman_cancel_fused.steps)
     got = kalman_cancel_fused_batched(cfg, torch.from_numpy(far), torch.from_numpy(mic))["wav"]
     want = kalman_cancel_plain(cfg, torch.from_numpy(far), torch.from_numpy(mic))["wav"]
+    one = kalman_cancel_fused(cfg, torch.from_numpy(far[1]), torch.from_numpy(mic[1]))["wav"]
     assert got.shape == (2, 6 * 256 + 17)
     assert torch.equal(got, want)
-    assert kalman_cancel_fused_batched.launches == before
+    assert torch.equal(one, kalman_cancel_plain(cfg, torch.from_numpy(far[1]),
+                                                torch.from_numpy(mic[1]))["wav"])
+    assert (kalman_cancel_fused_batched.launches, kalman_cancel_fused.launches) == before
+    assert (kalman_cancel_fused_batched.steps, kalman_cancel_fused.steps) == steps
+    assert set(steps[1]) == {"fft", "dense"}
 
 
 def test_single_utterance_matches_batch_row(rng):

@@ -90,40 +90,57 @@ def test_unconstrained_matches_jax(rng):
     assert got["state"] is not None
 
 
-def test_plain_matches_jax_batched_kernel(rng):
+GEOMETRIES = [(256, 10), (160, 4)]  # (block, partitions): the default and the 160-sample hop
+
+
+@pytest.mark.parametrize("block,n_blocks", GEOMETRIES)
+def test_plain_matches_jax_batched_kernel(rng, block, n_blocks):
     """The plain version vs the TPU kernel K5 replaces, in interpret mode at
-    its exact-numerics tier; 5e-4 of scale, the JAX suite's own bar for that
-    kernel against the scan (its factored constraint and in-kernel analysis
-    add roundings the leakage-free NLMS integrator carries)."""
-    far, mic = _scene(rng)
-    want = nlms_cancel_fused_batched_bl(JaxNlmsConfig(), jnp.asarray(far), jnp.asarray(mic),
-                                        interpret=True, tile=2, dot_mode="high")["wav"]
-    got = nlms_cancel_fused_batched(NlmsConfig(), torch.from_numpy(far), torch.from_numpy(mic))
+    its exact-numerics tier, at the default geometry and at block 160 with
+    4 partitions; 5e-4 of scale, the JAX suite's own bar for that kernel
+    against the scan (its factored constraint and in-kernel analysis add
+    roundings the leakage-free NLMS integrator carries)."""
+    far, mic = _scene(rng, n=24 * block)
+    want = nlms_cancel_fused_batched_bl(JaxNlmsConfig(n_blocks=n_blocks), jnp.asarray(far),
+                                        jnp.asarray(mic), block=block, interpret=True, tile=2,
+                                        dot_mode="high")["wav"]
+    got = nlms_cancel_fused_batched(NlmsConfig(n_blocks=n_blocks), torch.from_numpy(far),
+                                    torch.from_numpy(mic), block=block)
     _close(got["wav"].numpy(), want, 5e-4)
 
 
-def test_single_stream_matches_jax_kernel(rng):
+@pytest.mark.parametrize("block,n_blocks", GEOMETRIES)
+def test_single_stream_matches_jax_kernel(rng, block, n_blocks):
     """A 1-D input vs the TPU kernel K7 replaces (interpret mode, "high"),
-    on a hop-fractional length; 2e-4 of scale, the JAX suite's bar."""
-    far, mic = _scene(rng, b=1, n=20 * 256 + 77)
-    want = jax_nlms_cancel_fused(JaxNlmsConfig(), jnp.asarray(far[0]), jnp.asarray(mic[0]),
-                                 interpret=True, dot_mode="high")["wav"]
-    got = nlms_cancel_fused(NlmsConfig(), torch.from_numpy(far[0]), torch.from_numpy(mic[0]))
-    assert got["wav"].shape == (20 * 256 + 77,)
+    on a hop-fractional length, at the default geometry and at block 160
+    with 4 partitions; 2e-4 of scale, the JAX suite's bar."""
+    n = 20 * block + 77
+    far, mic = _scene(rng, b=1, n=n)
+    want = jax_nlms_cancel_fused(JaxNlmsConfig(n_blocks=n_blocks), jnp.asarray(far[0]),
+                                 jnp.asarray(mic[0]), block=block, interpret=True,
+                                 dot_mode="high")["wav"]
+    got = nlms_cancel_fused(NlmsConfig(n_blocks=n_blocks), torch.from_numpy(far[0]),
+                            torch.from_numpy(mic[0]), block=block)
+    assert got["wav"].shape == (n,)
     _close(got["wav"].numpy(), want, 2e-4)
 
 
 def test_wrappers_take_plain_version_on_cpu(rng):
+    """K5 and K7 on CPU tensors run the plain loop: no launch counted, no
+    step counted."""
     cfg = NlmsConfig()
     far, mic = _scene(rng, b=2, n=6 * 256 + 17)  # hop-fractional length: padded
     f, m = torch.from_numpy(far), torch.from_numpy(mic)
     before = nlms_cancel_fused_batched.launches, nlms_cancel_fused.launches
+    steps = dict(nlms_cancel_fused_batched.steps), dict(nlms_cancel_fused.steps)
     batched = nlms_cancel_fused_batched(cfg, f, m)["wav"]
     one = nlms_cancel_fused(cfg, f[1], m[1])["wav"]
     assert batched.shape == (2, 6 * 256 + 17) and one.shape == (6 * 256 + 17,)
     assert torch.equal(batched, nlms_cancel_plain(cfg, f, m)["wav"])
     assert torch.equal(one, nlms_cancel_plain(cfg, f[1], m[1])["wav"])
     assert (nlms_cancel_fused_batched.launches, nlms_cancel_fused.launches) == before
+    assert (nlms_cancel_fused_batched.steps, nlms_cancel_fused.steps) == steps
+    assert set(steps[0]) == set(steps[1]) == {"fft", "dense"}
 
 
 def test_single_utterance_matches_batch_row(rng):
