@@ -3,9 +3,9 @@
     python3 chip_smoke.py [--seed N] [--reps N]
 
 Runs ``aec_tpu_torch`` (never JAX): builds the ten CUDA sources in the
-checkout (twelve kernels), and the variants of K9's and K10's sources that
-``kernels/lstm_costs.py`` times, all in parallel, and drives every
-user-facing path.
+checkout (twelve kernels), and the cut variants that ``kernels/lstm_costs.py``
+(K9, K10), ``kernels/single_costs.py`` (K6 / K7) and ``kernels/fsn_costs.py``
+(K11) time, all in parallel, and drives every user-facing path.
 
 - Offline Kalman (phases 4, 5, 7): each kernel against its plain PyTorch
   version at the main path's full shape (batch 256 x 131,072 samples =
@@ -83,9 +83,13 @@ user-facing path.
   cold and warm beside K9's device time in it.
 - FullSubNet inference (phase 24): K11 (the joint full-band / sub-band
   LSTM recurrence) at ``FullSubNetConfig()``'s widths over 820 frames (8.2 s
-  at hop 160) at B = 1 and 4 against its plain joint loop; ``cli/infer``'s
-  FullSubNet enhancer (Kalman stage 1) on the 8 scenes one by one, kernel
-  route (K1 + K11) against the plain route.
+  at hop 160) at B = 1 and 4 against its plain joint loop, and in turns
+  with the library composition of the same function (cuDNN's ``nn.LSTM``
+  over the full band, the embedding, ``nn.LSTM`` over the B F bins, K11's
+  weights); its producer alone and its consumers alone
+  (``kernels/fsn_costs.py``); ``cli/infer``'s FullSubNet enhancer (Kalman
+  stage 1) on the 8 scenes one by one, kernel route (K1 + K11) against the
+  plain route.
 - ATT-CCRN inference (phase 25): K10 (the int8 LSTM recurrence) at the
   bottleneck's H = 4096, T = 513 against the plain int8 loop, with the count
   of h's int8 codes that differ, its time per step, where its codes lie, the
@@ -1343,17 +1347,24 @@ def dccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
     return {"k9_launches": k9}
 
 
-def fullsubnet_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
+def fullsubnet_phase(dev, names, s_far, s_mic, reps: int, smi: str, costs: list[dict]) -> dict:
     """24. K11 at FullSubNetConfig()'s widths (H_fb 256, H_sb 96, F = 161) over
     T = 820 frames (8.2 s at hop 160) at B = 1 and 4 against its plain joint
-    loop, timed beside it; cli/infer's FullSubNet enhancer (fullsubnet_init,
-    seed 0, saved with train/checkpoints, restored by
-    _make_enhancer("fullsubnet", path, "kalman")) on the 8 scenes one by one,
-    K1 + K11 per utterance, against the plain route (Kalman's plain loop, the
-    plain joint loop) on the card."""
+    loop, timed beside it and, in turns, beside the library composition of
+    the same function: cuDNN's nn.LSTM over the full band from its input
+    (fb_in; it also does the input projection K11 leaves to a matmul), the
+    embedding, nn.LSTM over the B F bins' rows from [neighbourhood ||
+    embedding], K11's weights (K11 runs on the projections of the same
+    inputs, and the two outputs are compared for information); ``costs``'
+    rows (kernels/fsn_costs.py: the producer alone and the consumers
+    alone); cli/infer's FullSubNet enhancer (fullsubnet_init, seed 0, saved
+    with train/checkpoints, restored by _make_enhancer("fullsubnet", path,
+    "kalman")) on the 8 scenes one by one, K1 + K11 per utterance, against
+    the plain route (Kalman's plain loop, the plain joint loop) on the card."""
     from aec_tpu_torch.cli.infer import _make_enhancer
     from aec_tpu_torch.configs import KalmanConfig
     from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.kernels.fsn_costs import report
     from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
     from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched, kalman_cancel_plain
     from aec_tpu_torch.models.fullsubnet import (
@@ -1367,27 +1378,58 @@ def fullsubnet_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
     cfg = FullSubNetConfig()
     g = torch.Generator().manual_seed(0)
     out = {"err": 0.0, "shapes": {}}
+    nb = 2 * (2 * cfg.neighborhood + 1)  # the sub-band input's neighbourhood columns
     for b in (1, 4):
         params = fullsubnet_init(cfg, generator=g, device=dev)
-        xp_fb = (0.3 * torch.randn(b, T_FSN, 4 * cfg.fb_hidden, generator=g)).to(dev)
-        xp_sb = (0.3 * torch.randn(b, T_FSN, cfg.n_freqs, 4 * cfg.sb_hidden, generator=g)).to(dev)
+        fb_in = torch.rand(b, T_FSN, cfg.fb_input, generator=g).to(dev)
+        sb_nb = torch.rand(b, T_FSN, cfg.n_freqs, nb, generator=g).to(dev)
+        fb_p, sb_p = params["fb_lstm"], params["sb_lstm"]
+        lstms = {}
+        for name, p_, i, h in (("fb", fb_p, cfg.fb_input, cfg.fb_hidden),
+                               ("sb", sb_p, cfg.sb_input, cfg.sb_hidden)):
+            lstms[name] = torch.nn.LSTM(i, h, batch_first=True).to(dev)
+            with torch.no_grad():
+                for attr, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                                  ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                    getattr(lstms[name], attr).copy_(p_[key])
+
+        def library():
+            fb_seq = lstms["fb"](fb_in)[0]
+            emb = torch.relu(fb_seq @ params["fb_out"]["w"].T + params["fb_out"]["b"])
+            sb_in = torch.cat([sb_nb, emb[..., None]], dim=-1).transpose(1, 2)
+            return lstms["sb"](sb_in.reshape(b * cfg.n_freqs, T_FSN, cfg.sb_input))[0]
+
         with torch.no_grad():
+            xp_fb = (fb_in @ fb_p["w_ih"].T + fb_p["b_ih"] + fb_p["b_hh"]).contiguous()
+            xp_sb = (sb_nb @ sb_p["w_ih"][:, :nb].T + sb_p["b_ih"] + sb_p["b_hh"]).contiguous()
             ys = joint_recurrence(params, xp_fb, xp_sb)
             want = _joint_scan_hs(params, xp_fb, xp_sb)
+            lib = library().reshape(b, cfg.n_freqs, T_FSN, cfg.sb_hidden).transpose(1, 2)
             torch.cuda.synchronize()
             check(ys.shape == (b, T_FSN, cfg.n_freqs, cfg.sb_hidden)
                   and bool(torch.isfinite(ys).all()), "K11 output")
             err = float((ys - want).abs().max())
-            t_k = time_ms(lambda: joint_recurrence(params, xp_fb, xp_sb), reps)
+            lib_err = float((lib - want).abs().max())
+            turns = [time_ms(fn, reps) for fn in (
+                lambda: joint_recurrence(params, xp_fb, xp_sb), library, library,
+                lambda: joint_recurrence(params, xp_fb, xp_sb))]
+            t_k, t_lib = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
             t_p = time_ms(lambda: _joint_scan_hs(params, xp_fb, xp_sb), 1)
         phase("K11 vs plain", f"B = {b}, T = {T_FSN}, H_fb 256, H_sb 96, F 161: max|d| = "
-              f"{err:.3e} (bar {K11_TOL:g})")
+              f"{err:.3e} (bar {K11_TOL:g}); the library composition vs plain {lib_err:.3e} "
+              "(information)")
         check(err <= K11_TOL, "K11 disagrees with its plain version")
-        phase("time", f"K11 B = {b}, T = {T_FSN}: {t_k:.3f} ms (plain joint loop {t_p:.2f} ms) "
-              f"[{smi}]")
+        phase("time", f"K11 B = {b}, T = {T_FSN}: {t_k:.3f} ms = {t_k / T_FSN * 1e3:.2f} us a "
+              f"frame (plain joint loop {t_p:.2f} ms; in turns K11 {turns[0]:.3f} / "
+              f"{turns[3]:.3f}, the library composition (cuDNN nn.LSTM x 2 and the embedding) "
+              f"{turns[1]:.3f} / {turns[2]:.3f} ms) [{smi}]")
         out["err"] = max(out["err"], err)
-        out["shapes"][b] = {"ms": t_k, "plain_ms": t_p}
-        del params, xp_fb, xp_sb, ys, want
+        out["shapes"][b] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_lib}
+        del params, fb_in, sb_nb, xp_fb, xp_sb, ys, want, lib, lstms
+    for row in costs:
+        phase("K11 parts", f"{report(row)} [{smi}]")
+        out["shapes"][row["b"]].update(producer_ms=row["ms"]["producer"],
+                                       consumers_ms=row["ms"]["consumers"])
 
     params = fullsubnet_init(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     with tempfile.TemporaryDirectory() as d:
@@ -1547,7 +1589,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
-    from aec_tpu_torch.kernels import _build, lstm_costs, single_costs
+    from aec_tpu_torch.kernels import _build, fsn_costs, lstm_costs, single_costs
     from aec_tpu_torch.kernels.kalman import (
         kalman_cancel_fused,
         kalman_cancel_fused_batched,
@@ -1597,10 +1639,12 @@ def main() -> None:
     t0 = time.perf_counter()
     cost_builds = lstm_costs.start_build()  # K9 and K10 whole and without their dots
     single_builds = single_costs.start_build()  # K6 / K7 whole and without transforms
+    fsn_builds = fsn_costs.start_build()  # K11 whole, its producer alone, its consumers alone
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
                         "single_stream", "gru", "lstm", "fullsubnet", "lstm_int8")
     cost_libs = lstm_costs.finish_build(cost_builds)
     single_libs = single_costs.finish_build(single_builds)
+    fsn_libs = fsn_costs.finish_build(fsn_builds)
     build_s = time.perf_counter() - t0
     phase("build", f"{build_s:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for src, log in sorted(logs.items()):
@@ -2148,14 +2192,16 @@ def main() -> None:
     lstm = lstm_phase(dev, args.seed, args.reps, smi, step_costs)
     dccrn = dccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
     # 24-25. K11 and the FullSubNet path; K10 and the ATT-CCRN path
-    fsn = fullsubnet_phase(dev, names, s_far, s_mic, args.reps, smi)
+    with torch.no_grad():
+        fsn_parts = fsn_costs.costs(fsn_libs, args.reps, args.seed)
+    fsn = fullsubnet_phase(dev, names, s_far, s_mic, args.reps, smi, fsn_parts)
     att = att_ccrn_phase(dev, names, s_far, s_mic, args.reps, smi, step_costs)
 
     # 26. the kernels of the paths, with this run's numbers; bounds from
-    #     this run's shapes (module top); library_ms where one PyTorch call
-    #     computes the same function (cuDNN's GRU for K8, its LSTM for K9),
-    #     else null (no PyTorch call computes K10's int8 recurrence or
-    #     K11's coupled full-band / sub-band recurrence)
+    #     this run's shapes (module top); library_ms where PyTorch calls
+    #     compute the same function (cuDNN's GRU for K8, its LSTM for K9,
+    #     its LSTM twice and the embedding for K11), else null (no PyTorch
+    #     call computes K10's int8 recurrence)
     n_serve = len(names)  # K3's row: the streamed scenes' shape, where its launches come from
     k8 = gru["shapes"][(1, 1001, BANDS)]
     k9 = lstm["shapes"][1]
@@ -2205,7 +2251,8 @@ def main() -> None:
          fsn["err"], fsn["shapes"][1]["ms"], fsn["shapes"][1]["plain_ms"], fsn_bound(1, T_FSN)),
     ]
     # cuDNN's nn.GRU and nn.LSTM with the kernels' weights
-    library_ms = {"gru_scan": k8["library_ms"], "lstm_grouped": k9["library_ms"]}
+    library_ms = {"gru_scan": k8["library_ms"], "lstm_grouped": k9["library_ms"],
+                  "fullsubnet_joint": fsn["shapes"][1]["library_ms"]}
     # K3's kernel alone (torch.profiler device time), beside its call's ms;
     # K5, K6, K7: the dense formulation's bound beside the FFT one, and the
     # step that ran on their paths
@@ -2213,6 +2260,13 @@ def main() -> None:
                  "serving_nlms": k3_costs[("nlms", n_serve)]["kernel_ms"]}
     extra = {kernel: {"dense_bound_ms": b[1]["bound_ms"], "step": "fft"} for kernel, b in (
         ("nlms_batched", k5_bounds), ("kalman_single", k6_bounds), ("nlms_single", k7_bounds))}
+    # K11: its producer alone and its consumers alone (fsn_costs), and B = 4
+    k11_b4 = fsn["shapes"][4]
+    extra["fullsubnet_joint"] = {
+        "producer_ms": fsn["shapes"][1]["producer_ms"],
+        "consumers_ms": fsn["shapes"][1]["consumers_ms"],
+        "b4": {"ms": k11_b4["ms"], "plain_ms": k11_b4["plain_ms"],
+               "library_ms": k11_b4["library_ms"], **fsn_bound(4, T_FSN)}}
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"aec_tpu/kernels/{tpu}", "launches": n, "max_abs_err": err, "ms": ms,

@@ -1157,11 +1157,14 @@ def _fsn_case(cuda, fb, sb, b, t, seed=0):
 
 
 @pytest.mark.parametrize("fb,sb,b,t", [(32, 16, 1, 40), (256, 96, 1, 120), (256, 96, 4, 60),
-                                       (40, 24, 3, 30)])
+                                       (40, 24, 3, 30), (512, 96, 1, 60), (256, 96, 16, 30),
+                                       (30, 18, 2, 20)])
 def test_fullsubnet_kernel_matches_plain(cuda, fb, sb, b, t):
     """K11 against its plain joint loop at narrow and FullSubNetConfig()
-    widths, B = 1 and 4: h in [-1, 1], an fp32 recursion summed in another
-    order -> 1e-5 absolute."""
+    widths, B = 1, 4 and 16 (23 rows a consumer CTA), H_fb 512 (the producer
+    reads the rest of W_hh_fb from L2 each step) and H_fb 30 (padded to 32
+    by the wrapper): h in [-1, 1], an fp32 recursion summed in another order
+    -> 1e-5 absolute."""
     from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
     from aec_tpu_torch.models.fullsubnet import _joint_scan_hs
 
@@ -1174,6 +1177,21 @@ def test_fullsubnet_kernel_matches_plain(cuda, fb, sb, b, t):
     assert joint_recurrence.launches == before + 1
     assert got.shape == (b, t, 161, sb)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_fullsubnet_plan_is_the_python_mirror(cuda):
+    """The launch plan csrc/fullsubnet.cu makes on this card (aec_fsn_plan)
+    equals kernels/fullsubnet.py fsn_plan given the clusters the card places
+    and its shared memory, at the test shapes, FullSubNetConfig()'s B = 1,
+    4 and 16, and a shape it refuses."""
+    from aec_tpu_torch.kernels.fullsubnet import PLAN_FIELDS, card_plan, fsn_plan
+
+    clusters = card_plan(4, 161, 256, 96, cuda)["clusters"]  # 644 rows fill every cluster
+    cap = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    for fb, sb, b in [(32, 16, 1), (256, 96, 1), (256, 96, 4), (40, 24, 3), (512, 96, 1),
+                      (256, 96, 16), (256, 96, 64), (512, 112, 16)]:
+        want = fsn_plan(b, 161, fb, sb, clusters=clusters, smem_cap=cap)
+        assert card_plan(b, 161, fb, sb, cuda) == {k: want[k] for k in PLAN_FIELDS}, (fb, sb, b)
 
 
 def test_fullsubnet_kernel_refuses_what_it_cannot_take(cuda):

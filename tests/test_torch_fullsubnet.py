@@ -163,3 +163,75 @@ def test_adapter_and_init_match_jax(rng):
         wt = ta.enhance(_t(params), {}, torch.from_numpy(mic), torch.from_numpy(far))
     wj = ja.enhance(params, {}, jnp.asarray(mic), jnp.asarray(far))
     _close(wt, wj, 1e-5 * float(np.abs(np.asarray(wj)).max()), "enhance")
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_split_order_matches_jax(rng, b):
+    """K11's order of work (kernels.fullsubnet.joint_recurrence_split: the
+    full band and the embedding over all frames, then the sub-band rows)
+    against JAX's joint scan and the port's frame-by-frame loop: the same
+    sums per row in the same order, so fp32 round-off, 1e-5 absolute (h in
+    [-1, 1]). This is the independence of the sub band from the full band's
+    later frames that the kernel's producer / consumer design rests on."""
+    cfg = jf.FullSubNetConfig(fb_hidden=24, sb_hidden=8)
+    params = jf.fullsubnet_init(jax.random.PRNGKey(5), cfg)
+    xp_fb, xp_sb = _projections(rng, cfg, b, 17)
+    want = jf._joint_scan_hs(params, jnp.asarray(xp_fb), jnp.asarray(xp_sb))
+    tp = _t(params)
+    with torch.no_grad():
+        got = kf.joint_recurrence_split(tp, torch.from_numpy(xp_fb), torch.from_numpy(xp_sb))
+        plain = tf._joint_scan_hs(tp, torch.from_numpy(xp_fb), torch.from_numpy(xp_sb))
+    assert tuple(got.shape) == (b, 17, 161, 8)
+    _close(got, want, 1e-5, "vs JAX's joint scan")
+    _close(got, plain.numpy(), 1e-5, "vs the port's joint loop")
+
+
+def _old_plan_smem(b, f, hf, hs, sms=132):
+    """The shared memory of one CTA of K11's first design (fsn_plan and
+    fsn_smem_floats of its fullsubnet.cu): min(B F, SMs) CTAs, each with the
+    whole sub-band W_hh^T, its full-band units' gate rows, its rows of W_out,
+    every utterance's h_fb, and its rows' state."""
+    ctas = min(b * f, sms)
+    rmax, umax = -(-b * f // ctas), -(-hf // ctas)
+    return 4 * (hs * 4 * hs + 4 * umax * hf + rmax * hf + b * hf + b * umax + 2 * rmax * hs
+                + rmax * 4 * hs + 4 * hs + 2 * rmax)
+
+
+def test_plan_takes_every_shape_the_first_design_took():
+    """kernels.fullsubnet.fsn_plan (the launch plan csrc/fullsubnet.cu makes)
+    at 227 KB a CTA and 15 clusters of 8 (what a 132-SM H100 places): every (B, H_fb,
+    H_sb) at F = 161 that the first design's plan fit at 132 SMs fits, and
+    more (B = 16 at FullSubNetConfig()'s widths). The producer holds
+    FullSubNetConfig()'s W_hh_fb in registers and nothing from L2; at H_fb =
+    512 the rest of it is read from L2. B = 64 at 256 / 96 does not fit (the
+    card test's refusal)."""
+    cap = 232448
+    for hs in (16, 96, 112):
+        for hf in (32, 256, 512):
+            for b in (1, 4, 16):
+                plan = kf.fsn_plan(b, 161, hf, hs, smem_cap=cap)
+                if _old_plan_smem(b, 161, hf, hs) <= cap:
+                    assert plan["smem"] <= cap, (b, hf, hs, plan)
+                assert plan["depth"] >= 2 and plan["clusters"] == 15
+                assert plan["consumers"] * plan["rows"] >= b * 161
+                assert plan["sp"] * plan["up"] <= kf.THREADS
+                assert plan["sc"] * hs <= kf.THREADS
+    assert _old_plan_smem(16, 161, 256, 96) > cap >= kf.fsn_plan(16, 161, 256, 96)["smem"]
+    default = kf.fsn_plan(1, 161, 256, 96)
+    assert (default["rows"], default["np"], default["jrp"], default["l2_bytes"]) == (2, 4, 4, 0)
+    assert (default["sc"], default["nc"], default["jrc"], default["jsc"]) == (4, 6, 4, 2)
+    wide = kf.fsn_plan(1, 161, 512, 96)
+    assert wide["jsp"] > 0 and wide["l2_bytes"] > 0 and wide["smem"] <= cap
+    assert kf.fsn_plan(64, 161, 256, 96)["smem"] > cap
+    with pytest.raises(ValueError, match="units"):
+        kf.fsn_plan(1, 161, 256, 600)
+
+
+def test_plan_uses_the_clusters_it_is_given():
+    """Fewer clusters on the card -> more rows a consumer CTA; as few
+    consumer clusters as the rows need; two clusters at least."""
+    assert kf.fsn_plan(1, 161, 256, 96, clusters=4)["rows"] == 7
+    small = kf.fsn_plan(1, 20, 32, 16)
+    assert (small["clusters"], small["consumers"], small["rows"]) == (4, 24, 1)
+    with pytest.raises(ValueError, match="two clusters"):
+        kf.fsn_plan(1, 161, 256, 96, clusters=1)
