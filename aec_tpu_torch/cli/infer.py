@@ -33,7 +33,6 @@ from aec_tpu_torch.dsp.erb import erb_filterbank
 from aec_tpu_torch.dsp.stft import StftConfig
 from aec_tpu_torch.linear.kalman import kalman_cancel
 from aec_tpu_torch.linear.nlms import nlms_cancel
-from aec_tpu_torch.models.registry import NOT_PORTED
 from aec_tpu_torch.pipeline.audio_io import write_wav
 from aec_tpu_torch.pipeline.datasets import EvalLoader
 from aec_tpu_torch.pipeline.h5io import read_filelist
@@ -72,9 +71,6 @@ def _make_enhancer(
     LittleNet only. ``lstm_dtype`` is ATT-CCRN's bottleneck recurrence:
     "auto" is int8 on a CUDA device (kernel K10) and f32 elsewhere, as JAX's
     is int8 on the TPU only."""
-    if model in NOT_PORTED:
-        raise NotImplementedError(
-            f"--model {model} is not ported yet (ROADMAP {NOT_PORTED[model]})")
     if model != "little_net" and model_file.endswith(".pt"):
         raise ValueError(
             f".pt checkpoint interop is little_net-only (reference .pt files hold Little_net "
@@ -126,6 +122,8 @@ def _make_enhancer(
 
         return enhance, params
 
+    if model not in ("dccrn", "fullsubnet", "att_ccrn"):
+        raise KeyError(f"no inference adapter for model {model!r}")
     from aec_tpu_torch.train.generic import make_adapter
 
     adapter = make_adapter(model, scfg)

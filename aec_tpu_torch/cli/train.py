@@ -4,9 +4,12 @@
   python -m aec_tpu_torch.cli.train --tr_list lists/tr_list.txt --cv_file cv.ex \\
       --ckpt_dir exp [--resume_model exp/models/latest.npz] [--device cpu]
 
-``--model little_net`` is ported; the other families (ROADMAP A1),
-``--mesh`` (A6) and ``--device_cache`` (A3) exit with an error naming the
-item that brings them.
+Routes as the JAX CLI does: little_net and two_layer_gru train on the
+reference-cadence ``Trainer`` with the registry's loss and init, dccrn,
+fullsubnet and att_ccrn on ``GenericTrainer``, which refuses
+``--device_cache`` as JAX's does. ``--mesh`` (ROADMAP A6) and
+``--device_cache`` for the reference-cadence families (A3) exit with an
+error naming the item that brings them.
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ import argparse
 import pprint
 
 from aec_tpu_torch.configs import TrainConfig
+from aec_tpu_torch.models.registry import get_model
 from aec_tpu_torch.pipeline.h5io import read_filelist
+from aec_tpu_torch.train.generic import GenericTrainer
 from aec_tpu_torch.train.loop import Trainer
 from aec_tpu_torch.utils.tools import get_logger
 
@@ -34,7 +39,8 @@ def main(argv=None) -> None:
     p.add_argument("--mesh", action="store_true", help="shard batches over all devices")
     p.add_argument("--model", type=str, default="little_net",
                    choices=("little_net", "two_layer_gru", "fullsubnet", "dccrn", "att_ccrn"),
-                   help="model family; the port has little_net")
+                   help="model family; little_net/two_layer_gru use the reference-cadence "
+                        "Trainer, the rest the generic stateful trainer")
     p.add_argument("--lr", type=float, default=TrainConfig.lr)
     p.add_argument("--batch_size", type=int, default=TrainConfig.batch_size)
     p.add_argument("--max_n_epochs", type=int, default=TrainConfig.max_n_epochs)
@@ -47,16 +53,35 @@ def main(argv=None) -> None:
     p.add_argument("--device", type=str, default="cuda", help="torch device to train on")
     args = p.parse_args(argv)
 
-    if args.model != "little_net":
-        p.error(f"--model {args.model}: training the model zoo is ROADMAP item A1; the port "
-                "trains little_net")
     if args.mesh:
         p.error("--mesh: the port's parallel layer is ROADMAP item A6")
-    if args.device_cache:
-        p.error("--device_cache: the port's device-resident corpus is ROADMAP item A3")
     get_logger(__name__).info("Arguments:\n%s", pprint.pformat(vars(args)))
 
     cfg = TrainConfig(lr=args.lr, batch_size=args.batch_size, max_n_epochs=args.max_n_epochs)
+    validate_metrics = tuple(m for m in args.validate_metrics.split(",") if m)
+    if args.model not in ("little_net", "two_layer_gru"):
+        if args.device_cache:
+            p.error(
+                "--device_cache supports the reference-cadence families "
+                "(little_net, two_layer_gru); the stateful trainer keeps "
+                "the host loader"
+            )
+        GenericTrainer(
+            model=args.model,
+            tr_list=read_filelist(args.tr_list),
+            cv_file=args.cv_file,
+            ckpt_dir=args.ckpt_dir,
+            cfg=cfg,
+            resume_model=args.resume_model,
+            time_log=args.time_log,
+            validate_metrics=validate_metrics,
+            device=args.device,
+        ).train()
+        return
+    if args.device_cache:
+        p.error("--device_cache: the port's device-resident corpus is ROADMAP item A3")
+
+    spec = get_model(args.model)
     Trainer(
         tr_list=read_filelist(args.tr_list),
         cv_file=args.cv_file,
@@ -65,7 +90,9 @@ def main(argv=None) -> None:
         resume_model=args.resume_model,
         time_log=args.time_log,
         loss_log_name=args.loss_log,
-        validate_metrics=tuple(m for m in args.validate_metrics.split(",") if m),
+        loss_fn=spec.loss,
+        init_fn=spec.init,
+        validate_metrics=validate_metrics,
         device=args.device,
     ).train()
 

@@ -60,24 +60,6 @@ def _conv_init(c_in, c_out, kernel, generator, device) -> dict[str, torch.Tensor
     return {"w": w.to(device), "b": torch.zeros(c_out, device=device)}
 
 
-def _conv(p, x: torch.Tensor, stride, padding) -> torch.Tensor:
-    """NHWC x, HWIO kernel, padding as (low, high) pairs per spatial dim."""
-    (fl, fh), (tl, th) = cl._pairs(padding)
-    xc = F.pad(x.permute(0, 3, 1, 2), (tl, th, fl, fh))
-    y = F.conv2d(xc, p["w"].permute(3, 2, 0, 1), p["b"], stride=tuple(stride))
-    return y.permute(0, 2, 3, 1)
-
-
-def _tconv(p, x: torch.Tensor, stride, padding, output_padding) -> torch.Tensor:
-    """JAX's lhs-dilated conv of the flipped kernel with pads (k - 1 - p,
-    k - 1 - p + output_padding) is ``conv_transpose2d`` of the unflipped
-    kernel laid out (Cin, Cout, kh, kw)."""
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), p["w"].permute(2, 3, 0, 1), p["b"],
-                           stride=tuple(stride), padding=tuple(padding),
-                           output_padding=tuple(output_padding))
-    return y.permute(0, 2, 3, 1)
-
-
 _ONE = [(0, 0), (0, 0)]
 
 
@@ -93,9 +75,11 @@ def _att_init(f_g, f_l, f_int, generator, device):
 
 def _att_apply(p, s, g, x, *, train: bool):
     """Attention_block forward (attention_ccrn.py:268-273)."""
-    g1, bn_g = cl.batch_norm(p["bn_g"], s["bn_g"], _conv(p["w_g"], g, (1, 1), _ONE), train=train)
-    x1, bn_x = cl.batch_norm(p["bn_x"], s["bn_x"], _conv(p["w_x"], x, (1, 1), _ONE), train=train)
-    psi = _conv(p["psi"], torch.relu(g1 + x1), (1, 1), _ONE)
+    g1, bn_g = cl.batch_norm(p["bn_g"], s["bn_g"], cl.conv(p["w_g"], g, (1, 1), _ONE),
+                             train=train)
+    x1, bn_x = cl.batch_norm(p["bn_x"], s["bn_x"], cl.conv(p["w_x"], x, (1, 1), _ONE),
+                             train=train)
+    psi = cl.conv(p["psi"], torch.relu(g1 + x1), (1, 1), _ONE)
     psi, bn_psi = cl.batch_norm(p["bn_psi"], s["bn_psi"], psi, train=train)
     return x * torch.sigmoid(psi), {"bn_g": bn_g, "bn_x": bn_x, "bn_psi": bn_psi}
 
@@ -162,10 +146,10 @@ def att_ccrn_apply(params, state, mic: torch.Tensor, far: torch.Tensor,
     for i in range(len(params["mic_enc"])):
         lm, lf = params["mic_enc"][i], params["far_enc"][i]
         xm, bn_m = cl.batch_norm(lm["bn"], state["mic_enc"][i]["bn"],
-                                 _conv(lm["conv"], xm, cfg.stride, pad), train=train)
+                                 cl.conv(lm["conv"], xm, cfg.stride, pad), train=train)
         xm = cl.prelu(lm["prelu"], xm)
         xf, bn_f = cl.batch_norm(lf["bn"], state["far_enc"][i]["bn"],
-                                 _conv(lf["conv"], xf, cfg.stride, pad), train=train)
+                                 cl.conv(lf["conv"], xf, cfg.stride, pad), train=train)
         xf = torch.relu(xf)
         gated, att_s = _att_apply(params["att"][i], state["att"][i], xm, xf, train=train)
         new_state["mic_enc"].append({"bn": bn_m})
@@ -183,9 +167,8 @@ def att_ccrn_apply(params, state, mic: torch.Tensor, far: torch.Tensor,
     for i, layer in enumerate(params["decoder"]):
         if i > 0:
             x = torch.cat([x, skips[-1 - i]], dim=-1)
-        x, bn_s = cl.batch_norm(layer["bn"], state["decoder"][i]["bn"],
-                                _tconv(layer["conv"], x, cfg.stride, cfg.padding, (1, 0)),
-                                train=train)
+        y = cl.conv_transpose(layer["conv"], x, cfg.stride, cfg.padding, (1, 0))
+        x, bn_s = cl.batch_norm(layer["bn"], state["decoder"][i]["bn"], y, train=train)
         x = torch.tanh(x) if i == len(params["decoder"]) - 1 else cl.prelu(layer["prelu"], x)
         new_state["decoder"].append({"bn": bn_s})
 

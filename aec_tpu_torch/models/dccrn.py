@@ -197,9 +197,10 @@ def dccrn_apply(params, state, mic: torch.Tensor, far: torch.Tensor,
 
 
 def dccrn_loss_v1(params, state, mic, far, near, echo, cfg: DccrnConfig = DccrnConfig(), *,
-                  train: bool = True) -> tuple[torch.Tensor, dict]:
-    """v1 objective: 0.3 MSE(mask, cIRM) + 0.7 MSE(complex-masked echo, 0)."""
-    out, new_state = dccrn_apply(params, state, mic, far, cfg, train=train)
+                  train: bool = True, lstm_fused: bool | None = None) -> tuple[torch.Tensor, dict]:
+    """v1 objective: 0.3 MSE(mask, cIRM) + 0.7 MSE(complex-masked echo, 0).
+    ``lstm_fused`` routes the complex LSTMs as in :func:`dccrn_apply`."""
+    out, new_state = dccrn_apply(params, state, mic, far, cfg, train=train, lstm_fused=lstm_fused)
     scfg = cfg.stft
     near_re, near_im = _to_grid(stft_mod.stft(near, scfg))
     echo_re, echo_im = _to_grid(stft_mod.stft(echo, scfg))
@@ -216,9 +217,11 @@ def dccrn_loss_v1(params, state, mic, far, near, echo, cfg: DccrnConfig = DccrnC
 
 
 def dccrn_loss_sisnr(params, state, mic, far, near, cfg: DccrnConfig = DccrnConfig(), *,
-                     train: bool = True) -> tuple[torch.Tensor, dict]:
-    """v2-style objective: the negative SI-SNR of the enhanced waveform."""
-    out, new_state = dccrn_apply(params, state, mic, far, cfg, train=train)
+                     train: bool = True, lstm_fused: bool | None = None
+                     ) -> tuple[torch.Tensor, dict]:
+    """v2-style objective: the negative SI-SNR of the enhanced waveform;
+    ``lstm_fused`` as in :func:`dccrn_apply`."""
+    out, new_state = dccrn_apply(params, state, mic, far, cfg, train=train, lstm_fused=lstm_fused)
     n = min(out["wav"].shape[-1], near.shape[-1])
     return -si_snr(out["wav"][..., :n], near[..., :n]), {"wav": out["wav"], "state": new_state}
 

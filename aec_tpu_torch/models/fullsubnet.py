@@ -188,10 +188,12 @@ def fullsubnet_apply(params: dict, mic: torch.Tensor, ref: torch.Tensor,
 
 
 def fullsubnet_loss(params: dict, mic, ref, near, echo,
-                    cfg: FullSubNetConfig = FullSubNetConfig()) -> tuple[torch.Tensor, dict]:
+                    cfg: FullSubNetConfig = FullSubNetConfig(), *,
+                    joint_kernel: bool | None = None) -> tuple[torch.Tensor, dict]:
     """Complex-spectrum MSE against the near end (models.py:195-197) plus the
-    echo-mask term of the dual-mask contract."""
-    out = fullsubnet_apply(params, mic, ref, cfg)
+    echo-mask term of the dual-mask contract; ``joint_kernel`` as in
+    :func:`fullsubnet_masks`."""
+    out = fullsubnet_apply(params, mic, ref, cfg, joint_kernel=joint_kernel)
     scfg = cfg.stft
     re, im = split_complex(out["out_spec"])
     nre, nim = split_complex(stft_mod.stft(near, scfg))

@@ -1,8 +1,9 @@
-"""Model registry (``aec_tpu/models/registry.py``) for the families ported so far.
+"""Model registry (``aec_tpu/models/registry.py``): every family of the JAX
+registry.
 
 Each entry: init, apply and loss callables and a note on its reference
-lineage. The JAX package's other families raise ``KeyError`` naming the
-ROADMAP item that brings them.
+lineage. A family of the JAX registry the port lacked would be listed in
+``NOT_PORTED`` with the ROADMAP item that brings it; none is.
 """
 
 from __future__ import annotations
@@ -22,11 +23,18 @@ class ModelSpec:
 
 
 # families of the JAX registry the port does not have yet, and the item that brings them
-NOT_PORTED = {"dct_dnn": "A2", "dct_cnn": "A2"}
+NOT_PORTED: dict[str, str] = {}
 
 
 def _specs() -> dict[str, ModelSpec]:
-    from aec_tpu_torch.models import att_ccrn, dccrn, fullsubnet, little_net, two_layer_gru
+    from aec_tpu_torch.models import (
+        att_ccrn,
+        dccrn,
+        dct_net,
+        fullsubnet,
+        little_net,
+        two_layer_gru,
+    )
 
     return {
         "little_net": ModelSpec(
@@ -53,6 +61,14 @@ def _specs() -> dict[str, ModelSpec]:
             "att_ccrn", att_ccrn.att_ccrn_init, att_ccrn.att_ccrn_apply,
             att_ccrn.att_ccrn_loss, stateful=True,
             reference="attention_ccrn.py:240-422 (repaired; reference forward is broken)",
+        ),
+        "dct_dnn": ModelSpec(
+            "dct_dnn", dct_net.dnn_init, dct_net.dnn_apply, dct_net.dnn_loss, stateful=False,
+            reference="networks.py:254-348",
+        ),
+        "dct_cnn": ModelSpec(
+            "dct_cnn", dct_net.cnn_init, dct_net.cnn_apply, dct_net.cnn_loss, stateful=False,
+            reference="networks.py:350-474 (working realization of commented intent)",
         ),
     }
 

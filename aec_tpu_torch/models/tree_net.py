@@ -41,6 +41,15 @@ def _tree_of(m: nn.Module, which: str):
     return tree
 
 
+def map_tree(tree, fn):
+    """``tree`` (nested dicts, lists, tuples) with each leaf replaced by ``fn(leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
 def copy_into(dst, src) -> None:
     """Copy the leaves of tree ``src`` into the tensors of tree ``dst``."""
     if isinstance(dst, dict):
@@ -51,6 +60,45 @@ def copy_into(dst, src) -> None:
             copy_into(d, s)
     else:
         dst.copy_(src)
+
+
+def bias_keys_before_batch_norm(params) -> set[str]:
+    """The checkpoint keys (``['encoder'][0]['conv']['b_r']``) of the conv
+    biases in a param tree that feed a BatchNorm (DCCRN's and ATT-CCRN's
+    layers, ATT-CCRN's attention gates). A training-mode BatchNorm takes the
+    batch mean out, bias included, so their exact gradient is zero: a
+    computed one is the round-off of a cancelling sum, and Adam, which
+    normalizes by the gradient's size, turns its sign into a step of about
+    ``lr``."""
+    found: set[str] = set()
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            for conv, bn in (("conv", "bn"), ("w_g", "bn_g"), ("w_x", "bn_x"), ("psi", "bn_psi")):
+                if conv in node and bn in node:
+                    found.update(f"{key}[{conv!r}][{b!r}]" for b in ("b", "b_r", "b_i")
+                                 if b in node[conv])
+            for k, v in node.items():
+                walk(v, f"{key}[{k!r}]")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{key}[{i}]")
+
+    walk(params, "")
+    return found
+
+
+def functional_params(net: nn.Module):
+    """What a family's functional apply and loss take as ``params``: a
+    :class:`TreeNet`'s tree of parameters, else the module itself
+    (LittleNet, TwoLayerGru)."""
+    return net.params() if isinstance(net, TreeNet) else net
+
+
+def model_state(net: nn.Module) -> dict:
+    """A :class:`TreeNet`'s BatchNorm running statistics (its buffers, as a
+    tree); ``{}`` for a stateless net."""
+    return net.state() if isinstance(net, TreeNet) else {}
 
 
 class TreeNet(nn.Module):

@@ -59,28 +59,40 @@ def _pairs(padding) -> list[tuple[int, int]]:
     return [(p, p) if isinstance(p, int) else tuple(p) for p in padding]
 
 
-def complex_conv(params: dict[str, torch.Tensor], x: torch.Tensor, stride,
-                 padding) -> torch.Tensor:
-    """x [B, F, T, 2Cc] -> [B, F', T', 2Cc_out]; padding per spatial dim."""
-    w, b = _block_kernel(params)
-    (fl, fh), (tl, th) = _pairs(padding)
-    xc = F.pad(x.permute(0, 3, 1, 2), (tl, th, fl, fh))  # NCHW, (W, H) pads
-    y = F.conv2d(xc, w.permute(3, 2, 0, 1), b, stride=tuple(stride))
+def conv(p: dict[str, torch.Tensor], x: torch.Tensor, stride, padding) -> torch.Tensor:
+    """A real conv: x NHWC, kernel ``p["w"]`` HWIO, bias ``p["b"]``,
+    padding per spatial dim as JAX spells it."""
+    (hl, hh), (wl, wh) = _pairs(padding)
+    xc = F.pad(x.permute(0, 3, 1, 2), (wl, wh, hl, hh))  # NCHW, (W, H) pads
+    y = F.conv2d(xc, p["w"].permute(3, 2, 0, 1), p["b"], stride=tuple(stride))
     return y.permute(0, 2, 3, 1)
 
 
-def complex_conv_transpose(params: dict[str, torch.Tensor], x: torch.Tensor, stride,
-                           padding, output_padding) -> torch.Tensor:
-    """Transposed complex conv with torch ConvTranspose2d's geometry:
+def conv_transpose(p: dict[str, torch.Tensor], x: torch.Tensor, stride, padding,
+                   output_padding) -> torch.Tensor:
+    """A real transposed conv with torch ConvTranspose2d's geometry:
     out = (in - 1) * stride - 2 * pad + kernel + output_padding. JAX writes
     it as an lhs-dilated conv of the flipped kernel with pads
     (k - 1 - p, k - 1 - p + output_padding); ``conv_transpose2d`` with the
     unflipped kernel laid out (Cin, Cout, kh, kw) is the same operator."""
-    w, b = _block_kernel(params)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.permute(2, 3, 0, 1), b,
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), p["w"].permute(2, 3, 0, 1), p["b"],
                            stride=tuple(stride), padding=tuple(padding),
                            output_padding=tuple(output_padding))
     return y.permute(0, 2, 3, 1)
+
+
+def complex_conv(params: dict[str, torch.Tensor], x: torch.Tensor, stride,
+                 padding) -> torch.Tensor:
+    """x [B, F, T, 2Cc] -> [B, F', T', 2Cc_out]; padding per spatial dim."""
+    w, b = _block_kernel(params)
+    return conv({"w": w, "b": b}, x, stride, padding)
+
+
+def complex_conv_transpose(params: dict[str, torch.Tensor], x: torch.Tensor, stride,
+                           padding, output_padding) -> torch.Tensor:
+    """Transposed complex conv (:func:`conv_transpose` of the block kernel)."""
+    w, b = _block_kernel(params)
+    return conv_transpose({"w": w, "b": b}, x, stride, padding, output_padding)
 
 
 def complex_cat(tensors: list[torch.Tensor]) -> torch.Tensor:

@@ -2,20 +2,27 @@
 (``aec_tpu/train/loop.py``).
 
 - one train step: the loss's backward, optional global-norm clipping and an
-  Adam update whose numbers are optax's (:class:`Optimizer`);
+  Adam update whose numbers are optax's (:class:`Optimizer`), over any
+  ported family's net: :func:`make_train_step` for the reference-cadence
+  families (LittleNet, TwoLayerGRU), :func:`make_stateful_train_step` for
+  every family through one signature, BatchNorm statistics carried beside
+  the parameters (``train/generic.GenericTrainer``);
 - Adam(lr=1e-5) + StepLR(period 5 epochs, gamma 0.5) as the reference's
   train_conf, through a step-count schedule evaluated before each update as
   optax evaluates it;
 - frame-weighted loss accounting with the reference's ``countFrames``,
   validation once per logging period (once per epoch), checkpoints
-  latest/best-on-cv-loss in the JAX package's format;
+  latest/best-on-cv-loss in the JAX package's format, the optimizer's
+  moments keyed like the family's JAX param tree;
 - deliberate divergence from the reference, as in the JAX package:
   gradients are reset every step (the reference never calls
   ``optimizer.zero_grad()``).
 
-On a CUDA device a batch-1 step (every validation utterance) runs the GRU
-on kernel K8 through ``ops.gru.gru_scan``'s routing; its backward recomputes
-through the plain scan, as the JAX custom VJP does.
+On a CUDA device the recurrences route as their ops do: a batch-1 step
+(every validation utterance) runs a GRU on kernel K8; DCCRN's complex LSTMs
+run on K9 at B <= 16 and FullSubNet's joint recurrence on K11, so a DCCRN or
+FullSubNet train step at the default batch of 16 runs its kernel forward.
+Every backward recomputes through the plain scan, as the JAX custom VJPs do.
 """
 
 from __future__ import annotations
@@ -29,15 +36,17 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch import nn
 
 from aec_tpu_torch.configs import TrainConfig
 from aec_tpu_torch.dsp.erb import erb_filterbank
 from aec_tpu_torch.dsp.stft import StftConfig
-from aec_tpu_torch.models.little_net import LittleNet, little_net_init, little_net_loss
+from aec_tpu_torch.models.little_net import little_net_init, little_net_loss
+from aec_tpu_torch.models.tree_net import functional_params, map_tree
 from aec_tpu_torch.pipeline.datasets import EvalLoader, TrainLoader
 from aec_tpu_torch.train import checkpoints
 from aec_tpu_torch.utils.tools import count_frames, get_logger, loss_log, num_params
-from aec_tpu_torch.utils.weights import load_params, named_from_tree, params_to_jax, tree_from_named
+from aec_tpu_torch.utils.weights import leaf_pairs, load_jax, param_tree, to_jax
 
 LossFn = Callable[..., tuple[torch.Tensor, dict]]
 
@@ -65,7 +74,7 @@ class Optimizer:
     Clipping is optax's: ``g / norm * clip_norm`` unless ``norm < clip_norm``
     (not ``clip_grad_norm_``, which adds 1e-6 to the norm)."""
 
-    def __init__(self, cfg: TrainConfig, steps_per_epoch: int, net: LittleNet):
+    def __init__(self, cfg: TrainConfig, steps_per_epoch: int, net: nn.Module):
         self.net = net
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.clip_norm = cfg.clip_norm
@@ -73,7 +82,12 @@ class Optimizer:
         self.count = 0
 
     def update(self) -> None:
-        """One update from the gradients in the net's ``.grad``."""
+        """One update from the gradients in the net's ``.grad``; a
+        parameter the loss does not reach (``.grad`` None) takes a zero
+        gradient, as optax's update does."""
+        for p in self.net.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.clip_norm >= 0:
             grads = [p.grad for p in self.net.parameters()]
             norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
@@ -87,16 +101,14 @@ class Optimizer:
 
     def state_tree(self) -> tuple:
         """The state in optax's layout: ``[i][0]`` Adam's count, mu and nu
-        (trees like the params), ``[i][1]`` the schedule's count, with
-        ``i = 1`` behind clipping's empty state, else 0."""
-        moments = {}
-        for key in ("exp_avg", "exp_avg_sq"):
-            moments[key] = tree_from_named({
-                name: self.adam.state.get(p, {}).get(key, torch.zeros_like(p))
-                for name, p in self.net.named_parameters()
-            })
+        (trees keyed like the family's JAX param tree), ``[i][1]`` the
+        schedule's count, with ``i = 1`` behind clipping's empty state, else 0."""
+        def moment(key):
+            return param_tree(self.net, lambda p: self.adam.state.get(p, {}).get(
+                key, torch.zeros_like(p)))
+
         count = np.int32(self.count)
-        adam = (ScaleByAdamState(count, moments["exp_avg"], moments["exp_avg_sq"]),
+        adam = (ScaleByAdamState(count, moment("exp_avg"), moment("exp_avg_sq")),
                 ScaleByScheduleState(count))
         return ((), adam) if self.clip_norm >= 0 else (adam,)
 
@@ -104,30 +116,34 @@ class Optimizer:
         """Resume from :meth:`state_tree`'s layout (numpy leaves, e.g. read by
         ``checkpoints.restore`` from a JAX or a port checkpoint)."""
         adam, sched = tree[-1]
-        mu, nu = named_from_tree(adam.mu), named_from_tree(adam.nu)
-        for name, p in self.net.named_parameters():
+        params = param_tree(self.net)
+        for (p, mu), (_, nu) in zip(leaf_pairs(params, adam.mu), leaf_pairs(params, adam.nu)):
             self.adam.state[p] = {
                 "step": torch.tensor(float(adam.count), dtype=torch.float32),
-                "exp_avg": torch.as_tensor(np.array(mu[name]), device=p.device),
-                "exp_avg_sq": torch.as_tensor(np.array(nu[name]), device=p.device),
+                "exp_avg": torch.as_tensor(np.array(mu), device=p.device),
+                "exp_avg_sq": torch.as_tensor(np.array(nu), device=p.device),
             }
         self.count = int(sched.count)
 
 
-def make_optimizer(cfg: TrainConfig, steps_per_epoch: int, net: LittleNet) -> Optimizer:
+def make_optimizer(cfg: TrainConfig, steps_per_epoch: int, net: nn.Module) -> Optimizer:
     """The JAX loop's name for :class:`Optimizer` over ``net``'s parameters."""
     return Optimizer(cfg, steps_per_epoch, net)
 
 
 def train_tree(optimizer: Optimizer) -> dict:
-    """``{"params", "opt_state"}`` as the JAX trainer checkpoints it."""
-    return {"params": params_to_jax(optimizer.net), "opt_state": optimizer.state_tree()}
+    """``{"params", "opt_state", "model_state"}`` as the JAX trainers
+    checkpoint them (the JAX ``Trainer`` writes no ``model_state``; a
+    stateless net's is ``{}``, which adds no entry)."""
+    params, state = to_jax(optimizer.net)
+    return {"params": params, "opt_state": optimizer.state_tree(), "model_state": state}
 
 
 def restore_train_tree(path: str, optimizer: Optimizer) -> None:
-    """Load params and optimizer state from a JAX or port checkpoint."""
+    """Load params, optimizer state and BatchNorm statistics from a JAX or
+    port checkpoint."""
     restored = checkpoints.restore(path, train_tree(optimizer))
-    load_params(optimizer.net, restored["params"])
+    load_jax(optimizer.net, restored["params"], restored["model_state"])
     optimizer.load_state_tree(restored["opt_state"])
 
 
@@ -150,6 +166,26 @@ def make_train_step(
     return step
 
 
+def make_stateful_train_step(loss_fn: Callable, optimizer: Optimizer):
+    """One update of ``optimizer.net`` for any family:
+    ``step(model_state, *batch) -> (new_state, loss)``. ``loss_fn(params,
+    model_state, *batch)`` returns (scalar loss, ``{"state": new_state}``),
+    ``params`` being the net's parameters as its family's functional loss
+    takes them (:func:`functional_params`). The new BatchNorm statistics
+    come out of the loss's aux detached, once per step; they never enter
+    autograd. The parameters are updated in place."""
+    net = optimizer.net
+
+    def step(model_state, *batch):
+        optimizer.adam.zero_grad(set_to_none=True)
+        loss, aux = loss_fn(functional_params(net), model_state, *batch)
+        loss.backward()
+        optimizer.update()
+        return map_tree(aux["state"], torch.Tensor.detach), loss.detach()
+
+    return step
+
+
 def make_eval_step(loss_fn: LossFn, *, scfg: StftConfig = StftConfig()):
     """``step(net, mic, ref, near, erb) -> (loss, enhanced wav)`` without
     gradients; the loss's default ``sqrt_eps`` (0); the wav feeds the
@@ -161,6 +197,26 @@ def make_eval_step(loss_fn: LossFn, *, scfg: StftConfig = StftConfig()):
         return loss, aux["wav"]
 
     return step
+
+
+def add_wave_metrics(sums: dict, counts: dict, est: np.ndarray, clean: np.ndarray,
+                     n: int) -> None:
+    """Add each utterance's metrics named by ``sums`` ("sisdr", "stoi") of
+    ``est`` against ``clean``, over their first ``n`` samples, to ``sums``
+    and ``counts``. stoi may be nan on clips too short for a 384 ms segment,
+    which are skipped."""
+    from aec_tpu_torch.train.metrics import si_snr
+    from aec_tpu_torch.train.stoi import stoi
+
+    for e, c in zip(est[:, :n], clean[:, :n]):
+        if "sisdr" in sums:
+            sums["sisdr"] += float(si_snr(torch.from_numpy(e), torch.from_numpy(c)))
+            counts["sisdr"] += 1
+        if "stoi" in sums:
+            s = stoi(c, e)
+            if np.isfinite(s):
+                sums["stoi"] += s
+                counts["stoi"] += 1
 
 
 @dataclasses.dataclass
@@ -179,8 +235,9 @@ class Trainer:
     loss_log_name: str = "loss.txt"
     use_mesh: bool = False
     bucket_quantum: int = 4096
+    # the family's loss and init (the registry's, as JAX's CLI passes them)
     loss_fn: LossFn = little_net_loss
-    init_fn: Callable[..., LittleNet] = little_net_init
+    init_fn: Callable[..., nn.Module] = little_net_init
     # optional cv metrics ("stoi", "sisdr"); each gets a best_<metric>.npz
     # slot; higher is better
     validate_metrics: tuple[str, ...] = ()
@@ -290,8 +347,7 @@ class Trainer:
 
     def validate(self, eval_step, net, erb, cv_loader) -> dict:
         """Frame-weighted mean cv loss plus the optional waveform metrics
-        (mean over utterances; stoi may be nan on clips too short for a
-        384 ms segment, which are skipped)."""
+        (mean over utterances, :func:`add_wave_metrics`)."""
         accu_loss, accu_frames = 0.0, 0
         metric_sums = {m: 0.0 for m in self.validate_metrics}
         metric_counts = {m: 0 for m in self.validate_metrics}
@@ -302,23 +358,8 @@ class Trainer:
             accu_loss += float(loss) * n_frames
             accu_frames += n_frames
             if self.validate_metrics:
-                from aec_tpu_torch.train.metrics import si_snr
-                from aec_tpu_torch.train.stoi import stoi
-
-                est = wav.cpu().numpy()
-                clean = batch["nearend_speech"]
-                n = batch["n_samples"]
-                for b in range(clean.shape[0]):
-                    e, c = est[b][:n], clean[b][:n]
-                    if "sisdr" in metric_sums:
-                        metric_sums["sisdr"] += float(si_snr(torch.from_numpy(e),
-                                                             torch.from_numpy(c)))
-                        metric_counts["sisdr"] += 1
-                    if "stoi" in metric_sums:
-                        s = stoi(c, e)
-                        if np.isfinite(s):
-                            metric_sums["stoi"] += s
-                            metric_counts["stoi"] += 1
+                add_wave_metrics(metric_sums, metric_counts, wav.cpu().numpy(),
+                                 batch["nearend_speech"], batch["n_samples"])
         out = {"loss": accu_loss / max(accu_frames, 1)}
         for m in self.validate_metrics:
             out[m] = metric_sums[m] / max(metric_counts[m], 1)

@@ -5,11 +5,11 @@ uses torch's layouts: the GRU stacks its gates [r; z; n] with separate
 input/hidden biases as ``torch.nn.GRU`` does, and the linear weights are
 (out, in). So the mapping is a copy, leaf by leaf, both ways. TwoLayerGRU's
 tree is the same with a 2E-wide GRU. DCCRN's and ATT-CCRN's (params, state)
-trees and FullSubNet's param tree carry over as they are: the modules
-:class:`~aec_tpu_torch.models.dccrn.Dccrn`,
-:class:`~aec_tpu_torch.models.att_ccrn.AttCcrn` and
-:class:`~aec_tpu_torch.models.fullsubnet.FullSubNet` hold the JAX trees, HWIO
-conv kernels included.
+trees and the param trees of FullSubNet and the DCT nets carry over as they
+are: the modules (:class:`~aec_tpu_torch.models.tree_net.TreeNet` s) hold the
+JAX trees, HWIO conv kernels included. :func:`param_tree` lays any ported
+net's parameters out as its JAX family's tree, so the trainers write and read
+one checkpoint format for every family (:func:`to_jax`, :func:`load_jax`).
 
 Checkpoints (``checkpoints/little_net_*.npz``) store leaves keyed by their
 tree path, e.g. ``['params']['gru']['w_ih']`` (``aec_tpu/train/
@@ -24,11 +24,14 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from aec_tpu_torch.models.att_ccrn import AttCcrn, AttCcrnConfig
 from aec_tpu_torch.models.dccrn import Dccrn, DccrnConfig
+from aec_tpu_torch.models.dct_net import DctCnn, DctCnnConfig, DctDnn, DctDnnConfig
 from aec_tpu_torch.models.fullsubnet import FullSubNet, FullSubNetConfig
 from aec_tpu_torch.models.little_net import LittleNet
+from aec_tpu_torch.models.tree_net import TreeNet, copy_into, map_tree, model_state
 from aec_tpu_torch.models.two_layer_gru import TwoLayerGru
 
 _LEAVES = {
@@ -52,11 +55,6 @@ def tree_from_named(values: Mapping[str, Any]) -> dict:
     return tree
 
 
-def named_from_tree(tree) -> dict[str, Any]:
-    """The inverse of :func:`tree_from_named`."""
-    return {name: tree[a][b] for (a, b), name in _LEAVES.items()}
-
-
 def params_from_jax(tree, *, device="cuda") -> LittleNet:
     """JAX LittleNet param tree (numpy or jax leaves) -> ``LittleNet`` on
     ``device`` (the card unless the caller asks for ``device="cpu"``) in
@@ -64,24 +62,14 @@ def params_from_jax(tree, *, device="cuda") -> LittleNet:
     erb_bands = np.shape(tree["lin2"]["w"])[0]
     hidden = np.shape(tree["gru"]["w_hh"])[-1]
     net = LittleNet(erb_bands=erb_bands, width=hidden // erb_bands)
-    load_params(net, tree)
+    load_jax(net, tree)
     return net.to(device).eval()
 
 
 def params_to_jax(net: LittleNet) -> dict:
     """``LittleNet`` -> the JAX param tree of numpy arrays (the inverse of
     :func:`params_from_jax`)."""
-    return tree_from_named(
-        {name: p.detach().cpu().numpy() for name, p in net.named_parameters()}
-    )
-
-
-def load_params(net: LittleNet, tree) -> None:
-    """Copy a JAX param tree into ``net``'s parameters, on their device."""
-    net.load_state_dict({
-        name: torch.from_numpy(np.array(v, dtype=np.float32))
-        for name, v in named_from_tree(tree).items()
-    })
+    return param_tree(net, _np)
 
 
 def load_npz(path: str, *, device="cuda") -> LittleNet:
@@ -105,34 +93,68 @@ _TWO_LAYER_GRU = {key: name.replace("gru1.", "gru.") for key, name in _LEAVES.it
 def two_layer_gru_from_jax(tree, *, device="cuda") -> TwoLayerGru:
     """JAX TwoLayerGRU param tree -> ``TwoLayerGru`` on ``device``, eval mode."""
     net = TwoLayerGru(erb_bands=np.shape(tree["lin2"]["w"])[0])
-    net.load_state_dict({name: torch.from_numpy(np.array(tree[a][b], dtype=np.float32))
-                         for (a, b), name in _TWO_LAYER_GRU.items()})
+    load_jax(net, tree)
     return net.to(device).eval()
 
 
 def two_layer_gru_to_jax(net: TwoLayerGru) -> dict:
     """``TwoLayerGru`` -> the JAX param tree of numpy arrays."""
-    values = {name: p.detach().cpu().numpy() for name, p in net.named_parameters()}
-    tree: dict = {}
-    for (a, b), name in _TWO_LAYER_GRU.items():
-        tree.setdefault(a, {})[b] = values[name]
-    return tree
+    return param_tree(net, _np)
 
 
-def _map_tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map_tree(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map_tree(v, fn) for v in tree]
-    return fn(tree)
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 def _to_torch(tree):
-    return _map_tree(tree, lambda v: torch.from_numpy(np.array(v, dtype=np.float32)))
+    return map_tree(tree, lambda v: torch.from_numpy(np.array(v, dtype=np.float32)))
 
 
 def _to_numpy(tree):
-    return _map_tree(tree, lambda t: t.detach().cpu().numpy())
+    return map_tree(tree, _np)
+
+
+def param_tree(net: nn.Module, fn=lambda p: p):
+    """``net``'s parameters laid out as its JAX family's param tree, each
+    leaf ``fn(parameter)``: LittleNet's and TwoLayerGru's through their leaf
+    maps, a :class:`TreeNet`'s as it holds them."""
+    if isinstance(net, TreeNet):
+        return map_tree(net.params(), fn)
+    leaves = {LittleNet: _LEAVES, TwoLayerGru: _TWO_LAYER_GRU}[type(net)]
+    named = dict(net.named_parameters())
+    tree: dict = {}
+    for (a, b), name in leaves.items():
+        tree.setdefault(a, {})[b] = fn(named[name])
+    return tree
+
+
+def leaf_pairs(tree, other):
+    """The leaves of ``tree`` beside those at the same paths of ``other``
+    (dict keys and list indices; ``other`` may hold more)."""
+    if isinstance(tree, dict):
+        return [pair for k in tree for pair in leaf_pairs(tree[k], other[k])]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, v in enumerate(tree) for pair in leaf_pairs(v, other[i])]
+    return [(tree, other)]
+
+
+def to_jax(net: nn.Module) -> tuple[dict, dict]:
+    """Any ported net -> its JAX family's (params, model_state) trees of
+    numpy arrays; the state is ``{}`` for a stateless family."""
+    return param_tree(net, _np), _to_numpy(model_state(net))
+
+
+def load_jax(net: nn.Module, params, state=None) -> None:
+    """Copy JAX (params, model_state) trees (numpy or jax leaves) into
+    ``net``'s parameters and buffers in place, on their device."""
+    with torch.no_grad():
+        for p, v in leaf_pairs(param_tree(net), params):
+            if tuple(np.shape(v)) != tuple(p.shape):
+                raise ValueError(f"a leaf of shape {np.shape(v)} for a parameter of shape "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(v, dtype=np.float32)))
+        if state:
+            copy_into(model_state(net), _to_torch(state))
 
 
 def dccrn_from_jax(params, state, cfg: DccrnConfig = DccrnConfig(), *, device="cuda") -> Dccrn:
@@ -166,4 +188,24 @@ def fullsubnet_from_jax(params, cfg: FullSubNetConfig = FullSubNetConfig(), *,
 
 def fullsubnet_to_jax(net: FullSubNet) -> dict:
     """``FullSubNet`` -> the JAX param tree of numpy arrays."""
+    return _to_numpy(net.params())
+
+
+def dct_dnn_from_jax(params, cfg: DctDnnConfig = DctDnnConfig(), *, device="cuda") -> DctDnn:
+    """JAX DCT-DNN param tree -> ``DctDnn`` on ``device``, eval mode."""
+    return DctDnn(_to_torch(params), cfg).to(device).eval()
+
+
+def dct_dnn_to_jax(net: DctDnn) -> dict:
+    """``DctDnn`` -> the JAX param tree of numpy arrays."""
+    return _to_numpy(net.params())
+
+
+def dct_cnn_from_jax(params, cfg: DctCnnConfig = DctCnnConfig(), *, device="cuda") -> DctCnn:
+    """JAX DCT-CNN param tree -> ``DctCnn`` on ``device``, eval mode."""
+    return DctCnn(_to_torch(params), cfg).to(device).eval()
+
+
+def dct_cnn_to_jax(net: DctCnn) -> dict:
+    """``DctCnn`` -> the JAX param tree of numpy arrays."""
     return _to_numpy(net.params())

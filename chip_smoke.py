@@ -98,13 +98,24 @@ checkout (twelve kernels), and the cut variants that ``kernels/lstm_costs.py``
   card) on the 8 scenes, kernel route (K1 + K10) against the plain route,
   and its wav SNR against the f32 route; its call timed with the codes
   cold and warm beside K10's device time in it.
+- Zoo training (phase 26): two_layer_gru, dccrn, fullsubnet and att_ccrn
+  at their default configs and ``TrainConfig()`` (16 scenes x 8 s) through
+  ``train/generic.make_adapter`` and ``train/loop.make_stateful_train_step``:
+  the first step on the kernel route (K9 twice in a DCCRN step, K11 once in
+  a FullSubNet step) against the plain route, TwoLayerGRU's and
+  ATT-CCRN's (no kernel in a batch-16 step) also against the CPU route
+  (loss, every gradient leaf, the new BatchNorm state); the launches of K8,
+  K9 and K11 in validation of 8 scenes at batch 1; 3 steps timed with
+  train_xrt and peak memory; a checkpoint round trip; DCT-DNN and DCT-CNN
+  one step against the CPU route, timed.
 
 One line per phase; the first failure exits nonzero (nothing is caught).
 The second-to-last line is the ``kernels`` JSON (each kernel's launches on
 its path, its error against its plain version, its time, its plain
 version's time and its bound from this run's shapes; K3's rows also its
-kernel's device time, ``kernel_ms``, beside the call's), the last line the
-``ok`` JSON. Exits nonzero without a CUDA device.
+kernel's device time, ``kernel_ms``, beside the call's; K8's, K9's and
+K11's also their launches in the zoo's training, ``train_launches``), the
+last line the ``ok`` JSON. Exits nonzero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -112,6 +123,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import re
 import statistics
@@ -208,6 +220,21 @@ ENHANCER_WAV_TOL = 1e-3
 # ATT-CCRN's int8 route against its f32 route, wav SNR per scene (the JAX
 # package graded 71.45-76.41 dB against bf16, benchmarks/results/ab_lstm_int8_r4.json)
 INT8_SNR_MIN_DB = 60.0
+# Zoo training, the first step on the kernel route against the plain route
+# (or, where the step runs no kernel, the CPU route), cuDNN's TF32 off and
+# its algorithms deterministic (its default backward sums with atomics: on
+# an H100 the same DCCRN route run twice differs by up to 2.7e-4 of a
+# gradient leaf's scale; deterministic, not at all): the loss at
+# STEP_LOSS_TOL; each gradient leaf at K8's gradient bar of its scale; the
+# conv biases that feed a BatchNorm have an exact gradient of zero
+# (``tree_net.bias_keys_before_batch_norm``), computed as the round-off of a
+# sum over ~1e6 terms at batch 16, so theirs are held within ZERO_GRAD of
+# the largest leaf's scale in both routes; each BatchNorm statistic within
+# STATE_TOL of its BatchNorm's scale (the largest of its statistics: a
+# batch mean cancels, so its round-off follows the spread that the
+# variances measure)
+ZERO_GRAD, STATE_TOL = 1e-3, 1e-5
+ZOO = ("two_layer_gru", "dccrn", "fullsubnet", "att_ccrn")
 
 # The least time the card could take (PERF.md section 2): the larger of the
 # fp32 operations over the FFMA peak and the bytes over the HBM rate, from
@@ -1578,6 +1605,291 @@ def att_ccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str, costs: list[di
     return out
 
 
+def keyed(tree) -> dict[str, torch.Tensor]:
+    """A tree's leaves by their checkpoint key (``['encoder'][0]['bn']['m_r']``)."""
+    from aec_tpu_torch.train.checkpoints import tree_map_with_path
+
+    out = {}
+    tree_map_with_path(tree, out.__setitem__)
+    return out
+
+
+def grad_check(got: dict, want: dict, exact_zeros: set[str]) -> tuple[float, str, float]:
+    """Two routes' gradient trees: the worst max|d| over the leaf's scale
+    and that leaf (a leaf of scale 0, a parameter the loss does not reach,
+    must be 0 in both); the leaves at ``exact_zeros`` are round-off in both
+    routes, and the largest of them over the largest leaf's scale is
+    returned instead."""
+    got, want = keyed(got), keyed(want)
+    top = max(float(w.abs().max()) for w in want.values())
+    worst, where, zero = 0.0, "", 0.0
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        scale, d = float(w.abs().max()), float((g - w).abs().max())
+        if k in exact_zeros:
+            zero = max(zero, scale / top, float(g.abs().max()) / top)
+        elif (d / scale if scale else (math.inf if d else 0.0)) > worst:
+            worst, where = d / scale if scale else math.inf, k
+    return worst, where, zero
+
+
+def bn_state_err(got: dict, want: dict) -> float:
+    """The worst max|d| of a BatchNorm statistic over its BatchNorm's scale."""
+    got, want = keyed(got), keyed(want)
+    scale: dict = {}
+    for k, w in want.items():
+        bn = k.rsplit("[", 1)[0]
+        scale[bn] = max(scale.get(bn, 1e-12), float(w.abs().max()))
+    return max((float((got[k].to(w.device) - w).abs().max()) / scale[k.rsplit("[", 1)[0]]
+                for k, w in want.items()), default=0.0)
+
+
+def step_profile(fn, n: int = 4) -> tuple[float, list[tuple[str, float, int]]]:
+    """One call of ``fn`` under torch.profiler: the device's busy ms (the
+    kernels' device time summed) and the ``n`` kernels with the most device
+    time (name, ms, count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+    rows.sort(key=lambda e: e.device_time_total, reverse=True)
+    return (sum(e.device_time_total for e in rows) / 1e3,
+            [(e.key[:60], e.device_time_total / 1e3, e.count) for e in rows[:n]])
+
+
+def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
+    """26. Zoo training: two_layer_gru, dccrn, fullsubnet and att_ccrn at
+    their default configs through cli/train's trainers' pieces
+    (make_adapter, make_optimizer at TrainConfig(),
+    make_stateful_train_step) on 16 scenes x 8 s (bench config #7's
+    shape): the first step on the kernel route against the plain route
+    (DCCRN: K9 against ``lstm_fused=False``; FullSubNet: K11 against
+    ``joint_kernel=False``; TwoLayerGRU and ATT-CCRN run no kernel in a
+    batch-16 step, so theirs is also held against the CPU route), cuDNN's
+    TF32 off and deterministic: loss, every gradient leaf, the new
+    BatchNorm state; the kernels' launches in that step and in validation
+    of 8 scenes at batch 1 (K8, K9, K11); 3 more steps timed by the host
+    clock ending in a synchronize (cuDNN at its defaults, TF32 on and
+    nondeterministic, as a user's run has it), train_xrt and peak memory;
+    a checkpoint round trip (save_latest_best -> restore_train_tree into a
+    fresh net: params, opt_state and model_state bit-equal). Then DCT-DNN
+    and DCT-CNN: one step against the CPU route, and the step timed."""
+    from aec_tpu_torch.configs import TrainConfig
+    from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+    from aec_tpu_torch.kernels.gru import gru_recurrence
+    from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.models.dct_net import DctCnn, DctDnn
+    from aec_tpu_torch.models.registry import get_model
+    from aec_tpu_torch.models.tree_net import (
+        bias_keys_before_batch_norm,
+        copy_into,
+        functional_params,
+        model_state,
+    )
+    from aec_tpu_torch.train import checkpoints
+    from aec_tpu_torch.train.generic import make_adapter
+    from aec_tpu_torch.train.loop import (
+        make_optimizer,
+        make_stateful_train_step,
+        restore_train_tree,
+        train_tree,
+    )
+    from aec_tpu_torch.utils.weights import param_tree
+    from benchmarks.scenes import make_scenes
+
+    t_phase = time.perf_counter()
+    cfg = TrainConfig()
+    scenes = [sc for sd in (seed, seed + 1)
+              for sc in make_scenes(np.random.default_rng(sd), n=N_TRAIN).values()]
+    far, mic, near = (torch.from_numpy(np.stack([sc[i] for sc in scenes])) for i in range(3))
+    batch_c = (mic, far, near, mic - near)  # mic, far, near, echo
+    batch = tuple(t.to(dev) for t in batch_c)
+    audio_s = cfg.batch_size * N_TRAIN / SR
+    kernels = (gru_recurrence, grouped_lstm_recurrence, joint_recurrence)
+    expect_step = {"dccrn": (0, 2, 0), "fullsubnet": (0, 0, 1)}
+    expect_val = {"two_layer_gru": (8, 0, 0), "dccrn": (0, 16, 0), "fullsubnet": (0, 0, 8)}
+    plain_kw = {"dccrn": {"lstm_fused": False}, "fullsubnet": {"joint_kernel": False}}
+
+    def stepper(adapter, net, **kw):
+        opt = make_optimizer(cfg, 1, net)
+
+        def loss_fn(p, s, *b):
+            loss, new_state = adapter.loss(p, s, *b, True, **kw)
+            return loss, {"state": new_state}
+
+        return opt, make_stateful_train_step(loss_fn, opt)
+
+    def first_step(adapter, net, data, **kw):
+        """One step: (loss, gradients, new state, the kernels' launches)."""
+        opt, step = stepper(adapter, net, **kw)
+        (new_state, loss), counts = drive(kernels, lambda: step(model_state(net), *data))
+        grads = param_tree(net, lambda p: p.grad.detach().clone())
+        copy_into(model_state(net), new_state)
+        return float(loss), grads, new_state, counts, opt, step
+
+    out = {}
+    torch.backends.cudnn.deterministic = True  # for the comparisons (module top)
+    for name in ZOO:
+        adapter = make_adapter(name)
+        init = adapter.init(generator=torch.Generator().manual_seed(seed), device=dev)
+        net = adapter.module(*init)
+        ref = copy.deepcopy(net)
+        zeros = bias_keys_before_batch_norm(param_tree(net))
+        loss, grads, state, counts, opt, step = first_step(adapter, net, batch)
+        ref_loss, ref_grads, ref_state, ref_counts, _, _ = first_step(
+            adapter, ref, batch, **plain_kw.get(name, {}))
+        check(np.isfinite(loss), f"{name} loss not finite")
+        rel = abs(loss / ref_loss - 1.0)
+        g_err, g_leaf, g_zero = grad_check(grads, ref_grads, zeros)
+        s_err = bn_state_err(state, ref_state)
+        want_step = expect_step.get(name, (0, 0, 0))
+        phase("zoo", f"{name} step 1, batch {cfg.batch_size} x {N_TRAIN}: launches K8 / K9 / K11 "
+              f"{counts} (plain route {ref_counts}); loss {loss:.6f} vs plain route "
+              f"{ref_loss:.6f} (rel {rel:.2e}, bar {STEP_LOSS_TOL:g}); worst gradient leaf "
+              f"{g_leaf} {g_err:.3e} of its scale (bar {K8_GRAD_TOL:g}); {len(zeros)} biases "
+              f"before a BatchNorm (exact zeros) up to {g_zero:.2e} of the largest leaf (bar "
+              f"{ZERO_GRAD:g}); BatchNorm state {s_err:.3e} (bar {STATE_TOL:g})")
+        check(tuple(counts) == want_step and tuple(ref_counts) == (0, 0, 0),
+              f"{name}'s train step did not launch its kernels as routed")
+        check(rel <= STEP_LOSS_TOL and g_err <= K8_GRAD_TOL and g_zero <= ZERO_GRAD
+              and s_err <= STATE_TOL,
+              f"{name}'s first step on the kernel route disagrees with the plain route")
+        del ref, ref_grads, ref_state
+        if name not in plain_kw:  # no kernel in the step: the CPU route
+            cpu = adapter.module(*adapter.init(generator=torch.Generator().manual_seed(seed),
+                                               device="cpu"))
+            c_loss, c_grads, c_state, _, _, _ = first_step(adapter, cpu, batch_c)
+            c_rel = abs(loss / c_loss - 1.0)
+            # every summation order differs here (cuDNN's and the CPU's
+            # convolutions and products), which a gradient that cancels (a
+            # conv before a BatchNorm) feels at ~1e-3 of its scale: held,
+            # as the LittleNet trainer's first step is, by the loss and by
+            # the parameters after the update (Adam's step follows each
+            # element's gradient sign), the exact zeros left out of the
+            # latter (each route moves them by +-lr on its round-off)
+            c_err, c_leaf, c_zero = grad_check(grads, c_grads, zeros)
+            cs_err = bn_state_err(state, c_state)
+            moved = keyed(param_tree(cpu))
+            mean_d = max(float((p.detach().cpu() - moved[k].detach()).abs().mean())
+                         for k, p in keyed(param_tree(net)).items() if k not in zeros)
+            phase("zoo", f"{name} step 1 vs the CPU route: loss {c_loss:.6f} (rel {c_rel:.2e}, "
+                  f"bar {STEP_LOSS_TOL:g}); BatchNorm state {cs_err:.3e} (bar {STATE_TOL:g}); "
+                  f"worst leaf mean|d| after the update {mean_d:.3e} (bar {STEP_PARAM_TOL:g} x "
+                  f"lr, the exact zeros left out); exact zeros' gradients up to {c_zero:.2e} of "
+                  f"the largest leaf (bar {ZERO_GRAD:g}); worst gradient leaf {c_leaf} "
+                  f"{c_err:.3e} of its scale (information)")
+            check(c_rel <= STEP_LOSS_TOL and c_zero <= ZERO_GRAD and cs_err <= STATE_TOL
+                  and mean_d <= STEP_PARAM_TOL * cfg.lr,
+                  f"{name}'s first step disagrees with the CPU route")
+            del cpu, c_grads, c_state
+        del grads
+
+        # the library's defaults, as a user's run has them
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, False
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, step_counts = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            (new_state, l), c = drive(kernels, lambda: step(model_state(net), *batch))
+            copy_into(model_state(net), new_state)
+            losses.append(float(l))
+            times.append((time.perf_counter() - t0) * 1e3)
+            step_counts.append(tuple(c))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the forward alone (autograd recording, as in a step): the rest of a
+        # step is the backward and the update
+        t0 = time.perf_counter()
+        float(adapter.loss(functional_params(net), model_state(net), *batch, True)[0])
+        t_fwd = (time.perf_counter() - t0) * 1e3
+        busy, top = step_profile(lambda: copy_into(model_state(net),
+                                                   step(model_state(net), *batch)[0]))
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+        t_step = statistics.median(times)
+        xrt = audio_s / (t_step / 1e3)
+        check(all(np.isfinite(losses)) and all(c == want_step for c in step_counts),
+              f"{name}'s timed steps")
+        phase("zoo", f"{name}: one step under torch.profiler: device busy {busy:.1f} ms "
+              f"({busy / t_step:.0%} of the median step); top kernels by device time: "
+              + "; ".join(f"{k} {ms:.1f} ms x {n}" for k, ms, n in top))
+
+        params, state = functional_params(net), model_state(net)
+
+        @torch.no_grad()
+        def validate():
+            return [float(adapter.loss(params, state, *(t[i:i + 1] for t in batch), False)[0])
+                    for i in range(8)]
+
+        cv, val_counts = drive(kernels, validate)
+        check(all(np.isfinite(cv)), f"{name} validation loss")
+        check(tuple(val_counts) == expect_val.get(name, (0, 0, 0)),
+              f"{name}'s batch-1 validation did not launch its kernels as routed: {val_counts}")
+        phase("zoo", f"{name}: 3 steps {', '.join(f'{v:.1f}' for v in times)} ms (median "
+              f"{t_step:.1f} ms = train_xrt {xrt:.1f}; the forward alone {t_fwd:.1f} ms), "
+              f"losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)}; peak memory {peak:.2f} GiB; "
+              f"launches K8 / K9 / K11 a step {step_counts[0]}, in validation of 8 scenes at "
+              f"batch 1 {tuple(val_counts)}; cv loss {np.mean(cv):.5f} [{smi}]")
+
+        with tempfile.TemporaryDirectory() as d:
+            tree = train_tree(opt)
+            latest = checkpoints.save_latest_best(d, tree, {"cur_epoch": 0, "model": name}, False)
+            fresh = adapter.module(*adapter.init(
+                generator=torch.Generator().manual_seed(seed + 7), device=dev))
+            fresh_opt = make_optimizer(cfg, 1, fresh)
+            restore_train_tree(latest, fresh_opt)
+            want, got = leaves(tree), leaves(train_tree(fresh_opt))
+            same = len(want) == len(got) and all(np.array_equal(a, b) for a, b in zip(want, got))
+        phase("zoo", f"{name}: save_latest_best -> restore_train_tree: {len(want)} leaves "
+              f"(params, opt_state, model_state) bit-equal {same}, count {fresh_opt.count}")
+        check(same and fresh_opt.count == opt.count == 5, f"{name} checkpoint round trip")
+        out[name] = {"step_ms": t_step, "train_xrt": xrt, "peak_gib": peak, "forward_ms": t_fwd,
+                     "step_launches": step_counts[0], "validation_launches": tuple(val_counts)}
+        del net, opt, step, fresh, fresh_opt, tree, params, state
+        torch.cuda.empty_cache()
+
+    # DCT-DNN and DCT-CNN (no adapter, no CLI in either package): their
+    # registry loss on the denoising contract (noisy mic -> clean near end)
+    for name, cls in (("dct_dnn", DctDnn), ("dct_cnn", DctCnn)):
+        spec = get_model(name)
+        nets = [cls(spec.init(generator=torch.Generator().manual_seed(seed), device=d))
+                for d in (dev, "cpu")]
+        steps = []
+        for n in nets:
+            opt = make_optimizer(cfg, 1, n)
+            steps.append(make_stateful_train_step(
+                lambda p, s, m, f, ne, e: (spec.loss(p, m, ne)[0], {"state": s}), opt))
+        loss = float(steps[0]({}, *batch)[1])
+        c_loss = float(steps[1]({}, *batch_c)[1])
+        rel = abs(loss / c_loss - 1.0)
+        mean_d = max(float((p.detach().cpu() - q.detach()).abs().mean())
+                     for p, q in zip(nets[0].parameters(), nets[1].parameters()))
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            float(steps[0]({}, *batch)[1])
+            times.append((time.perf_counter() - t0) * 1e3)
+        t_step = statistics.median(times)
+        phase("zoo", f"{name} step 1, batch {cfg.batch_size} x {N_TRAIN}: loss {loss:.6f} vs the "
+              f"CPU route {c_loss:.6f} (rel {rel:.2e}, bar {STEP_LOSS_TOL:g}); worst leaf "
+              f"mean|d| after the update {mean_d:.3e} (bar {STEP_PARAM_TOL:g} x lr); 3 steps "
+              f"{', '.join(f'{v:.1f}' for v in times)} ms (median {t_step:.1f} ms = train_xrt "
+              f"{audio_s / (t_step / 1e3):.1f}) [{smi}]")
+        check(rel <= STEP_LOSS_TOL and mean_d <= STEP_PARAM_TOL * cfg.lr,
+              f"{name}'s step disagrees with the CPU route")
+        out[name] = {"step_ms": t_step, "train_xrt": audio_s / (t_step / 1e3)}
+    torch.backends.cudnn.deterministic = False
+    wall = time.perf_counter() - t_phase
+    phase("zoo", f"phase wall time {wall:.1f} s")
+    print("zoo_train " + " ".join(
+        f"{k}_step_ms={v['step_ms']:.2f} {k}_train_xrt={v['train_xrt']:.1f}"
+        + (f" {k}_peak_gib={v['peak_gib']:.2f}" if "peak_gib" in v else "")
+        for k, v in out.items()), flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2196,8 +2508,10 @@ def main() -> None:
         fsn_parts = fsn_costs.costs(fsn_libs, args.reps, args.seed)
     fsn = fullsubnet_phase(dev, names, s_far, s_mic, args.reps, smi, fsn_parts)
     att = att_ccrn_phase(dev, names, s_far, s_mic, args.reps, smi, step_costs)
+    # 26. zoo training: every cli/train family and the DCT nets at batch 16 x 8 s
+    zoo = zoo_phase(dev, args.seed, args.reps, smi)
 
-    # 26. the kernels of the paths, with this run's numbers; bounds from
+    # 27. the kernels of the paths, with this run's numbers; bounds from
     #     this run's shapes (module top); library_ms where PyTorch calls
     #     compute the same function (cuDNN's GRU for K8, its LSTM for K9,
     #     its LSTM twice and the embedding for K11), else null (no PyTorch
@@ -2267,6 +2581,13 @@ def main() -> None:
         "consumers_ms": fsn["shapes"][1]["consumers_ms"],
         "b4": {"ms": k11_b4["ms"], "plain_ms": k11_b4["plain_ms"],
                "library_ms": k11_b4["library_ms"], **fsn_bound(4, T_FSN)}}
+    # the zoo's training launches: one batch-16 step and validation of 8
+    # scenes at batch 1, per family whose path runs the kernel
+    for kernel, i, family in (("gru_scan", 0, "two_layer_gru"), ("lstm_grouped", 1, "dccrn"),
+                              ("fullsubnet_joint", 2, "fullsubnet")):
+        extra.setdefault(kernel, {})["train_launches"] = {
+            f"{family}_step": zoo[family]["step_launches"][i],
+            f"{family}_validation": zoo[family]["validation_launches"][i]}
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"aec_tpu/kernels/{tpu}", "launches": n, "max_abs_err": err, "ms": ms,
@@ -2275,7 +2596,7 @@ def main() -> None:
          **extra.get(kernel, {})}
         for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
     ]}), flush=True)
-    # 27. the result
+    # 28. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

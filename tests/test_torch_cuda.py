@@ -1378,3 +1378,87 @@ def test_fullsubnet_and_att_ccrn_enhancers_run_their_kernels(cuda, scene, tmp_pa
             want = plain(params)
         assert got.shape == want.shape and bool(torch.isfinite(got).all()), model
         torch.testing.assert_close(got, want, atol=1e-3 * float(want.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("family", ["dccrn", "fullsubnet"])
+def test_zoo_train_step_runs_its_kernel(cuda, scene, family):
+    """One make_stateful_train_step step at B = 16 of a narrow DCCRN (K9 in
+    both complex LSTM layers, 65 frames) and FullSubNet (K11), cuDNN's TF32
+    off and deterministic (its default backward sums with atomics, so one
+    route run twice would differ): the kernel route launches K9 twice /
+    K11 once, the plain route (``lstm_fused=False`` / ``joint_kernel=False``)
+    neither, and the kernel route's loss (rtol 1e-4), gradients and new
+    BatchNorm state match the plain route's. Each gradient leaf within 1e-4
+    of its scale (K8's gradient bar; both backwards recompute the plain
+    scan), but the conv biases before a BatchNorm, whose exact gradient is
+    zero (``bias_keys_before_batch_norm``), within 1e-3 of the largest
+    leaf's scale in both routes; each statistic within 1e-5 of its
+    BatchNorm's scale."""
+    import copy
+
+    from aec_tpu_torch.configs import TrainConfig
+    from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+    from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.models import dccrn, fullsubnet
+    from aec_tpu_torch.models.tree_net import bias_keys_before_batch_norm, model_state
+    from aec_tpu_torch.train.checkpoints import tree_map_with_path
+    from aec_tpu_torch.train.loop import make_optimizer, make_stateful_train_step
+    from aec_tpu_torch.utils.weights import param_tree
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator().manual_seed(0)
+    if family == "dccrn":
+        cfg = dccrn.DccrnConfig(conv_channels=(4, 8, 16))
+        net = dccrn.Dccrn(*dccrn.dccrn_init(cfg, generator=g, device="cpu"), cfg).to(cuda)
+        kernel, launches, route = grouped_lstm_recurrence, 2, "lstm_fused"
+
+        def loss(p, s, mic, far, near, echo, **kw):
+            value, aux = dccrn.dccrn_loss_v1(p, s, mic, far, near, echo, cfg, **kw)
+            return value, {"state": aux["state"]}
+    else:
+        cfg = fullsubnet.FullSubNetConfig(fb_hidden=32, sb_hidden=16)
+        net = fullsubnet.FullSubNet(fullsubnet.fullsubnet_init(cfg, generator=g, device="cpu"),
+                                    cfg).to(cuda)
+        kernel, launches, route = joint_recurrence, 1, "joint_kernel"
+
+        def loss(p, s, mic, far, near, echo, **kw):
+            return fullsubnet.fullsubnet_loss(p, mic, far, near, echo, cfg, **kw)[0], {"state": s}
+
+    far, mic = (t.to(cuda) for t in scene(16, 64 * 256))
+    near = 0.1 * torch.roll(far, 1000, dims=1)
+    batch = (mic + near, far, near, mic)
+    out = {}
+    for kw in ({}, {route: False}):
+        mine = copy.deepcopy(net)
+        step = make_stateful_train_step(lambda p, s, *b: loss(p, s, *b, **kw),
+                                        make_optimizer(TrainConfig(), 1, mine))
+        before = kernel.launches
+        new_state, value = step(model_state(mine), *batch)
+        torch.cuda.synchronize()
+        out[bool(kw)] = (kernel.launches - before, float(value), new_state,
+                         param_tree(mine, lambda p: p.grad))
+    torch.backends.cudnn.deterministic = False
+    (n_k, l_k, s_k, g_k), (n_p, l_p, s_p, g_p) = out[False], out[True]
+    assert (n_k, n_p) == (launches, 0)
+    assert abs(l_k / l_p - 1.0) <= 1e-4, (l_k, l_p)
+
+    def flat(tree):
+        out = {}
+        tree_map_with_path(tree, out.__setitem__)
+        return out
+
+    zeros = bias_keys_before_batch_norm(param_tree(net))
+    g_k, g_p = flat(g_k), flat(g_p)
+    top = max(float(w.abs().max()) for w in g_p.values())
+    for k, w in g_p.items():
+        if k in zeros:
+            assert max(float(w.abs().max()), float(g_k[k].abs().max())) <= 1e-3 * top, k
+        else:
+            torch.testing.assert_close(g_k[k], w, atol=1e-4 * float(w.abs().max()), rtol=0,
+                                       msg=k)
+    s_k, s_p = flat(s_k), flat(s_p)
+    for k, w in s_p.items():
+        bn = k.rsplit("[", 1)[0]
+        scale = max(float(v.abs().max()) for j, v in s_p.items() if j.rsplit("[", 1)[0] == bn)
+        torch.testing.assert_close(s_k[k], w, atol=1e-5 * scale, rtol=0, msg=k)

@@ -339,9 +339,9 @@ def test_trainer_refuses_what_the_port_leaves_out(tmp_path):
 
 def test_cli_trains_on_the_cpu_without_jax(tmp_path, rng):
     """python -m aec_tpu_torch.cli.train --device cpu on tiny files, with
-    jax and the JAX package blocked; chip_smoke imports there too; the
-    families, --mesh and --device_cache the port leaves out exit with the
-    ROADMAP item that brings them."""
+    jax and the JAX package blocked; chip_smoke imports there too; --mesh
+    and --device_cache, which the port leaves out, exit with the ROADMAP
+    item that brings them (every family trains: tests/test_torch_zoo_train.py)."""
     paths, cv = _make_dataset(tmp_path, rng, n_utts=2)
     lst = str(tmp_path / "tr_list.txt")
     th5.write_filelist(lst, paths)
@@ -363,8 +363,7 @@ def test_cli_trains_on_the_cpu_without_jax(tmp_path, rng):
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "ok"
     assert os.path.isfile(os.path.join(exp, "models", "latest.npz"))
-    for flags, item in ((["--model", "dccrn"], "A1"), (["--mesh"], "A6"),
-                        (["--device_cache", "int16"], "A3")):
+    for flags, item in ((["--mesh"], "A6"), (["--device_cache", "int16"], "A3")):
         res = subprocess.run(
             [sys.executable, "-m", "aec_tpu_torch.cli.train", "--tr_list", lst, "--cv_file", cv,
              "--ckpt_dir", exp, *flags], cwd=ROOT, env=env, capture_output=True, text=True,
