@@ -10,9 +10,9 @@ family, optionally after a stage-1 linear canceller, and writes five wavs:
       [--lstm_dtype auto|int8|bf16|f32] [--device cpu]
 
 Checkpoints are the framework's path-keyed ``.npz`` files (either package
-writes them); a reference ``.pt`` checkpoint raises naming
-``utils/torch_compat`` (ROADMAP A5). On the card, stage 1 runs its batched
-kernel (K1 or K5) on the loader's (1, n) batches; LittleNet's and
+writes them) and, for little_net, the reference's pickled ``.pt``
+(``utils/torch_compat``). On the card, stage 1 runs its batched kernel (K1
+or K5) on the loader's (1, n) batches; LittleNet's and
 TwoLayerGRU's GRU at batch 1 runs on K8, DCCRN's two complex-LSTM layers on
 K9, FullSubNet's joint full/sub-band recurrence on K11, and ATT-CCRN's
 bottleneck LSTM on K10 (``--lstm_dtype auto`` is int8 on a CUDA device, f32
@@ -37,16 +37,20 @@ from aec_tpu_torch.pipeline.audio_io import write_wav
 from aec_tpu_torch.pipeline.datasets import EvalLoader
 from aec_tpu_torch.pipeline.h5io import read_filelist
 from aec_tpu_torch.train import checkpoints
-from aec_tpu_torch.utils.tools import get_logger
+from aec_tpu_torch.utils.tools import get_logger, num_params
 
 
 def load_params(model_file: str, *, device="cuda"):
-    """LittleNet from a framework ``.npz`` checkpoint on ``device``."""
+    """LittleNet on ``device`` from a framework ``.npz`` checkpoint or a
+    reference ``.pt``."""
     if model_file.endswith(".pt"):
-        raise NotImplementedError(
-            "reference .pt checkpoints load through utils/torch_compat, which is not ported "
-            "yet (ROADMAP A5); convert it with the JAX package's cli/export_pt or pass an .npz"
+        from aec_tpu_torch.utils.torch_compat import (
+            little_net_params_from_state_dict,
+            load_reference_checkpoint,
         )
+
+        _, state = load_reference_checkpoint(model_file)
+        return little_net_params_from_state_dict(state, device=device)
     from aec_tpu_torch.utils.weights import load_npz
 
     return load_npz(model_file, device=device)
@@ -170,16 +174,6 @@ def _make_enhancer(
     return enhance, params
 
 
-def _count(params) -> int:
-    if isinstance(params, torch.nn.Module):
-        return sum(p.numel() for p in params.parameters())
-    if isinstance(params, dict):
-        return sum(_count(v) for v in params.values())
-    if isinstance(params, list):
-        return sum(_count(v) for v in params)
-    return params.numel()
-
-
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         description="Enhance test utterances and dump wavs",
@@ -245,7 +239,7 @@ def main(argv=None) -> None:
             return little_net_apply(params, lin, far, erb, scfg, normalize=args.normalize)["wav"]
 
         log.info("No checkpoint at %s; using fresh init", args.model_file)
-    log.info("Trainable parameter count: {:,d}".format(_count(params)))
+    log.info("Trainable parameter count: {:,d}".format(num_params(params)))
 
     for tt_file in read_filelist(args.tt_list):
         sub = os.path.join(args.est_path, os.path.basename(tt_file).replace(".ex", ""))

@@ -6,10 +6,10 @@
 
 Routes as the JAX CLI does: little_net and two_layer_gru train on the
 reference-cadence ``Trainer`` with the registry's loss and init, dccrn,
-fullsubnet and att_ccrn on ``GenericTrainer``, which refuses
-``--device_cache`` as JAX's does. ``--mesh`` (ROADMAP A6) and
-``--device_cache`` for the reference-cadence families (A3) exit with an
-error naming the item that brings them.
+fullsubnet and att_ccrn on ``GenericTrainer``. ``--device_cache`` holds the
+corpus in device memory for the reference-cadence families and is refused
+for the others with JAX's message; ``--mesh`` (the parallel layer, ROADMAP
+A6) exits with an error naming the item that brings it.
 """
 
 from __future__ import annotations
@@ -78,8 +78,6 @@ def main(argv=None) -> None:
             device=args.device,
         ).train()
         return
-    if args.device_cache:
-        p.error("--device_cache: the port's device-resident corpus is ROADMAP item A3")
 
     spec = get_model(args.model)
     Trainer(
@@ -93,6 +91,7 @@ def main(argv=None) -> None:
         loss_fn=spec.loss,
         init_fn=spec.init,
         validate_metrics=validate_metrics,
+        device_cache=args.device_cache,
         device=args.device,
     ).train()
 

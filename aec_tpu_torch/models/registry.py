@@ -54,8 +54,7 @@ def _specs() -> dict[str, ModelSpec]:
         "fullsubnet": ModelSpec(
             "fullsubnet", fullsubnet.fullsubnet_init, fullsubnet.fullsubnet_apply,
             fullsubnet.fullsubnet_loss, stateful=False,
-            reference="models.py (training script only; module missing upstream — working "
-                      "realization)",
+            reference="models.py (driver only; module missing upstream — working realization)",
         ),
         "att_ccrn": ModelSpec(
             "att_ccrn", att_ccrn.att_ccrn_init, att_ccrn.att_ccrn_apply,

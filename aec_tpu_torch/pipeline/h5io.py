@@ -16,9 +16,13 @@ Three layouts exist in the reference's packers (all float32):
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import Iterable, Mapping
 
 import numpy as np
+
+from aec_tpu_torch.pipeline.audio_io import read_wav
 
 TRAIN_KEYS = ("nearend_speech", "nearend_mic", "farend_speech", "echo")
 VAL_KEYS = ("mic", "ref", "near", "echo")
@@ -91,3 +95,29 @@ def write_filelist(path: str, entries: list[str]) -> None:
 def read_filelist(path: str) -> list[str]:
     with open(path) as f:
         return [line.strip() for line in f if line.strip()]
+
+
+def iter_wav_quads(wav_dir: str, sr: int = 16000):
+    """``(file id, utterance)`` for each ``nearend_speech_fileid_<id>.wav``
+    of ``wav_dir`` in sorted order: the aligned quadruple read at ``sr``
+    (the reference packers' input layout)."""
+    for near_path in sorted(glob.glob(os.path.join(wav_dir, "nearend_speech_fileid_*.wav"))):
+        fid = os.path.basename(near_path).rsplit(".wav", 1)[0].rsplit("_", 1)[-1]
+        yield fid, {key: read_wav(os.path.join(wav_dir, f"{key}_fileid_{fid}.wav"), sr)[0]
+                    for key in TRAIN_KEYS}
+
+
+def pack_train_dir(wav_dir: str, h5_dir: str, list_path: str, sr: int = 16000) -> list[str]:
+    """The reference's train packer: one ``tr_<id>.ex`` per wav quadruple
+    of ``wav_dir`` under ``h5_dir/tr``, and the list of them at
+    ``list_path``."""
+    out_dir = os.path.join(h5_dir, "tr")
+    os.makedirs(out_dir, exist_ok=True)
+    entries = []
+    for fid, utt in iter_wav_quads(wav_dir, sr):
+        ex_path = os.path.join(out_dir, f"tr_{fid}.ex")
+        write_utterance(ex_path, utt)
+        entries.append(ex_path)
+    os.makedirs(os.path.dirname(list_path) or ".", exist_ok=True)
+    write_filelist(list_path, entries)
+    return entries

@@ -16,7 +16,10 @@
   moments keyed like the family's JAX param tree;
 - deliberate divergence from the reference, as in the JAX package:
   gradients are reset every step (the reference never calls
-  ``optimizer.zero_grad()``).
+  ``optimizer.zero_grad()``);
+- ``Trainer(device_cache=...)`` trains from a corpus held in device memory
+  (``pipeline/device_cache.py``) on an epoch loop that never waits on the
+  device: the float32 cache reproduces the host loader's run.
 
 On a CUDA device the recurrences route as their ops do: a batch-1 step
 (every validation utterance) runs a GRU on kernel K8; DCCRN's complex LSTMs
@@ -241,15 +244,16 @@ class Trainer:
     # optional cv metrics ("stoi", "sisdr"); each gets a best_<metric>.npz
     # slot; higher is better
     validate_metrics: tuple[str, ...] = ()
+    # "" (the host loader) or "int16" / "bfloat16" / "float32": hold the
+    # whole corpus and the cv set in device memory (pipeline/device_cache.py)
+    # and run each epoch's steps without waiting on the device; the same
+    # update math, cadence and shuffle stream; validate_metrics unsupported
     device_cache: str = ""
     device: str = "cuda"
 
     def __post_init__(self):
         if self.use_mesh:
             raise NotImplementedError("use_mesh: the port's parallel layer is ROADMAP item A6")
-        if self.device_cache:
-            raise NotImplementedError("device_cache: the port's device-resident corpus is "
-                                      "ROADMAP item A3")
         # once-per-epoch validation/checkpoint cadence
         self.logging_period = self.cfg.logging_period or max(
             len(self.tr_list) // self.cfg.batch_size, 1
@@ -263,6 +267,13 @@ class Trainer:
     def train(self) -> dict:
         os.makedirs(self.ckpt_dir, exist_ok=True)
         logger = get_logger(os.path.join(self.ckpt_dir, "train.log"), log_file=True)
+        if self.device_cache:
+            if self.validate_metrics:
+                raise ValueError(
+                    "validate_metrics need per-utterance wav readback — "
+                    "use the host loader (device_cache='')"
+                )
+            return self._train_cached(logger)
         dev = torch.device(self.device)
         loader = TrainLoader(self.tr_list, self.cfg.batch_size,
                              bucket_quantum=self.bucket_quantum, seed=self.cfg.seed)
@@ -342,6 +353,104 @@ class Trainer:
                         ckpt_info["cur_epoch"] + 1, self.cfg.max_n_epochs, ckpt_info["tr_loss"],
                         ckpt_info["best_loss"]))
                     accu_loss, accu_frames = 0.0, 0
+            ckpt_info["cur_epoch"] += 1
+        return {"net": net, "optimizer": optimizer, "ckpt_info": ckpt_info}
+
+    def _train_cached(self, logger) -> dict:
+        """Training on a device-resident corpus (JAX's ``_train_cached``).
+
+        The same update math, optimizer schedule, shuffle stream
+        (``np.random.default_rng(seed)``, one shuffle an epoch, the first
+        ``steps_per_epoch * batch_size`` of it), per-epoch validation and
+        latest / best checkpoints as the host loader's loop. Each step
+        gathers its batch from the cache on the device and keeps its loss
+        there; the epoch's indices go up once and its losses come back
+        once, so the host never waits on the device inside an epoch (JAX
+        scans the epoch in one dispatch). cv runs at batch 1 over the cached
+        cv set, which equals the host ``validate`` on a uniform-length
+        corpus (on the card a batch-1 GRU is kernel K8)."""
+        from aec_tpu_torch.pipeline import device_cache as dc
+
+        cfg, dev = self.cfg, torch.device(self.device)
+        t_load0 = time.perf_counter()
+        logger.info("device_cache=%s: caching %d train files + cv on device",
+                    self.device_cache, len(self.tr_list))
+        corpus = dc.from_files(self.tr_list, dtype=self.device_cache,
+                               bucket_quantum=self.bucket_quantum, device=dev,
+                               progress=lambda i, n: logger.info("  cached %d/%d", i, n))
+        cv = dc.from_grouped(self.cv_file, dtype=self.device_cache,
+                             bucket_quantum=self.bucket_quantum, device=dev)
+        logger.info("corpus resident: %d x %d (%s) in %.1f s", corpus.n_utts,
+                    corpus.arrays[dc.CACHE_KEYS[0]].shape[1], self.device_cache,
+                    time.perf_counter() - t_load0)
+
+        net = self.init_fn(generator=torch.Generator().manual_seed(cfg.seed), device=dev)
+        erb = torch.as_tensor(erb_filterbank(self.scfg.n_freqs, 16000, self.erb_bands),
+                              dtype=torch.float32, device=dev)
+        steps_per_epoch = max(corpus.n_utts // cfg.batch_size, 1)
+        optimizer = make_optimizer(cfg, steps_per_epoch, net)
+        train_step = make_train_step(self.loss_fn, optimizer, scfg=self.scfg)
+        eval_step = make_eval_step(self.loss_fn, scfg=self.scfg)
+        logger.info("Trainable parameter count: {:,d} -> {:.2f} MB".format(
+            num_params(net), num_params(net) * 4 / 2**20))
+
+        ckpt_info = {"cur_epoch": 0, "cur_iter": 0, "tr_loss": None, "cv_loss": None,
+                     "best_loss": float("inf")}
+        if self.resume_model:
+            restore_train_tree(self.resume_model, optimizer)
+            ckpt_info.update(checkpoints.load_info(self.resume_model))
+            logger.info(f"Resumed from {self.resume_model}: {ckpt_info}")
+
+        rng = np.random.default_rng(cfg.seed)
+        cv_idx = torch.arange(cv.n_utts, device=dev)[:, None]  # batch 1
+        n_frames = count_frames(corpus.n_samples, self.scfg.win_len, self.scfg.hop)
+        audio_s = cfg.batch_size * corpus.n_samples / 16000.0
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+        while ckpt_info["cur_epoch"] < cfg.max_n_epochs:
+            order = np.arange(corpus.n_utts)
+            rng.shuffle(order)
+            idx = torch.as_tensor(order[: steps_per_epoch * cfg.batch_size]
+                                  .reshape(steps_per_epoch, cfg.batch_size), device=dev)
+            sync()
+            t0 = time.perf_counter()
+            losses = torch.stack([train_step(*corpus.batch(ib), erb) for ib in idx])
+            losses = losses.cpu().numpy()  # one readback per epoch
+            epoch_time = time.perf_counter() - t0
+            batch_time = epoch_time / steps_per_epoch
+
+            if self.time_log:
+                with open(self.time_log, "a") as f:
+                    for n_iter, loss_val in enumerate(losses):
+                        print(f"Epoch [{ckpt_info['cur_epoch'] + 1}/{cfg.max_n_epochs}], "
+                              f"Iter [{n_iter}], tr_loss = {loss_val:.4f} / "
+                              f"{losses[: n_iter + 1].mean():.4f}, "
+                              f"batch_time (s) = {batch_time:.4f}", file=f)
+
+            cv_losses = torch.stack([eval_step(net, *cv.batch(ib), erb)[0] for ib in cv_idx])
+            metrics = {"loss": float(cv_losses.cpu().numpy().mean())}
+            ckpt_info["cur_iter"] = steps_per_epoch - 1
+            # uniform-length corpus: the frame weights are equal, so the
+            # frame-weighted mean is the plain mean
+            ckpt_info["tr_loss"] = float(losses.mean())
+            ckpt_info["cv_loss"] = metrics["loss"]
+            is_best = metrics["loss"] < ckpt_info["best_loss"]
+            if is_best:
+                ckpt_info["best_loss"] = metrics["loss"]
+            checkpoints.save_latest_best(os.path.join(self.ckpt_dir, "models"),
+                                         train_tree(optimizer), ckpt_info, is_best)
+            loss_log(os.path.join(self.ckpt_dir, self.loss_log_name), ckpt_info, metrics)
+            with open(os.path.join(self.ckpt_dir, "metrics.jsonl"), "a") as f:
+                f.write(json.dumps({
+                    "epoch": ckpt_info["cur_epoch"] + 1, "iter": ckpt_info["cur_iter"],
+                    "tr_loss": ckpt_info["tr_loss"], "cv_loss": metrics["loss"],
+                    "batch_time_s": round(batch_time, 5), "epoch_time_s": round(epoch_time, 3),
+                    "train_xrt": round(audio_s / batch_time, 1), "n_frames_per_batch": n_frames,
+                }) + "\n")
+            logger.info("Epoch [{:d}/{:d}] {:.2f}s, ( tr_loss: {:.4f} | cv_loss: {:.4f} | "
+                        "best_loss: {:.4f} )".format(
+                            ckpt_info["cur_epoch"] + 1, cfg.max_n_epochs, epoch_time,
+                            ckpt_info["tr_loss"], metrics["loss"], ckpt_info["best_loss"]))
             ckpt_info["cur_epoch"] += 1
         return {"net": net, "optimizer": optimizer, "ckpt_info": ckpt_info}
 

@@ -27,9 +27,17 @@ def get_logger(
     return logger
 
 
-def num_params(net) -> int:
-    """Total parameter count of an ``nn.Module``."""
-    return sum(p.numel() for p in net.parameters())
+def num_params(params) -> int:
+    """Total parameter count of an ``nn.Module`` or of a tree (dicts,
+    lists, tuples) of tensors or arrays, as the JAX package counts a
+    pytree's leaves."""
+    if hasattr(params, "parameters"):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(num_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(num_params(v) for v in params)
+    return int(np.prod(np.shape(params)))
 
 
 def count_frames(n_samples: int, win_size: int, hop_size: int) -> int:

@@ -108,13 +108,26 @@ checkout (twelve kernels), and the cut variants that ``kernels/lstm_costs.py``
   K9 and K11 in validation of 8 scenes at batch 1; 3 steps timed with
   train_xrt and peak memory; a checkpoint round trip; DCT-DNN and DCT-CNN
   one step against the CPU route, timed.
+- Data pipeline and CLIs (phase 27): ``cli/prepare_data`` packs 8 scenes x
+  8 s (train and test); an int16 ``pipeline/device_cache`` of 1,024 x 10 s
+  (983 MB) built through ``_build``: its rate, its peak memory in assembly
+  and 16 gathered rows against the host rows; ``train/loop.Trainer`` at
+  ``TrainConfig()`` over 64 scenes (two epochs of 4 steps) from a float32
+  cache against the host loader (losses, parameters), from an int16 cache,
+  K8 in cached validation, step ms; ``cli/batch_enhance`` at ``--batch 8``
+  (K1 / K5 once) and ``cli/stream`` against the same CLIs on the CPU;
+  ``cli/export_pt``, then ``cli/infer`` on the ``.pt`` bit-equal to the
+  ``.npz`` run; ``cli/measure`` and ``cli/profile``. The card's machine has
+  no h5py: there the ``.ex`` files go through an npz-backed stand-in
+  (:func:`npz_h5py`).
 
 One line per phase; the first failure exits nonzero (nothing is caught).
 The second-to-last line is the ``kernels`` JSON (each kernel's launches on
 its path, its error against its plain version, its time, its plain
 version's time and its bound from this run's shapes; K3's rows also its
 kernel's device time, ``kernel_ms``, beside the call's; K8's, K9's and
-K11's also their launches in the zoo's training, ``train_launches``), the
+K11's also their launches in the zoo's training, ``train_launches``; K1's,
+K5's and K8's their launches on phase 27's paths, ``cli_launches``), the
 last line the ``ok`` JSON. Exits nonzero without a CUDA device.
 """
 
@@ -235,6 +248,17 @@ INT8_SNR_MIN_DB = 60.0
 # variances measure)
 ZERO_GRAD, STATE_TOL = 1e-3, 1e-5
 ZOO = ("two_layer_gru", "dccrn", "fullsubnet", "att_ccrn")
+# Phase 27, the data pipeline and the CLIs: an int16 device cache of
+# CACHE_UTTS synthetic 10 s utterances (983 MB on the card; the reference's
+# corpus, 9,499 x 10 s, would be 9.1 GB there and 18 GB of float32 staged on
+# the host: cut for the run's time), each gathered row within 0.55 of one
+# int16 step of its host row; the cached trainer at TrainConfig() over
+# DATA_UTTS 8 s scenes (two epochs of 4 steps) against the host loader from
+# the same initial net: per-step losses and every parameter within CACHED_TOL
+# (relative; of the leaf's scale), the same batches in the same order on the
+# same kernels
+CACHE_UTTS, CACHE_LEN, CACHE_STEP_TOL = 1024, 160000, 0.55
+DATA_UTTS, CACHED_TOL = 64, 1e-6
 
 # The least time the card could take (PERF.md section 2): the larger of the
 # fp32 operations over the FFMA peak and the bytes over the HBM rate, from
@@ -468,6 +492,59 @@ def state_err(got: dict, want: dict) -> tuple[str, float]:
             for k, (a, b) in pairs.items()}
     worst = max(errs, key=errs.get)
     return worst, errs[worst]
+
+
+class NpzH5Node:
+    """A file or group of :func:`npz_h5py`'s stand-in: datasets are numpy
+    arrays keyed by their path in the file."""
+
+    def __init__(self, data: dict, prefix: str = ""):
+        self.data, self.prefix = data, prefix
+
+    def create_dataset(self, name, data, **_):
+        self.data[self.prefix + name] = np.array(data)
+
+    def create_group(self, name):
+        return NpzH5Node(self.data, f"{self.prefix}{name}/")
+
+    def __getitem__(self, name):
+        key = self.prefix + name
+        return self.data[key] if key in self.data else NpzH5Node(self.data, key + "/")
+
+    def __len__(self):
+        return len({k[len(self.prefix):].split("/")[0] for k in self.data
+                    if k.startswith(self.prefix)})
+
+
+class NpzH5File(NpzH5Node):
+    def __init__(self, path: str, mode: str = "r"):
+        self.path, self.mode = path, mode
+        if mode == "r":
+            with np.load(path) as z:
+                super().__init__({k: z[k] for k in z.files})
+        else:
+            super().__init__({})
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.mode == "w" and exc[0] is None:
+            with open(self.path, "wb") as f:
+                np.savez(f, **self.data)
+
+
+def npz_h5py():
+    """A stand-in for the h5py calls ``pipeline/h5io`` makes (``File``,
+    ``create_dataset``, ``create_group``, indexing, ``len``), storing each
+    file's datasets in one npz archive under the file's name. The card's
+    machine has no h5py, so phase 27 installs it as ``h5py`` there to drive
+    the file paths (prepare_data, the trainer's loaders, device_cache,
+    batch_enhance); the h5 format itself is held to JAX's on the CPU
+    (``tests/test_torch_data.py``)."""
+    import types
+
+    return types.SimpleNamespace(File=NpzH5File)
 
 
 def drive(kernels, fn):
@@ -1890,6 +1967,273 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
     return out
 
 
+def run_cli(main_fn, argv: list[str]) -> str:
+    """A CLI's ``main(argv)`` with its standard output captured and returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    return buf.getvalue()
+
+
+def data_phase(dev, seed: int, smi: str) -> dict:
+    """27. The data pipeline and the CLIs on the card: (a) prepare_data
+    packs 8 scenes x 8 s of wav quadruples (train and test); (b) an int16
+    device cache of CACHE_UTTS x 10 s built through ``device_cache._build``,
+    its build rate, its peak memory during assembly and a gathered batch of
+    16 against the host rows; (c) the trainer at ``TrainConfig()`` for two
+    epochs over DATA_UTTS scenes from a float32 cache, from the host loader
+    and from an int16 cache, the same initial net: per-step losses and
+    parameters, K8's launches in cached validation (one per cv utterance),
+    step ms of each epoch (the second without the first step's set-up); (d) batch_enhance at --batch 8 with each stage 1 (K1 / K5 once)
+    against the same CLI on the CPU; (e) stream on one scene against the CLI
+    on the CPU, its block latencies; (f) export_pt, then infer with the .pt
+    and the .npz: bit-equal wavs, the same launches; (g) measure over (d)'s
+    outputs and profile of every family. On a machine without h5py the .ex
+    files go through :func:`npz_h5py`."""
+    import importlib.util
+
+    from aec_tpu_torch.cli import (
+        batch_enhance,
+        export_pt,
+        infer,
+        measure,
+        prepare_data,
+        profile,
+        stream,
+    )
+    from aec_tpu_torch.configs import TrainConfig
+    from aec_tpu_torch.kernels.gru import gru_recurrence
+    from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched
+    from aec_tpu_torch.kernels.nlms import nlms_cancel_fused_batched
+    from aec_tpu_torch.models.little_net import little_net_loss
+    from aec_tpu_torch.pipeline import device_cache as dc
+    from aec_tpu_torch.pipeline import h5io
+    from aec_tpu_torch.pipeline.audio_io import read_wav, write_wav
+    from aec_tpu_torch.train.loop import Trainer
+    from aec_tpu_torch.utils.weights import params_to_jax
+    from benchmarks.scenes import make_scenes
+
+    t_phase = time.perf_counter()
+    card = str(dev)
+    if importlib.util.find_spec("h5py") is None:
+        sys.modules["h5py"] = npz_h5py()
+        phase("data", "no h5py on this machine: the .ex files go through chip_smoke's npz "
+              "stand-in (the h5 format is held to JAX's on the CPU)")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as work:
+        # (a) 8 scenes x 8 s as wav quadruples, packed as train and test
+        scenes = make_scenes(np.random.default_rng(seed + 2), n=N_TRAIN)
+        names = list(scenes)
+        wav_dir, h5_dir, lists = (os.path.join(work, d) for d in ("wavs", "h5", "lists"))
+        os.makedirs(wav_dir)
+        for i, (far, mic, near) in enumerate(scenes.values()):
+            for key, x in (("nearend_speech", near), ("nearend_mic", mic),
+                           ("farend_speech", far), ("echo", mic - near)):
+                write_wav(os.path.join(wav_dir, f"{key}_fileid_{i}.wav"), x, SR)
+        t0 = time.perf_counter()
+        for split in ("train", "test"):
+            run_cli(prepare_data.main, [split, "--wav_path", wav_dir, "--h5_path", h5_dir,
+                                        "--list_path", lists])
+        t_prep = time.perf_counter() - t0
+        tr_files = h5io.read_filelist(os.path.join(lists, "tr_list.txt"))
+        (test_ex,) = h5io.read_filelist(os.path.join(lists, "tt_list.txt"))
+        packed = [h5io.read_group(test_ex, i) for i in range(h5io.group_count(test_ex))]
+        same = len(tr_files) == len(packed) == len(names) and all(
+            np.array_equal(u["nearend_mic"], sc[1]) and np.array_equal(
+                h5io.read_utterance(p)["farend_speech"], sc[0])
+            for u, p, sc in zip(packed, tr_files, scenes.values()))
+        phase("data", f"prepare_data train + test: {len(tr_files)} scenes x {N_TRAIN} in "
+              f"{t_prep:.2f} s; read back bit-equal {same}")
+        check(same, "prepare_data's files do not hold the wavs")
+
+        # (b) the int16 device cache at size, from host rows made on the card
+        g = torch.Generator(device=dev).manual_seed(seed)
+        host = {k: np.concatenate([(0.1 * torch.randn(64, CACHE_LEN, generator=g, device=dev))
+                                   .cpu().numpy() for _ in range(CACHE_UTTS // 64)])
+                for k in dc.CACHE_KEYS}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        corpus = dc._build(({k: host[k][i] for k in dc.CACHE_KEYS} for i in range(CACHE_UTTS)),
+                           CACHE_UTTS, dtype="int16", bucket_quantum=CACHE_LEN, device=dev)
+        build_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        nbytes = sum(a.numel() * a.element_size() for a in corpus.arrays.values())
+        chunk = 64 << 20
+        idx = torch.randperm(CACHE_UTTS, generator=torch.Generator().manual_seed(seed))[:16]
+        with torch.no_grad():
+            steps = [float((corpus.take(k, idx.to(dev)).cpu() - torch.from_numpy(host[k][idx]))
+                           .abs().max()) / (corpus.scales[k] / 32767.0) for k in dc.CACHE_KEYS]
+        phase("data", f"device_cache int16 {CACHE_UTTS} x {CACHE_LEN} x 3 roles = "
+              f"{nbytes / 1e9:.3f} GB: build {build_s:.2f} s = {nbytes / 1e9 / build_s:.3f} GB/s "
+              f"(host quantize + pinned copies); peak device memory in assembly "
+              f"{peak / 1e9:.3f} GB (bar: the cache + two 64 MB chunks = "
+              f"{(nbytes + 2 * chunk) / 1e9:.3f}); take of 16 rows: max|d| "
+              f"{max(steps):.3f} int16 steps (bar {CACHE_STEP_TOL}) [{smi}]")
+        check(peak <= nbytes + 2 * chunk, "device_cache assembly held more than the cache")
+        check(max(steps) <= CACHE_STEP_TOL, "device_cache rows disagree with the host rows")
+        del corpus, host
+
+        # (c) the trainer from the cache and from the host loader, one epoch
+        rows = [u for sd in range(DATA_UTTS // len(names)) for u in
+                make_scenes(np.random.default_rng(seed + 10 + sd), n=N_TRAIN).values()]
+        files = []
+        for i, (far, mic, near) in enumerate(rows):
+            files.append(os.path.join(work, f"tr_{i}.ex"))
+            h5io.write_utterance(files[-1], {"nearend_speech": near, "nearend_mic": mic,
+                                             "farend_speech": far, "echo": mic - near})
+        cfg = TrainConfig(max_n_epochs=2)  # the second epoch times the loop without set-up
+        runs = {}
+        for tag in ("", "float32", "int16"):
+            losses: list = []
+
+            def recording(net, *args, **kw):
+                loss, aux = little_net_loss(net, *args, **kw)
+                if torch.is_grad_enabled():
+                    losses.append(loss.detach())
+                return loss, aux
+
+            ckpt = os.path.join(work, f"exp_{tag or 'host'}")
+            res, (k8,) = drive((gru_recurrence,), lambda: Trainer(
+                files, test_ex, ckpt, cfg=cfg, loss_fn=recording, device_cache=tag,
+                time_log=os.path.join(ckpt, "time.log"), device=dev).train())
+            with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+                metrics = [json.loads(line) for line in f]
+            with open(os.path.join(ckpt, "time.log")) as f:
+                step_s = [float(line.rsplit("=", 1)[1]) for line in f]
+            runs[tag] = {"losses": [float(v) for v in losses], "k8": k8, "metrics": metrics,
+                         "params": params_to_jax(res["net"]), "step_s": step_s}
+        host_run, cached, q = runs[""], runs["float32"], runs["int16"]
+        n_steps = DATA_UTTS // cfg.batch_size * cfg.max_n_epochs
+        loss_rel = max(abs(a / b - 1.0) for a, b in zip(cached["losses"], host_run["losses"]))
+        param_rel = max(float(np.abs(cached["params"][a][b] - w).max())
+                        / max(float(np.abs(w).max()), 1e-12)
+                        for a in host_run["params"] for b, w in host_run["params"][a].items())
+        bit_equal = cached["losses"] == host_run["losses"] and param_rel == 0.0
+        q_gap = max(abs(a / b - 1.0) for a, b in zip(q["losses"], cached["losses"]))
+        half = n_steps // 2
+        phase("data", f"trainer, TrainConfig() two epochs over {DATA_UTTS} x {N_TRAIN} "
+              f"({n_steps} steps): float32 cache vs host loader per-step losses rel "
+              f"{loss_rel:.2e}, parameters max|d| / scale {param_rel:.2e} (bars {CACHED_TOL:g}); "
+              f"bit-equal {bit_equal}; int16 cache loss gap to float32 {q_gap:.2e}; losses "
+              f"{', '.join(f'{v:.4f}' for v in cached['losses'])}")
+        check(len(cached["losses"]) == len(host_run["losses"]) == n_steps and
+              loss_rel <= CACHED_TOL and param_rel <= CACHED_TOL,
+              "the cached trainer disagrees with the host loader")
+        for e in range(cfg.max_n_epochs):
+            steps = host_run["step_s"][e * half:(e + 1) * half]
+            phase("data", f"epoch {e + 1} step ms: host loader median "
+                  f"{statistics.median(steps) * 1e3:.1f}, mean {statistics.mean(steps) * 1e3:.1f} "
+                  f"(steps {', '.join(f'{v * 1e3:.1f}' for v in steps)}); float32 cache "
+                  f"{cached['metrics'][e]['batch_time_s'] * 1e3:.1f}, int16 cache "
+                  f"{q['metrics'][e]['batch_time_s'] * 1e3:.1f} (epoch / steps: no wait on the "
+                  f"card inside an epoch, so no step of its own); train_xrt host "
+                  f"{host_run['metrics'][e]['train_xrt']}, float32 cache "
+                  f"{cached['metrics'][e]['train_xrt']}, int16 cache "
+                  f"{q['metrics'][e]['train_xrt']} [{smi}]")
+        phase("data", f"cached validation of {len(names)} scenes at batch 1, each epoch: "
+              f"launches K8 {cached['k8']} (int16 cache {q['k8']})")
+        check(cached["k8"] == q["k8"] == cfg.max_n_epochs * len(names),
+              "cached validation did not launch K8 once per cv utterance")
+        out["k8_cached"] = cached["k8"]
+
+        # (d) batch_enhance on test.ex at --batch 8, each stage 1, card and CPU
+        mic_scale = max(float(np.abs(sc[1]).max()) for sc in scenes.values())
+        for stage1, kernel in (("kalman", kalman_cancel_fused_batched),
+                               ("nlms", nlms_cancel_fused_batched)):
+            wavs = {}
+            for tag, d in (("card", card), ("cpu", "cpu")):
+                argv = ["--tt_list", os.path.join(lists, "tt_list.txt"), "--model_file",
+                        "checkpoints/little_net_robust.npz", "--out_dir",
+                        os.path.join(work, f"bulk_{stage1}_{tag}"), "--batch", "8", "--stage1",
+                        stage1, "--device", d]
+                report, counts = drive((kernel, gru_recurrence),
+                                       lambda: run_cli(batch_enhance.main, argv))
+                if tag == "card":
+                    launches, xrt = counts, json.loads(report.strip().splitlines()[-1])["xrt"]
+                wavs[tag] = [read_wav(os.path.join(work, f"bulk_{stage1}_{tag}",
+                                                   f"{k}_enhanced.wav"))[0] for k in range(8)]
+            err = max(float(np.abs(a - b).max()) for a, b in zip(wavs["card"], wavs["cpu"]))
+            phase("data", f"batch_enhance --stage1 {stage1} --batch 8, 8 x {N_TRAIN}: launches "
+                  f"{'K1' if stage1 == 'kalman' else 'K5'} {launches[0]}, K8 {launches[1]}; "
+                  f"wavs vs the CPU run max|d| {err:.3e} (bar {STAGE1_TOL:g} x max|mic| = "
+                  f"{STAGE1_TOL * mic_scale:.3e}); xrt {xrt} [{smi}]")
+            check(launches == [1, 0], "batch_enhance did not launch its stage-1 kernel once")
+            check(err <= STAGE1_TOL * mic_scale, "batch_enhance on the card disagrees with the CPU")
+            out[f"{stage1}_bulk_launches"] = launches[0]
+
+        # (e) stream one scene hop by hop, card and CPU
+        far_wav = os.path.join(wav_dir, "farend_speech_fileid_0.wav")
+        mic_wav = os.path.join(wav_dir, "nearend_mic_fileid_0.wav")
+        streamed = {}
+        for tag, d in (("card", card), ("cpu", "cpu")):
+            path = os.path.join(work, f"stream_{tag}.wav")
+            report = run_cli(stream.main, ["--far", far_wav, "--mic", mic_wav, "--out", path,
+                                           "--stage1", "kalman", "--device", d])
+            streamed[tag] = (read_wav(path)[0], json.loads(report.strip().splitlines()[-1]))
+        (got, rep), (want, _) = streamed["card"], streamed["cpu"]
+        s_rel = float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-9)
+        phase("data", f"stream --stage1 kalman, {names[0]} ({rep['blocks']} hops): vs the CPU "
+              f"run max|d| / scale {s_rel:.3e} (bar {STREAM_TOL:g}); block latency p50 "
+              f"{rep['latency_ms_p50']} ms, p95 {rep['latency_ms_p95']} ms (a block is "
+              f"{rep['block_ms']} ms): realtime {rep['realtime']} [{smi}]")
+        check(got.shape == want.shape == (N_TRAIN,) and s_rel <= STREAM_TOL,
+              "stream on the card disagrees with the CPU")
+
+        # (f) export_pt, then infer with the .pt and with the .npz
+        pt = os.path.join(work, "robust.pt")
+        run_cli(export_pt.main, ["--model_file", "checkpoints/little_net_robust.npz",
+                                 "--out", pt])
+        est = {}
+        for tag, model in (("npz", "checkpoints/little_net_robust.npz"), ("pt", pt)):
+            argv = ["--tt_list", os.path.join(lists, "tt_list.txt"), "--ckpt_dir",
+                    os.path.join(work, f"infer_{tag}"), "--model_file", model, "--est_path",
+                    os.path.join(work, f"est_{tag}"), "--stage1", "kalman", "--device", card]
+            _, counts = drive((kalman_cancel_fused_batched, gru_recurrence),
+                              lambda: run_cli(infer.main, argv))
+            est[tag] = (counts, [read_wav(os.path.join(work, f"est_{tag}", "test",
+                                                       f"{k}_near_est.wav"))[0]
+                                 for k in range(len(names))])
+        pt_same = all(np.array_equal(a, b) for a, b in zip(est["pt"][1], est["npz"][1]))
+        phase("data", f"export_pt -> infer with the .pt: {len(names)} scenes bit-equal to the "
+              f".npz run {pt_same}; launches K1 / K8 {est['pt'][0]} (.npz run {est['npz'][0]})")
+        check(pt_same and est["pt"][0] == est["npz"][0] == [len(names), len(names)],
+              "infer with the .pt differs from the .npz run")
+        out["infer_pt_launches"] = est["pt"][0]
+
+        # (g) measure over (d)'s Kalman outputs; profile every family
+        erles = []
+        for k, (far, mic, near) in enumerate(scenes.values()):
+            argv = ["--est", os.path.join(work, "bulk_kalman_card", f"{k}_enhanced.wav"),
+                    "--ref", os.path.join(wav_dir, f"nearend_speech_fileid_{k}.wav"),
+                    "--mic", os.path.join(wav_dir, f"nearend_mic_fileid_{k}.wav")]
+            if names[k] == "speech_dtalk":  # the scene whose near end is speech
+                argv += ["--metrics", "stoi,sisnr,snr,erle,pesq", "--allow-approx-pesq"]
+            else:
+                argv += ["--metrics", "erle"]
+            scores = json.loads(run_cli(measure.main, argv))["mean"]
+            erles.append(scores["erle"])
+            if names[k] == "speech_dtalk":
+                dtalk = scores
+        phase("data", "measure over batch_enhance's Kalman wavs, ERLE dB: " + ", ".join(
+            f"{n} {e:.2f}" for n, e in zip(names, erles)) + "; speech_dtalk " + ", ".join(
+            f"{m} {v:.3f}" for m, v in dtalk.items()))
+        check(all(np.isfinite(erles)) and all(np.isfinite(list(dtalk.values()))),
+              "measure's scores are not finite")
+        rows = json.loads(run_cli(profile.main, []))
+        for r in rows:
+            phase("data", f"profile {r['model']}: {r['params']:,d} params ({r['param_mb']} MB), "
+                  f"{r['flops_per_call']:.4g} flops per 16,384-sample call (torch's count, CPU)")
+        check(len(rows) == 7 and all(r["params"] > 0 and r["flops_per_call"] > 0 for r in rows),
+              "profile rows")
+    phase("data", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2510,8 +2854,10 @@ def main() -> None:
     att = att_ccrn_phase(dev, names, s_far, s_mic, args.reps, smi, step_costs)
     # 26. zoo training: every cli/train family and the DCT nets at batch 16 x 8 s
     zoo = zoo_phase(dev, args.seed, args.reps, smi)
+    # 27. the data pipeline and the CLIs
+    data = data_phase(dev, args.seed, smi)
 
-    # 27. the kernels of the paths, with this run's numbers; bounds from
+    # 28. the kernels of the paths, with this run's numbers; bounds from
     #     this run's shapes (module top); library_ms where PyTorch calls
     #     compute the same function (cuDNN's GRU for K8, its LSTM for K9,
     #     its LSTM twice and the embedding for K11), else null (no PyTorch
@@ -2588,6 +2934,14 @@ def main() -> None:
         extra.setdefault(kernel, {})["train_launches"] = {
             f"{family}_step": zoo[family]["step_launches"][i],
             f"{family}_validation": zoo[family]["validation_launches"][i]}
+    # phase 27's paths: batch_enhance (a batch of 8), infer on the .pt (8
+    # scenes one by one), the cached trainer's validation (8 scenes at batch
+    # 1, two epochs)
+    extra["kalman_batched"] = {"cli_launches": {
+        "batch_enhance": data["kalman_bulk_launches"], "infer_pt": data["infer_pt_launches"][0]}}
+    extra["nlms_batched"]["cli_launches"] = {"batch_enhance": data["nlms_bulk_launches"]}
+    extra["gru_scan"]["cli_launches"] = {"cached_validation": data["k8_cached"],
+                                         "infer_pt": data["infer_pt_launches"][1]}
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"aec_tpu/kernels/{tpu}", "launches": n, "max_abs_err": err, "ms": ms,
@@ -2596,7 +2950,7 @@ def main() -> None:
          **extra.get(kernel, {})}
         for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
     ]}), flush=True)
-    # 28. the result
+    # 29. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1462,3 +1462,97 @@ def test_zoo_train_step_runs_its_kernel(cuda, scene, family):
         bn = k.rsplit("[", 1)[0]
         scale = max(float(v.abs().max()) for j, v in s_p.items() if j.rsplit("[", 1)[0] == bn)
         torch.testing.assert_close(s_k[k], w, atol=1e-5 * scale, rtol=0, msg=k)
+
+
+@pytest.fixture
+def h5_files(monkeypatch):
+    """The .ex files through h5py, or, on a machine without it, through the
+    npz-backed stand-in chip_smoke.py uses there (tests/test_torch_data.py
+    holds it to h5io's round trip)."""
+    import importlib.util
+    import sys
+
+    if importlib.util.find_spec("h5py") is None:
+        import chip_smoke
+
+        monkeypatch.setitem(sys.modules, "h5py", chip_smoke.npz_h5py())
+
+
+def _write_corpus(tmp_path, scene, n_utts, n_cv, n):
+    from aec_tpu_torch.pipeline import h5io
+
+    far, mic = scene(n_utts + n_cv, n)
+    utts = [{"nearend_speech": (m - 0.9 * f).numpy(), "nearend_mic": m.numpy(),
+             "farend_speech": f.numpy(), "echo": (0.9 * f).numpy()} for f, m in zip(far, mic)]
+    files = [str(tmp_path / f"tr_{i}.ex") for i in range(n_utts)]
+    for p, u in zip(files, utts):
+        h5io.write_utterance(p, u)
+    cv = str(tmp_path / "cv.ex")
+    h5io.write_grouped(cv, utts[n_utts:])
+    return files, cv
+
+
+def test_cached_trainer_equals_host_loader(cuda, scene, tmp_path, h5_files):
+    """One epoch of 3 steps at batch 4 from a float32 device cache and from
+    the host loader on the card, the same initial net: per-step losses
+    within 1e-6 relative, every parameter within 1e-6 of its leaf's scale;
+    cached validation of 3 utterances of 80 frames launches K8 once each."""
+    from aec_tpu_torch.configs import TrainConfig
+    from aec_tpu_torch.train.loop import Trainer
+    from aec_tpu_torch.utils.weights import params_to_jax
+
+    files, cv = _write_corpus(tmp_path, scene, 12, 3, 80 * 256)
+    runs = {}
+    for tag, cache in (("host", ""), ("cached", "float32")):
+        losses = []
+
+        def loss_fn(net, *args, **kw):
+            loss, aux = little_net_loss(net, *args, **kw)
+            if torch.is_grad_enabled():
+                losses.append(loss.detach())
+            return loss, aux
+
+        before = gru_recurrence.launches
+        out = Trainer(files, cv, str(tmp_path / tag), cfg=TrainConfig(batch_size=4, lr=1e-3,
+                      max_n_epochs=1), loss_fn=loss_fn, device_cache=cache, device=cuda).train()
+        runs[tag] = ([float(v) for v in losses], params_to_jax(out["net"]),
+                     gru_recurrence.launches - before)
+    (l_h, p_h, _), (l_c, p_c, k8) = runs["host"], runs["cached"]
+    assert len(l_h) == len(l_c) == 3 and k8 == 3
+    for a, b in zip(l_c, l_h):
+        assert abs(a / b - 1.0) <= 1e-6, (l_c, l_h)
+    for x in p_h:
+        for y in p_h[x]:
+            scale = float(np.abs(p_h[x][y]).max())
+            assert float(np.abs(p_c[x][y] - p_h[x][y]).max()) <= 1e-6 * scale, (x, y)
+
+
+@pytest.mark.parametrize("stage1", ["kalman", "nlms"])
+def test_batch_enhance_launches_its_stage1_kernel(cuda, scene, tmp_path, h5_files, stage1,
+                                                  capsys):
+    """cli/batch_enhance on 3 utterances at --batch 2: K1 (Kalman) or K5
+    (NLMS) once a batch, K8 once (the batch of one, 79 frames); every wav
+    within K1's / K5's bar (1e-3 of max|mic|) of the same CLI on the CPU."""
+    from aec_tpu_torch.cli import batch_enhance
+    from aec_tpu_torch.pipeline import h5io
+    from aec_tpu_torch.pipeline.audio_io import read_wav
+
+    _, cv = _write_corpus(tmp_path, scene, 0, 3, 20000)
+    lst = str(tmp_path / "tt_list.txt")
+    h5io.write_filelist(lst, [cv])
+    kernel = kalman_cancel_fused_batched if stage1 == "kalman" else nlms_cancel_fused_batched
+    before = kernel.launches, gru_recurrence.launches
+    for dev in ("cuda", "cpu"):
+        batch_enhance.main(["--tt_list", lst, "--model_file", ROBUST, "--out_dir",
+                            str(tmp_path / dev), "--batch", "2", "--stage1", stage1,
+                            "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (kernel.launches - before[0], gru_recurrence.launches - before[1]) == (2, 1)
+    assert '"xrt"' in capsys.readouterr().out
+    mic_scale = max(float(np.abs(h5io.read_group(cv, i)["nearend_mic"]).max()) for i in range(3))
+    for k in range(3):
+        got = read_wav(str(tmp_path / "cuda" / f"{k}_enhanced.wav"))[0]
+        want = read_wav(str(tmp_path / "cpu" / f"{k}_enhanced.wav"))[0]
+        assert got.shape == want.shape and np.isfinite(got).all()
+        assert float(np.abs(got - want).max()) <= 1e-3 * mic_scale, k

@@ -229,8 +229,19 @@ def test_infer_refusals(tmp_path, tt_list):
         with pytest.raises(SystemExit):
             infer.main(["--tt_list", tt_list, "--ckpt_dir", str(tmp_path), "--model_file", CKPT,
                         "--est_path", str(tmp_path / "e"), "--model", model, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="utils/torch_compat"):
-        infer.load_params(str(tmp_path / "ref.pt"), device="cpu")
+    # a reference .pt loads (utils/torch_compat) to the .npz's weights
+    from aec_tpu_torch.utils.torch_compat import (
+        save_reference_checkpoint,
+        state_dict_from_little_net_params,
+    )
+    from aec_tpu_torch.utils.weights import load_npz
+
+    want = load_npz(CKPT, device="cpu")
+    pt = str(tmp_path / "ref.pt")
+    save_reference_checkpoint(pt, {"cur_epoch": 1}, {
+        k: torch.from_numpy(v) for k, v in state_dict_from_little_net_params(want).items()})
+    got = infer.load_params(pt, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(got.parameters(), want.parameters()))
     for model in ("dccrn", "fullsubnet", "att_ccrn"):
         with pytest.raises(ValueError, match="little_net-only"):
             infer._make_enhancer(model, "x.pt", "none", infer.StftConfig(), device="cpu")

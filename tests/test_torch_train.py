@@ -331,17 +331,22 @@ def test_trainer_end_to_end_and_resume(tmp_path, rng):
 def test_trainer_refuses_what_the_port_leaves_out(tmp_path):
     with pytest.raises(NotImplementedError, match="A6"):
         tloop.Trainer([], "", str(tmp_path), use_mesh=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        tloop.Trainer([], "", str(tmp_path), device_cache="int16", device="cpu")
     with pytest.raises(ValueError, match="unknown validate_metrics"):
         tloop.Trainer([], "", str(tmp_path), validate_metrics=("pesq",), device="cpu")
+    # JAX's device-cache guards (aec_tpu/train/loop.py:213-221), before any file is read
+    with pytest.raises(ValueError, match="validate_metrics need per-utterance wav readback"):
+        tloop.Trainer([], "", str(tmp_path), validate_metrics=("stoi",), device_cache="int16",
+                      device="cpu").train()
+    with pytest.raises(ValueError, match="device_cache dtype 'float16': use int16, bfloat16"):
+        tloop.Trainer([], "", str(tmp_path), device_cache="float16", device="cpu").train()
 
 
 def test_cli_trains_on_the_cpu_without_jax(tmp_path, rng):
     """python -m aec_tpu_torch.cli.train --device cpu on tiny files, with
-    jax and the JAX package blocked; chip_smoke imports there too; --mesh
-    and --device_cache, which the port leaves out, exit with the ROADMAP
-    item that brings them (every family trains: tests/test_torch_zoo_train.py)."""
+    jax and the JAX package blocked; chip_smoke imports there too; it also
+    trains from an int16 device cache; --mesh, which the port leaves out,
+    exits with the ROADMAP item that brings it (every family trains:
+    tests/test_torch_zoo_train.py; the cache: tests/test_torch_device_cache.py)."""
     paths, cv = _make_dataset(tmp_path, rng, n_utts=2)
     lst = str(tmp_path / "tr_list.txt")
     th5.write_filelist(lst, paths)
@@ -363,9 +368,18 @@ def test_cli_trains_on_the_cpu_without_jax(tmp_path, rng):
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "ok"
     assert os.path.isfile(os.path.join(exp, "models", "latest.npz"))
-    for flags, item in ((["--mesh"], "A6"), (["--device_cache", "int16"], "A3")):
-        res = subprocess.run(
-            [sys.executable, "-m", "aec_tpu_torch.cli.train", "--tr_list", lst, "--cv_file", cv,
-             "--ckpt_dir", exp, *flags], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=120)
-        assert res.returncode == 2 and item in res.stderr, (flags, res.stderr)
+    res = subprocess.run(
+        [sys.executable, "-m", "aec_tpu_torch.cli.train", "--tr_list", lst, "--cv_file", cv,
+         "--ckpt_dir", exp, "--mesh"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert res.returncode == 2 and "A6" in res.stderr, res.stderr
+    cached = str(tmp_path / "cached")
+    res = subprocess.run(
+        [sys.executable, "-m", "aec_tpu_torch.cli.train", "--tr_list", lst, "--cv_file", cv,
+         "--ckpt_dir", cached, "--batch_size", "2", "--max_n_epochs", "1", "--device_cache",
+         "int16", "--device", "cpu"], cwd=ROOT, env={**env, "OMP_NUM_THREADS": "1"},
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert os.path.isfile(os.path.join(cached, "models", "latest.npz"))
+    with open(os.path.join(cached, "metrics.jsonl")) as f:
+        assert "epoch_time_s" in f.readline()
