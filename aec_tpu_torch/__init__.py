@@ -16,12 +16,19 @@ is). The layout mirrors ``aec_tpu`` so every module has a named counterpart:
 - ``aec_tpu_torch.kernels``  — hand-written CUDA C++ kernels for sm_90a, each
   beside its plain PyTorch version. A CUDA tensor goes through the kernel
   (or the call raises); a CPU tensor takes the plain version.
-- ``aec_tpu_torch.train``    — LittleNet's trainer, the model adapters, loss
-  metrics and checkpoints in the JAX package's format;
-- ``aec_tpu_torch.cli``      — ``python -m aec_tpu_torch.cli.train`` and
-  ``python -m aec_tpu_torch.cli.infer``;
+- ``aec_tpu_torch.train``    — the reference-cadence ``Trainer`` (LittleNet,
+  TwoLayerGRU) and the ``GenericTrainer`` for every family, with the model
+  adapters, the optimizer with optax's numbers, loss metrics (SI-SNR,
+  STOI, PESQ) and checkpoints in the JAX package's format;
+- ``aec_tpu_torch.parallel`` — the (data, model) mesh of ranks on
+  ``torch.distributed`` (NCCL on cards, gloo on the CPU), data-parallel
+  steps with JAX's global-batch numbers, the pipelined sequence scan, the
+  tensor-parallel LSTM and a multi-rank dry run;
+- ``aec_tpu_torch.cli``      — every CLI of the JAX package:
+  ``python -m aec_tpu_torch.cli.{prepare_data,train,infer,batch_enhance,
+  stream,measure,export_pt,profile}``;
 - ``aec_tpu_torch.utils``    — weights carried over from and back to the JAX
-  checkpoints, logging helpers.
+  checkpoints and ``.pt`` files, logging and profiling helpers.
 
 The package imports ``torch`` and never ``jax``. The device of every
 computation is the device of its input tensors; the entry points that
@@ -44,6 +51,8 @@ def __getattr__(name):
         "load_npz": ("aec_tpu_torch.utils.weights", "load_npz"),
         "little_net_init": ("aec_tpu_torch.models.little_net", "little_net_init"),
         "TrainConfig": ("aec_tpu_torch.configs", "TrainConfig"),
+        "get_model": ("aec_tpu_torch.models.registry", "get_model"),
+        "list_models": ("aec_tpu_torch.models.registry", "list_models"),
         **{n: ("aec_tpu_torch.pipeline.streaming", n) for n in (
             "stream_init", "stream_step", "stream_flush", "stream_init_batched",
             "stream_step_batched", "stream_run")},

@@ -8,14 +8,20 @@ Routes as the JAX CLI does: little_net and two_layer_gru train on the
 reference-cadence ``Trainer`` with the registry's loss and init, dccrn,
 fullsubnet and att_ccrn on ``GenericTrainer``. ``--device_cache`` holds the
 corpus in device memory for the reference-cadence families and is refused
-for the others with JAX's message; ``--mesh`` (the parallel layer, ROADMAP
-A6) exits with an error naming the item that brings it.
+for the others with JAX's message. ``--mesh`` trains data-parallel over the
+ranks that ``AEC_COORDINATOR`` / ``AEC_NUM_PROCESSES`` / ``AEC_PROCESS_ID``
+describe (one process per rank, ``parallel/mesh.py``; NCCL with
+``--device cuda``, one card a rank, gloo with ``--device cpu``), each rank
+reading its shard of the list at the global batch over the ranks, the step
+JAX's on the global batch, rank 0 writing the checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
 import pprint
+
+import torch.distributed as dist
 
 from aec_tpu_torch.configs import TrainConfig
 from aec_tpu_torch.models.registry import get_model
@@ -53,10 +59,27 @@ def main(argv=None) -> None:
     p.add_argument("--device", type=str, default="cuda", help="torch device to train on")
     args = p.parse_args(argv)
 
+    logger = get_logger(__name__)
+    logger.info("Arguments:\n%s", pprint.pformat(vars(args)))
+    started = False
     if args.mesh:
-        p.error("--mesh: the port's parallel layer is ROADMAP item A6")
-    get_logger(__name__).info("Arguments:\n%s", pprint.pformat(vars(args)))
+        # the ranks' group when a coordinator is configured (AEC_COORDINATOR
+        # / AEC_NUM_PROCESSES / AEC_PROCESS_ID); a no-op on one process.
+        # Before anything touches the device: on CUDA it picks the rank's card
+        from aec_tpu_torch.parallel.mesh import distributed_init_if_needed
 
+        started = distributed_init_if_needed(device=args.device)
+        if started:
+            logger.info("torch.distributed up: process %d/%d, backend %s",
+                        dist.get_rank(), dist.get_world_size(), dist.get_backend())
+    try:
+        _train(p, args)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     cfg = TrainConfig(lr=args.lr, batch_size=args.batch_size, max_n_epochs=args.max_n_epochs)
     validate_metrics = tuple(m for m in args.validate_metrics.split(",") if m)
     if args.model not in ("little_net", "two_layer_gru"):
@@ -73,6 +96,7 @@ def main(argv=None) -> None:
             ckpt_dir=args.ckpt_dir,
             cfg=cfg,
             resume_model=args.resume_model,
+            use_mesh=args.mesh,
             time_log=args.time_log,
             validate_metrics=validate_metrics,
             device=args.device,
@@ -88,6 +112,7 @@ def main(argv=None) -> None:
         resume_model=args.resume_model,
         time_log=args.time_log,
         loss_log_name=args.loss_log,
+        use_mesh=args.mesh,
         loss_fn=spec.loss,
         init_fn=spec.init,
         validate_metrics=validate_metrics,

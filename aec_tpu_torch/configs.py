@@ -1,13 +1,40 @@
 """Configuration dataclasses of the port (``aec_tpu/configs.py``).
 
 Restated with the same fields and defaults, so the port imports nothing of
-the JAX package; ``tests/test_torch_kalman.py``, ``tests/test_torch_nlms.py``
-and ``tests/test_torch_train.py`` hold the two equal.
+the JAX package; ``tests/test_torch_kalman.py``, ``tests/test_torch_nlms.py``,
+``tests/test_torch_train.py`` and ``tests/test_torch_public_names.py`` hold
+the two equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeechConfig:
+    """Front-end / signal configuration (the reference's speech_conf)."""
+
+    in_norm: bool = True
+    sample_rate: int = 16000
+    win_size: int = 512
+    hop_size: int = 256
+    win_type: str = "hann"
+
+    @property
+    def n_freqs(self) -> int:
+        return self.win_size // 2 + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ErbConfig:
+    """ERB filterbank configuration (the reference's erb_conf)."""
+
+    n_freqs: int = 257
+    sample_rate: int = 16000
+    total_erb_bands: int = 32
+    low_freq: float = 0.0
+    max_freq: float = 8000.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,3 +84,26 @@ class TrainConfig:
     batch_size: int = 16
     logging_period: int = 0  # 0 -> once per epoch
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LittleNetConfig:
+    """Production model hyperparameters (the reference's Little_net)."""
+
+    erb_bands: int = 32
+    gru_hidden: int = 32  # == erb_bands
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Data pipeline configuration."""
+
+    sample_rate: int = 16000
+    bucket_quantum: int = 4096  # pad lengths up to a multiple (static shapes)
+
+
+DEFAULT_SPEECH = SpeechConfig()
+DEFAULT_ERB = ErbConfig()
+DEFAULT_TRAIN = TrainConfig()
+DEFAULT_NLMS = NlmsConfig()
+DEFAULT_KALMAN = KalmanConfig()

@@ -68,6 +68,13 @@ def synthesis_matrix(cfg: StftConfig, *, device=None, dtype=torch.float32) -> to
     return _basis_tensor(cfg, 1, torch.device(device or "cpu"), dtype)
 
 
+def num_frames(n_samples: int, cfg: StftConfig) -> int:
+    """Frame count produced by :func:`stft` for an input of ``n_samples``
+    (the both-side pad of win - hop: n // hop + 1 at 512 / 256)."""
+    padded = n_samples + 2 * cfg.pad
+    return (padded - cfg.win_len) // cfg.hop + 1
+
+
 def frame_signal(x: torch.Tensor, win_len: int, hop: int) -> torch.Tensor:
     """Strided framing ``[..., n] -> [..., F, win_len]`` (a view)."""
     n = x.shape[-1]

@@ -59,6 +59,17 @@ def ri_join(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return torch.cat([re, im], dim=-1)
 
 
+def ri_from_complex(x) -> torch.Tensor:
+    """numpy / complex array -> ri layout in float32, as JAX's
+    (host-side test convenience)."""
+    x = torch.as_tensor(np.asarray(x)).to(torch.complex64)
+    return torch.cat([torch.real(x), torch.imag(x)], dim=-1)
+
+
+def block_count(n: int, block: int) -> int:
+    return -(-n // block)  # ceil
+
+
 def pad_to_blocks(wav: torch.Tensor, block: int) -> torch.Tensor:
     """Right-pad the last axis with zeros up to a block multiple."""
     rem = (-wav.shape[-1]) % block

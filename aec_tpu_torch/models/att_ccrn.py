@@ -20,8 +20,9 @@ views (JAX computes them outside any Pallas kernel); on the card cuDNN
 computes them in TF32 unless ``torch.backends.cudnn.allow_tf32`` is False.
 
 The bottleneck is one ``ops.lstm.lstm_scan`` with ``lstm_recurrent_dtype``
-forwarded: ``"int8"`` on a CUDA tensor runs kernel K10. ``lstm_mesh`` (the
-tensor-parallel bottleneck) is ROADMAP A6 and raises here.
+forwarded: ``"int8"`` on a CUDA tensor runs kernel K10. With ``lstm_mesh``
+the bottleneck is the tensor-parallel scan (``parallel/tp_lstm``), its gate
+rows sharded over the mesh's ``lstm_axis``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from aec_tpu_torch.dsp.stft import StftConfig, split_complex
 from aec_tpu_torch.models.tree_net import TreeNet
 from aec_tpu_torch.ops import complex_layers as cl
 from aec_tpu_torch.ops.lstm import lstm_init, lstm_scan
+from aec_tpu_torch.parallel import global_batch as gb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,13 +127,18 @@ def att_ccrn_apply(params, state, mic: torch.Tensor, far: torch.Tensor,
     ``lstm_recurrent_dtype`` goes to the bottleneck's ``lstm_scan``
     (``"int8"``: the quantized recurrence, inference only, K10 on a CUDA
     tensor); ``lstm_int8_kernel`` is its ``int8_kernel`` (False keeps a CUDA
-    call on the plain int8 loop, K10's plain version). ``lstm_mesh`` is the
-    tensor-parallel bottleneck, not ported (ROADMAP A6)."""
-    del lstm_axis  # the mesh's axis name; the mesh route is not ported
-    if lstm_mesh is not None:
-        raise NotImplementedError(
-            "lstm_mesh (the tensor-parallel bottleneck, parallel/tp_lstm) is not ported yet "
-            "(ROADMAP A6)")
+    call on the plain int8 loop, K10's plain version). ``lstm_mesh`` runs
+    the bottleneck as ``parallel.tp_lstm.lstm_scan_tp`` over the mesh's
+    ``lstm_axis`` (fp32, every rank of the axis calling with the same
+    inputs) and gathers its outputs for the decoder, which every rank of
+    the axis runs whole; it refuses ``lstm_recurrent_dtype``, as JAX's."""
+    if lstm_mesh is not None and lstm_recurrent_dtype is not None:
+        # the TP scan has no quantized-stream path; ignoring the request
+        # would hand back other numbers with no signal
+        raise ValueError(
+            "lstm_recurrent_dtype is not supported with lstm_mesh "
+            "(the tensor-parallel scan streams fp32); drop one of them"
+        )
     scfg = cfg.stft
     mic_spec = stft_mod.stft(mic, scfg)  # [B, T, 2K]
     mic_mag = stft_mod.magnitude(mic_spec)
@@ -160,8 +167,14 @@ def att_ccrn_apply(params, state, mic: torch.Tensor, far: torch.Tensor,
     x = skips[-1]  # [B, F', T, 2C]
     b, f_b, t, c = x.shape
     lstm_in = x.permute(0, 2, 3, 1).reshape(b, t, c * f_b)
-    seq, _ = lstm_scan(params["lstm"], lstm_in, recurrent_dtype=lstm_recurrent_dtype,
-                       int8_kernel=lstm_int8_kernel)
+    if lstm_mesh is not None:
+        from aec_tpu_torch.parallel.tp_lstm import gather_replicated, lstm_scan_tp
+
+        seq, _ = lstm_scan_tp(params["lstm"], lstm_in, lstm_mesh, lstm_axis)
+        seq = gather_replicated(seq, lstm_mesh, lstm_axis)
+    else:
+        seq, _ = lstm_scan(params["lstm"], lstm_in, recurrent_dtype=lstm_recurrent_dtype,
+                           int8_kernel=lstm_int8_kernel)
     x = seq.reshape(b, t, c, f_b).permute(0, 3, 1, 2)
 
     for i, layer in enumerate(params["decoder"]):
@@ -189,7 +202,8 @@ def att_ccrn_loss(params, state, mic, far, near, cfg: AttCcrnConfig = AttCcrnCon
     out, new_state = att_ccrn_apply(params, state, mic, far, cfg, train=train)
     near_mag = stft_mod.magnitude(stft_mod.stft(near, cfg.stft))
     diff = torch.sqrt(stft_mod.magnitude(out["out_spec"])) - torch.sqrt(near_mag)
-    return torch.mean(diff * diff), {"wav": out["wav"], "state": new_state}
+    # in a data-parallel step, this rank's share of the global batch's mean
+    return gb.mean_share(diff * diff), {"wav": out["wav"], "state": new_state}
 
 
 class AttCcrn(TreeNet):

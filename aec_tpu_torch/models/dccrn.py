@@ -38,7 +38,8 @@ from aec_tpu_torch.dsp.stft import StftConfig, split_complex
 from aec_tpu_torch.models.tree_net import TreeNet
 from aec_tpu_torch.ops import complex_layers as cl
 from aec_tpu_torch.ops.lstm import complex_lstm_init, complex_lstm_scan, lstm_init, lstm_scan
-from aec_tpu_torch.train.metrics import si_snr
+from aec_tpu_torch.parallel import global_batch as gb
+from aec_tpu_torch.train.metrics import si_snr_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,7 +200,9 @@ def dccrn_apply(params, state, mic: torch.Tensor, far: torch.Tensor,
 def dccrn_loss_v1(params, state, mic, far, near, echo, cfg: DccrnConfig = DccrnConfig(), *,
                   train: bool = True, lstm_fused: bool | None = None) -> tuple[torch.Tensor, dict]:
     """v1 objective: 0.3 MSE(mask, cIRM) + 0.7 MSE(complex-masked echo, 0).
-    ``lstm_fused`` routes the complex LSTMs as in :func:`dccrn_apply`."""
+    ``lstm_fused`` routes the complex LSTMs as in :func:`dccrn_apply`. In a
+    data-parallel step each mean is this rank's share of the global batch's
+    (``parallel/global_batch.py``)."""
     out, new_state = dccrn_apply(params, state, mic, far, cfg, train=train, lstm_fused=lstm_fused)
     scfg = cfg.stft
     near_re, near_im = _to_grid(stft_mod.stft(near, scfg))
@@ -208,11 +211,11 @@ def dccrn_loss_v1(params, state, mic, far, near, echo, cfg: DccrnConfig = DccrnC
     den = mic_re ** 2 + mic_im ** 2 + 1e-9
     cirm_r = (mic_re * near_re + mic_im * near_im) / den
     cirm_i = (mic_re * near_im - mic_im * near_re) / den
-    loss_mask = (torch.mean((out["mask_re"] - cirm_r) ** 2)
-                 + torch.mean((out["mask_im"] - cirm_i) ** 2))
+    loss_mask = (gb.mean_share((out["mask_re"] - cirm_r) ** 2)
+                 + gb.mean_share((out["mask_im"] - cirm_i) ** 2))
     leak_r = echo_re * out["mask_re"] - echo_im * out["mask_im"]
     leak_i = echo_re * out["mask_im"] + echo_im * out["mask_re"]
-    loss_echo = torch.mean(leak_r ** 2) + torch.mean(leak_i ** 2)
+    loss_echo = gb.mean_share(leak_r ** 2) + gb.mean_share(leak_i ** 2)
     return 0.3 * loss_mask + 0.7 * loss_echo, {"wav": out["wav"], "state": new_state}
 
 
@@ -223,7 +226,9 @@ def dccrn_loss_sisnr(params, state, mic, far, near, cfg: DccrnConfig = DccrnConf
     ``lstm_fused`` as in :func:`dccrn_apply`."""
     out, new_state = dccrn_apply(params, state, mic, far, cfg, train=train, lstm_fused=lstm_fused)
     n = min(out["wav"].shape[-1], near.shape[-1])
-    return -si_snr(out["wav"][..., :n], near[..., :n]), {"wav": out["wav"], "state": new_state}
+    # si_snr's mean over scenes, as a share of the global batch's
+    per = si_snr_rows(out["wav"][..., :n], near[..., :n])
+    return -gb.mean_share(per), {"wav": out["wav"], "state": new_state}
 
 
 # ---------------------------------------------------------------- the module

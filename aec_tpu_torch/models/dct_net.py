@@ -32,6 +32,7 @@ from aec_tpu_torch.dsp.windows import periodic_window
 from aec_tpu_torch.models.tree_net import TreeNet
 from aec_tpu_torch.ops import complex_layers as cl
 from aec_tpu_torch.ops.gru import gru_init, gru_scan
+from aec_tpu_torch.parallel import global_batch as gb
 
 
 @functools.lru_cache(maxsize=8)
@@ -103,10 +104,11 @@ def dnn_apply(params, noisy: torch.Tensor, cfg: DctDnnConfig = DctDnnConfig()) -
 
 
 def dnn_loss(params, noisy, clean, cfg: DctDnnConfig = DctDnnConfig()):
-    """MSE between estimated and clean clamped/truncated DCT frames."""
+    """MSE between estimated and clean clamped/truncated DCT frames (in a
+    data-parallel step, this rank's share of the global batch's)."""
     out = dnn_apply(params, noisy, cfg)
     clean_dct = torch.clamp(dct_features(clean, cfg.win, cfg.hop), -1.0, 1.0)[..., : cfg.keep]
-    return torch.mean((out["out_dct"] - clean_dct) ** 2), out
+    return gb.mean_share((out["out_dct"] - clean_dct) ** 2), out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +169,7 @@ def cnn_apply(params, noisy: torch.Tensor, cfg: DctCnnConfig = DctCnnConfig()) -
 def cnn_loss(params, noisy, clean, cfg: DctCnnConfig = DctCnnConfig()):
     out = cnn_apply(params, noisy, cfg)
     clean_dct = dct_features(clean, cfg.win, cfg.hop)[..., : cfg.keep]
-    return torch.mean((out["est_dct"] - clean_dct) ** 2), out
+    return gb.mean_share((out["est_dct"] - clean_dct) ** 2), out
 
 
 class DctDnn(TreeNet):

@@ -35,6 +35,7 @@ from aec_tpu_torch.dsp import stft as stft_mod
 from aec_tpu_torch.dsp.stft import StftConfig, split_complex
 from aec_tpu_torch.models.tree_net import TreeNet
 from aec_tpu_torch.ops.lstm import lstm_gates, lstm_init, lstm_scan
+from aec_tpu_torch.parallel import global_batch as gb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,15 +193,16 @@ def fullsubnet_loss(params: dict, mic, ref, near, echo,
                     joint_kernel: bool | None = None) -> tuple[torch.Tensor, dict]:
     """Complex-spectrum MSE against the near end (models.py:195-197) plus the
     echo-mask term of the dual-mask contract; ``joint_kernel`` as in
-    :func:`fullsubnet_masks`."""
+    :func:`fullsubnet_masks`. In a data-parallel step each mean is this
+    rank's share of the global batch's (``parallel/global_batch.py``)."""
     out = fullsubnet_apply(params, mic, ref, cfg, joint_kernel=joint_kernel)
     scfg = cfg.stft
     re, im = split_complex(out["out_spec"])
     nre, nim = split_complex(stft_mod.stft(near, scfg))
-    loss_near = torch.mean((re - nre) ** 2) + torch.mean((im - nim) ** 2)
+    loss_near = gb.mean_share((re - nre) ** 2) + gb.mean_share((im - nim) ** 2)
     mic_mag = stft_mod.magnitude(stft_mod.stft(mic, scfg))
     echo_mag_t = stft_mod.magnitude(stft_mod.stft(echo, scfg))
-    loss_echo = torch.mean((out["mask_echo"] * mic_mag - echo_mag_t) ** 2)
+    loss_echo = gb.mean_share((out["mask_echo"] * mic_mag - echo_mag_t) ** 2)
     return loss_near + loss_echo, {"wav": out["wav"]}
 
 

@@ -29,6 +29,7 @@ from torch import nn
 from aec_tpu_torch.dsp import stft as stft_mod
 from aec_tpu_torch.dsp.stft import StftConfig, split_complex
 from aec_tpu_torch.ops.gru import gru_init, gru_scan
+from aec_tpu_torch.parallel import global_batch as gb
 from aec_tpu_torch.utils.tools import num_params
 
 
@@ -56,6 +57,10 @@ class LittleNet(nn.Module):
         return little_net_apply(self, mic, ref, erb, cfg, **kw)
 
 
+# JAX's name for the param tree's type; the port's parameters are the module
+LittleNetParams = LittleNet
+
+
 def little_net_init(
     erb_bands: int = 32, width: int = 1, *, generator: torch.Generator | None = None,
     device="cuda",
@@ -80,10 +85,16 @@ def little_net_init(
 param_count = num_params  # total trainable parameters
 
 
+def little_net_width(net: LittleNet, erb_bands: int = 32) -> int:
+    """Width multiplier of a (possibly widened) LittleNet."""
+    return net.gru1.weight_hh_l0.shape[-1] // erb_bands
+
+
 def _pseudo_norm(x: torch.Tensor, per_utt: bool = False) -> torch.Tensor:
     """Subtract the scalar mean/std ratio (unbiased std), over the whole
     tensor or per utterance (last axis). A zero variance defines the ratio
-    as 0 (the JAX package's documented 0/0 guard)."""
+    as 0 (the JAX package's documented 0/0 guard). In a data-parallel step
+    (``parallel/global_batch.py``) the whole tensor is the global batch."""
 
     def _safe_ratio(mean, var):
         nz = var > 0.0
@@ -94,8 +105,10 @@ def _pseudo_norm(x: torch.Tensor, per_utt: bool = False) -> torch.Tensor:
         mean = torch.mean(x, dim=-1, keepdim=True)
         var = torch.sum((x - mean) ** 2, dim=-1, keepdim=True) / (x.shape[-1] - 1)
         return x - _safe_ratio(mean, var)
-    mean = torch.mean(x)
-    var = torch.sum((x - mean) ** 2) / (x.numel() - 1)
+    # over the whole batch: in a data-parallel step, the global batch's
+    # (two passes, as JAX's: the mean first, then the squared deviations)
+    mean = gb.mean(x)
+    var = gb.all_sum(torch.sum((x - mean) ** 2)) / (gb.count(x.numel()) - 1)
     return x - _safe_ratio(mean, var)
 
 
@@ -188,6 +201,7 @@ def little_net_loss(
         from aec_tpu_torch.train.metrics import si_snr_rows
 
         per = si_snr_rows(out["wav"][..., : near.shape[-1]], near)
-        mean_db = torch.sum(per * near_act) / torch.clamp_min(torch.sum(near_act), 1.0)
+        # over the active scenes of the global batch in a data-parallel step
+        mean_db = torch.sum(per * near_act) / torch.clamp_min(gb.all_sum(torch.sum(near_act)), 1.0)
         loss = loss - sisnr_weight * mean_db / 10.0
     return loss, {"wav": out["wav"], "est_erb": out["est_erb"]}

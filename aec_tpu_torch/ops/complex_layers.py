@@ -25,6 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from aec_tpu_torch.parallel import global_batch as gb
+
 
 def complex_conv_init(c_in: int, c_out: int, kernel, *, generator=None,
                       device="cuda") -> dict[str, torch.Tensor]:
@@ -111,12 +113,14 @@ def batch_norm_init(c: int, *, device="cuda"):
 def batch_norm(params, state, x: torch.Tensor, *, train: bool, momentum: float = 0.1,
                eps: float = 1e-5):
     """Plain real BatchNorm over all non-channel axes; torch running-stat
-    semantics (unbiased variance in the stats). Returns (y, new_state)."""
+    semantics (unbiased variance in the stats). Returns (y, new_state). In
+    a data-parallel step (``parallel/global_batch.py``) the statistics and
+    the count are the global batch's, the gradient flowing through them."""
     if train:
         axes = tuple(range(x.ndim - 1))
-        mean = torch.mean(x, dim=axes)
-        var = torch.mean((x - mean) ** 2, dim=axes)
-        count = x.numel() // x.shape[-1]
+        mean = gb.mean(x, dim=axes)
+        var = gb.mean((x - mean) ** 2, dim=axes)
+        count = gb.count(x.numel() // x.shape[-1])
         unbiased = var * count / max(count - 1, 1)
         new_state = {"mean": (1 - momentum) * state["mean"] + momentum * mean,
                      "var": (1 - momentum) * state["var"] + momentum * unbiased}
@@ -154,15 +158,16 @@ def complex_batch_norm(params, state, x: torch.Tensor, *, train: bool, momentum:
     """Complex whitening batch norm: center each complex channel, whiten by
     the inverse square root of its 2x2 covariance (closed form), then the
     learned 2x2 affine and bias. x is [..., 2Cc] [reals || imags]. Returns
-    (y, new_state)."""
+    (y, new_state). In a data-parallel step the mean and the covariance are
+    the global batch's (``parallel/global_batch.py``)."""
     xr, xi = _split_ri(x)
     axes = tuple(range(x.ndim - 1))
     if train:
-        m_r, m_i = torch.mean(xr, dim=axes), torch.mean(xi, dim=axes)
+        m_r, m_i = gb.mean(xr, dim=axes), gb.mean(xi, dim=axes)
         xr_c, xi_c = xr - m_r, xi - m_i
-        v_rr = torch.mean(xr_c * xr_c, dim=axes)
-        v_ri = torch.mean(xr_c * xi_c, dim=axes)
-        v_ii = torch.mean(xi_c * xi_c, dim=axes)
+        v_rr = gb.mean(xr_c * xr_c, dim=axes)
+        v_ri = gb.mean(xr_c * xi_c, dim=axes)
+        v_ii = gb.mean(xi_c * xi_c, dim=axes)
         new = {"m_r": m_r, "m_i": m_i, "v_rr": v_rr, "v_ri": v_ri, "v_ii": v_ii}
         new_state = {k: state[k] + momentum * (new[k] - state[k]) for k in new}
     else:

@@ -14,8 +14,18 @@ carries the hidden-state work.
 from __future__ import annotations
 
 import math
+from typing import TypedDict
 
 import torch
+
+
+class GruParams(TypedDict):
+    """The parameter dict of :func:`gru_init`, keyed as JAX's."""
+
+    w_ih: torch.Tensor  # (3H, I)
+    w_hh: torch.Tensor  # (3H, H)
+    b_ih: torch.Tensor  # (3H,)
+    b_hh: torch.Tensor  # (3H,)
 
 
 def gru_init(

@@ -7,7 +7,7 @@ and ATT-CCRN take their (params, state) trees, BatchNorm running statistics
 in the state. :class:`GenericTrainer` holds each family as a module
 (``ModelAdapter.module``) and trains it through
 ``train.loop.make_stateful_train_step``, the statistics in the module's
-buffers.
+buffers; ``use_mesh`` shards the batch over the ranks as ``Trainer`` does.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from aec_tpu_torch.configs import TrainConfig
 from aec_tpu_torch.dsp.erb import erb_filterbank
 from aec_tpu_torch.dsp.stft import StftConfig
 from aec_tpu_torch.models.tree_net import copy_into, functional_params, model_state
+from aec_tpu_torch.parallel.mesh import globalize_batch, is_primary, make_mesh
 from aec_tpu_torch.pipeline.datasets import EvalLoader, TrainLoader
 from aec_tpu_torch.train import checkpoints
 from aec_tpu_torch.train.loop import (
@@ -32,6 +33,7 @@ from aec_tpu_torch.train.loop import (
     make_optimizer,
     make_stateful_train_step,
     restore_train_tree,
+    shard_corpus,
     train_tree,
 )
 from aec_tpu_torch.utils.tools import count_frames, get_logger, num_params
@@ -175,8 +177,6 @@ class GenericTrainer:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.use_mesh:
-            raise NotImplementedError("use_mesh: the port's parallel layer is ROADMAP item A6")
         unknown = set(self.validate_metrics) - {"stoi", "sisdr"}
         if unknown:
             raise ValueError(
@@ -188,8 +188,11 @@ class GenericTrainer:
         logger = get_logger(os.path.join(self.ckpt_dir, "train.log"), log_file=True)
         adapter = make_adapter(self.model, self.scfg)
         dev = torch.device(self.device)
-        loader = TrainLoader(self.tr_list, self.cfg.batch_size,
-                             bucket_quantum=self.bucket_quantum, seed=self.cfg.seed)
+        mesh = make_mesh() if self.use_mesh else None
+        tr_files, local_bs, pad_to, steps_cap = shard_corpus(
+            self.tr_list, self.cfg.batch_size, self.bucket_quantum, mesh)
+        loader = TrainLoader(tr_files, local_bs, bucket_quantum=self.bucket_quantum,
+                             pad_to=pad_to, seed=self.cfg.seed)
         cv_loader = EvalLoader(self.cv_file, batch_size=1)
 
         net = adapter.module(*adapter.init(
@@ -203,7 +206,7 @@ class GenericTrainer:
             loss, new_state = adapter.loss(p, s, mic, far, near, echo, True)
             return loss, {"state": new_state}
 
-        train_step = make_stateful_train_step(step_loss, optimizer)
+        train_step = make_stateful_train_step(step_loss, optimizer, mesh)
 
         ckpt_info = {"cur_epoch": 0, "cur_iter": 0, "best_loss": float("inf"),
                      "model": self.model}
@@ -221,8 +224,13 @@ class GenericTrainer:
         while ckpt_info["cur_epoch"] < self.cfg.max_n_epochs:
             accu_loss, accu_frames = 0.0, 0
             for n_iter, batch in enumerate(loader):
+                if steps_cap is not None and n_iter >= steps_cap:
+                    break
                 t0 = time.perf_counter()
-                arrays = [torch.from_numpy(batch[k]).to(dev) for k in keys]
+                if mesh is not None:
+                    arrays = globalize_batch(mesh, [batch[k] for k in keys], dev)
+                else:
+                    arrays = [torch.from_numpy(batch[k]).to(dev) for k in keys]
                 new_state, loss = train_step(state, *arrays)
                 copy_into(state, new_state)
                 loss_val = float(loss)  # waits for the device
@@ -230,7 +238,7 @@ class GenericTrainer:
                 n_frames = count_frames(batch["n_samples"], self.scfg.win_len, self.scfg.hop)
                 accu_loss += loss_val * n_frames
                 accu_frames += n_frames
-                if self.time_log:
+                if self.time_log and is_primary():
                     with open(self.time_log, "a") as f:
                         print(
                             f"Epoch [{ckpt_info['cur_epoch'] + 1}/"
@@ -256,19 +264,20 @@ class GenericTrainer:
                         if improved:
                             ckpt_info[f"best_{m}"] = metrics[m]
                         extra_best[f"best_{m}"] = improved
-                    checkpoints.save_latest_best(
-                        os.path.join(self.ckpt_dir, "models"), train_tree(optimizer), ckpt_info,
-                        is_best, extra_best=extra_best,
-                    )
-                    # per-period metrics, Trainer's schema plus the family
-                    audio_s = batch["nearend_mic"].size / 16000.0
-                    with open(os.path.join(self.ckpt_dir, "metrics.jsonl"), "a") as f:
-                        f.write(json.dumps({
-                            "epoch": ckpt_info["cur_epoch"] + 1, "iter": n_iter,
-                            "model": self.model, "tr_loss": ckpt_info["tr_loss"],
-                            "cv_loss": cv_loss, "batch_time_s": round(batch_time, 5),
-                            "train_xrt": round(audio_s / batch_time, 1),
-                        }) + "\n")
+                    if is_primary():
+                        checkpoints.save_latest_best(
+                            os.path.join(self.ckpt_dir, "models"), train_tree(optimizer),
+                            ckpt_info, is_best, extra_best=extra_best,
+                        )
+                        # per-period metrics, Trainer's schema plus the family
+                        audio_s = batch["nearend_mic"].size / 16000.0
+                        with open(os.path.join(self.ckpt_dir, "metrics.jsonl"), "a") as f:
+                            f.write(json.dumps({
+                                "epoch": ckpt_info["cur_epoch"] + 1, "iter": n_iter,
+                                "model": self.model, "tr_loss": ckpt_info["tr_loss"],
+                                "cv_loss": cv_loss, "batch_time_s": round(batch_time, 5),
+                                "train_xrt": round(audio_s / batch_time, 1),
+                            }) + "\n")
                     logger.info("epoch %d iter %d tr_loss %.4f cv_loss %.4f",
                                 ckpt_info["cur_epoch"] + 1, n_iter, ckpt_info["tr_loss"], cv_loss)
                     accu_loss, accu_frames = 0.0, 0

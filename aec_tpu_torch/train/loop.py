@@ -19,7 +19,11 @@
   ``optimizer.zero_grad()``);
 - ``Trainer(device_cache=...)`` trains from a corpus held in device memory
   (``pipeline/device_cache.py``) on an epoch loop that never waits on the
-  device: the float32 cache reproduces the host loader's run.
+  device: the float32 cache reproduces the host loader's run;
+- with a mesh (``parallel/mesh.py``; ``Trainer(use_mesh=True)``) each rank
+  steps on its rows of the global batch and the step is JAX's on the whole
+  batch: global batch statistics and loss shares
+  (``parallel/global_batch.py``), the gradients summed over the ranks.
 
 On a CUDA device the recurrences route as their ops do: a batch-1 step
 (every validation utterance) runs a GRU on kernel K8; DCCRN's complex LSTMs
@@ -46,6 +50,14 @@ from aec_tpu_torch.dsp.erb import erb_filterbank
 from aec_tpu_torch.dsp.stft import StftConfig
 from aec_tpu_torch.models.little_net import little_net_init, little_net_loss
 from aec_tpu_torch.models.tree_net import functional_params, map_tree
+from aec_tpu_torch.parallel.global_batch import global_batch, sum_gradients
+from aec_tpu_torch.parallel.mesh import (
+    globalize_batch,
+    is_primary,
+    make_mesh,
+    process_count,
+    process_local_files,
+)
 from aec_tpu_torch.pipeline.datasets import EvalLoader, TrainLoader
 from aec_tpu_torch.train import checkpoints
 from aec_tpu_torch.utils.tools import count_frames, get_logger, loss_log, num_params
@@ -150,41 +162,68 @@ def restore_train_tree(path: str, optimizer: Optimizer) -> None:
     optimizer.load_state_tree(restored["opt_state"])
 
 
+def _global_update(optimizer: Optimizer, mesh, forward_backward) -> tuple:
+    """``forward_backward()`` -> (loss, aux) run with the loss's backward,
+    then the update. With a mesh that has a data group the forward's batch
+    reductions are the global batch's (``parallel/global_batch.py``) and the
+    gradients and the loss are summed over the data axis before the update
+    (each rank's loss being its share of the global one), so every rank
+    applies the global step and reports the global loss."""
+    optimizer.adam.zero_grad(set_to_none=True)
+    with global_batch(mesh) as group:
+        loss, aux = forward_backward()
+        if group is not None:
+            loss = sum_gradients(list(optimizer.net.parameters()), loss, group)
+    optimizer.update()
+    return loss.detach(), aux
+
+
 def make_train_step(
-    loss_fn: LossFn, optimizer: Optimizer, *, scfg: StftConfig = StftConfig(),
+    loss_fn: LossFn, optimizer: Optimizer, mesh=None, *, scfg: StftConfig = StftConfig(),
     sqrt_eps: float = 1e-12,
 ):
     """One update of ``optimizer.net``: ``step(mic, ref, near, erb) -> loss``
     (a 0-d tensor on the batch's device, not synchronized). ``loss_fn(net,
-    mic, ref, near, erb, cfg, sqrt_eps=...)`` returns (scalar loss, aux)."""
+    mic, ref, near, erb, cfg, sqrt_eps=...)`` returns (scalar loss, aux).
+
+    With ``mesh`` (``parallel.mesh.make_mesh``) each rank passes its rows
+    of the global batch (data-sharded; the net is replicated) and the step
+    is JAX's step on the whole batch (``_global_update``)."""
     net = optimizer.net
 
     def step(mic, ref, near, erb):
-        optimizer.adam.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(net, mic, ref, near, erb, scfg, sqrt_eps=sqrt_eps)
-        loss.backward()
-        optimizer.update()
-        return loss.detach()
+        def forward_backward():
+            loss, aux = loss_fn(net, mic, ref, near, erb, scfg, sqrt_eps=sqrt_eps)
+            loss.backward()
+            return loss, aux
+
+        return _global_update(optimizer, mesh, forward_backward)[0]
 
     return step
 
 
-def make_stateful_train_step(loss_fn: Callable, optimizer: Optimizer):
+def make_stateful_train_step(loss_fn: Callable, optimizer: Optimizer, mesh=None):
     """One update of ``optimizer.net`` for any family:
     ``step(model_state, *batch) -> (new_state, loss)``. ``loss_fn(params,
     model_state, *batch)`` returns (scalar loss, ``{"state": new_state}``),
     ``params`` being the net's parameters as its family's functional loss
     takes them (:func:`functional_params`). The new BatchNorm statistics
     come out of the loss's aux detached, once per step; they never enter
-    autograd. The parameters are updated in place."""
+    autograd. The parameters are updated in place.
+
+    With ``mesh`` the batch arrays are each rank's rows and the step is
+    JAX's on the global batch (``_global_update``): the BatchNorm
+    statistics too are the global batch's, the same on every rank."""
     net = optimizer.net
 
     def step(model_state, *batch):
-        optimizer.adam.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(functional_params(net), model_state, *batch)
-        loss.backward()
-        optimizer.update()
-        return map_tree(aux["state"], torch.Tensor.detach), loss.detach()
+        def forward_backward():
+            loss, aux = loss_fn(functional_params(net), model_state, *batch)
+            loss.backward()
+            return loss, aux
+
+        loss, aux = _global_update(optimizer, mesh, forward_backward)
+        return map_tree(aux["state"], torch.Tensor.detach), loss
 
     return step
 
@@ -222,6 +261,27 @@ def add_wave_metrics(sums: dict, counts: dict, est: np.ndarray, clean: np.ndarra
                 counts["stoi"] += 1
 
 
+def shard_corpus(tr_list: list[str], batch_size: int, bucket_quantum: int, mesh):
+    """(files, local batch, pad_to, steps_cap) of this rank's loader, as
+    JAX's trainers take them: without a mesh or with one process, the whole
+    list at the global batch; with several, ``process_local_files`` at the
+    global batch over the process count, every utterance padded to the
+    longest rounded up to ``bucket_quantum`` (so the ranks' batches have one
+    shape) and the epoch capped at the smallest shard's batch count (so
+    every rank enters the same number of collective steps)."""
+    pc = process_count()
+    if mesh is None or pc == 1:
+        return tr_list, batch_size, 0, None
+    if batch_size % pc:
+        raise ValueError(f"global batch_size {batch_size} must divide evenly over {pc} processes")
+    from aec_tpu_torch.pipeline.h5io import utterance_length
+
+    local_bs = batch_size // pc
+    longest = max(utterance_length(p) for p in tr_list)
+    pad_to = -(-longest // bucket_quantum) * bucket_quantum
+    return process_local_files(tr_list), local_bs, pad_to, (len(tr_list) // pc) // max(local_bs, 1)
+
+
 @dataclasses.dataclass
 class Trainer:
     """Epoch-loop orchestrator with the reference's cadence and logging, on
@@ -252,8 +312,6 @@ class Trainer:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.use_mesh:
-            raise NotImplementedError("use_mesh: the port's parallel layer is ROADMAP item A6")
         # once-per-epoch validation/checkpoint cadence
         self.logging_period = self.cfg.logging_period or max(
             len(self.tr_list) // self.cfg.batch_size, 1
@@ -268,6 +326,8 @@ class Trainer:
         os.makedirs(self.ckpt_dir, exist_ok=True)
         logger = get_logger(os.path.join(self.ckpt_dir, "train.log"), log_file=True)
         if self.device_cache:
+            if self.use_mesh:
+                raise ValueError("device_cache is single-host/single-chip")
             if self.validate_metrics:
                 raise ValueError(
                     "validate_metrics need per-utterance wav readback — "
@@ -275,8 +335,11 @@ class Trainer:
                 )
             return self._train_cached(logger)
         dev = torch.device(self.device)
-        loader = TrainLoader(self.tr_list, self.cfg.batch_size,
-                             bucket_quantum=self.bucket_quantum, seed=self.cfg.seed)
+        mesh = make_mesh() if self.use_mesh else None
+        tr_files, local_bs, pad_to, steps_cap = shard_corpus(
+            self.tr_list, self.cfg.batch_size, self.bucket_quantum, mesh)
+        loader = TrainLoader(tr_files, local_bs, bucket_quantum=self.bucket_quantum,
+                             pad_to=pad_to, seed=self.cfg.seed)
         cv_loader = EvalLoader(self.cv_file, batch_size=1)
 
         net = self.init_fn(generator=torch.Generator().manual_seed(self.cfg.seed), device=dev)
@@ -284,7 +347,7 @@ class Trainer:
                               dtype=torch.float32, device=dev)
         steps_per_epoch = max(len(self.tr_list) // self.cfg.batch_size, 1)
         optimizer = make_optimizer(self.cfg, steps_per_epoch, net)
-        train_step = make_train_step(self.loss_fn, optimizer, scfg=self.scfg)
+        train_step = make_train_step(self.loss_fn, optimizer, mesh, scfg=self.scfg)
         eval_step = make_eval_step(self.loss_fn, scfg=self.scfg)
         logger.info("Trainable parameter count: {:,d} -> {:.2f} MB".format(
             num_params(net), num_params(net) * 4 / 2**20))
@@ -303,8 +366,13 @@ class Trainer:
         while ckpt_info["cur_epoch"] < self.cfg.max_n_epochs:
             accu_loss, accu_frames = 0.0, 0
             for n_iter, batch in enumerate(loader):
+                if steps_cap is not None and n_iter >= steps_cap:
+                    break
                 t0 = time.perf_counter()
-                mic, ref, near = (torch.from_numpy(batch[k]).to(dev) for k in keys)
+                if mesh is not None:
+                    mic, ref, near = globalize_batch(mesh, [batch[k] for k in keys], dev)
+                else:
+                    mic, ref, near = (torch.from_numpy(batch[k]).to(dev) for k in keys)
                 loss_val = float(train_step(mic, ref, near, erb))  # waits for the device
                 batch_time = time.perf_counter() - t0
                 n_frames = count_frames(batch["n_samples"], self.scfg.win_len, self.scfg.hop)
@@ -316,7 +384,7 @@ class Trainer:
                     f"Iter [{n_iter}], tr_loss = {loss_val:.4f} / "
                     f"{accu_loss / accu_frames:.4f}, batch_time (s) = {batch_time:.4f}"
                 )
-                if self.time_log:
+                if self.time_log and is_primary():
                     with open(self.time_log, "a") as f:
                         print(msg, file=f)
 
@@ -335,20 +403,23 @@ class Trainer:
                         if improved:
                             ckpt_info[f"best_{m}"] = metrics[m]
                         extra_best[f"best_{m}"] = improved
-                    checkpoints.save_latest_best(
-                        os.path.join(self.ckpt_dir, "models"), train_tree(optimizer), ckpt_info,
-                        is_best, extra_best=extra_best,
-                    )
-                    loss_log(os.path.join(self.ckpt_dir, self.loss_log_name), ckpt_info, metrics)
-                    # per-period metrics: loss and throughput (xRT = audio s / wall s)
-                    audio_s = batch["nearend_mic"].shape[0] * batch["nearend_mic"].shape[1] / 16000.0
-                    with open(os.path.join(self.ckpt_dir, "metrics.jsonl"), "a") as f:
-                        f.write(json.dumps({
-                            "epoch": ckpt_info["cur_epoch"] + 1, "iter": n_iter,
-                            "tr_loss": ckpt_info["tr_loss"], "cv_loss": metrics["loss"],
-                            "batch_time_s": round(batch_time, 5),
-                            "train_xrt": round(audio_s / batch_time, 1),
-                        }) + "\n")
+                    if is_primary():
+                        checkpoints.save_latest_best(
+                            os.path.join(self.ckpt_dir, "models"), train_tree(optimizer),
+                            ckpt_info, is_best, extra_best=extra_best,
+                        )
+                        loss_log(os.path.join(self.ckpt_dir, self.loss_log_name), ckpt_info,
+                                 metrics)
+                        # per-period metrics: loss and throughput (xRT = audio s / wall s)
+                        audio_s = (batch["nearend_mic"].shape[0] * batch["nearend_mic"].shape[1]
+                                   / 16000.0)
+                        with open(os.path.join(self.ckpt_dir, "metrics.jsonl"), "a") as f:
+                            f.write(json.dumps({
+                                "epoch": ckpt_info["cur_epoch"] + 1, "iter": n_iter,
+                                "tr_loss": ckpt_info["tr_loss"], "cv_loss": metrics["loss"],
+                                "batch_time_s": round(batch_time, 5),
+                                "train_xrt": round(audio_s / batch_time, 1),
+                            }) + "\n")
                     logger.info("Epoch [{:d}/{:d}], ( tr_loss: {:.4f} | best_loss: {:.4f} )".format(
                         ckpt_info["cur_epoch"] + 1, self.cfg.max_n_epochs, ckpt_info["tr_loss"],
                         ckpt_info["best_loss"]))

@@ -120,6 +120,15 @@ checkout (twelve kernels), and the cut variants that ``kernels/lstm_costs.py``
   ``.npz`` run; ``cli/measure`` and ``cli/profile``. The card's machine has
   no h5py: there the ``.ex`` files go through an npz-backed stand-in
   (:func:`npz_h5py`).
+- The parallel layer (phase 28) at world size 1 on NCCL (one card; the
+  multi-rank numbers are held on the CPU over gloo): a 1-rank group from
+  ``parallel/mesh.distributed_init_if_needed``; LittleNet's, DCCRN's and
+  FullSubNet's train steps with the mesh against without (K9 / K11 in
+  both); ``cli/train --mesh`` and ``cli/batch_enhance --mesh --batch 8`` (K1
+  / K5) against their runs without; ``parallel/tp_lstm.lstm_scan_tp`` at
+  ATT-CCRN's H = 4096 against the plain scan, timed beside K10;
+  ``parallel/seq_scan.pipelined_scan`` of the Kalman step; and
+  ``parallel/dryrun.dryrun_multichip(1)`` in a process of its own (K3).
 
 One line per phase; the first failure exits nonzero (nothing is caught).
 The second-to-last line is the ``kernels`` JSON (each kernel's launches on
@@ -127,8 +136,9 @@ its path, its error against its plain version, its time, its plain
 version's time and its bound from this run's shapes; K3's rows also its
 kernel's device time, ``kernel_ms``, beside the call's; K8's, K9's and
 K11's also their launches in the zoo's training, ``train_launches``; K1's,
-K5's and K8's their launches on phase 27's paths, ``cli_launches``), the
-last line the ``ok`` JSON. Exits nonzero without a CUDA device.
+K5's and K8's their launches on phase 27's paths, ``cli_launches``, and
+K1's, K5's, K9's, K11's and K3's on phase 28's mesh routes), the last line
+the ``ok`` JSON. Exits nonzero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -631,9 +641,9 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
     """16. K8 vs its plain version and beside cuDNN's nn.GRU (same weights,
     fp32) at one 16 s utterance (B = 1, T = 1001) for H = 32, 64 and 128 (one
     CTA per row, W_hh in registers) and 129 and 512 (the wide path on a grid
-    of CTAs), and at the training batch (B = 16, T = 501, H = 32: the fused
-    route called explicitly, for information; the routing stays JAX's B ==
-    1). Timed in turns: cuDNN, the recurrence alone (``gru_recurrence`` on
+    of CTAs), and at the batches users run, B = 8 (``batch_enhance --batch
+    8``) and 16 (the training batch), T = 501, H = 32: the fused route called
+    explicitly, for information; the routing stays JAX's B == 1. Timed in turns: cuDNN, the recurrence alone (``gru_recurrence`` on
     the folded projection), the whole forward ``gru_scan_fused`` (projection,
     packing and recurrence: the same function as ``nn.GRU(x, h0)``), cuDNN;
     then the same four with calls back to back (``pipelined_ms``), which
@@ -649,7 +659,7 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
     g = torch.Generator().manual_seed(seed)
     out = {"err": 0.0, "shapes": {}}
     for b, t, h in ((1, 1001, 32), (1, 1001, 64), (1, 1001, 128), (1, 1001, 129),
-                    (1, 1001, 512), (16, 501, 32)):
+                    (1, 1001, 512), (8, 501, 32), (16, 501, 32)):
         params = gru_init(2 * BANDS, h, generator=g, device=dev)
         x = torch.randn(b, t, 2 * BANDS, generator=g).to(dev)
         h0 = torch.zeros(b, h, device=dev)
@@ -2234,6 +2244,260 @@ def data_phase(dev, seed: int, smi: str) -> dict:
     return out
 
 
+def step_diff(a: tuple, b: tuple, lr: float) -> tuple[bool, float, float, float]:
+    """Two steps' (loss, params[, state]) from one initial net: (bit-equal,
+    the loss's relative difference, the worst leaf's mean |d| over lr, the
+    worst BatchNorm statistic over its BatchNorm's scale)."""
+    pa, pb = keyed(a[1]), keyed(b[1])
+    same = a[0] == b[0] and all(torch.equal(pa[k], pb[k]) for k in pa)
+    rel = abs(a[0] / b[0] - 1.0)
+    mean_lr = max(float((pa[k] - pb[k]).abs().mean()) / lr for k in pa)
+    s_err = bn_state_err(a[2], b[2]) if len(a) > 2 and a[2] else 0.0
+    if len(a) > 2 and a[2]:
+        sa, sb = keyed(a[2]), keyed(b[2])
+        same = same and all(torch.equal(sa[k], sb[k]) for k in sa)
+    return same, rel, mean_lr, s_err
+
+
+def check_steps(tag: str, meshed: tuple, plain: tuple, again: tuple, lr: float) -> None:
+    """The mesh route's step against the unsharded one: bit-equal, or within
+    the trainer's bars (phase 18: loss rtol STEP_LOSS_TOL, each leaf's mean
+    |d| <= STEP_PARAM_TOL lr; BatchNorm state STATE_TOL of its scale), with
+    the unsharded route run twice beside it: where that differs from itself,
+    the card's backward sums some gradients with atomics in no fixed order."""
+    same, rel, mean_lr, s_err = step_diff(meshed, plain, lr)
+    if same:
+        phase("parallel", f"{tag}: the mesh route's loss, parameters and state bit-equal to "
+              f"the unsharded route's")
+        return
+    self_same, self_rel, self_lr, self_s = step_diff(again, plain, lr)
+    phase("parallel", f"{tag}: mesh vs unsharded loss rel {rel:.2e} (bar {STEP_LOSS_TOL:g}), "
+          f"worst leaf mean|d| {mean_lr:.2e} lr (bar {STEP_PARAM_TOL:g}), state {s_err:.2e} (bar "
+          f"{STATE_TOL:g}); not bit-equal because the unsharded route run twice is not either "
+          f"({'bit-equal' if self_same else f'loss rel {self_rel:.2e}, {self_lr:.2e} lr, state {self_s:.2e}'})")
+    check(rel <= STEP_LOSS_TOL and mean_lr <= STEP_PARAM_TOL and s_err <= STATE_TOL,
+          f"{tag}: the mesh route's step is off the unsharded one")
+
+
+def parallel_phase(dev, seed: int, reps: int, smi: str, k10_ms: float) -> dict:
+    """28. The parallel layer on the card at world size 1 (one H100: NCCL
+    takes one rank per card, so the multi-rank numbers are held on the CPU,
+    tests/test_torch_parallel*.py): (a) a 1-rank NCCL group through
+    ``distributed_init_if_needed`` on a free loopback port; (b) LittleNet's
+    make_train_step with the mesh (its collectives through NCCL) against
+    the unsharded step from the same net at TrainConfig() (16 x 8 s), and
+    both steps' ms; (c) the stateful DCCRN and FullSubNet steps (default
+    configs, the same TrainConfig() batch) with the mesh against without,
+    K9 / K11 launched in both; (d) cli/train --mesh against no --mesh, 2
+    steps each; (e) batch_enhance --mesh --batch 8 against no --mesh, each
+    stage 1 (K1 / K5 once a run); (f) ``lstm_scan_tp`` at ATT-CCRN's H =
+    4096, B = 1, T = 513 on a 1-rank model axis (no collective: the dense
+    scan) against the plain fp32 lstm_scan (K9's bar), its ms beside K10's
+    and the plain scan's; (g) ``pipelined_scan`` of kalman_step against the
+    sequential scan; (h) ``dryrun_multichip(1)``, one NCCL rank in a
+    process of its own (K3 in it)."""
+    import importlib.util
+
+    import torch.distributed as dist
+
+    from aec_tpu_torch.cli import batch_enhance
+    from aec_tpu_torch.cli import train as train_cli
+    from aec_tpu_torch.configs import KalmanConfig, TrainConfig
+    from aec_tpu_torch.dsp.erb import erb_filterbank
+    from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+    from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched
+    from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.kernels.nlms import nlms_cancel_fused_batched
+    from aec_tpu_torch.linear.kalman import kalman_init, kalman_step
+    from aec_tpu_torch.models.little_net import little_net_init, little_net_loss
+    from aec_tpu_torch.models.tree_net import model_state
+    from aec_tpu_torch.ops.lstm import lstm_init, lstm_scan
+    from aec_tpu_torch.parallel.dryrun import dryrun_multichip, free_port
+    from aec_tpu_torch.parallel.mesh import distributed_init_if_needed, make_mesh
+    from aec_tpu_torch.parallel.seq_scan import pipelined_scan, scan
+    from aec_tpu_torch.parallel.tp_lstm import lstm_scan_tp
+    from aec_tpu_torch.pipeline import h5io
+    from aec_tpu_torch.pipeline.audio_io import read_wav
+    from aec_tpu_torch.train.generic import make_adapter
+    from aec_tpu_torch.train.loop import make_optimizer, make_stateful_train_step, make_train_step
+    from aec_tpu_torch.utils.weights import param_tree
+    from benchmarks.scenes import make_scenes
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # (a) one NCCL rank
+    up = distributed_init_if_needed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    check(up and dist.get_backend() == "nccl", "the 1-rank NCCL group did not come up")
+    mesh = make_mesh()
+    phase("parallel", f"a. distributed_init_if_needed: backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}, mesh {mesh.shape}, device {mesh.device}")
+
+    # (b) LittleNet's step with the mesh against without, TrainConfig() (16 x 8 s)
+    cfg = TrainConfig()
+    scenes = [sc for sd in (seed, seed + 1)
+              for sc in make_scenes(np.random.default_rng(sd), n=N_TRAIN).values()]
+    far, mic, near = (torch.from_numpy(np.stack([sc[i] for sc in scenes])).to(dev)
+                      for i in range(3))
+    erb = torch.as_tensor(erb_filterbank(), device=dev)
+
+    def little(m):
+        net = little_net_init(generator=torch.Generator().manual_seed(seed), device=dev)
+        step = make_train_step(little_net_loss, make_optimizer(cfg, 1, net), m)
+        loss = float(step(mic, far, near, erb))
+        params = param_tree(net, lambda p: p.detach().clone())
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step(mic, far, near, erb))
+            times.append((time.perf_counter() - t0) * 1e3)
+        return (loss, params), statistics.median(times)
+
+    (plain, t_plain), (meshed, t_mesh), (again, _) = little(None), little(mesh), little(None)
+    check_steps(f"b. LittleNet make_train_step, {cfg.batch_size} x {N_TRAIN}", meshed, plain,
+                again, cfg.lr)
+    phase("parallel", f"b. step ms (median of 3 after the first): unsharded {t_plain:.1f}, mesh "
+          f"{t_mesh:.1f} (its gradients' all-reduce, one flat bucket, and the loss terms' "
+          f"collectives through NCCL) [{smi}]")
+    out["little_ms"] = {"unsharded": t_plain, "mesh": t_mesh}
+
+    # (c) the stateful DCCRN and FullSubNet steps, default configs, TrainConfig()'s batch
+    full = (mic, far, near, mic - near)
+    torch.backends.cudnn.deterministic = True
+    for name, kernel, want in (("dccrn", grouped_lstm_recurrence, 2),
+                               ("fullsubnet", joint_recurrence, 1)):
+        adapter = make_adapter(name)
+
+        def loss_fn(p, s, *b):
+            loss, new_state = adapter.loss(p, s, *b, True)
+            return loss, {"state": new_state}
+
+        def stateful(m):
+            net = adapter.module(*adapter.init(generator=torch.Generator().manual_seed(seed),
+                                               device=dev))
+            step = make_stateful_train_step(loss_fn, make_optimizer(cfg, 1, net), m)
+            (state, loss), (n,) = drive((kernel,), lambda: step(model_state(net), *full))
+            return (float(loss), param_tree(net, lambda p: p.detach().clone()), state), n
+
+        (plain, n_plain), (meshed, n_mesh), (again, _) = (stateful(None), stateful(mesh),
+                                                          stateful(None))
+        phase("parallel", f"c. {name} stateful step, {cfg.batch_size} x {N_TRAIN}: launches of "
+              f"its kernel "
+              f"unsharded {n_plain}, mesh {n_mesh} (want {want})")
+        check(n_plain == n_mesh == want, f"c. {name}'s step did not launch its kernel")
+        check_steps(f"c. {name} make_stateful_train_step", meshed, plain, again, cfg.lr)
+        out[f"{name}_mesh_launches"] = n_mesh
+    torch.backends.cudnn.deterministic = False
+    del full
+    small = tuple(t[:4, :32000].contiguous() for t in (mic, far, near, mic - near))
+
+    if "h5py" not in sys.modules and importlib.util.find_spec("h5py") is None:
+        sys.modules["h5py"] = npz_h5py()
+    with tempfile.TemporaryDirectory() as work:
+        # (d) cli/train --mesh against no --mesh: 4 utterances x 2 s, 2 steps
+        files = []
+        for i in range(4):
+            files.append(os.path.join(work, f"tr_{i}.ex"))
+            h5io.write_utterance(files[-1], {
+                "nearend_speech": small[2][i].cpu().numpy(), "nearend_mic": small[0][i].cpu().numpy(),
+                "farend_speech": small[1][i].cpu().numpy(), "echo": small[3][i].cpu().numpy()})
+        lst, cv = os.path.join(work, "tr_list.txt"), os.path.join(work, "cv.ex")
+        h5io.write_filelist(lst, files)
+        h5io.write_grouped(cv, [h5io.read_utterance(f) for f in files[:2]])
+        rows = {}
+        for tag, extra in (("plain", []), ("mesh", ["--mesh"])):
+            ckpt = os.path.join(work, f"exp_{tag}")
+            run_cli(train_cli.main, ["--tr_list", lst, "--cv_file", cv, "--ckpt_dir", ckpt,
+                                     "--batch_size", "2", "--max_n_epochs", "1", "--device",
+                                     str(dev), *extra])
+            with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+                rows[tag] = json.loads(f.readline())
+        losses = {k: (rows["plain"][k], rows["mesh"][k]) for k in ("tr_loss", "cv_loss")}
+        rel = max(abs(a / b - 1.0) for a, b in losses.values())
+        phase("parallel", f"d. cli/train 2 steps of batch 2, tr / cv loss without --mesh "
+              f"{losses['tr_loss'][0]:.8f} / {losses['cv_loss'][0]:.8f}, with "
+              f"{losses['tr_loss'][1]:.8f} / {losses['cv_loss'][1]:.8f} (rel {rel:.2e}, bar "
+              f"{STEP_LOSS_TOL:g})")
+        check(rel <= STEP_LOSS_TOL, "d. cli/train --mesh's losses are off the run without")
+
+        # (e) batch_enhance --mesh --batch 8 against no --mesh, each stage 1
+        test_ex, tt = os.path.join(work, "test.ex"), os.path.join(work, "tt_list.txt")
+        h5io.write_grouped(test_ex, [{"nearend_speech": sc[2], "nearend_mic": sc[1],
+                                      "farend_speech": sc[0], "echo": sc[1] - sc[2]}
+                                     for sc in scenes[:8]])
+        h5io.write_filelist(tt, [test_ex])
+        for stage1, kernel in (("kalman", kalman_cancel_fused_batched),
+                               ("nlms", nlms_cancel_fused_batched)):
+            wavs, counts = {}, {}
+            for tag, extra in (("plain", []), ("mesh", ["--mesh"])):
+                out_dir = os.path.join(work, f"bulk_{stage1}_{tag}")
+                _, (counts[tag],) = drive((kernel,), lambda: run_cli(batch_enhance.main, [
+                    "--tt_list", tt, "--model_file", "checkpoints/little_net_robust.npz",
+                    "--out_dir", out_dir, "--batch", "8", "--stage1", stage1, "--device",
+                    str(dev), *extra]))
+                wavs[tag] = [read_wav(os.path.join(out_dir, f"{k}_enhanced.wav"))[0]
+                             for k in range(8)]
+            same = all(np.array_equal(a, b) for a, b in zip(wavs["plain"], wavs["mesh"]))
+            err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-9))
+                      for a, b in zip(wavs["mesh"], wavs["plain"]))
+            phase("parallel", f"e. batch_enhance --stage1 {stage1} --batch 8, 8 x {N_TRAIN}: "
+                  f"launches unsharded {counts['plain']}, mesh {counts['mesh']}; wavs "
+                  f"{'bit-equal' if same else f'max|d| {err:.2e} of scale'} (bar {K1_TOL:g})")
+            check(counts["plain"] == counts["mesh"] == 1 and err <= K1_TOL,
+                  f"e. batch_enhance --mesh --stage1 {stage1} is off the run without")
+            out[f"{stage1}_mesh_launches"] = counts["mesh"]
+
+    # (f) the TP scan at ATT-CCRN's bottleneck on a 1-rank model axis
+    g = torch.Generator().manual_seed(seed)
+    lp = lstm_init(4096, 4096, generator=g, device=dev)
+    x = torch.randn(1, T_DCCRN, 4096, generator=g).to(dev)
+    tp = make_mesh(1, 1)
+    with torch.no_grad():
+        ys_tp, (h_tp, c_tp) = lstm_scan_tp(lp, x, tp)
+        ys, (h_d, c_d) = lstm_scan(lp, x)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in ((ys_tp, ys), (h_tp, h_d), (c_tp, c_d)))
+        t_tp = time_ms(lambda: lstm_scan_tp(lp, x, tp), reps)
+        t_plain = time_ms(lambda: lstm_scan(lp, x), reps)
+    phase("parallel", f"f. lstm_scan_tp H = 4096, B = 1, T = {T_DCCRN}, D = 1 (no collective) vs "
+          f"the plain fp32 lstm_scan: max|d| {err:.3e} (bar {K9_TOL:g}); {t_tp:.2f} ms (plain fp32 scan "
+          f"{t_plain:.2f} ms, K10's int8 {k10_ms:.3f} ms) [{smi}]")
+    check(err <= K9_TOL, "f. lstm_scan_tp disagrees with the dense scan")
+    out["tp_lstm"] = {"ms": t_tp, "plain_ms": t_plain, "max_abs_err": err}
+    del lp, x, ys_tp, ys
+
+    # (g) the pipelined scan of kalman_step at D = 1
+    kcfg = KalmanConfig()
+    kx = torch.randn(2, 64, 2 * 257, generator=g).to(dev)
+    kd = torch.randn(2, 64, HOP, generator=g).to(dev)
+
+    def kstep(state, xd):
+        return kalman_step(kcfg, state, xd[0], xd[1], block=HOP)
+
+    with torch.no_grad():
+        pys, _ = pipelined_scan(kstep, kalman_init(kcfg, 257, device=dev), (kx, kd), mesh)
+        want = torch.stack([scan(kstep, kalman_init(kcfg, 257, device=dev), (a, b))[1]
+                            for a, b in zip(kx, kd)])
+        torch.cuda.synchronize()
+    err = float((pys - want).abs().max() / want.abs().max())
+    phase("parallel", f"g. pipelined_scan of kalman_step, 2 x 64 blocks, D = 1: max|d| {err:.3e} "
+          f"of scale (bar 1e-4)")
+    check(err <= 1e-4, "g. the pipelined scan disagrees with the sequential scan")
+
+    # (h) the dry run: one NCCL rank in a process of its own
+    t0 = time.perf_counter()
+    (dry,) = dryrun_multichip(1, device="cuda", timeout=300)
+    phase("parallel", f"h. dryrun_multichip(1): backend {dry['backend']} on {dry['device']}, "
+          f"loss {dry['loss']:.6f}, dccrn loss {dry['dccrn_loss']:.6f}, TP LSTM max|d| "
+          f"{dry['tp_lstm_err']:.2e}, K3 launches {dry['k3_launches']} ({time.perf_counter() - t0:.1f} s)")
+    check(dry["backend"] == "nccl" and dry["k3_launches"] == 2 and dry["tp_lstm_err"] <= K9_TOL,
+          "h. the dry run did not run its surfaces on the card")
+    out["k3_dryrun_launches"] = dry["k3_launches"]
+    dist.destroy_process_group()
+    phase("parallel", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2856,8 +3120,10 @@ def main() -> None:
     zoo = zoo_phase(dev, args.seed, args.reps, smi)
     # 27. the data pipeline and the CLIs
     data = data_phase(dev, args.seed, smi)
+    # 28. the parallel layer at world size 1 on NCCL
+    par = parallel_phase(dev, args.seed, args.reps, smi, att["ms"])
 
-    # 28. the kernels of the paths, with this run's numbers; bounds from
+    # 29. the kernels of the paths, with this run's numbers; bounds from
     #     this run's shapes (module top); library_ms where PyTorch calls
     #     compute the same function (cuDNN's GRU for K8, its LSTM for K9,
     #     its LSTM twice and the embedding for K11), else null (no PyTorch
@@ -2942,6 +3208,14 @@ def main() -> None:
     extra["nlms_batched"]["cli_launches"] = {"batch_enhance": data["nlms_bulk_launches"]}
     extra["gru_scan"]["cli_launches"] = {"cached_validation": data["k8_cached"],
                                          "infer_pt": data["infer_pt_launches"][1]}
+    # phase 28's mesh routes at world size 1: batch_enhance --mesh, the
+    # stateful steps with the mesh, the dry run's serving step
+    extra["kalman_batched"]["cli_launches"]["batch_enhance_mesh"] = par["kalman_mesh_launches"]
+    extra["nlms_batched"]["cli_launches"]["batch_enhance_mesh"] = par["nlms_mesh_launches"]
+    extra["lstm_grouped"]["train_launches"]["dccrn_mesh_step"] = par["dccrn_mesh_launches"]
+    extra["fullsubnet_joint"]["train_launches"]["fullsubnet_mesh_step"] = \
+        par["fullsubnet_mesh_launches"]
+    extra.setdefault("serving", {})["dryrun_launches"] = par["k3_dryrun_launches"]
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"aec_tpu/kernels/{tpu}", "launches": n, "max_abs_err": err, "ms": ms,
@@ -2950,7 +3224,7 @@ def main() -> None:
          **extra.get(kernel, {})}
         for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
     ]}), flush=True)
-    # 29. the result
+    # 30. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

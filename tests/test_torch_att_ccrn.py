@@ -13,6 +13,7 @@ import torch
 from aec_tpu.models import att_ccrn as ja
 from aec_tpu_torch.kernels import lstm_int8 as k10
 from aec_tpu_torch.models import att_ccrn as ta
+from aec_tpu_torch.parallel.mesh import make_mesh
 from aec_tpu_torch.utils.weights import att_ccrn_from_jax, att_ccrn_to_jax
 
 CH = (1, 4, 8)
@@ -114,8 +115,8 @@ def test_loss_matches_jax(case):
 
 def test_module_forward_and_mesh_refusal(case):
     """The module's eval forward is ``att_ccrn_apply``; train mode writes the
-    new statistics into its buffers. ``lstm_mesh`` (the tensor-parallel
-    bottleneck) raises naming ROADMAP A6."""
+    new statistics into its buffers. ``lstm_mesh`` runs the bottleneck as
+    the tensor-parallel scan and refuses ``lstm_recurrent_dtype``, as JAX's."""
     cfg_j, cfg_t, params, state, net, mic, far, _ = case
     m, f = torch.from_numpy(mic), torch.from_numpy(far)
     with torch.no_grad():
@@ -130,5 +131,13 @@ def test_module_forward_and_mesh_refusal(case):
     for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(sj),
                             jax.tree_util.tree_leaves(train_net.state())):
         _close(g, w, what=jax.tree_util.keystr(path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ta.att_ccrn_apply(net.params(), net.state(), m, f, cfg_t, lstm_mesh=object())
+    # lstm_mesh on one process (a 1 x 1 mesh): the TP scan's forward within
+    # JAX's 1e-5 of the dense one (several ranks: test_torch_parallel_scan.py);
+    # with lstm_recurrent_dtype it raises JAX's ValueError
+    mesh = make_mesh()
+    with torch.no_grad():
+        tp = ta.att_ccrn_apply(net.params(), net.state(), m, f, cfg_t, lstm_mesh=mesh)[0]
+    np.testing.assert_allclose(tp["wav"].numpy(), want["wav"].numpy(), atol=1e-5)
+    with pytest.raises(ValueError, match="lstm_recurrent_dtype"):
+        ta.att_ccrn_apply(net.params(), net.state(), m, f, cfg_t, lstm_mesh=mesh,
+                          lstm_recurrent_dtype="int8")

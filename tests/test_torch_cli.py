@@ -77,7 +77,9 @@ def _close(got, want, rel, what):
 def test_batch_enhance_matches_jax(tmp_path, tt_list, stage1, capsys):
     """Batches of 2 (the second a batch of one) through stage 1 and LittleNet
     with the per-utterance pseudo-norm: each ``<k>_enhanced.wav`` within
-    1e-4 of scale of JAX's; the report's counts equal."""
+    1e-4 of scale of JAX's; the report's counts equal. ``--mesh`` on one
+    process gives the same files (several ranks:
+    tests/test_torch_parallel_cli.py)."""
     reports = {}
     for name, main, extra in (("jax", jbatch.main, []),
                               ("port", batch_enhance.main, ["--device", "cpu"])):
@@ -91,10 +93,14 @@ def test_batch_enhance_matches_jax(tmp_path, tt_list, stage1, capsys):
     for key in ("utterances", "audio_seconds"):
         assert reports["port"][key] == reports["jax"][key]
     assert set(reports["port"]) == set(reports["jax"]) and reports["port"]["xrt"] > 0
-    with pytest.raises(SystemExit):
-        batch_enhance.main(["--tt_list", tt_list, "--model_file", CKPT, "--out_dir",
-                            str(tmp_path / "m"), "--mesh", "--device", "cpu"])
-    assert "A6" in capsys.readouterr().err
+    # --mesh in one process (no coordinator: a 1 x 1 mesh) writes the same files
+    batch_enhance.main(["--tt_list", tt_list, "--model_file", CKPT, "--out_dir",
+                        str(tmp_path / "m"), "--batch", "2", "--bucket", "4096", "--stage1",
+                        stage1, "--mesh", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["utterances"] == 3
+    for k in range(3):
+        np.testing.assert_array_equal(read_wav(str(tmp_path / "m" / f"{k}_enhanced.wav"))[0],
+                                      read_wav(str(tmp_path / "port" / f"{k}_enhanced.wav"))[0])
 
 
 def test_stream_matches_jax(tmp_path, capsys):

@@ -329,8 +329,14 @@ def test_trainer_end_to_end_and_resume(tmp_path, rng):
 
 
 def test_trainer_refuses_what_the_port_leaves_out(tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
-        tloop.Trainer([], "", str(tmp_path), use_mesh=True, device="cpu")
+    """JAX's guards: unknown validate_metrics; a device cache with a mesh
+    (aec_tpu/train/loop.py:214-215) or with validate_metrics, or of another
+    dtype, before any file is read. A mesh alone is taken (several ranks:
+    tests/test_torch_parallel_cli.py)."""
+    assert tloop.Trainer([], "", str(tmp_path), use_mesh=True, device="cpu").use_mesh
+    with pytest.raises(ValueError, match="device_cache is single-host/single-chip"):
+        tloop.Trainer([], "", str(tmp_path), use_mesh=True, device_cache="int16",
+                      device="cpu").train()
     with pytest.raises(ValueError, match="unknown validate_metrics"):
         tloop.Trainer([], "", str(tmp_path), validate_metrics=("pesq",), device="cpu")
     # JAX's device-cache guards (aec_tpu/train/loop.py:213-221), before any file is read
@@ -343,42 +349,47 @@ def test_trainer_refuses_what_the_port_leaves_out(tmp_path):
 
 def test_cli_trains_on_the_cpu_without_jax(tmp_path, rng):
     """python -m aec_tpu_torch.cli.train --device cpu on tiny files, with
-    jax and the JAX package blocked; chip_smoke imports there too; it also
-    trains from an int16 device cache; --mesh, which the port leaves out,
-    exits with the ROADMAP item that brings it (every family trains:
-    tests/test_torch_zoo_train.py; the cache: tests/test_torch_device_cache.py)."""
+    jax and the JAX package blocked; chip_smoke imports there too; the same
+    process then trains with --mesh (no coordinator: a 1 x 1 mesh) to the
+    same checkpoint; it also trains from an int16 device cache (every
+    family trains: tests/test_torch_zoo_*.py; the cache:
+    tests/test_torch_device_cache.py; --mesh on several ranks:
+    tests/test_torch_parallel_cli.py)."""
     paths, cv = _make_dataset(tmp_path, rng, n_utts=2)
     lst = str(tmp_path / "tr_list.txt")
     th5.write_filelist(lst, paths)
     exp = str(tmp_path / "exp")
+    meshed = str(tmp_path / "meshed")
     code = (
         "import sys\n"
         "sys.modules['jax'] = sys.modules['aec_tpu'] = None\n"
         "import chip_smoke\n"
         "from aec_tpu_torch.cli.train import main\n"
-        f"main(['--tr_list', {lst!r}, '--cv_file', {cv!r}, '--ckpt_dir', {exp!r},\n"
-        "      '--batch_size', '2', '--max_n_epochs', '1', '--device', 'cpu'])\n"
+        f"for ckpt, extra in (({exp!r}, []), ({meshed!r}, ['--mesh'])):\n"
+        f"    main(['--tr_list', {lst!r}, '--cv_file', {cv!r}, '--ckpt_dir', ckpt,\n"
+        "          '--batch_size', '2', '--max_n_epochs', '1', '--device', 'cpu', *extra])\n"
         "assert not any(m.split('.')[0] in ('jax', 'aec_tpu') for m, v in sys.modules.items()"
         " if v is not None)\n"
         "print('ok')\n"
     )
-    env = {**os.environ, "PYTHONPATH": os.path.abspath(ROOT)}
+    # one intra-op thread: the run shares the cores with the suite's workers
+    env = {**os.environ, "PYTHONPATH": os.path.abspath(ROOT), "OMP_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "ok"
     assert os.path.isfile(os.path.join(exp, "models", "latest.npz"))
-    res = subprocess.run(
-        [sys.executable, "-m", "aec_tpu_torch.cli.train", "--tr_list", lst, "--cv_file", cv,
-         "--ckpt_dir", exp, "--mesh"], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=120)
-    assert res.returncode == 2 and "A6" in res.stderr, res.stderr
+    with np.load(os.path.join(exp, "models", "latest.npz")) as a, \
+            np.load(os.path.join(meshed, "models", "latest.npz")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     cached = str(tmp_path / "cached")
     res = subprocess.run(
         [sys.executable, "-m", "aec_tpu_torch.cli.train", "--tr_list", lst, "--cv_file", cv,
          "--ckpt_dir", cached, "--batch_size", "2", "--max_n_epochs", "1", "--device_cache",
-         "int16", "--device", "cpu"], cwd=ROOT, env={**env, "OMP_NUM_THREADS": "1"},
-        capture_output=True, text=True, timeout=120)
+         "int16", "--device", "cpu"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
     assert res.returncode == 0, res.stderr
     assert os.path.isfile(os.path.join(cached, "models", "latest.npz"))
     with open(os.path.join(cached, "metrics.jsonl")) as f:
