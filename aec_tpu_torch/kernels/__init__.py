@@ -20,8 +20,8 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
   model of the hop on FFTs;
 - ``serving_costs`` — a card tool that splits a K3 call's time between the
   host and the kernel;
-- ``gru``     — K8, the GRU recurrence (``csrc/gru.cu``), and the autograd
-  Function of the fused GRU scan;
+- ``gru``     — K8, the GRU recurrence, and K8b, its backward
+  (``csrc/gru.cu``), and the autograd Function of the fused GRU scan;
 - ``lstm``    — K9, DCCRN's grouped complex-LSTM recurrence (``csrc/lstm.cu``,
   W_hh held on chip, packed once per weight tensor), and its autograd
   Function;

@@ -17,7 +17,10 @@
 // of one warp; lane l of the team owns, for each of the three gates, the
 // float4 chunks l, l + P, l + 2P, ... of W_hh's row (C weights a gate, 3C
 // in all), loaded into registers once before the time loop from a packing
-// the wrapper makes per call (kernels/gru.py pack_gru_lanes). A step reads
+// the wrapper caches per weight tensor (kernels/gru.py pack_gru_lanes; a
+// gather from W_hh's row-major layout in the kernel itself cost 25 % a
+// step at H = 32 on the H100, ptxas giving the loop 128 registers instead
+// of 160). A step reads
 // h from shared memory as C/4 float4 broadcasts and runs the 3C FMAs into
 // two accumulators per gate; the lanes that finish unit j's gate sums also
 // combine them into h_j, written into the other half of a double-buffered
@@ -31,7 +34,9 @@
 //     serves r and z, and lane 2 combines; __syncthreads. The input
 //     projections are staged in shared memory by cp.async, eight steps a
 //     chunk, one chunk ahead.
-// expf and tanhf stay the precise forms.
+// expf and tanhf stay the precise forms. With SAVE (a training forward)
+// the lane that combines unit j also writes r, z, n and hn = h W_hn^T + b_hn
+// of each step, (B, T, 4H), for the backward; the arithmetic is the same.
 //
 // What bounds it. Neither bytes nor FMAs of the whole card: a step is 3H^2
 // FMA on one SM and the steps are serial, so one step's latency sets the
@@ -45,8 +50,29 @@
 // co-resident CTAs (grid_scan.cuh): each CTA owns U hidden
 // units and their 3 gate columns of W_hh^T, read from L2 every step, and one
 // grid barrier ends each step.
+//
+// Kernel K8b, the backward of the recurrence (gru_bwd_kernel), the
+// counterpart of the custom VJP's _bwd (aec_tpu/kernels/pallas_gru.py:159),
+// which XLA compiles from the scan's VJP into one loop on the device. One
+// CTA per row walks t = T-1 ... 0 on K8's lane plan, lane l of unit j's
+// team holding the chunks l, l + P, ... of column j of each gate's W_hh
+// (a row of W_g^T) in registers, packed as K8's (pack_gru_lanes of the
+// per-gate transpose). Per step, with dh = the carried gradient
+// + g_ys[t] and the saved gates:
+//   dn^ = dh (1 - z)(1 - n^2),  dz^ = dh (h_{t-1} - n) z (1 - z),
+//   dr^ = dn^ hn r (1 - r),     d_hn = dn^ r
+// written to dxp[t] = [dr^, dz^, dn^] and d_hn[t]; [dr^, dz^, d_hn] goes
+// into a double-buffered vector in shared memory, one barrier, and each
+// team forms dh_{t-1}[j] = sum_g sum_k W_g[k, j] d_g[k] + z dh: the
+// forward's 3H^2 FMAs in the transposed layout, the three gates' partials
+// summed per lane and then over the team. No transcendental on the chain,
+// so a step is shorter than K8's. The weight gradients are plain products
+// over the B T rows, left to the wrapper (as XLA leaves them outside the
+// loop).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "grid_scan.cuh"
 
@@ -75,11 +101,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // P lanes per unit, C weights per lane and gate (a multiple of 4, P C >= H).
 // wpk (3 C/4, threads, 4): chunk i of gate g of thread (j P + l) is W_hh[g H
 // + j, 4 (l + P i) + e], zero past H; kernels/gru.py pack_gru_lanes.
-template <int P, int C>
+template <int P, int C, bool SAVE>
 __global__ void __launch_bounds__(P == 1 ? 32 : 4 * kMaxHidden)
 gru_kernel(const float* __restrict__ xp, const float4* __restrict__ wpk,
            const float* __restrict__ b_hn, const float* __restrict__ h0,
-           float* __restrict__ ys, int t_steps, int hidden) {
+           float* __restrict__ ys, float* __restrict__ gates, int t_steps, int hidden) {
   static_assert(P == 1 || P == 4, "one lane or a team of four per unit");
   constexpr int C4 = C / 4;
   constexpr int kS = 8;  // P = 4: steps of input projection per staged chunk
@@ -93,6 +119,7 @@ gru_kernel(const float* __restrict__ xp, const float4* __restrict__ wpk,
   const size_t row = blockIdx.x;
   const float* xrow = xp + row * t_steps * g3;
   float* y = ys + row * t_steps * hidden + j;
+  float* gsave = SAVE ? gates + row * t_steps * 4 * hidden + j : nullptr;
 
   float4 w[3][C4];
 #pragma unroll
@@ -163,9 +190,12 @@ gru_kernel(const float* __restrict__ xp, const float4* __restrict__ wpk,
     const float sn = acc[2][0] + acc[2][1];
 
     bool writer;
+    float r, z, n, hn;
     if constexpr (P == 1) {
-      const float r = sigmoid_f(xr + sr), z = sigmoid_f(xz + sz);
-      const float n = tanhf(xn + r * (sn + bias));
+      r = sigmoid_f(xr + sr);
+      z = sigmoid_f(xz + sz);
+      hn = sn + bias;
+      n = tanhf(xn + r * hn);
       h = (1.f - z) * n + z * h;
       writer = live;
     } else {
@@ -179,15 +209,23 @@ gru_kernel(const float* __restrict__ xp, const float4* __restrict__ wpk,
       k += __shfl_xor_sync(0xffffffffu, (l & 1) ? a0 : a1, 1);
       const float sig = sigmoid_f(k + (l == 0 ? xr : xz));
       const int base = (tid & 31) & ~3;
-      const float r = __shfl_sync(0xffffffffu, sig, base);
-      const float z = __shfl_sync(0xffffffffu, sig, base + 1);
-      const float n = tanhf(xn + r * (k + bias));
+      r = __shfl_sync(0xffffffffu, sig, base);
+      z = __shfl_sync(0xffffffffu, sig, base + 1);
+      hn = k + bias;
+      n = tanhf(xn + r * hn);
       h = (1.f - z) * n + z * h;
       writer = live && l == 2;
     }
     if (writer) {
       hbuf[(t + 1) & 1][j] = h;
       y[static_cast<size_t>(t) * hidden] = h;
+      if constexpr (SAVE) {
+        float* gs = gsave + static_cast<size_t>(t) * 4 * hidden;
+        gs[0] = r;
+        gs[hidden] = z;
+        gs[2 * hidden] = n;
+        gs[3 * hidden] = hn;
+      }
     }
     if constexpr (P == 1) {
       __syncwarp();
@@ -198,13 +236,156 @@ gru_kernel(const float* __restrict__ xp, const float4* __restrict__ wpk,
   }
 }
 
+// K8b. wpk_t: lane l of unit j's team holds, for gate g, chunk i of column
+// j of W_g, W_hh[g H + 4 (l + P i) + e, j], zero past H (pack_gru_lanes of
+// the per-gate transpose). gys, ys (B, T, H); gates (B, T, 4H) from K8's
+// SAVE launch; h0 (B, H); out: dxp (B, T, 3H), dhn (B, T, H), dh0 (B, H).
+template <int P, int C>
+__global__ void __launch_bounds__(P == 1 ? 32 : 4 * kMaxHidden)
+gru_bwd_kernel(const float* __restrict__ gys, const float* __restrict__ gates,
+               const float* __restrict__ ys, const float* __restrict__ h0,
+               const float4* __restrict__ wpk_t, float* __restrict__ dxp,
+               float* __restrict__ dhn, float* __restrict__ dh0, int t_steps, int hidden) {
+  static_assert(P == 1 || P == 4, "one lane or a team of four per unit");
+  constexpr int C4 = C / 4;
+  // steps of inputs loaded ahead into registers (P = 4: 16 warps, 128 registers a lane)
+  constexpr int kAhead = P == 1 ? 2 : 1;
+  // [dr^, dz^, d_hn] of a step by unit, double-buffered, zero past H
+  __shared__ __align__(16) float dbuf[2][3][P * C];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int j = tid / P, l = tid % P;
+  const bool live = j < hidden;
+  const int u = live ? j : 0;  // a padding team reads unit 0's inputs and writes nothing
+  const size_t row = blockIdx.x;
+  const float* gy = gys + row * t_steps * hidden + u;
+  const float* yrow = ys + row * t_steps * hidden + u;
+  const float* gt = gates + row * t_steps * 4 * hidden + u;
+
+  float4 w[3][C4];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int i = 0; i < C4; ++i) w[g][i] = wpk_t[(g * C4 + i) * nthr + tid];
+  for (int i = tid; i < 2 * 3 * P * C; i += nthr) (&dbuf[0][0][0])[i] = 0.f;
+
+  // the inputs of step t: g_ys, r, z, n, hn, h_{t-1} (h0 at t = 0)
+  const auto load = [&](int t, float* q) {
+    if (t < 0) return;
+    const size_t o = static_cast<size_t>(t) * hidden, o4 = 4 * o;
+    q[0] = gy[o];
+    q[1] = gt[o4];
+    q[2] = gt[o4 + hidden];
+    q[3] = gt[o4 + 2 * hidden];
+    q[4] = gt[o4 + 3 * hidden];
+    q[5] = t > 0 ? yrow[o - hidden] : h0[row * hidden + u];
+  };
+  float q[kAhead][6];
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) load(t_steps - 1 - a, q[a]);
+  if constexpr (P == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+
+  float carry = 0.f;
+  for (int t = t_steps - 1; t >= 0; --t) {
+    float c[6];
+#pragma unroll
+    for (int m = 0; m < 6; ++m) c[m] = q[0][m];
+#pragma unroll
+    for (int a = 0; a + 1 < kAhead; ++a)
+#pragma unroll
+      for (int m = 0; m < 6; ++m) q[a][m] = q[a + 1][m];
+    load(t - kAhead, q[kAhead - 1]);
+
+    const float dh = carry + c[0];
+    const float r = c[1], z = c[2], n = c[3], hn = c[4], hp = c[5];
+    const float dn = dh * (1.f - z) * (1.f - n * n);
+    const float dz = dh * (hp - n) * z * (1.f - z);
+    const float dr = dn * hn * r * (1.f - r);
+    const float dhn_t = dn * r;
+    if (live) {
+      const size_t o = (row * t_steps + t) * hidden + j;
+      float* dst = dxp + 3 * (row * t_steps + t) * hidden + j;
+      float* d = dbuf[t & 1][0];
+      if (P == 1 || l == 0) {
+        dst[0] = dr;
+        d[j] = dr;
+      }
+      if (P == 1 || l == 1) {
+        dst[hidden] = dz;
+        d[P * C + j] = dz;
+      }
+      if (P == 1 || l == 2) dst[2 * hidden] = dn;
+      if (P == 1 || l == 3) {
+        dhn[o] = dhn_t;
+        d[2 * P * C + j] = dhn_t;
+      }
+    }
+    if constexpr (P == 1) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+
+    // this lane's partial of sum_g W_g^T d_g over its float4 chunks
+    float acc[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int i = 0; i < C4; ++i)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float4 v = reinterpret_cast<const float4*>(dbuf[t & 1][g])[l + P * i];
+        acc[g][i & 1] = dot4(w[g][i], v, acc[g][i & 1]);
+      }
+    float s = ((acc[0][0] + acc[0][1]) + (acc[1][0] + acc[1][1])) + (acc[2][0] + acc[2][1]);
+    if constexpr (P == 4) {  // the team's sum, the same bits in every lane
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+    }
+    carry = s + z * dh;
+  }
+  if (live && l == 0) dh0[row * hidden + j] = carry;
+}
+
+template <int P>
+int units_of(int hidden) {
+  return P == 1 ? 32 : (hidden + 7) / 8 * 8;
+}
+
 template <int P, int C>
 cudaError_t launch_lanes(const float* xp, const float* wpk, const float* b_hn, const float* h0,
-                         float* ys, int batch, int t_steps, int hidden, cudaStream_t stream) {
-  const int units = P == 1 ? 32 : (hidden + 7) / 8 * 8;
-  gru_kernel<P, C><<<batch, units * P, 0, stream>>>(
-      xp, reinterpret_cast<const float4*>(wpk), b_hn, h0, ys, t_steps, hidden);
+                         float* ys, float* gates, int batch, int t_steps, int hidden,
+                         cudaStream_t stream) {
+  const int threads = units_of<P>(hidden) * P;
+  const auto w = reinterpret_cast<const float4*>(wpk);
+  if (gates)
+    gru_kernel<P, C, true><<<batch, threads, 0, stream>>>(xp, w, b_hn, h0, ys, gates, t_steps,
+                                                          hidden);
+  else
+    gru_kernel<P, C, false><<<batch, threads, 0, stream>>>(xp, w, b_hn, h0, ys, nullptr, t_steps,
+                                                           hidden);
   return cudaGetLastError();
+}
+
+template <int P, int C>
+cudaError_t launch_bwd(const float* gys, const float* gates, const float* ys, const float* h0,
+                       const float* wpk_t, float* dxp, float* dhn, float* dh0, int batch,
+                       int t_steps, int hidden, cudaStream_t stream) {
+  gru_bwd_kernel<P, C><<<batch, units_of<P>(hidden) * P, 0, stream>>>(
+      gys, gates, ys, h0, reinterpret_cast<const float4*>(wpk_t), dxp, dhn, dh0, t_steps, hidden);
+  return cudaGetLastError();
+}
+
+// K8's lane plan (kernels/gru.py lane_plan): the one dispatch both kernels use
+template <typename F>
+cudaError_t by_lane_plan(int hidden, F&& f) {
+  if (hidden <= 4) return f(std::integral_constant<int, 1>{}, std::integral_constant<int, 4>{});
+  if (hidden <= 8) return f(std::integral_constant<int, 1>{}, std::integral_constant<int, 8>{});
+  if (hidden <= 16) return f(std::integral_constant<int, 1>{}, std::integral_constant<int, 16>{});
+  if (hidden <= 32) return f(std::integral_constant<int, 1>{}, std::integral_constant<int, 32>{});
+  if (hidden <= 64) return f(std::integral_constant<int, 4>{}, std::integral_constant<int, 16>{});
+  return f(std::integral_constant<int, 4>{}, std::integral_constant<int, 32>{});
 }
 
 }  // namespace
@@ -213,21 +394,40 @@ extern "C" int aec_gru_max_hidden() { return kMaxHidden; }
 
 // xp (batch, t_steps, 3H): x W_ih^T + b_ih + [b_hr; b_hz; 0]; wpk W_hh packed
 // for the lanes (kernels/gru.py pack_gru_lanes, whose lane plan this
-// dispatch repeats); b_hn (H); h0 (batch, H); ys (batch, t_steps, H). All
+// dispatch repeats); b_hn (H); h0 (batch, H); ys (batch, t_steps, H); gates
+// (batch, t_steps, 4H) written where not null (r, z, n, hn a step). All
 // fp32, contiguous.
 extern "C" int aec_gru(const float* xp, const float* wpk, const float* b_hn, const float* h0,
-                       float* ys, int batch, int t_steps, int hidden, int device, void* stream) {
+                       float* ys, float* gates, int batch, int t_steps, int hidden, int device,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (hidden < 1 || hidden > kMaxHidden) return cudaErrorInvalidValue;
   if (batch == 0 || t_steps == 0) return cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (hidden <= 4) return launch_lanes<1, 4>(xp, wpk, b_hn, h0, ys, batch, t_steps, hidden, s);
-  if (hidden <= 8) return launch_lanes<1, 8>(xp, wpk, b_hn, h0, ys, batch, t_steps, hidden, s);
-  if (hidden <= 16) return launch_lanes<1, 16>(xp, wpk, b_hn, h0, ys, batch, t_steps, hidden, s);
-  if (hidden <= 32) return launch_lanes<1, 32>(xp, wpk, b_hn, h0, ys, batch, t_steps, hidden, s);
-  if (hidden <= 64) return launch_lanes<4, 16>(xp, wpk, b_hn, h0, ys, batch, t_steps, hidden, s);
-  return launch_lanes<4, 32>(xp, wpk, b_hn, h0, ys, batch, t_steps, hidden, s);
+  return by_lane_plan(hidden, [&](auto p, auto c) {
+    return launch_lanes<decltype(p)::value, decltype(c)::value>(xp, wpk, b_hn, h0, ys, gates,
+                                                                batch, t_steps, hidden, s);
+  });
+}
+
+// K8b: gys, ys (batch, t_steps, H); gates (batch, t_steps, 4H) from aec_gru;
+// h0 (batch, H); wpk_t W_hh's per-gate transpose packed as aec_gru's wpk;
+// out dxp (batch, t_steps, 3H), dhn (batch, t_steps, H), dh0 (batch, H).
+// All fp32, contiguous.
+extern "C" int aec_gru_backward(const float* gys, const float* gates, const float* ys,
+                                const float* h0, const float* wpk_t, float* dxp, float* dhn,
+                                float* dh0, int batch, int t_steps, int hidden, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (hidden < 1 || hidden > kMaxHidden) return cudaErrorInvalidValue;
+  if (batch == 0 || t_steps == 0) return cudaSuccess;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return by_lane_plan(hidden, [&](auto p, auto c) {
+    return launch_bwd<decltype(p)::value, decltype(c)::value>(gys, gates, ys, h0, wpk_t, dxp, dhn,
+                                                              dh0, batch, t_steps, hidden, s);
+  });
 }
 
 // units per CTA of the wide path's launch plan at this shape

@@ -14,8 +14,9 @@ The reference's two DCT experiments, as the JAX package realizes them:
 The functions keep the JAX package's names and signatures on dicts of
 tensors (layouts as JAX's, conv kernels HWIO), so a JAX tree carries over
 leaf for leaf; :class:`DctDnn` and :class:`DctCnn` hold the same trees as
-modules. No kernel: the CNN's GRU routes as ``ops.gru.gru_scan`` does (K8 on a
-CUDA tensor at batch 1, T >= 64).
+modules. No kernel: the CNN's GRU routes as ``ops.gru.gru_scan`` does (its H =
+512 is past K8's register path, so K8's wide path on a CUDA tensor at batch
+1, T >= 64, the plain loop at a larger batch).
 """
 
 from __future__ import annotations

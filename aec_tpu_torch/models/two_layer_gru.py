@@ -3,8 +3,8 @@
 LittleNet's skeleton with a GRU(2E -> 2E), features ``[mic_erb || ref_erb]``
 (plain concat, no difference), no skip concat before linear1 and no input
 pseudo-norm. Loss: the compressed ERB-magnitude MSE, with the optional
-asymmetric term. At E = 32 its GRU is 64 wide, so a CUDA call at batch 1 runs
-it on kernel K8 (``ops/gru``).
+asymmetric term. At E = 32 its GRU is 64 wide, so a CUDA call of 64 frames or
+more runs it on kernel K8 at any batch, and its backward on K8b (``ops/gru``).
 """
 
 from __future__ import annotations

@@ -18,6 +18,8 @@ from typing import TypedDict
 
 import torch
 
+from aec_tpu_torch.kernels.gru import MAX_HIDDEN
+
 
 class GruParams(TypedDict):
     """The parameter dict of :func:`gru_init`, keyed as JAX's."""
@@ -65,25 +67,49 @@ def gru_cell(params: dict[str, torch.Tensor], h: torch.Tensor,
     return (1.0 - z) * n + z * h
 
 
+def kernel_route(b: int, t: int, hidden: int, device_type: str) -> bool:
+    """Whether ``gru_scan(fused=None)`` takes the fused route (K8, and K8b
+    in the backward): a CUDA tensor with ``T >= 64`` at any B where K8 holds
+    W_hh in registers (H <= 128), and at B == 1 above that (the wide path,
+    whose backward recomputes the plain scan).
+
+    JAX routes its kernel at ``B == 1`` only (``aec_tpu/ops/gru.py:108``),
+    because on a TPU v5e at batch 256 x 513 frames XLA's compiled
+    ``lax.scan`` beat the Pallas kernel (0.53 ms against 1.49). The port has
+    no compiled loop to fall back on: its plain route is an eager loop of
+    ~6 launches a frame forward and ~10 backward. On an H100 80GB HBM3 at
+    700 W, H = 32 (``chip_smoke.py`` phase 16): before this route, at B = 8
+    x 501 frames K8's recurrence took 0.228-0.271 ms, its whole forward
+    0.341-0.498, cuDNN's ``nn.GRU`` 0.329-0.424 and the plain loop users got
+    77.8-111.7; at B = 16 0.210-0.283, 0.309-0.534, 0.289-0.461 and
+    64.2-116.0. With this route (two runs, medians of four turns): at B = 8
+    the forward 0.330-0.489 ms against cuDNN's 0.356-0.488, the forward and
+    backward (K8 + K8b) 1.70-1.75 against cuDNN's 1.71-2.04 and the plain
+    loop's 364-415; at B = 16 0.329-0.465 against 0.354-0.484, and
+    1.27-1.69 against 1.51-1.99 and 354-400.
+    """
+    return device_type == "cuda" and t >= 64 and (b == 1 or hidden <= MAX_HIDDEN)
+
+
 def gru_scan(
     params: dict[str, torch.Tensor], x: torch.Tensor,
     h0: torch.Tensor | None = None, *, fused: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the GRU over frames: ``[B, T, I] -> ([B, T, H], h_T)``.
 
-    ``fused`` routes as the JAX package does: ``None`` takes the fused
-    route (kernel K8, ``kernels/gru.py``, differentiable) for single-stream
-    long scans, ``B == 1 and T >= 64``, on a CUDA tensor, and the plain loop
-    otherwise. An explicit ``fused=True`` on a CPU tensor runs the fused
-    route's autograd Function over the kernel's plain version (JAX runs its
-    kernel in interpret mode there); ``fused=False`` is the plain loop.
+    ``fused=None`` routes by :func:`kernel_route`: the fused route (kernel
+    K8 forward and K8b backward, ``kernels/gru.py``) on a CUDA tensor at T
+    >= 64 and H <= 128 (any B) or B == 1, the plain loop otherwise. An
+    explicit ``fused=True`` on a CPU tensor runs the fused route's autograd
+    Function over the kernels' plain versions (JAX runs its kernel in
+    interpret mode there); ``fused=False`` is the plain loop.
     """
     b, t, _ = x.shape
     hidden = params["w_hh"].shape[-1]
     if h0 is None:
         h0 = x.new_zeros((b, hidden))
     if fused is None:
-        fused = b == 1 and t >= 64 and x.is_cuda
+        fused = kernel_route(b, t, hidden, x.device.type)
     if fused:
         from aec_tpu_torch.kernels.gru import gru_scan_fused
 

@@ -25,11 +25,13 @@
   batch: global batch statistics and loss shares
   (``parallel/global_batch.py``), the gradients summed over the ranks.
 
-On a CUDA device the recurrences route as their ops do: a batch-1 step
-(every validation utterance) runs a GRU on kernel K8; DCCRN's complex LSTMs
-run on K9 at B <= 16 and FullSubNet's joint recurrence on K11, so a DCCRN or
-FullSubNet train step at the default batch of 16 runs its kernel forward.
-Every backward recomputes through the plain scan, as the JAX custom VJPs do.
+On a CUDA device the recurrences route as their ops do: LittleNet's and
+TwoLayerGRU's GRU runs on kernel K8 at any batch (every train step and
+validation utterance) and its backward on K8b; DCCRN's complex LSTMs run on
+K9 at B <= 16 and FullSubNet's joint recurrence on K11, so a DCCRN or
+FullSubNet train step at the default batch of 16 runs its kernel forward,
+and their backwards recompute through the plain scan, as the JAX custom
+VJPs do.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N] [--reps N]
 
 Runs ``aec_tpu_torch`` (never JAX): builds the ten CUDA sources in the
-checkout (twelve kernels), and the cut variants that ``kernels/lstm_costs.py``
+checkout (thirteen kernels: the twelve TPU kernels' and K8b, K8's backward), and the cut variants that ``kernels/lstm_costs.py``
 (K9, K10), ``kernels/single_costs.py`` (K6 / K7) and ``kernels/fsn_costs.py``
 (K11) time, all in parallel, and drives every user-facing path.
 
@@ -46,13 +46,18 @@ checkout (twelve kernels), and the cut variants that ``kernels/lstm_costs.py``
   FFT formulation beside the dense one, and ptxas's registers and spills
   for their default instantiations.
 - Training (phases 16-19): K8 (the GRU scan) against its plain version at
-  B = 1 x 1001 frames (H = 32, 64 and 128) and B = 16 x 501, its gradients
-  against the plain route's; the recurrence and the whole forward beside
-  cuDNN's ``nn.GRU`` in turns, with the ratios; the trainer of a
-  width-1 LittleNet at ``TrainConfig()``: 5 steps at batch 16 x 8 s (the
-  first against the CPU route), validation at batch 1 through K8, a
-  checkpoint round trip, 3 batch-1 steps; the width-4 net on one utterance
-  at a time (K6 + K8) against the CPU route.
+  B = 1 x 1001 frames (H = 32, 64 and 128) and B = 8 and 16 x 501; at the
+  batches, K8's ys with and without saving the gates bit for bit, K8b (its
+  backward) against its plain version, and the route's gradients against
+  the plain route's; the recurrence and the whole forward beside cuDNN's
+  ``nn.GRU`` in turns, with the ratios, and at the batches the route's
+  forward and its forward and backward (K8 + K8b) beside cuDNN's; LittleNet's
+  GRU gradients at 1 and 16 x 501 through K8 and K8b against the plain
+  route; the trainer of a width-1 LittleNet at ``TrainConfig()``: 5 steps
+  at batch 16 x 8 s (K8 and K8b once each; the first against the CPU
+  route), validation at batch 1 through K8, a checkpoint round trip, 3
+  batch-1 steps; the width-4 net on one utterance at a time (K6 + K8)
+  against the CPU route.
 - K12 (phase 20): the spectra-in batched Kalman entry against K1 and its
   plain version at the main shape.
 - Other geometries (phase 21): the 8 scenes at 4 and 16 partitions (block
@@ -102,10 +107,11 @@ checkout (twelve kernels), and the cut variants that ``kernels/lstm_costs.py``
   at their default configs and ``TrainConfig()`` (16 scenes x 8 s) through
   ``train/generic.make_adapter`` and ``train/loop.make_stateful_train_step``:
   the first step on the kernel route (K9 twice in a DCCRN step, K11 once in
-  a FullSubNet step) against the plain route, TwoLayerGRU's and
-  ATT-CCRN's (no kernel in a batch-16 step) also against the CPU route
-  (loss, every gradient leaf, the new BatchNorm state); the launches of K8,
-  K9 and K11 in validation of 8 scenes at batch 1; 3 steps timed with
+  a FullSubNet step, K8 and K8b once in a TwoLayerGRU step) against the
+  plain route, TwoLayerGRU's (no switch to the plain loop) and ATT-CCRN's
+  (no kernel in a batch-16 step) against the CPU route (loss, every
+  gradient leaf, the new BatchNorm state); the launches of K8, K9, K11 and
+  K8b in validation of 8 scenes at batch 1; 3 steps timed with
   train_xrt and peak memory; a checkpoint round trip; DCT-DNN and DCT-CNN
   one step against the CPU route, timed.
 - Data pipeline and CLIs (phase 27): ``cli/prepare_data`` packs 8 scenes x
@@ -114,8 +120,9 @@ checkout (twelve kernels), and the cut variants that ``kernels/lstm_costs.py``
   and 16 gathered rows against the host rows; ``train/loop.Trainer`` at
   ``TrainConfig()`` over 64 scenes (two epochs of 4 steps) from a float32
   cache against the host loader (losses, parameters), from an int16 cache,
-  K8 in cached validation, step ms; ``cli/batch_enhance`` at ``--batch 8``
-  (K1 / K5 once) and ``cli/stream`` against the same CLIs on the CPU;
+  K8 and K8b once a step, K8 in cached validation, step ms;
+  ``cli/batch_enhance`` at ``--batch 8`` (K1 / K5 and K8 once) and
+  ``cli/stream`` against the same CLIs on the CPU;
   ``cli/export_pt``, then ``cli/infer`` on the ``.pt`` bit-equal to the
   ``.npz`` run; ``cli/measure`` and ``cli/profile``. The card's machine has
   no h5py: there the ``.ex`` files go through an npz-backed stand-in
@@ -123,8 +130,8 @@ checkout (twelve kernels), and the cut variants that ``kernels/lstm_costs.py``
 - The parallel layer (phase 28) at world size 1 on NCCL (one card; the
   multi-rank numbers are held on the CPU over gloo): a 1-rank group from
   ``parallel/mesh.distributed_init_if_needed``; LittleNet's, DCCRN's and
-  FullSubNet's train steps with the mesh against without (K9 / K11 in
-  both); ``cli/train --mesh`` and ``cli/batch_enhance --mesh --batch 8`` (K1
+  FullSubNet's train steps with the mesh against without (K8 + K8b / K9 /
+  K11 in both); ``cli/train --mesh`` and ``cli/batch_enhance --mesh --batch 8`` (K1
   / K5) against their runs without; ``parallel/tp_lstm.lstm_scan_tp`` at
   ATT-CCRN's H = 4096 against the plain scan, timed beside K10;
   ``parallel/seq_scan.pipelined_scan`` of the Kalman step; and
@@ -135,7 +142,8 @@ The second-to-last line is the ``kernels`` JSON (each kernel's launches on
 its path, its error against its plain version, its time, its plain
 version's time and its bound from this run's shapes; K3's rows also its
 kernel's device time, ``kernel_ms``, beside the call's; K8's, K9's and
-K11's also their launches in the zoo's training, ``train_launches``; K1's,
+K11's also their launches in the zoo's training, ``train_launches``, K8b's
+in the trainers', K8's its batched numbers; K1's,
 K5's and K8's their launches on phase 27's paths, ``cli_launches``, and
 K1's, K5's, K9's, K11's and K3's on phase 28's mesh routes), the last line
 the ``ok`` JSON. Exits nonzero without a CUDA device.
@@ -427,13 +435,15 @@ def stage2_bounds(batch: int, n: int, erb_terms: int) -> tuple[dict, dict]:
 
 
 def k8_registers(log: str) -> list[tuple[str, str]]:
-    """K8's one-CTA instantiations in the gru build log: (lanes per unit P
-    and weights per lane and gate C, ptxas's registers and spill line)."""
+    """K8's and K8b's one-CTA instantiations in the gru build log: (the
+    kernel, its lanes per unit P and weights per lane and gate C, ptxas's
+    registers and spill line)."""
     out, plan, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"gru_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"gru_(bwd_)?kernelILi(\d+)ELi(\d+)E(Lb1)?", line)
         if m:
-            plan, spill = f"P = {m.group(1)}, C = {m.group(2)}", ""
+            kernel = "K8b" if m.group(1) else "K8 saving the gates" if m.group(4) else "K8"
+            plan, spill = f"{kernel} P = {m.group(2)}, C = {m.group(3)}", ""
         elif plan and "spill" in line:
             spill = line.split(":")[-1].strip()
         elif plan and "registers" in line:
@@ -445,6 +455,12 @@ def k8_registers(log: str) -> list[tuple[str, str]]:
 def gru_bound(b: int, t: int, h: int) -> dict:
     """K8's: B*T*3H*H FMA; xp in, ys out, W_hh^T, b_hn, h0 and h_T."""
     return bound(b * t * 3 * h * h, 4 * (b * t * 4 * h + 3 * h * h + h + 2 * b * h))
+
+
+def k8b_bound(b: int, t: int, h: int) -> dict:
+    """K8b's: B*T*3H*H FMA (the forward's dots, transposed); g_ys, ys and
+    the saved gates (4H) in, dxp (3H) and d_hn out, W_hh, h0 and dh0."""
+    return bound(b * t * 3 * h * h, 4 * (b * t * 10 * h + 3 * h * h + 2 * b * h))
 
 
 def bound(fma: float, nbytes: float, peak: float = PEAK_FP32) -> dict:
@@ -642,12 +658,13 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
     fp32) at one 16 s utterance (B = 1, T = 1001) for H = 32, 64 and 128 (one
     CTA per row, W_hh in registers) and 129 and 512 (the wide path on a grid
     of CTAs), and at the batches users run, B = 8 (``batch_enhance --batch
-    8``) and 16 (the training batch), T = 501, H = 32: the fused route called
-    explicitly, for information; the routing stays JAX's B == 1. Timed in turns: cuDNN, the recurrence alone (``gru_recurrence`` on
-    the folded projection), the whole forward ``gru_scan_fused`` (projection,
-    packing and recurrence: the same function as ``nn.GRU(x, h0)``), cuDNN;
-    then the same four with calls back to back (``pipelined_ms``), which
-    leaves out the host's share of a lone call."""
+    8``) and 16 (the training batch), T = 501, H = 32, and B = 16 at H = 64
+    (TwoLayerGRU) and 128, where ``gru_scan`` routes to K8 and K8b
+    (:func:`gru_batch_phase`). Timed in turns: cuDNN, the recurrence alone
+    (``gru_recurrence`` on the folded projection), the whole forward
+    ``gru_scan_fused`` (projection and recurrence: the same function as
+    ``nn.GRU(x, h0)``), cuDNN; then the same four with calls back to back
+    (``pipelined_ms``), which leaves out the host's share of a lone call."""
     from aec_tpu_torch.kernels.gru import (
         folded_projection,
         gru_recurrence,
@@ -657,9 +674,9 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
     from aec_tpu_torch.ops.gru import gru_init
 
     g = torch.Generator().manual_seed(seed)
-    out = {"err": 0.0, "shapes": {}}
+    out = {"err": 0.0, "bwd_err": 0.0, "shapes": {}}
     for b, t, h in ((1, 1001, 32), (1, 1001, 64), (1, 1001, 128), (1, 1001, 129),
-                    (1, 1001, 512), (8, 501, 32), (16, 501, 32)):
+                    (1, 1001, 512), (8, 501, 32), (16, 501, 32), (16, 501, 64), (16, 501, 128)):
         params = gru_init(2 * BANDS, h, generator=g, device=dev)
         x = torch.randn(b, t, 2 * BANDS, generator=g).to(dev)
         h0 = torch.zeros(b, h, device=dev)
@@ -705,18 +722,125 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
         out["err"] = max(out["err"], err)
         out["shapes"][(b, t, h)] = {"ms": t_k, "fused_ms": t_f, "plain_ms": t_p,
                                     "library_ms": t_lib}
+        if b > 1:
+            row = gru_batch_phase(params, x, h0, gru, reps, smi, seed + b + h)
+            out["bwd_err"] = max(out["bwd_err"], row.pop("k8b_err"))
+            out["shapes"][(b, t, h)].update(row)
     return out
 
 
+def gru_batch_phase(params, x, h0, gru, reps: int, smi: str, seed: int) -> dict:
+    """16 at B > 1, the route users train and enhance on (K8, and K8b in
+    the backward): K8's ys with and without saving the gates, bit for bit;
+    K8b against its plain version on those gates, and the route's gradients
+    into every leaf (x, h0, the four parameters) against the recompute
+    route's (the plain loop), each at K8's gradient bar of its scale, with
+    the launches of both routes; then in turns, each four times: cuDNN's
+    forward, the route's forward, cuDNN's forward and backward, the route's
+    forward and backward (``torch.autograd.grad`` of a fixed cotangent into
+    every leaf; cuDNN with the same weights); the backwards alone (cuDNN's
+    and the route's of a recorded forward, K8b on saved gates); the plain
+    versions, K8b's and the plain route's forward and backward, fewer reps."""
+    from aec_tpu_torch.kernels.gru import (
+        folded_projection,
+        gru_backward,
+        gru_backward_plain,
+        gru_recurrence,
+    )
+    from aec_tpu_torch.ops.gru import gru_scan
+
+    b, t, _ = x.shape
+    h = h0.shape[-1]
+    cot = torch.randn(b, t, h, generator=torch.Generator().manual_seed(seed)).to(x.device)
+    w_hh, b_hn = params["w_hh"], params["b_hh"][2 * h:]
+    with torch.no_grad():
+        xp = folded_projection(params, x)
+        ys = gru_recurrence(xp, w_hh, b_hn, h0)
+        ys_s, gates = gru_recurrence(xp, w_hh, b_hn, h0, save=True)
+        got = gru_backward(cot, gates, ys_s, h0, w_hh)
+        torch.cuda.synchronize()
+        want = gru_backward_plain(cot, gates, ys_s, h0, w_hh)
+    same = torch.equal(ys, ys_s)
+    k8b_err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    k8b_rel = max(float((a - w).abs().max() / w.abs().max()) for a, w in zip(got, want))
+
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    xl, hl = x.detach().clone().requires_grad_(), h0.detach().clone().requires_grad_()
+    order = [xl, hl, *leaves.values()]
+
+    def fwd_bwd(fused=None):
+        ys_r, _ = gru_scan(leaves, xl, hl, fused=fused)
+        return torch.autograd.grad(ys_r, order, cot)
+
+    grads, counts = {}, {}
+    for fused in (None, False):
+        grads[fused], counts[fused] = drive((gru_recurrence, gru_backward),
+                                            lambda: fwd_bwd(fused))
+    route_rel = max(float((a - w).abs().max() / w.abs().max())
+                    for a, w in zip(grads[None], grads[False]))
+    phase("K8b vs plain", f"B = {b}, T = {t}, H = {h}: K8's ys with and without saving the "
+          f"gates bit-equal {same}; K8b vs its plain version, worst of dxp / d_hn / dh0 max|d| "
+          f"/ scale {k8b_rel:.3e} (max|d| {k8b_err:.3e}); the route's gradients vs the plain "
+          f"route's, worst leaf {route_rel:.3e} (bars {K8_GRAD_TOL:g}); launches K8 / K8b: "
+          f"route {counts[None]}, plain route {counts[False]}")
+    check(same, "K8's ys change with the save flag")
+    check(k8b_rel <= K8_GRAD_TOL, "K8b disagrees with its plain version")
+    check(counts[None] == [1, 1] and counts[False] == [0, 0],
+          "gru_scan did not route to K8 and K8b at this batch")
+    check(route_rel <= K8_GRAD_TOL, "the route's gradients disagree with the plain route's")
+
+    lib_leaves = [xl, hl, *gru.parameters()]
+
+    def lib_fwd_bwd():
+        return torch.autograd.grad(gru(xl, hl[None])[0], lib_leaves, cot)
+
+    def route_fwd():
+        with torch.no_grad():
+            return gru_scan(params, x, h0)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return gru(x, h0[None])
+
+    fns = (lib_fwd, route_fwd, lib_fwd_bwd, fwd_bwd)
+    turns = [time_ms(fn, reps) for fn in fns + fns[::-1] + fns + fns[::-1]]
+    pairs = [[turns[i], turns[7 - i], turns[8 + i], turns[15 - i]] for i in range(4)]
+    ys_lib = gru(xl, hl[None])[0]
+    ys_route, _ = gru_scan(leaves, xl, hl)
+    bwd = (lambda: torch.autograd.grad(ys_lib, lib_leaves, cot, retain_graph=True),
+           lambda: gru_backward(cot, gates, ys_s, h0, w_hh),
+           lambda: torch.autograd.grad(ys_route, order, cot, retain_graph=True))
+    bturns = [time_ms(fn, reps) for fn in bwd + bwd[::-1]]
+    bpairs = [[bturns[i], bturns[5 - i]] for i in range(3)]
+    t_pb = time_ms(lambda: gru_backward_plain(cot, gates, ys_s, h0, w_hh), 2)
+    t_plain = time_ms(lambda: fwd_bwd(False), 2)
+    med = [statistics.median(p) for p in pairs]
+    bmed = [statistics.median(p) for p in bpairs]
+    fmt = lambda v: ", ".join(f"{x:.4f}" for x in v)  # noqa: E731
+    phase("time", f"B = {b}, T = {t}, H = {h}, in turns (4 each, ms): forward cuDNN {fmt(pairs[0])}, "
+          f"the route (K8) {fmt(pairs[1])}; forward and backward cuDNN {fmt(pairs[2])}, the route "
+          f"(K8 + K8b) {fmt(pairs[3])}; ratio to cuDNN, medians: forward {med[1] / med[0]:.3f}, "
+          f"forward and backward {med[3] / med[2]:.3f} [{smi}]")
+    phase("time", f"B = {b}, T = {t}, H = {h}, the backwards alone (ms, in turns): cuDNN "
+          f"{fmt(bpairs[0])}, the route's {fmt(bpairs[2])}, K8b {fmt(bpairs[1])} (plain "
+          f"{t_pb:.2f}); the plain route's forward and backward {t_plain:.1f} ms; K8b's bound "
+          f"{k8b_bound(b, t, h)['bound_ms']:.5f} ms [{smi}]")
+    return {"k8b_err": k8b_err, "route_fwd_ms": med[1], "lib_fwd_ms": med[0],
+            "route_fwd_bwd_ms": med[3], "lib_fwd_bwd_ms": med[2], "lib_bwd_ms": bmed[0],
+            "k8b_ms": bmed[1], "route_bwd_ms": bmed[2], "k8b_plain_ms": t_pb,
+            "plain_fwd_bwd_ms": t_plain}
+
+
 def trainer_phase(dev, seed: int, reps: int, smi: str) -> dict:
-    """17-18. K8's gradients against the plain route on one 8 s scene; the
-    trainer at TrainConfig() on 16 utterances x 8 s (bench config #7): 5
-    batch-16 steps (the first against the CPU route), validation at batch 1
-    over 8 scenes (K8), a checkpoint round trip, 3 batch-1 steps (K8)."""
+    """17-18. The gradients through K8 and K8b against the plain route on
+    one 8 s scene and on 16; the trainer at TrainConfig() on 16 utterances
+    x 8 s (bench config #7): 5 batch-16 steps (K8 and K8b once each; the
+    first against the CPU route), validation at batch 1 over 8 scenes (K8),
+    a checkpoint round trip, 3 batch-1 steps (K8 and K8b)."""
     from aec_tpu_torch.configs import TrainConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
     from aec_tpu_torch.dsp.stft import StftConfig
-    from aec_tpu_torch.kernels.gru import gru_recurrence
+    from aec_tpu_torch.kernels.gru import gru_backward, gru_recurrence
     from aec_tpu_torch.models.little_net import (
         _pseudo_norm,
         little_net_features,
@@ -744,36 +868,47 @@ def trainer_phase(dev, seed: int, reps: int, smi: str) -> dict:
     net = little_net_init(generator=torch.Generator().manual_seed(seed), device=dev)
     cpu_net = little_net_init(generator=torch.Generator().manual_seed(seed), device="cpu")
 
-    # 17. gradients through K8 vs the plain route: the GRU of the fresh net on
-    #     one scene's features, a fixed random cotangent, every leaf
-    with torch.no_grad():
-        feats = little_net_features(_pseudo_norm(md[:1]), _pseudo_norm(fd[:1]), erb_d,
-                                    StftConfig())[0]
-    gp = {k: v.detach().clone().requires_grad_() for k, v in net.gru_params().items()}
-    feats.requires_grad_()
-    cot = torch.randn(1, feats.shape[1], net.hidden, generator=torch.Generator().manual_seed(seed))
-    cot = cot.to(dev)
-    grads, launches = {}, {}
-    for fused in (None, False):
-        (ys, _), (launches[fused],) = drive((gru_recurrence,), lambda: gru_scan(gp, feats,
-                                                                                fused=fused))
-        grads[fused] = torch.autograd.grad((ys * cot).sum(), [feats, *gp.values()])
-    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
-                for a, b in zip(grads[None], grads[False]))
-    phase("K8 gradients", f"1 x {feats.shape[1]} frames: launches K8 {launches[None]} (plain route "
-          f"{launches[False]}); worst leaf max|d| / scale = {worst:.3e} (bar {K8_GRAD_TOL:g})")
-    check(launches[None] == 1 and launches[False] == 0, "the batch-1 route did not take K8")
-    check(worst <= K8_GRAD_TOL, "gradients through K8 disagree with the plain route")
+    # 17. gradients through K8 and K8b vs the plain route: the GRU of the
+    #     fresh net on one scene's features and on 16 scenes', a fixed random
+    #     cotangent, every leaf
+    for b in (1, cfg.batch_size):
+        with torch.no_grad():
+            feats = little_net_features(_pseudo_norm(md[:b]), _pseudo_norm(fd[:b]), erb_d,
+                                        StftConfig())[0]
+        gp = {k: v.detach().clone().requires_grad_() for k, v in net.gru_params().items()}
+        feats.requires_grad_()
+        cot = torch.randn(b, feats.shape[1], net.hidden,
+                          generator=torch.Generator().manual_seed(seed)).to(dev)
+        grads, launches = {}, {}
+
+        def fwd_bwd(fused):
+            ys, _ = gru_scan(gp, feats, fused=fused)
+            return torch.autograd.grad((ys * cot).sum(), [feats, *gp.values()])
+
+        for fused in (None, False):
+            grads[fused], launches[fused] = drive((gru_recurrence, gru_backward),
+                                                  lambda: fwd_bwd(fused))
+        worst = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-12)
+                    for a, c in zip(grads[None], grads[False]))
+        phase("K8 gradients", f"{b} x {feats.shape[1]} frames: launches K8 / K8b {launches[None]} "
+              f"(plain route {launches[False]}); worst leaf max|d| / scale = {worst:.3e} (bar "
+              f"{K8_GRAD_TOL:g})")
+        check(launches[None] == [1, 1] and launches[False] == [0, 0],
+              f"the batch-{b} route did not take K8 and K8b")
+        check(worst <= K8_GRAD_TOL, "gradients through K8 and K8b disagree with the plain route")
 
     # 18. the trainer: 5 steps at batch 16, the first also on the CPU route
     opt, cpu_opt = make_optimizer(cfg, 1, net), make_optimizer(cfg, 1, cpu_net)
     step, cpu_step = make_train_step(little_net_loss, opt), make_train_step(little_net_loss, cpu_opt)
-    losses, times = [], []
+    losses, times, step_counts = [], [], []
     for i in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(float(step(md, fd, nd, erb_d)))  # float() waits for the card
+        loss, counts = drive((gru_recurrence, gru_backward),
+                             lambda: float(step(md, fd, nd, erb_d)))  # float() waits for the card
         times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        step_counts.append(counts)
         if i == 0:
             cpu_loss = float(cpu_step(mic, far, near, erb_c))
             mean_d = max(float((p.detach().cpu() - q.detach()).abs().mean())
@@ -786,9 +921,12 @@ def trainer_phase(dev, seed: int, reps: int, smi: str) -> dict:
             check(rel <= STEP_LOSS_TOL and mean_d <= STEP_PARAM_TOL * cfg.lr,
                   "the first train step disagrees with the CPU route")
     check(all(np.isfinite(losses)), "train loss not finite")
+    check(all(c == [1, 1] for c in step_counts), f"a train step did not launch K8 and K8b once "
+          f"each: {step_counts}")
     t_step = statistics.median(times[1:])
     train_xrt = cfg.batch_size * N_TRAIN / SR / (t_step / 1e3)
-    phase("trainer", f"losses {', '.join(f'{v:.4f}' for v in losses)}; step ms "
+    phase("trainer", f"launches K8 / K8b a step {step_counts[0]}; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; step ms "
           f"{', '.join(f'{v:.1f}' for v in times)}; median of steps 2-5 {t_step:.2f} ms = "
           f"train_xrt {train_xrt:.1f} [{smi}]")
 
@@ -821,14 +959,16 @@ def trainer_phase(dev, seed: int, reps: int, smi: str) -> dict:
     def batch_one_steps():
         return [float(step(md[i:i + 1], fd[i:i + 1], nd[i:i + 1], erb_d)) for i in range(3)]
 
-    b1_losses, (k8_b1,) = drive((gru_recurrence,), batch_one_steps)
-    check(k8_b1 > 0 and all(np.isfinite(b1_losses)), "batch-1 steps did not go through K8")
+    b1_losses, (k8_b1, k8b_b1) = drive((gru_recurrence, gru_backward), batch_one_steps)
+    check(k8_b1 > 0 and k8b_b1 > 0 and all(np.isfinite(b1_losses)),
+          "batch-1 steps did not go through K8 and K8b")
     t_b1 = time_ms(lambda: step(md[3:4], fd[3:4], nd[3:4], erb_d), reps)
-    phase("trainer", f"3 batch-1 steps: launches K8 {k8_b1}, losses "
+    phase("trainer", f"3 batch-1 steps: launches K8 {k8_b1}, K8b {k8b_b1}, losses "
           f"{', '.join(f'{v:.4f}' for v in b1_losses)}; {t_b1:.2f} ms per step [{smi}]")
     print(f"train_step_ms={t_step:.3f} train_xrt={train_xrt:.1f} train_step_b1_ms={t_b1:.3f} "
           f"validate_ms_per_utt={t_val:.3f}", flush=True)
-    return {"k8_val": k8_val}
+    return {"k8_val": k8_val, "k8b_steps": sum(c[1] for c in step_counts),
+            "step_ms": t_step, "train_xrt": train_xrt}
 
 
 def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
@@ -1753,19 +1893,22 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
     make_stateful_train_step) on 16 scenes x 8 s (bench config #7's
     shape): the first step on the kernel route against the plain route
     (DCCRN: K9 against ``lstm_fused=False``; FullSubNet: K11 against
-    ``joint_kernel=False``; TwoLayerGRU and ATT-CCRN run no kernel in a
-    batch-16 step, so theirs is also held against the CPU route), cuDNN's
-    TF32 off and deterministic: loss, every gradient leaf, the new
-    BatchNorm state; the kernels' launches in that step and in validation
-    of 8 scenes at batch 1 (K8, K9, K11); 3 more steps timed by the host
+    ``joint_kernel=False``; TwoLayerGRU's step runs K8 and K8b, and
+    ``two_layer_gru_apply`` has no switch to the plain loop, so its card
+    reference is the same route, and ATT-CCRN runs no kernel in a batch-16
+    step: both are also held against the CPU route), cuDNN's TF32 off and
+    deterministic: loss, every gradient leaf, the new BatchNorm state; the
+    kernels' launches in that step and in validation of 8 scenes at batch 1
+    (K8, K9, K11, K8b); 3 more steps timed by the host
     clock ending in a synchronize (cuDNN at its defaults, TF32 on and
     nondeterministic, as a user's run has it), train_xrt and peak memory;
     a checkpoint round trip (save_latest_best -> restore_train_tree into a
     fresh net: params, opt_state and model_state bit-equal). Then DCT-DNN
-    and DCT-CNN: one step against the CPU route, and the step timed."""
+    and DCT-CNN: one step against the CPU route (no kernel: the DCT-CNN's
+    H = 512 GRU keeps the plain loop at B > 1), and the step timed."""
     from aec_tpu_torch.configs import TrainConfig
     from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
-    from aec_tpu_torch.kernels.gru import gru_recurrence
+    from aec_tpu_torch.kernels.gru import gru_backward, gru_recurrence
     from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
     from aec_tpu_torch.models.dct_net import DctCnn, DctDnn
     from aec_tpu_torch.models.registry import get_model
@@ -1794,9 +1937,12 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
     batch_c = (mic, far, near, mic - near)  # mic, far, near, echo
     batch = tuple(t.to(dev) for t in batch_c)
     audio_s = cfg.batch_size * N_TRAIN / SR
-    kernels = (gru_recurrence, grouped_lstm_recurrence, joint_recurrence)
-    expect_step = {"dccrn": (0, 2, 0), "fullsubnet": (0, 0, 1)}
-    expect_val = {"two_layer_gru": (8, 0, 0), "dccrn": (0, 16, 0), "fullsubnet": (0, 0, 8)}
+    kernels = (gru_recurrence, grouped_lstm_recurrence, joint_recurrence, gru_backward)
+    none = (0, 0, 0, 0)
+    expect_step = {"two_layer_gru": (1, 0, 0, 1), "dccrn": (0, 2, 0, 0),
+                   "fullsubnet": (0, 0, 1, 0)}
+    expect_val = {"two_layer_gru": (8, 0, 0, 0), "dccrn": (0, 16, 0, 0),
+                  "fullsubnet": (0, 0, 8, 0)}
     plain_kw = {"dccrn": {"lstm_fused": False}, "fullsubnet": {"joint_kernel": False}}
 
     def stepper(adapter, net, **kw):
@@ -1831,20 +1977,23 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
         rel = abs(loss / ref_loss - 1.0)
         g_err, g_leaf, g_zero = grad_check(grads, ref_grads, zeros)
         s_err = bn_state_err(state, ref_state)
-        want_step = expect_step.get(name, (0, 0, 0))
-        phase("zoo", f"{name} step 1, batch {cfg.batch_size} x {N_TRAIN}: launches K8 / K9 / K11 "
-              f"{counts} (plain route {ref_counts}); loss {loss:.6f} vs plain route "
+        want_step = expect_step.get(name, none)
+        # the card reference of a family without a plain-route switch is its
+        # own route (the CPU route below holds it)
+        want_ref = none if name in plain_kw else want_step
+        phase("zoo", f"{name} step 1, batch {cfg.batch_size} x {N_TRAIN}: launches K8 / K9 / K11 / "
+              f"K8b {counts} (card reference {ref_counts}); loss {loss:.6f} vs card reference "
               f"{ref_loss:.6f} (rel {rel:.2e}, bar {STEP_LOSS_TOL:g}); worst gradient leaf "
               f"{g_leaf} {g_err:.3e} of its scale (bar {K8_GRAD_TOL:g}); {len(zeros)} biases "
               f"before a BatchNorm (exact zeros) up to {g_zero:.2e} of the largest leaf (bar "
               f"{ZERO_GRAD:g}); BatchNorm state {s_err:.3e} (bar {STATE_TOL:g})")
-        check(tuple(counts) == want_step and tuple(ref_counts) == (0, 0, 0),
+        check(tuple(counts) == want_step and tuple(ref_counts) == want_ref,
               f"{name}'s train step did not launch its kernels as routed")
         check(rel <= STEP_LOSS_TOL and g_err <= K8_GRAD_TOL and g_zero <= ZERO_GRAD
               and s_err <= STATE_TOL,
               f"{name}'s first step on the kernel route disagrees with the plain route")
         del ref, ref_grads, ref_state
-        if name not in plain_kw:  # no kernel in the step: the CPU route
+        if name not in plain_kw:  # no plain-route switch: the CPU route
             cpu = adapter.module(*adapter.init(generator=torch.Generator().manual_seed(seed),
                                                device="cpu"))
             c_loss, c_grads, c_state, _, _, _ = first_step(adapter, cpu, batch_c)
@@ -1911,13 +2060,13 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
 
         cv, val_counts = drive(kernels, validate)
         check(all(np.isfinite(cv)), f"{name} validation loss")
-        check(tuple(val_counts) == expect_val.get(name, (0, 0, 0)),
+        check(tuple(val_counts) == expect_val.get(name, none),
               f"{name}'s batch-1 validation did not launch its kernels as routed: {val_counts}")
         phase("zoo", f"{name}: 3 steps {', '.join(f'{v:.1f}' for v in times)} ms (median "
               f"{t_step:.1f} ms = train_xrt {xrt:.1f}; the forward alone {t_fwd:.1f} ms), "
               f"losses "
               f"{', '.join(f'{v:.5f}' for v in losses)}; peak memory {peak:.2f} GiB; "
-              f"launches K8 / K9 / K11 a step {step_counts[0]}, in validation of 8 scenes at "
+              f"launches K8 / K9 / K11 / K8b a step {step_counts[0]}, in validation of 8 scenes at "
               f"batch 1 {tuple(val_counts)}; cv loss {np.mean(cv):.5f} [{smi}]")
 
         with tempfile.TemporaryDirectory() as d:
@@ -1948,7 +2097,8 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
             opt = make_optimizer(cfg, 1, n)
             steps.append(make_stateful_train_step(
                 lambda p, s, m, f, ne, e: (spec.loss(p, m, ne)[0], {"state": s}), opt))
-        loss = float(steps[0]({}, *batch)[1])
+        loss, counts = drive(kernels, lambda: float(steps[0]({}, *batch)[1]))
+        check(tuple(counts) == none, f"{name}'s step launched a kernel: {counts}")
         c_loss = float(steps[1]({}, *batch_c)[1])
         rel = abs(loss / c_loss - 1.0)
         mean_d = max(float((p.detach().cpu() - q.detach()).abs().mean())
@@ -1959,7 +2109,8 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
             float(steps[0]({}, *batch)[1])
             times.append((time.perf_counter() - t0) * 1e3)
         t_step = statistics.median(times)
-        phase("zoo", f"{name} step 1, batch {cfg.batch_size} x {N_TRAIN}: loss {loss:.6f} vs the "
+        phase("zoo", f"{name} step 1, batch {cfg.batch_size} x {N_TRAIN}: launches K8 / K9 / K11 / "
+              f"K8b {counts}; loss {loss:.6f} vs the "
               f"CPU route {c_loss:.6f} (rel {rel:.2e}, bar {STEP_LOSS_TOL:g}); worst leaf "
               f"mean|d| after the update {mean_d:.3e} (bar {STEP_PARAM_TOL:g} x lr); 3 steps "
               f"{', '.join(f'{v:.1f}' for v in times)} ms (median {t_step:.1f} ms = train_xrt "
@@ -1996,9 +2147,11 @@ def data_phase(dev, seed: int, smi: str) -> dict:
     16 against the host rows; (c) the trainer at ``TrainConfig()`` for two
     epochs over DATA_UTTS scenes from a float32 cache, from the host loader
     and from an int16 cache, the same initial net: per-step losses and
-    parameters, K8's launches in cached validation (one per cv utterance),
-    step ms of each epoch (the second without the first step's set-up); (d) batch_enhance at --batch 8 with each stage 1 (K1 / K5 once)
-    against the same CLI on the CPU; (e) stream on one scene against the CLI
+    parameters, K8's and K8b's launches (one each a step, K8 once per cv
+    utterance in cached validation), step ms of each epoch (the second
+    without the first step's set-up); (d) batch_enhance at --batch 8 with
+    each stage 1 (K1 / K5 and K8 once a batch) against the same CLI on the
+    CPU; (e) stream on one scene against the CLI
     on the CPU, its block latencies; (f) export_pt, then infer with the .pt
     and the .npz: bit-equal wavs, the same launches; (g) measure over (d)'s
     outputs and profile of every family. On a machine without h5py the .ex
@@ -2015,7 +2168,7 @@ def data_phase(dev, seed: int, smi: str) -> dict:
         stream,
     )
     from aec_tpu_torch.configs import TrainConfig
-    from aec_tpu_torch.kernels.gru import gru_recurrence
+    from aec_tpu_torch.kernels.gru import gru_backward, gru_recurrence
     from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched
     from aec_tpu_torch.kernels.nlms import nlms_cancel_fused_batched
     from aec_tpu_torch.models.little_net import little_net_loss
@@ -2108,14 +2261,15 @@ def data_phase(dev, seed: int, smi: str) -> dict:
                 return loss, aux
 
             ckpt = os.path.join(work, f"exp_{tag or 'host'}")
-            res, (k8,) = drive((gru_recurrence,), lambda: Trainer(
+            res, (k8, k8b) = drive((gru_recurrence, gru_backward), lambda: Trainer(
                 files, test_ex, ckpt, cfg=cfg, loss_fn=recording, device_cache=tag,
                 time_log=os.path.join(ckpt, "time.log"), device=dev).train())
             with open(os.path.join(ckpt, "metrics.jsonl")) as f:
                 metrics = [json.loads(line) for line in f]
             with open(os.path.join(ckpt, "time.log")) as f:
                 step_s = [float(line.rsplit("=", 1)[1]) for line in f]
-            runs[tag] = {"losses": [float(v) for v in losses], "k8": k8, "metrics": metrics,
+            runs[tag] = {"losses": [float(v) for v in losses], "k8": k8 - k8b, "k8b": k8b,
+                         "metrics": metrics,
                          "params": params_to_jax(res["net"]), "step_s": step_s}
         host_run, cached, q = runs[""], runs["float32"], runs["int16"]
         n_steps = DATA_UTTS // cfg.batch_size * cfg.max_n_epochs
@@ -2145,11 +2299,15 @@ def data_phase(dev, seed: int, smi: str) -> dict:
                   f"{host_run['metrics'][e]['train_xrt']}, float32 cache "
                   f"{cached['metrics'][e]['train_xrt']}, int16 cache "
                   f"{q['metrics'][e]['train_xrt']} [{smi}]")
-        phase("data", f"cached validation of {len(names)} scenes at batch 1, each epoch: "
-              f"launches K8 {cached['k8']} (int16 cache {q['k8']})")
+        phase("data", f"the {n_steps} steps: launches K8 and K8b {cached['k8b']} each (host "
+              f"loader {host_run['k8b']}, int16 cache {q['k8b']}); cached validation of "
+              f"{len(names)} scenes at batch 1, each epoch: launches K8 {cached['k8']} (int16 "
+              f"cache {q['k8']})")
+        check(cached["k8b"] == q["k8b"] == host_run["k8b"] == n_steps,
+              "the trainer's steps did not launch K8 and K8b once each")
         check(cached["k8"] == q["k8"] == cfg.max_n_epochs * len(names),
               "cached validation did not launch K8 once per cv utterance")
-        out["k8_cached"] = cached["k8"]
+        out["k8_cached"], out["k8b_cached"] = cached["k8"], cached["k8b"]
 
         # (d) batch_enhance on test.ex at --batch 8, each stage 1, card and CPU
         mic_scale = max(float(np.abs(sc[1]).max()) for sc in scenes.values())
@@ -2172,9 +2330,10 @@ def data_phase(dev, seed: int, smi: str) -> dict:
                   f"{'K1' if stage1 == 'kalman' else 'K5'} {launches[0]}, K8 {launches[1]}; "
                   f"wavs vs the CPU run max|d| {err:.3e} (bar {STAGE1_TOL:g} x max|mic| = "
                   f"{STAGE1_TOL * mic_scale:.3e}); xrt {xrt} [{smi}]")
-            check(launches == [1, 0], "batch_enhance did not launch its stage-1 kernel once")
+            check(launches == [1, 1], "batch_enhance did not launch its stage-1 kernel and K8 once")
             check(err <= STAGE1_TOL * mic_scale, "batch_enhance on the card disagrees with the CPU")
             out[f"{stage1}_bulk_launches"] = launches[0]
+            out["k8_bulk_launches"] = launches[1]
 
         # (e) stream one scene hop by hop, card and CPU
         far_wav = os.path.join(wav_dir, "farend_speech_fileid_0.wav")
@@ -2305,6 +2464,7 @@ def parallel_phase(dev, seed: int, reps: int, smi: str, k10_ms: float) -> dict:
     from aec_tpu_torch.configs import KalmanConfig, TrainConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
     from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+    from aec_tpu_torch.kernels.gru import gru_backward, gru_recurrence
     from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched
     from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
     from aec_tpu_torch.kernels.nlms import nlms_cancel_fused_batched
@@ -2343,7 +2503,10 @@ def parallel_phase(dev, seed: int, reps: int, smi: str, k10_ms: float) -> dict:
     def little(m):
         net = little_net_init(generator=torch.Generator().manual_seed(seed), device=dev)
         step = make_train_step(little_net_loss, make_optimizer(cfg, 1, net), m)
-        loss = float(step(mic, far, near, erb))
+        loss, counts = drive((gru_recurrence, gru_backward),
+                             lambda: float(step(mic, far, near, erb)))
+        check(counts == [1, 1], f"b. LittleNet's step did not launch K8 and K8b once each "
+              f"(mesh {m is not None}): {counts}")
         params = param_tree(net, lambda p: p.detach().clone())
         times = []
         for _ in range(3):
@@ -2356,7 +2519,8 @@ def parallel_phase(dev, seed: int, reps: int, smi: str, k10_ms: float) -> dict:
     (plain, t_plain), (meshed, t_mesh), (again, _) = little(None), little(mesh), little(None)
     check_steps(f"b. LittleNet make_train_step, {cfg.batch_size} x {N_TRAIN}", meshed, plain,
                 again, cfg.lr)
-    phase("parallel", f"b. step ms (median of 3 after the first): unsharded {t_plain:.1f}, mesh "
+    phase("parallel", f"b. launches K8 / K8b a step [1, 1] with and without the mesh; step ms "
+          f"(median of 3 after the first): unsharded {t_plain:.1f}, mesh "
           f"{t_mesh:.1f} (its gradients' all-reduce, one flat bucket, and the loss terms' "
           f"collectives through NCCL) [{smi}]")
     out["little_ms"] = {"unsharded": t_plain, "mesh": t_mesh}
@@ -2572,7 +2736,7 @@ def main() -> None:
             if "registers" in line or "spill" in line or "error" in line:
                 phase("build", f"{src}: {line.strip()}")
     for plan, regs in k8_registers(logs.get("gru", "")):
-        phase("build", f"K8 {plan}: {regs}")
+        phase("build", f"{plan}: {regs}")
 
     cfg = KalmanConfig()
     net = load_npz("checkpoints/little_net_robust.npz", device=dev)
@@ -3130,6 +3294,7 @@ def main() -> None:
     #     call computes K10's int8 recurrence)
     n_serve = len(names)  # K3's row: the streamed scenes' shape, where its launches come from
     k8 = gru["shapes"][(1, 1001, BANDS)]
+    k8b = gru["shapes"][(16, 501, BANDS)]  # a LittleNet train step's GRU
     k9 = lstm["shapes"][1]
     # K9 per layer at B = 1: 2 groups x 2 rows x 4H x H FMA per frame; xp in,
     # W_hh read, ys out
@@ -3164,6 +3329,10 @@ def main() -> None:
         # K8 at one 16 s utterance, H = 32; launches from the trainer's validation
         ("gru_scan", "gru.cu", "pallas_gru.py:65", trained["k8_val"], gru["err"], k8["ms"],
          k8["plain_ms"], gru_bound(1, 1001, BANDS)),
+        # K8b at a LittleNet train step's GRU (B = 16, T = 501, H = 32) on
+        # saved gates; launches from the trainer's 5 steps
+        ("gru_backward", "gru.cu", "pallas_gru.py:159", trained["k8b_steps"], gru["bwd_err"],
+         k8b["k8b_ms"], k8b["k8b_plain_ms"], k8b_bound(16, 501, BANDS)),
         ("kalman_batched_spectra", "kalman_batched.cu", "pallas_kalman.py:303", k12_launches,
          k12_err, t_k12, t_p12, stage1_bounds(BATCH, analysis=False)[0]),
         # K9 at one 8.2 s utterance (B = 1, T = 513); launches from the DCCRN path
@@ -3177,7 +3346,8 @@ def main() -> None:
          fsn["err"], fsn["shapes"][1]["ms"], fsn["shapes"][1]["plain_ms"], fsn_bound(1, T_FSN)),
     ]
     # cuDNN's nn.GRU and nn.LSTM with the kernels' weights
-    library_ms = {"gru_scan": k8["library_ms"], "lstm_grouped": k9["library_ms"],
+    library_ms = {"gru_scan": k8["library_ms"], "gru_backward": k8b["lib_bwd_ms"],
+                  "lstm_grouped": k9["library_ms"],
                   "fullsubnet_joint": fsn["shapes"][1]["library_ms"]}
     # K3's kernel alone (torch.profiler device time), beside its call's ms;
     # K5, K6, K7: the dense formulation's bound beside the FFT one, and the
@@ -3207,7 +3377,19 @@ def main() -> None:
         "batch_enhance": data["kalman_bulk_launches"], "infer_pt": data["infer_pt_launches"][0]}}
     extra["nlms_batched"]["cli_launches"] = {"batch_enhance": data["nlms_bulk_launches"]}
     extra["gru_scan"]["cli_launches"] = {"cached_validation": data["k8_cached"],
-                                         "infer_pt": data["infer_pt_launches"][1]}
+                                         "infer_pt": data["infer_pt_launches"][1],
+                                         "batch_enhance": data["k8_bulk_launches"]}
+    # the batches users train and enhance at: the route's forward, and with
+    # K8b its forward and backward, beside cuDNN's (phase 16)
+    batched = {f"B{b}xT{t}xH{h}": {k: v for k, v in row.items() if k != "plain_ms"}
+               for (b, t, h), row in gru["shapes"].items() if b > 1}
+    extra["gru_scan"]["batched"] = batched
+    extra["gru_backward"] = {
+        "train_launches": {"little_net_steps": trained["k8b_steps"],
+                           "two_layer_gru_step": zoo["two_layer_gru"]["step_launches"][3],
+                           "cached_trainer": data["k8b_cached"]},
+        "route_bwd_ms": k8b["route_bwd_ms"], "route_fwd_bwd_ms": k8b["route_fwd_bwd_ms"],
+        "library_fwd_bwd_ms": k8b["lib_fwd_bwd_ms"]}
     # phase 28's mesh routes at world size 1: batch_enhance --mesh, the
     # stateful steps with the mesh, the dry run's serving step
     extra["kalman_batched"]["cli_launches"]["batch_enhance_mesh"] = par["kalman_mesh_launches"]

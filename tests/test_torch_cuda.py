@@ -15,7 +15,13 @@ import torch
 
 from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
 from aec_tpu_torch.dsp.erb import erb_filterbank
-from aec_tpu_torch.kernels.gru import gru_recurrence, gru_scan_fused, gru_scan_fused_plain
+from aec_tpu_torch.kernels.gru import (
+    gru_backward,
+    gru_backward_plain,
+    gru_recurrence,
+    gru_scan_fused,
+    gru_scan_fused_plain,
+)
 from aec_tpu_torch.kernels.kalman import (
     kalman_cancel_fused,
     kalman_cancel_fused_batched,
@@ -32,7 +38,7 @@ from aec_tpu_torch.linear import overlap_save as ols
 from aec_tpu_torch.linear.kalman import kalman_cancel
 from aec_tpu_torch.kernels.stage2 import little_net_apply_fused, little_net_apply_fused_plain
 from aec_tpu_torch.models.little_net import little_net_init, little_net_loss
-from aec_tpu_torch.ops.gru import gru_init, gru_scan
+from aec_tpu_torch.ops.gru import gru_init, gru_scan, kernel_route
 from aec_tpu_torch.pipeline.two_stage import two_stage_cancel
 from aec_tpu_torch.utils.weights import load_npz
 
@@ -556,10 +562,14 @@ def test_gru_kernel_matches_plain(cuda, b, h):
     assert ys.shape == (b, 101, h) and torch.equal(h_t, ys[:, -1])
     torch.testing.assert_close(ys, want, atol=1e-5, rtol=0)
     torch.testing.assert_close(ys, scan, atol=1e-5, rtol=0)
-    if b == 1:  # gru_scan's own route at B == 1, T >= 64 takes K8 at any width
-        with torch.no_grad():
-            routed, _ = gru_scan(params, x, h0)
-        assert gru_recurrence.launches == before + 2
+    # gru_scan's own route at T >= 64 (ops.gru.kernel_route) takes K8 at any
+    # B to H = 128 and at B == 1 at any width; (2, 300) stays on the plain loop
+    with torch.no_grad():
+        routed, _ = gru_scan(params, x, h0)
+    routes = kernel_route(b, 101, h, "cuda")
+    assert routes == (b == 1 or h <= 128)
+    assert gru_recurrence.launches == before + 1 + routes
+    if routes:
         torch.testing.assert_close(routed, ys, atol=0, rtol=0)
 
 
@@ -604,35 +614,140 @@ def test_gru_kernel_refuses_what_it_cannot_take(cuda):
 
 
 def test_gru_gradients_through_kernel_equal_plain_route(cuda):
-    """A batch-1 T >= 64 scan on the card routes to K8; its gradients (the
-    plain scan recomputed) equal the plain route's to 1e-5 of scale."""
+    """A batch-1 T >= 64 scan on the card routes to K8; its gradients (K8b
+    on the gates K8 saved) equal the plain route's to 1e-5 of scale."""
     params, x, h0 = _gru_case(cuda, 1, 200, 32)
     leaves = [x, h0, *params.values()]
     for t in leaves:
         t.requires_grad_()
-    before = gru_recurrence.launches
+    before = gru_recurrence.launches, gru_backward.launches
     ys, h_t = gru_scan(params, x, h0)
-    assert gru_recurrence.launches == before + 1
+    assert gru_recurrence.launches == before[0] + 1
     got = torch.autograd.grad((ys * ys).sum() + h_t.sum(), leaves)
+    assert gru_backward.launches == before[1] + 1
     ys2, h2 = gru_scan(params, x, h0, fused=False)
     want = torch.autograd.grad((ys2 * ys2).sum() + h2.sum(), leaves)
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, atol=1e-5 * float(w.abs().max()), rtol=0)
 
 
+def _saved_case(cuda, b, t, h, seed=0):
+    """K8's training launch on a random case: (g_ys, gates, ys, h0, w_hh)."""
+    from aec_tpu_torch.kernels.gru import folded_projection
+
+    params, x, h0 = _gru_case(cuda, b, t, h, seed=seed)
+    xp = folded_projection(params, x)
+    ys, gates = gru_recurrence(xp, params["w_hh"], params["b_hh"][2 * h:], h0, save=True)
+    g = torch.Generator().manual_seed(seed + 1)
+    return torch.randn(b, t, h, generator=g).to(cuda), gates, ys, h0, params["w_hh"]
+
+
+@pytest.mark.parametrize("b,t,h", [(1, 1001, 32), (16, 501, 32), (16, 501, 64), (8, 501, 128)])
+def test_gru_backward_kernel_matches_plain(cuda, b, t, h):
+    """K8b against its plain version on the gates K8 saved, a random
+    cotangent at every step: dxp, d_hn and dh0 each within 1e-4 of its
+    scale (K8's gradient bar: a gate's derivative near saturation is small,
+    and T reverse steps carry fp32 round-off in another order)."""
+    args = _saved_case(cuda, b, t, h, seed=b + t + h)
+    before = gru_backward.launches
+    got = gru_backward(*args)
+    torch.cuda.synchronize()
+    assert gru_backward.launches == before + 1
+    want = gru_backward_plain(*args)
+    for name, a, w in zip(("dxp", "d_hn", "dh0"), got, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("h", [7, 32, 64, 128])
+def test_gru_kernel_saving_gates_leaves_ys_bit_equal(cuda, h):
+    """K8 with the save flag writes the same ys bit for bit, and gates
+    (r, z, n, h W_hn^T + b_hn) within 1e-5 of the plain version's."""
+    from aec_tpu_torch.kernels.gru import folded_projection, gru_recurrence_plain
+
+    params, x, h0 = _gru_case(cuda, 3, 101, h, seed=h)
+    xp, b_hn = folded_projection(params, x), params["b_hh"][2 * h:]
+    with torch.no_grad():
+        ys = gru_recurrence(xp, params["w_hh"], b_hn, h0)
+        ys_s, gates = gru_recurrence(xp, params["w_hh"], b_hn, h0, save=True)
+        torch.cuda.synchronize()
+        _, want = gru_recurrence_plain(xp, params["w_hh"], b_hn, h0, save=True)
+    assert torch.equal(ys, ys_s)
+    torch.testing.assert_close(gates, want, atol=1e-5, rtol=0)
+
+
+def test_gru_route_at_batch_16_launches_k8_and_k8b(cuda):
+    """gru_scan's own route at B = 16 x 501, H = 32 (a LittleNet train
+    step's GRU): K8 once forward, K8b once backward, no plain loop; every
+    gradient leaf within 1e-4 of its scale of the plain route's."""
+    params, x, h0 = _gru_case(cuda, 16, 501, 32)
+    leaves = [x, h0, *params.values()]
+    for t in leaves:
+        t.requires_grad_()
+    cot = torch.randn(16, 501, 32, generator=torch.Generator().manual_seed(3)).to(cuda)
+    before = gru_recurrence.launches, gru_backward.launches
+    ys, _ = gru_scan(params, x, h0)
+    got = torch.autograd.grad((ys * cot).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (gru_recurrence.launches - before[0], gru_backward.launches - before[1]) == (1, 1)
+    ys2, _ = gru_scan(params, x, h0, fused=False)
+    want = torch.autograd.grad((ys2 * cot).sum(), leaves)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=0)
+
+
+def test_gru_kernels_follow_an_in_place_weight_change(cuda):
+    """K8 and K8b pack W_hh once per weight tensor (``packed_lanes``): after
+    an in-place change the next launches use the new weights, within K8's
+    bar of the plain versions with the changed weights."""
+    args = list(_saved_case(cuda, 2, 70, 32))
+    params, x, h0 = _gru_case(cuda, 2, 70, 32)
+    from aec_tpu_torch.kernels.gru import folded_projection, gru_recurrence_plain
+
+    xp, b_hn = folded_projection(params, x), params["b_hh"][64:]
+    gru_recurrence(xp, params["w_hh"], b_hn, h0)
+    gru_backward(args[0], args[1], args[2], args[3], params["w_hh"])
+    with torch.no_grad():
+        params["w_hh"].mul_(0.8)
+        ys, gates = gru_recurrence(xp, params["w_hh"], b_hn, h0, save=True)
+        got = gru_backward(args[0], gates, ys, h0, params["w_hh"])
+        torch.cuda.synchronize()
+        want_ys, want_gates = gru_recurrence_plain(xp, params["w_hh"], b_hn, h0, save=True)
+        want = gru_backward_plain(args[0], gates, ys, h0, params["w_hh"])
+    torch.testing.assert_close(ys, want_ys, atol=1e-5, rtol=0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=0)
+
+
+def test_gru_backward_kernel_refuses_what_it_cannot_take(cuda):
+    g_ys, gates, ys, h0, w_hh = _saved_case(cuda, 2, 9, 32)
+    with pytest.raises(TypeError):
+        gru_backward(g_ys.double(), gates, ys, h0, w_hh)
+    with pytest.raises(ValueError, match="contiguous"):
+        gru_backward(g_ys.transpose(0, 1).contiguous().transpose(0, 1), gates, ys, h0, w_hh)
+    with pytest.raises(ValueError, match="CUDA"):  # no silent plain run
+        gru_backward(g_ys, gates, ys, h0.cpu(), w_hh)
+    with pytest.raises(ValueError, match="want"):
+        gru_backward(g_ys, gates[..., :96].contiguous(), ys, h0, w_hh)
+    wide = torch.zeros(2, 9, 160, device=cuda)
+    with pytest.raises(ValueError, match="H <= 128"):
+        gru_backward(wide, torch.zeros(2, 9, 640, device=cuda), wide, wide[:, 0].contiguous(),
+                     torch.zeros(480, 160, device=cuda))
+
+
 def test_batch_one_loss_backward_launches_gru_kernel(cuda, scene):
     """A batch-1 little_net_loss on the card (and its backward) goes through
-    K8; the gradients match the same loss on the CPU route."""
+    K8 (and K8b); the gradients match the same loss on the CPU route."""
     net = little_net_init(generator=torch.Generator().manual_seed(1))
     cpu_net = little_net_init(generator=torch.Generator().manual_seed(1), device="cpu")
     mic, far = scene(1, 80 * 256)
     near = 0.3 * mic
     erb = torch.from_numpy(erb_filterbank())
-    before = gru_recurrence.launches
+    before = gru_recurrence.launches, gru_backward.launches
     loss, _ = little_net_loss(net, mic.to(cuda), far.to(cuda), near.to(cuda), erb.to(cuda),
                               sqrt_eps=1e-12)
     loss.backward()
-    assert gru_recurrence.launches == before + 1
+    assert (gru_recurrence.launches, gru_backward.launches) == (before[0] + 1, before[1] + 1)
     want, _ = little_net_loss(cpu_net, mic, far, near, erb, sqrt_eps=1e-12)
     want.backward()
     torch.testing.assert_close(loss.detach().cpu(), want.detach(), rtol=1e-4, atol=0)
@@ -1496,7 +1611,8 @@ def test_cached_trainer_equals_host_loader(cuda, scene, tmp_path, h5_files):
     """One epoch of 3 steps at batch 4 from a float32 device cache and from
     the host loader on the card, the same initial net: per-step losses
     within 1e-6 relative, every parameter within 1e-6 of its leaf's scale;
-    cached validation of 3 utterances of 80 frames launches K8 once each."""
+    each of the 3 steps (batch 4 x 81 frames) launches K8 and K8b once, and
+    cached validation of 3 utterances of 81 frames K8 once each."""
     from aec_tpu_torch.configs import TrainConfig
     from aec_tpu_torch.train.loop import Trainer
     from aec_tpu_torch.utils.weights import params_to_jax
@@ -1512,13 +1628,13 @@ def test_cached_trainer_equals_host_loader(cuda, scene, tmp_path, h5_files):
                 losses.append(loss.detach())
             return loss, aux
 
-        before = gru_recurrence.launches
+        before = gru_recurrence.launches, gru_backward.launches
         out = Trainer(files, cv, str(tmp_path / tag), cfg=TrainConfig(batch_size=4, lr=1e-3,
                       max_n_epochs=1), loss_fn=loss_fn, device_cache=cache, device=cuda).train()
         runs[tag] = ([float(v) for v in losses], params_to_jax(out["net"]),
-                     gru_recurrence.launches - before)
+                     (gru_recurrence.launches - before[0], gru_backward.launches - before[1]))
     (l_h, p_h, _), (l_c, p_c, k8) = runs["host"], runs["cached"]
-    assert len(l_h) == len(l_c) == 3 and k8 == 3
+    assert len(l_h) == len(l_c) == 3 and k8 == (3 + 3, 3)
     for a, b in zip(l_c, l_h):
         assert abs(a / b - 1.0) <= 1e-6, (l_c, l_h)
     for x in p_h:
@@ -1531,7 +1647,7 @@ def test_cached_trainer_equals_host_loader(cuda, scene, tmp_path, h5_files):
 def test_batch_enhance_launches_its_stage1_kernel(cuda, scene, tmp_path, h5_files, stage1,
                                                   capsys):
     """cli/batch_enhance on 3 utterances at --batch 2: K1 (Kalman) or K5
-    (NLMS) once a batch, K8 once (the batch of one, 79 frames); every wav
+    (NLMS) once a batch, K8 once a batch (79 frames); every wav
     within K1's / K5's bar (1e-3 of max|mic|) of the same CLI on the CPU."""
     from aec_tpu_torch.cli import batch_enhance
     from aec_tpu_torch.pipeline import h5io
@@ -1548,7 +1664,7 @@ def test_batch_enhance_launches_its_stage1_kernel(cuda, scene, tmp_path, h5_file
                             "--device", dev])
         if dev == "cuda":
             torch.cuda.synchronize()
-            assert (kernel.launches - before[0], gru_recurrence.launches - before[1]) == (2, 1)
+            assert (kernel.launches - before[0], gru_recurrence.launches - before[1]) == (2, 2)
     assert '"xrt"' in capsys.readouterr().out
     mic_scale = max(float(np.abs(h5io.read_group(cv, i)["nearend_mic"]).max()) for i in range(3))
     for k in range(3):
