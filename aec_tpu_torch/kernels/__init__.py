@@ -23,22 +23,27 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
 - ``gru``     — K8, the GRU recurrence, and K8b, its backward
   (``csrc/gru.cu``), and the autograd Function of the fused GRU scan;
 - ``lstm``    — K9, DCCRN's grouped complex-LSTM recurrence (``csrc/lstm.cu``,
-  W_hh held on chip, packed once per weight tensor), and its autograd
-  Function;
+  W_hh held on chip, packed once per weight tensor, the gates saved for the
+  backward), and its autograd Function;
+- ``lstm_bwd`` — K9b, the LSTM recurrence's backward on the gates K9 and
+  K11 save (``csrc/lstm_bwd.cu``, W_hh's columns on chip);
+- ``lstm_bwd_costs`` — a card tool that times K9b under each warp layout;
 - ``lstm_int8`` — K10, the int8 LSTM recurrence of ATT-CCRN's bottleneck
   (``csrc/lstm_int8.cu``, the codes held on chip, quantized and laid out
   once per weight tensor);
 - ``lstm_costs`` — a card tool that times K9's and K10's steps with their
   dots cut out;
 - ``fullsubnet`` — K11, FullSubNet's joint full-band / sub-band LSTM
-  recurrence (``csrc/fullsubnet.cu``), and its autograd Function;
+  recurrence (``csrc/fullsubnet.cu``), and its autograd Function (its
+  backward K9b over each band);
 - ``consts``  — their constant DFT bases, fp32, cached per device;
 - ``_build``  — ``nvcc`` at first use, ctypes binding, error checks.
 
 ``csrc/bl_common.cuh`` holds the geometry, the shared-memory carving and
 the dense per-step device code, ``csrc/fft.cuh`` the CTA-wide real FFTs,
 ``csrc/stage1_fft.cuh`` the stage-1 steps on them, ``csrc/stage2_fft.cuh``
-the stage-2 pieces on them.
+the stage-2 pieces on them, ``csrc/lstm_common.cuh`` the dots and warp
+reduction K9 and K9b share.
 A wrapper launches its kernel for a CUDA tensor (or raises) and takes the
 plain version for a CPU tensor; each counts its launches in ``.launches``.
 """

@@ -82,6 +82,12 @@ struct FsnArgs {
   const float* __restrict__ w_sb;   // (4 Hs, hsq): W_hh of the sub band, rows zero-padded
   unsigned long long* emb;          // (T, B F) words: emb's bits, the step it is for; zeroed
   float* ys;                        // (B, T, F, Hs)
+  // SAVE: what the backward (K9b, lstm_bwd.cu, over each band) reads: the
+  // full band's activated gates and c (B, T, 5 Hf), the embedding before its
+  // ReLU (B, T, F), the sub band's gates and c (B, T, F, 5 Hs)
+  float* save_fb;
+  float* save_emb;
+  float* save_sb;
   int b, t_steps, f, hf, hs, up;
   int sp, np, jrp, jsp;             // producer slices, positions, in registers, in shared memory
   int sc, nc, jrc, jsc;             // the same for the consumers (none from L2)
@@ -258,14 +264,23 @@ __device__ __forceinline__ float dot4(const float4 h, const float4 w, float acc)
   return fmaf(h.w, w.w, acc);
 }
 
-// nn.LSTM's cell on the pre-activations [i, f, g, o]; c in place, h out
-__device__ __forceinline__ float lstm_cell(const float (&p)[4], float* c) {
+// nn.LSTM's cell on the pre-activations [i, f, g, o]; c in place, h out;
+// SAVE: the activated gates and c also to sv[0], sv[w], ..., sv[4 w]
+template <bool SAVE>
+__device__ __forceinline__ float lstm_cell(const float (&p)[4], float* c, float* sv, int w) {
   const float ig = sigmoid_f(p[0]);
   const float fg = sigmoid_f(p[1]);
   const float gg = tanhf(p[2]);
   const float og = sigmoid_f(p[3]);
   const float cn = fg * *c + ig * gg;
   *c = cn;
+  if constexpr (SAVE) {
+    sv[0] = ig;
+    sv[w] = fg;
+    sv[2 * w] = gg;
+    sv[3 * w] = og;
+    sv[4 * w] = cn;
+  }
   return og * tanhf(cn);
 }
 
@@ -356,7 +371,7 @@ __device__ __forceinline__ void pick(const float (&acc)[RT][4], int r, float (&p
 
 // ---------------------------------------------------------------- the producer
 
-template <int RT>
+template <int RT, bool SAVE>
 __device__ void producer(const FsnArgs& a, float* smem) {
   cg::cluster_group cluster = cg::this_cluster();
   const int q = static_cast<int>(cluster.block_rank());
@@ -411,10 +426,12 @@ __device__ void producer(const FsnArgs& a, float* smem) {
         for (int k4 = k0; k4 < hq; k4 += se)
           acc = dot4(h4[b * (hpp / 4) + k4], w4[r * hq + k4], acc);
       for (int o = se >> 1; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (i < nf * B && k0 == 0)
+      if (i < nf * B && k0 == 0) {
         store_word(a.emb + (size_t(te) * B + b) * F + f0 + r,
                    (static_cast<unsigned long long>(te + 1) << 32) |
                        __float_as_uint(fmaxf(acc + bout[r], 0.f)));
+        if constexpr (SAVE) a.save_emb[(size_t(b) * T + te) * F + f0 + r] = acc + bout[r];
+      }
     }
   };
 
@@ -453,7 +470,8 @@ __device__ void producer(const FsnArgs& a, float* smem) {
         pick<RT>(acc, r, p);
 #pragma unroll
         for (int g = 0; g < 4; ++g) p[g] += x[g * U];
-        const float h = lstm_cell(p, cs + b * U + u);
+        float* sv = SAVE ? a.save_fb + (size_t(b) * T + t) * 5 * H + u0 + u : nullptr;
+        const float h = lstm_cell<SAVE>(p, cs + b * U + u, sv, H);
         for (int m = 0; m < kC; ++m) st_async(hnext + b * hpp + u0 + u, h, bars + (t + 1) % 3, m);
       }
     }
@@ -466,7 +484,7 @@ __device__ void producer(const FsnArgs& a, float* smem) {
 
 // ---------------------------------------------------------------- the consumers
 
-template <int RT>
+template <int RT, bool SAVE>
 __device__ void consumer(const FsnArgs& a, float* smem) {
   const int cta = blockIdx.x - kC, ncons = gridDim.x - kC, rows = a.b * a.f;
   const int r0 = int((long long)cta * rows / ncons);
@@ -550,47 +568,54 @@ __device__ void consumer(const FsnArgs& a, float* smem) {
         pick<RT>(acc, r, p);
 #pragma unroll
         for (int g = 0; g < 4; ++g) p[g] = (x[g * Hs] + e * wc[g]) + p[g];
-        const float h = lstm_cell(p, cs + row * Hs + u);
-        hnext[row * hsq + u] = h;
         const int gr = r0 + row, b = gr / F, f = gr - b * F;
+        float* sv = SAVE ? a.save_sb + ((size_t(b) * T + t) * F + f) * 5 * Hs + u : nullptr;
+        const float h = lstm_cell<SAVE>(p, cs + row * Hs + u, sv, Hs);
+        hnext[row * hsq + u] = h;
         a.ys[((size_t(b) * T + t) * F + f) * Hs + u] = h;
       }
     }
   }
 }
 
-// PR and CR: the producer's and the consumers' rows a pass
-template <int PR, int CR>
+// PR and CR: the producer's and the consumers' rows a pass; SAVE: both
+// roles also write what the backward reads, the arithmetic unchanged
+template <int PR, int CR, bool SAVE>
 __global__ void __launch_bounds__(kThreads, 1) fsn_kernel(FsnArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   if (blockIdx.x < kC) {
 #ifndef AEC_CONSUMERS_ONLY
-    producer<PR>(a, smem);
+    producer<PR, SAVE>(a, smem);
 #endif
   } else {
 #ifndef AEC_PRODUCER_ONLY
-    consumer<CR>(a, smem);
+    consumer<CR, SAVE>(a, smem);
 #endif
   }
 }
 
-template <int PR>
+template <int PR, bool SAVE>
 const void* kernel_cr(int rows) {
   switch (pass_rows(rows)) {
-    case 1: return reinterpret_cast<const void*>(fsn_kernel<PR, 1>);
-    case 2: return reinterpret_cast<const void*>(fsn_kernel<PR, 2>);
-    default: return reinterpret_cast<const void*>(fsn_kernel<PR, 4>);
+    case 1: return reinterpret_cast<const void*>(fsn_kernel<PR, 1, SAVE>);
+    case 2: return reinterpret_cast<const void*>(fsn_kernel<PR, 2, SAVE>);
+    default: return reinterpret_cast<const void*>(fsn_kernel<PR, 4, SAVE>);
   }
 }
 
-// the instantiation for B utterances and a consumer's rows
-const void* kernel_for(int b, int rows) {
+template <bool SAVE>
+const void* kernel_pr(int b, int rows) {
   switch (pass_rows(b)) {
-    case 1: return kernel_cr<1>(rows);
-    case 2: return kernel_cr<2>(rows);
-    default: return kernel_cr<4>(rows);
+    case 1: return kernel_cr<1, SAVE>(rows);
+    case 2: return kernel_cr<2, SAVE>(rows);
+    default: return kernel_cr<4, SAVE>(rows);
   }
+}
+
+// the instantiation for B utterances, a consumer's rows and saving or not
+const void* kernel_for(int b, int rows, bool save = false) {
+  return save ? kernel_pr<true>(b, rows) : kernel_pr<false>(b, rows);
 }
 
 cudaLaunchConfig_t launch_config(int clusters, size_t smem, cudaStream_t stream,
@@ -648,22 +673,27 @@ extern "C" int aec_fsn_plan(int b, int f, int hf, int hs, int device, long long*
 
 // xp_fb (B, T, 4 Hf), xp_sb (B, T, F, 4 Hs), w_fb (4 Hf, 4 sp np), w_out
 // (F, Hf), b_out (F), w_col (4 Hs), w_sb (4 Hs, 4 sc nc), emb (T, B F)
-// zeroed words, ys (B, T, F, Hs); sp np and sc nc the plan's (aec_fsn_plan),
-// the rows' padding zero. All fp32 but emb, contiguous; B, T, F, Hs >= 1,
-// Hf a positive multiple of 4.
+// zeroed words, ys (B, T, F, Hs); save_fb (B, T, 5 Hf), save_emb (B, T, F),
+// save_sb (B, T, F, 5 Hs), all three or none null (no saving); sp np and sc
+// nc the plan's (aec_fsn_plan), the rows' padding zero. All fp32 but emb,
+// contiguous; B, T, F, Hs >= 1, Hf a positive multiple of 4.
 extern "C" int aec_fsn(const float* xp_fb, const float* xp_sb, const float* w_fb,
                        const float* w_out, const float* b_out, const float* w_col,
-                       const float* w_sb, void* emb, float* ys, int b, int t_steps, int f, int hf,
-                       int hs, int device, void* stream) {
+                       const float* w_sb, void* emb, float* ys, float* save_fb, float* save_emb,
+                       float* save_sb, int b, int t_steps, int f, int hf, int hs, int device,
+                       void* stream) {
   FsnPlan p{};
   size_t optin = 0;
   cudaError_t err = query(b, f, hf, hs, device, &p, &optin);
   if (err != cudaSuccess) return err;
   if (p.smem > static_cast<long long>(optin)) return cudaErrorInvalidConfiguration;
+  const bool save = save_fb != nullptr;
+  if (save != (save_emb != nullptr) || save != (save_sb != nullptr)) return cudaErrorInvalidValue;
   const FsnArgs a{xp_fb, xp_sb, w_fb, w_out, b_out, w_col, w_sb,
-                  static_cast<unsigned long long*>(emb), ys, b, t_steps, f, hf, hs,
+                  static_cast<unsigned long long*>(emb), ys, save_fb, save_emb, save_sb,
+                  b, t_steps, f, hf, hs,
                   p.up, p.sp, p.np, p.jrp, p.jsp, p.sc, p.nc, p.jrc, p.jsc, p.rows, p.depth};
-  const void* kernel = kernel_for(b, p.rows);
+  const void* kernel = kernel_for(b, p.rows, save);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(optin));
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];

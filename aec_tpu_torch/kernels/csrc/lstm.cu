@@ -56,6 +56,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "lstm_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -73,6 +75,7 @@ struct LstmArgs {
   const float* __restrict__ xp;   // (G, R, T, 4H): the projection with both biases
   const float4* __restrict__ wp;  // (ctas, npos CW, kThreads): the quads of each thread
   float* ys;                      // (G, R, T, H)
+  float* saved;                   // (G, R, T, 5H): each step's i, f, g, o and c, where SAVE
   unsigned long long* hbuf;       // (2, G, R, Hp) words: h's bits, the step it is for; zero
   int rows, t_steps, hidden, hp, units, nchunk, npos, jreg, jsm;
 };
@@ -92,8 +95,6 @@ __host__ __device__ inline LstmSmem lstm_smem(int rows, int hp, int units, int c
   return s;
 }
 
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
-
 // h's words: the low half h's bits, the high half the step it is for,
 // written and read whole, so a word that carries step t carries its h
 __device__ __forceinline__ ulonglong2 load_words(const unsigned long long* p) {
@@ -103,67 +104,14 @@ __device__ __forceinline__ ulonglong2 load_words(const unsigned long long* p) {
   return v;
 }
 
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
 __device__ __forceinline__ void store_word(unsigned long long* p, unsigned long long v) {
   asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__device__ __forceinline__ float dot4(const float4 h, const float4 w, float acc) {
-  acc = fmaf(h.x, w.x, acc);
-  acc = fmaf(h.y, w.y, acc);
-  acc = fmaf(h.z, w.z, acc);
-  return fmaf(h.w, w.w, acc);
-}
-
-// the warp's sums of V = 2^m <= 32 values: rounds over lane bits 16, 8, ...,
-// 1; while a lane holds n > 1 values it keeps the half its lane bit picks
-// and adds the partner's copy of it, then it adds the partner's value. Lane
-// l ends with value l >> (5 - m) summed over the 32 lanes, in the order of a
-// tree whose first level pairs lanes l and l ^ 16.
-template <int N, int O>
-struct Scatter {
-  template <int V>
-  __device__ static __forceinline__ void run(float (&v)[V], int lane) {
-    if constexpr (O > 0) {
-      if constexpr (N > 1) {
-        constexpr int h = N / 2;
-        const bool up = lane & O;
-#pragma unroll
-        for (int i = 0; i < h; ++i) {
-          const float send = up ? v[i] : v[i + h];
-          const float keep = up ? v[i + h] : v[i];
-          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-        }
-        Scatter<h, O / 2>::run(v, lane);
-      } else {
-        v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-        Scatter<1, O / 2>::run(v, lane);
-      }
-    }
-  }
-};
-
-// RT rows' sums of CW columns against h's quad k4 (one quad of W a column)
-template <int CW, int RT>
-__device__ __forceinline__ void fma_pos(const float4 (&w)[CW], const float4* hs4, int hp4, int r0,
-                                        int R, int k4, float (&acc)[CW * RT]) {
-#pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    if (r0 + r < R) {
-      const float4 h = hs4[(r0 + r) * hp4 + k4];
-#pragma unroll
-      for (int i = 0; i < CW; ++i) acc[i * RT + r] = dot4(h, w[i], acc[i * RT + r]);
-    }
-  }
-}
-
-// CW columns a warp (a power of two), RT rows a pass (CW RT <= 32)
-template <int CW, int RT>
+// CW columns a warp (a power of two), RT rows a pass (CW RT <= 32); SAVE:
+// each cell's thread also writes its step's activated gates and c for the
+// backward (K9b, lstm_bwd.cu), the arithmetic unchanged
+template <int CW, int RT, bool SAVE>
 __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(LstmArgs a) {
   extern __shared__ float4 smem_raw[];
   constexpr int JR = kRegQuads / CW;  // positions a lane can hold in registers
@@ -289,6 +237,14 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(LstmArgs a) {
       store_word(h_next + r * Hp + u0 + j,
                  (static_cast<unsigned long long>(t + 1) << 32) | __float_as_uint(h));
       a.ys[((size_t(g) * R + r) * T + t) * H + u0 + j] = h;
+      if constexpr (SAVE) {
+        float* sv = a.saved + ((size_t(g) * R + r) * T + t) * 5 * H + u0 + j;
+        sv[0] = ig;
+        sv[H] = fg;
+        sv[2 * H] = gg;
+        sv[3 * H] = og;
+        sv[4 * H] = c;
+      }
     }
 #ifdef AEC_GRID_SYNC
     cooperative_groups::this_grid().sync();
@@ -306,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(LstmArgs a) {
 template <int CW, int RT>
 cudaError_t lstm_launch(const LstmArgs& a, int ctas, size_t smem, int device,
                         cudaStream_t stream) {
-  auto kernel = lstm_kernel<CW, RT>;
+  auto kernel = a.saved ? lstm_kernel<CW, RT, true> : lstm_kernel<CW, RT, false>;
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
@@ -347,11 +303,12 @@ extern "C" int aec_lstm_reg_quads() { return kRegQuads; }
 
 // xp (G, R, T, 4H) fp32; wp (ctas, npos CW, 512) float4, W_hh^T packed by
 // kernels/lstm.py pack_grouped; hbuf (2, G, R, hp) zeroed words; ys (G, R,
-// T, H). All contiguous; the plan (units, nchunk, cw, npos, jreg, jsm) from
-// grouped_plan.
-extern "C" int aec_lstm(const float* xp, const void* wp, void* hbuf, float* ys, int groups,
-                        int rows, int t_steps, int hidden, int hp, int units, int nchunk, int cw,
-                        int npos, int jreg, int jsm, int device, void* stream) {
+// T, H); saved (G, R, T, 5H) or null (no saving). All contiguous; the plan
+// (units, nchunk, cw, npos, jreg, jsm) from grouped_plan.
+extern "C" int aec_lstm(const float* xp, const void* wp, void* hbuf, float* ys, float* saved,
+                        int groups, int rows, int t_steps, int hidden, int hp, int units,
+                        int nchunk, int cw, int npos, int jreg, int jsm, int device,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (hp % 4 != 0 || hp < hidden || nchunk * units < hidden || 4 * units > kWarps * cw ||
@@ -361,8 +318,9 @@ extern "C" int aec_lstm(const float* xp, const void* wp, void* hbuf, float* ys, 
   if (t_steps == 0 || rows == 0) return cudaSuccess;
   const int ctas = groups * nchunk;
   const size_t smem = lstm_smem(rows, hp, units, cw, jsm).total * sizeof(float);
-  const LstmArgs a{xp, static_cast<const float4*>(wp), ys, static_cast<unsigned long long*>(hbuf),
-                   rows, t_steps, hidden, hp, units, nchunk, npos, jreg, jsm};
+  const LstmArgs a{xp, static_cast<const float4*>(wp), ys, saved,
+                   static_cast<unsigned long long*>(hbuf), rows, t_steps, hidden, hp, units,
+                   nchunk, npos, jreg, jsm};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cw) {
     case 1: return lstm_launch_cw<1>(a, ctas, smem, device, s);

@@ -18,10 +18,13 @@ JAX's kernel takes one utterance; this one takes B >= 1.
 The hoisted input projections with every bias (in
 ``models.fullsubnet.fullsubnet_masks``) and the mask head stay outside, as
 in JAX.
-:class:`FsnJointFused` does what the JAX custom VJP does: the forward
-through K11 (its plain version on the CPU), the backward by recomputing the
-plain joint loop ``models.fullsubnet._joint_scan_hs`` and differentiating
-it; JAX has no backward kernel, so neither has the port.
+:class:`FsnJointFused` computes what the JAX custom VJP computes: the
+forward through K11 (its plain version on the CPU), which, when a gradient
+is wanted, also saves each band's activated gates and c and the embedding
+before its ReLU; the backward runs K9b (``kernels/lstm_bwd.py``) over the
+sub band, then, through the embedding, over the full band, and forms the
+weight gradients as plain products over all frames (JAX's backward is
+``jax.vjp`` of the scan, which XLA compiles into one loop on the device).
 :func:`joint_recurrence` is the kernel's wrapper (a CUDA tensor launches K11
 or raises, a CPU tensor takes the plain loop).
 """
@@ -33,6 +36,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from aec_tpu_torch.kernels import _build
 from aec_tpu_torch.ops.lstm import lstm_gates
@@ -53,7 +57,7 @@ PLAN_FIELDS = ("clusters", "consumers", "rows", "depth", "up", "sp", "np", "jrp"
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of a build of ``csrc/fullsubnet.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aec_fsn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.aec_fsn.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.aec_fsn.restype = ctypes.c_int
     lib.aec_fsn_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
     lib.aec_fsn_plan.restype = ctypes.c_int
@@ -200,14 +204,17 @@ def _padded(w: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def launch(weights: list[torch.Tensor], xp_fb: torch.Tensor, xp_sb: torch.Tensor,
-           lib: ctypes.CDLL) -> torch.Tensor:
+           lib: ctypes.CDLL, save: bool = False):
     """One launch of ``lib``'s K11 on checked inputs (the weights in
-    ``_LEAVES`` order) -> ys (B, T, F, Hsb); raises where the plan needs
+    ``_LEAVES`` order) -> ys (B, T, F, Hsb), with ``save`` (ys, the full
+    band's gates and c (B, T, 5Hfb), the embedding before its ReLU (B, T, F),
+    the sub band's gates and c (B, T, F, 5Hsb)); raises where the plan needs
     more shared memory than a CTA has."""
     b, t, h4f = xp_fb.shape
     f, h4s = xp_sb.shape[2], xp_sb.shape[3]
     hf, hs = h4f // 4, h4s // 4
     w_fb, w_out, b_out, w_ih_sb, w_sb = (w.detach() for w in weights)
+    hf_in = hf
     if hf % 4:  # full-band units with zero inputs and weights stay zero: the same function
         pad = -hf % 4
         xp_fb = F.pad(xp_fb.reshape(b, t, 4, hf), (0, pad)).reshape(b, t, 4 * (hf + pad))
@@ -223,20 +230,32 @@ def launch(weights: list[torch.Tensor], xp_fb: torch.Tensor, xp_sb: torch.Tensor
     w_out, b_out, w_col = w_out.contiguous(), b_out.contiguous(), w_ih_sb[:, -1].contiguous()
     emb = torch.zeros((t, b * f), dtype=torch.int64, device=xp_fb.device)
     ys = xp_fb.new_empty((b, t, f, hs))
+    saved = ((xp_fb.new_empty((b, t, 5 * hf)), xp_fb.new_empty((b, t, f)),
+              xp_sb.new_empty((b, t, f, 5 * hs))) if save else (None, None, None))
     err = lib.aec_fsn(
         _build.ptr(xp_fb), _build.ptr(xp_sb), _build.ptr(w_fb), _build.ptr(w_out),
         _build.ptr(b_out), _build.ptr(w_col), _build.ptr(w_sb), _build.ptr(emb),
-        _build.ptr(ys), b, t, f, hf, hs, xp_fb.device.index, _build.stream_of(xp_fb),
+        _build.ptr(ys), *(None if a is None else _build.ptr(a) for a in saved),
+        b, t, f, hf, hs, xp_fb.device.index, _build.stream_of(xp_fb),
     )
     _build.check(err, "fullsubnet")
-    return ys
+    if not save:
+        return ys
+    save_fb = saved[0]
+    if hf != hf_in:
+        save_fb = save_fb.reshape(b, t, 5, hf)[..., :hf_in].reshape(b, t, 5 * hf_in)
+    return ys, save_fb, saved[1], saved[2]
 
 
-def joint_recurrence(params: dict, xp_fb: torch.Tensor, xp_sb: torch.Tensor) -> torch.Tensor:
+def joint_recurrence(params: dict, xp_fb: torch.Tensor, xp_sb: torch.Tensor,
+                     save: bool = False):
     """The joint recurrence over the hoisted projections ``xp_fb`` (B, T,
     4Hfb) and ``xp_sb`` (B, T, F, 4Hsb) with the weights in ``params`` (the
     FullSubNet tree) -> the sub-band hidden sequence (B, T, F, Hsb), from
-    zero state.
+    zero state; with ``save`` also what the backward reads (the full band's
+    activated gates and c, the embedding before its ReLU, the sub band's
+    gates and c: ``models.fullsubnet._joint_scan_hs``'s contract), the
+    sequence the same bits.
 
     A CUDA tensor launches K11 (or raises: not fp32, not contiguous, a zero
     size, a B whose rows a consumer CTA's shared memory cannot hold, a card
@@ -245,12 +264,12 @@ def joint_recurrence(params: dict, xp_fb: torch.Tensor, xp_sb: torch.Tensor) -> 
     if xp_fb.device.type == "cpu":
         from aec_tpu_torch.models.fullsubnet import _joint_scan_hs
 
-        return _joint_scan_hs(params, xp_fb, xp_sb)
+        return _joint_scan_hs(params, xp_fb, xp_sb, save)
     weights = [params[a][b] for a, b in _LEAVES]
     _check(xp_fb, xp_sb, weights)
-    ys = launch(weights, xp_fb, xp_sb, _lib())
+    out = launch(weights, xp_fb, xp_sb, _lib(), save)
     joint_recurrence.launches += 1
-    return ys
+    return out
 
 
 joint_recurrence.launches = 0
@@ -283,27 +302,59 @@ def joint_recurrence_split(params: dict, xp_fb: torch.Tensor, xp_sb: torch.Tenso
 
 
 class FsnJointFused(torch.autograd.Function):
-    """``(xp_fb, xp_sb, *the 5 weights) -> hs_seq``: forward through K11
-    (plain on the CPU), backward by recomputing the plain joint loop."""
+    """``(xp_fb, xp_sb, save, *the 5 weights) -> hs_seq``: forward through
+    K11 (plain on the CPU), saving what the backward reads where ``save``
+    (autograd records and some input wants a gradient: every forward that
+    has a backward); backward through K9b over each band (plain on the CPU)
+    and products over all frames. The full band never reads the sub band,
+    so the sub band's backward comes first and hands the full band its
+    cotangent: K9b over the B F sub-band rows gives dxp_sb; through the
+    embedding column, the ReLU and W_out, dh_fb; K9b over the B full-band
+    rows gives dxp_fb; the weight gradients are products over all frames."""
 
     @staticmethod
-    def forward(ctx, xp_fb, xp_sb, *weights):
-        ctx.save_for_backward(xp_fb, xp_sb, *weights)
-        return joint_recurrence(_params(weights), xp_fb.contiguous(), xp_sb.contiguous())
+    def forward(ctx, xp_fb, xp_sb, save, *weights):
+        out = joint_recurrence(_params(weights), xp_fb.contiguous(), xp_sb.contiguous(), save)
+        if not save:
+            return out
+        ctx.save_for_backward(*out, *weights)
+        return out[0]
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
-        from aec_tpu_torch.models.fullsubnet import _joint_scan_hs
+        from aec_tpu_torch.kernels.lstm_bwd import lstm_backward
 
-        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = _joint_scan_hs(_params(leaves[2:]), leaves[0], leaves[1])
-            need = [t for t, n in zip(leaves, ctx.needs_input_grad) if n]
-            grads = iter(torch.autograd.grad(out, need, g))
-        return tuple(next(grads) if n else None for n in ctx.needs_input_grad)
+        hs_seq, save_fb, pre, save_sb, w_fb, w_out, b_out, w_ih_sb, w_sb = ctx.saved_tensors
+        f, hs, hf = hs_seq.shape[2], hs_seq.shape[3], w_fb.shape[-1]
+        w_col = w_ih_sb[:, -1]
+        dxp_sb = lstm_backward(g.contiguous()[None], save_sb[None], w_sb)[0]  # (B, T, F, 4Hsb)
+        d_pre = (dxp_sb @ w_col) * (pre > 0)  # (B, T, F)
+        dh_fb = d_pre @ w_out  # (B, T, Hfb)
+        dxp_fb = lstm_backward(dh_fb[None, :, :, None], save_fb[None, :, :, None], w_fb)[0, :, :, 0]
+        h_fb = save_fb[..., 3 * hf: 4 * hf] * torch.tanh(save_fb[..., 4 * hf:])  # o tanh(c)
+        rows_sb = dxp_sb.reshape(-1, 4 * hs)
+        d_w_col = torch.relu(pre).reshape(1, -1) @ rows_sb
+        d_w_ih = torch.zeros_like(w_ih_sb)
+        d_w_ih[:, -1] = d_w_col[0]
+        grads = (dxp_fb, dxp_sb, None,
+                 dxp_fb.reshape(-1, 4 * hf).T @ _previous(h_fb).reshape(-1, hf),
+                 d_pre.reshape(-1, f).T @ h_fb.reshape(-1, hf), d_pre.sum((0, 1)), d_w_ih,
+                 rows_sb.T @ _previous(hs_seq).reshape(-1, hs))
+        return tuple(d if n else None for d, n in zip(grads, ctx.needs_input_grad))
+
+
+def _previous(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, T, ...) one frame later: frame t holds x[:, t - 1], frame 0
+    zeros (each step's h_{t-1})."""
+    return F.pad(x, (0,) * (2 * (x.ndim - 2)) + (1, 0))[:, :x.shape[1]]
 
 
 def fsn_joint_fused(params: dict, xp_fb: torch.Tensor, xp_sb: torch.Tensor) -> torch.Tensor:
     """The fused joint recurrence, differentiable in both projections and the
-    weights it reads: ([B, T, 4Hfb], [B, T, F, 4Hsb]) -> [B, T, F, Hsb]."""
-    return FsnJointFused.apply(xp_fb, xp_sb, *(params[a][b] for a, b in _LEAVES))
+    weights it reads: ([B, T, 4Hfb], [B, T, F, 4Hsb]) -> [B, T, F, Hsb]. K11
+    saves what the backward reads only where autograd records and some input
+    needs a gradient."""
+    weights = [params[a][b] for a, b in _LEAVES]
+    save = torch.is_grad_enabled() and any(a.requires_grad for a in (xp_fb, xp_sb, *weights))
+    return FsnJointFused.apply(xp_fb, xp_sb, save, *weights)

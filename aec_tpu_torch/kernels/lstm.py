@@ -26,10 +26,13 @@ inputs). The kernel carries the recurrence from zero state, and the outputs
 recombine as ``(r2r - i2i, i2r + r2i)``. Everything stays fp32 (JAX's TPU
 kernel rounds h and W to bf16).
 
-:class:`ComplexLstmScanFused` does what the JAX custom VJP does: the forward
-through K9 (its plain version on the CPU), the backward by recomputing the
-plain grouped scan (``ops.lstm.complex_lstm_scan(fused=False)``) and
-differentiating it. JAX has no backward kernel, so neither has the port.
+:class:`ComplexLstmScanFused` computes what the JAX custom VJP computes:
+the forward through K9 (its plain version on the CPU), which, when a
+gradient is wanted, also saves each step's activated gates and c; the
+backward runs K9b (``kernels/lstm_bwd.py``) on them and forms the weight
+gradients as plain products over the rows. JAX's backward is ``jax.vjp`` of
+the scan, which XLA compiles into one loop on the device; the port's
+counterpart of that loop is K9b, as K8b is the GRU's.
 :func:`grouped_lstm_recurrence` is the kernel's wrapper (a CUDA tensor
 launches K9 or raises, a CPU tensor takes the plain recurrence).
 """
@@ -44,6 +47,7 @@ from collections.abc import Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from aec_tpu_torch.kernels import _build
 from aec_tpu_torch.ops.lstm import (
@@ -58,7 +62,7 @@ from aec_tpu_torch.ops.lstm import (
 _KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
 THREADS, WARPS, LANES = 512, 16, 32
 REG_QUADS = 16  # float4 quads of W a thread holds in registers (csrc/lstm.cu kRegQuads)
-CACHE_SIZE = 4
+CACHE_SIZE = 8  # packed W_hh kept: K9's and K9b's layouts of a few nets' layers
 
 
 @functools.cache
@@ -69,7 +73,7 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C entries' types on a build of ``csrc/lstm.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.aec_lstm.argtypes = [p] * 4 + [i] * 12 + [p]
+    lib.aec_lstm.argtypes = [p] * 5 + [i] * 12 + [p]
     lib.aec_lstm.restype = ctypes.c_int
     if lib.aec_lstm_reg_quads() != REG_QUADS:
         raise RuntimeError("csrc/lstm.cu holds another number of register quads than "
@@ -108,6 +112,11 @@ class GroupedPlan:
     @property
     def ctas(self) -> int:
         return self.groups * self.nchunk
+
+    @property
+    def layout(self) -> tuple:
+        """What the packed weights depend on."""
+        return (self.units, self.nchunk, self.cw, self.npos)
 
     def split(self) -> dict[str, int]:
         """Bytes of W a CTA holds in registers and shared memory, and reads
@@ -206,19 +215,19 @@ def clear_cache() -> None:
     _PACKED.clear()
 
 
-def packed_weights(w_hh: Sequence[torch.Tensor], plan: GroupedPlan) -> torch.Tensor:
-    """:func:`pack_grouped` of the groups' W_hh (each (4H, H), or one
-    stacked (G, 4H, H)), cached keyed on each tensor's ``data_ptr()`` and
-    ``_version`` and the plan's layout (the entry holds the tensors)."""
-    layout = (plan.units, plan.nchunk, plan.cw, plan.npos)
+def packed_weights(w_hh: Sequence[torch.Tensor], plan, pack=pack_grouped) -> torch.Tensor:
+    """``pack`` (:func:`pack_grouped`, or K9b's ``lstm_bwd.pack_backward``)
+    of the groups' W_hh (each (4H, H), or one stacked (G, 4H, H)) at
+    ``plan``, cached keyed on each tensor's ``data_ptr()`` and ``_version``,
+    the packing and the plan's layout (the entry holds the tensors)."""
     key = (*((w.data_ptr(), w._version, tuple(w.shape), w.dtype, w.device) for w in w_hh),
-           layout)
+           pack, plan.layout)
     hit = _PACKED.get(key)
     if hit is not None:
         _PACKED.move_to_end(key)
         return hit[0]
     stack = torch.stack([w.detach() for w in w_hh]) if w_hh[0].ndim == 2 else w_hh[0].detach()
-    _PACKED[key] = (pack_grouped(stack, plan), list(w_hh))
+    _PACKED[key] = (pack(stack, plan), list(w_hh))
     while len(_PACKED) > CACHE_SIZE:
         _PACKED.popitem(last=False)
     return _PACKED[key][0]
@@ -260,11 +269,13 @@ def card_plan(groups: int, rows: int, hidden: int, device: torch.device) -> Grou
                         props.shared_memory_per_block_optin)
 
 
-def grouped_lstm_recurrence(xp: torch.Tensor,
-                            w_hh: torch.Tensor | Sequence[torch.Tensor]) -> torch.Tensor:
+def grouped_lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor | Sequence[torch.Tensor],
+                            save: bool = False):
     """The grouped LSTM recurrence over the hoisted projection ``xp``
     (G, R, T, 4H) (:func:`grouped_projection`) with ``w_hh`` (G, 4H, H), or
-    the G groups' (4H, H) tensors -> ys (G, R, T, H), from zero state.
+    the G groups' (4H, H) tensors -> ys (G, R, T, H), from zero state; with
+    ``save`` also each step's activated gates and c (G, R, T, 5H) that
+    K9b (``kernels/lstm_bwd.py``) takes, ys the same bits.
 
     A CUDA tensor launches K9 (or raises: not fp32, not contiguous, T = 0, a
     group's h that one CTA's shared memory cannot hold, a grid the card
@@ -273,27 +284,31 @@ def grouped_lstm_recurrence(xp: torch.Tensor,
     """
     ws = _groups(w_hh)
     if xp.device.type == "cpu":
-        return grouped_lstm_recurrence_plain(xp, ws[0] if len(ws) == 1 else torch.stack(ws))
+        return grouped_lstm_recurrence_plain(xp, ws[0] if len(ws) == 1 else torch.stack(ws),
+                                             save)
     _check(xp, ws)
-    g, r, _, h4 = xp.shape
+    g, r, t, h4 = xp.shape
     plan = card_plan(g, r, h4 // 4, xp.device)
     _build.check_smem(plan.smem, xp.device, "the grouped LSTM kernel (a group's h in every CTA)")
+    saved = xp.new_empty((g, r, t, 5 * h4 // 4)) if save else None
     ys = launch(_lib(), plan, xp, packed_weights(ws, plan), xp.device.index,
-                _build.stream_of(xp))
+                _build.stream_of(xp), saved)
     grouped_lstm_recurrence.launches += 1
-    return ys
+    return (ys, saved) if save else ys
 
 
 def launch(lib, plan: GroupedPlan, xp: torch.Tensor, packed: torch.Tensor, dev: int,
-           stream) -> torch.Tensor:
-    """One launch of ``lib``'s K9 at ``plan`` on checked inputs -> ys."""
+           stream, saved: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of ``lib``'s K9 at ``plan`` on checked inputs -> ys,
+    writing the gates into ``saved`` where one is given."""
     g, r, t, h4 = xp.shape
     hidden = h4 // 4
     hbuf = torch.zeros(2 * (2 * g * r * plan.hp + g), dtype=torch.int32, device=xp.device)
     ys = xp.new_empty((g, r, t, hidden))
     err = lib.aec_lstm(
-        _build.ptr(xp), _build.ptr(packed), _build.ptr(hbuf), _build.ptr(ys), g, r, t, hidden,
-        plan.hp, plan.units, plan.nchunk, plan.cw, plan.npos, plan.jreg, plan.jsm, dev, stream,
+        _build.ptr(xp), _build.ptr(packed), _build.ptr(hbuf), _build.ptr(ys),
+        None if saved is None else _build.ptr(saved), g, r, t, hidden, plan.hp, plan.units,
+        plan.nchunk, plan.cw, plan.npos, plan.jreg, plan.jsm, dev, stream,
     )
     _build.check(err, "lstm")
     return ys
@@ -313,35 +328,61 @@ def _flat(params: dict) -> list[torch.Tensor]:
 
 
 class ComplexLstmScanFused(torch.autograd.Function):
-    """``(real, imag, *the 8 parameters) -> (real_out, imag_out)``: forward
-    through K9 (plain on the CPU), backward by recomputing the plain grouped
-    scan."""
+    """``(real, imag, save, *the 8 parameters) -> (real_out, imag_out)``:
+    forward through K9 (plain on the CPU), saving the gates where ``save``
+    (autograd records and some input wants a gradient: every forward that
+    has a backward); backward through K9b (plain on the CPU) and the weight
+    gradients as products over the 2 x 2B x T rows."""
 
     @staticmethod
-    def forward(ctx, real, imag, *weights):
+    def forward(ctx, real, imag, save, *weights):
         params = _params(weights)
-        xp = grouped_projection(params, torch.cat([real, imag], dim=0))
-        ys = grouped_lstm_recurrence(xp.contiguous(), [params[g]["w_hh"] for g in GROUPS])
-        ctx.save_for_backward(real, imag, *weights)
+        x2 = torch.cat([real, imag], dim=0)
+        w_hh = [params[g]["w_hh"] for g in GROUPS]
+        xp = grouped_projection(params, x2).contiguous()
+        if save:
+            ys, saved = grouped_lstm_recurrence(xp, w_hh, save=True)
+            ctx.save_for_backward(x2, ys, saved, *weights)
+        else:
+            ys = grouped_lstm_recurrence(xp, w_hh)
         return recombine(ys, real.shape[0])
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g_real, g_imag):
-        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = complex_lstm_scan(_params(leaves[2:]), leaves[0], leaves[1], fused=False)
-            cot = [torch.zeros_like(o) if gr is None else gr
-                   for o, gr in zip(out, (g_real, g_imag))]
-            need = [t for t, n in zip(leaves, ctx.needs_input_grad) if n]
-            grads = iter(torch.autograd.grad(out, need, cot))
-        return tuple(next(grads) if n else None for n in ctx.needs_input_grad)
+        from aec_tpu_torch.kernels.lstm_bwd import lstm_backward
+
+        x2, ys, saved, *weights = ctx.saved_tensors
+        params = _params(weights)
+        g, r, t, hidden = ys.shape
+        b = r // 2
+        # recombine's signs: real_out = ys[0, :B] - ys[1, B:], imag_out = ys[0, B:] + ys[1, :B]
+        g_ys = torch.stack([torch.cat([g_real, g_imag]), torch.cat([g_imag, -g_real])])
+        dxp = lstm_backward(g_ys.unsqueeze(3), saved.unsqueeze(3),
+                            [params[k]["w_hh"] for k in GROUPS]).squeeze(3)
+        rows = dxp.reshape(g, r * t, 4 * hidden)
+        need = ctx.needs_input_grad
+        d_x2 = (torch.bmm(rows, stacked(params, "w_ih")).sum(0).reshape(r, t, -1)
+                if need[0] or need[1] else None)
+        d_w_ih = rows.transpose(1, 2) @ x2.reshape(r * t, -1)
+        d_b = rows.sum(1)
+        h_prev = F.pad(ys, (0, 0, 1, 0))[:, :, :t].reshape(g, r * t, hidden)
+        d_w_hh = rows.transpose(1, 2) @ h_prev
+        grads = [d_w_ih, d_w_hh, d_b, d_b]  # _KEYS order; both biases sit in xp alike
+        flat = [grads[k][j] for j in range(len(GROUPS)) for k in range(len(_KEYS))]
+        return (d_x2[:b] if need[0] else None, d_x2[b:] if need[1] else None, None,
+                *(d if n else None for d, n in zip(flat, need[3:])))
 
 
 def complex_lstm_scan_fused(params: dict, real: torch.Tensor,
                             imag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused grouped complex LSTM: ``([B, T, I], [B, T, I]) -> ([B, T, H],
-    [B, T, H])``, differentiable in both inputs and the 8 parameters."""
-    return ComplexLstmScanFused.apply(real, imag, *_flat(params))
+    [B, T, H])``, differentiable in both inputs and the 8 parameters. K9
+    saves the gates for K9b only where autograd records and some input
+    needs a gradient."""
+    weights = _flat(params)
+    save = torch.is_grad_enabled() and any(a.requires_grad for a in (real, imag, *weights))
+    return ComplexLstmScanFused.apply(real, imag, save, *weights)
 
 
 def complex_lstm_scan_fused_plain(params: dict, real: torch.Tensor,

@@ -142,11 +142,14 @@ def fullsubnet_masks(params: dict, mic_mag: torch.Tensor, ref_mag: torch.Tensor,
     return masks[..., 0], masks[..., 1]
 
 
-def _joint_scan_hs(params: dict, xp_fb: torch.Tensor, xp_sb: torch.Tensor) -> torch.Tensor:
+def _joint_scan_hs(params: dict, xp_fb: torch.Tensor, xp_sb: torch.Tensor, save: bool = False):
     """The joint full -> sub recurrence on the hoisted projections (every
     bias already in ``xp_*``): ([B, T, 4Hfb], [B, T, F, 4Hsb]) -> the
     sub-band hidden sequence [B, T, F, Hsb], one frame per loop iteration,
-    from zero state. K11's plain version, and what its backward recomputes."""
+    from zero state. K11's plain version. With ``save`` also what K11 saves
+    for the backward (K9b over each band): (hs_seq, the full band's
+    activated gates and c [B, T, 5Hfb], the embedding before its ReLU
+    [B, T, F], the sub band's gates and c [B, T, F, 5Hsb])."""
     fb_p, sb_p = params["fb_lstm"], params["sb_lstm"]
     b, t, four_hfb = xp_fb.shape
     f, four_hsb = xp_sb.shape[2], xp_sb.shape[3]
@@ -155,14 +158,21 @@ def _joint_scan_hs(params: dict, xp_fb: torch.Tensor, xp_sb: torch.Tensor) -> to
     w_hh_fb, w_hh_sb = fb_p["w_hh"].T, sb_p["w_hh"].T
     hf = cf = xp_fb.new_zeros((b, h_fb))
     hs = cs = xp_fb.new_zeros((b * f, h_sb))
-    out = []
+    out, saved = [], ([], [], [])
     for i in range(t):
-        hf, cf = lstm_gates(xp_fb[:, i] + hf @ w_hh_fb, cf)
-        emb = torch.relu(hf @ params["fb_out"]["w"].T + params["fb_out"]["b"])  # [B, F]
+        hf, cf, *act_fb = lstm_gates(xp_fb[:, i] + hf @ w_hh_fb, cf, save)
+        pre = hf @ params["fb_out"]["w"].T + params["fb_out"]["b"]  # [B, F]
+        emb = torch.relu(pre)
         sb_x = (xp_sb[:, i] + emb[..., None] * w_fb_col).reshape(b * f, four_hsb)
-        hs, cs = lstm_gates(sb_x + hs @ w_hh_sb, cs)
+        hs, cs, *act_sb = lstm_gates(sb_x + hs @ w_hh_sb, cs, save)
         out.append(hs.reshape(b, f, h_sb))
-    return torch.stack(out, dim=1) if out else xp_sb.new_zeros((b, 0, f, h_sb))
+        if save:
+            for lst, v in zip(saved, (act_fb[0], pre, act_sb[0].reshape(b, f, 5 * h_sb))):
+                lst.append(v)
+    hs_seq = torch.stack(out, dim=1) if out else xp_sb.new_zeros((b, 0, f, h_sb))
+    if not save:
+        return hs_seq
+    return (hs_seq, *(torch.stack(lst, dim=1) for lst in saved))
 
 
 def fullsubnet_apply(params: dict, mic: torch.Tensor, ref: torch.Tensor,

@@ -40,11 +40,16 @@ def quantize_rows_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return w_q, scale
 
 
-def lstm_gates(gates: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pre-activations [i; f; g; o] (..., 4H) and c -> (h', c')."""
+def lstm_gates(gates: torch.Tensor, c: torch.Tensor, save: bool = False):
+    """The pre-activations [i; f; g; o] (..., 4H) and c -> (h', c'); with
+    ``save`` also the activated gates and c' (..., 5H) = [i, f, g, o, c'],
+    what the backward (``kernels/lstm_bwd.py``) reads. h' and c' are the
+    same bits either way."""
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
-    c_next = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    return torch.sigmoid(o) * torch.tanh(c_next), c_next
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    c_next = f * c + i * g
+    h = o * torch.tanh(c_next)
+    return (h, c_next, torch.cat([i, f, g, o, c_next], dim=-1)) if save else (h, c_next)
 
 
 def lstm_cell(params: dict[str, torch.Tensor], h: torch.Tensor, c: torch.Tensor,
@@ -184,20 +189,25 @@ def grouped_projection(params: dict, x2: torch.Tensor) -> torch.Tensor:
     return xp + bias[:, None, None, :]
 
 
-def grouped_lstm_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+def grouped_lstm_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor, save: bool = False):
     """The grouped recurrence, one step per loop iteration: xp (G, R, T, 4H)
-    and w_hh (G, 4H, H) -> ys (G, R, T, H), from zero state. It is kernel
-    K9's plain version (``kernels/lstm.py``)."""
+    and w_hh (G, 4H, H) -> ys (G, R, T, H), from zero state; with ``save``
+    also each step's activated gates and c (G, R, T, 5H), what K9 saves for
+    its backward K9b. It is kernel K9's plain version (``kernels/lstm.py``)."""
     g, r, t, h4 = xp.shape
     hidden = h4 // 4
     h = xp.new_zeros((g, r, hidden))
     c = xp.new_zeros((g, r, hidden))
     w_t = w_hh.transpose(1, 2)
-    hs = []
+    hs, saved = [], []
     for i in range(t):
-        h, c = lstm_gates(xp[:, :, i] + torch.matmul(h, w_t), c)
+        h, c, *act = lstm_gates(xp[:, :, i] + torch.matmul(h, w_t), c, save)
         hs.append(h)
-    return torch.stack(hs, dim=2) if hs else xp.new_zeros((g, r, 0, hidden))
+        saved += act
+    ys = torch.stack(hs, dim=2) if hs else xp.new_zeros((g, r, 0, hidden))
+    if not save:
+        return ys
+    return ys, torch.stack(saved, dim=2) if saved else xp.new_zeros((g, r, 0, 5 * hidden))
 
 
 def recombine(ys: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -30,8 +30,8 @@ TwoLayerGRU's GRU runs on kernel K8 at any batch (every train step and
 validation utterance) and its backward on K8b; DCCRN's complex LSTMs run on
 K9 at B <= 16 and FullSubNet's joint recurrence on K11, so a DCCRN or
 FullSubNet train step at the default batch of 16 runs its kernel forward,
-and their backwards recompute through the plain scan, as the JAX custom
-VJPs do.
+saving the gates, and its backward on K9b (the counterpart of the loop XLA
+compiles from the JAX custom VJPs' recompute).
 """
 
 from __future__ import annotations

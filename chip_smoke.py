@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py [--seed N] [--reps N]
 
-Runs ``aec_tpu_torch`` (never JAX): builds the ten CUDA sources in the
-checkout (thirteen kernels: the twelve TPU kernels' and K8b, K8's backward), and the cut variants that ``kernels/lstm_costs.py``
+Runs ``aec_tpu_torch`` (never JAX): builds the eleven CUDA sources in the
+checkout (fourteen kernels: the twelve TPU kernels', K8b, K8's backward,
+and K9b, the LSTM backward), and the cut variants that ``kernels/lstm_costs.py``
 (K9, K10), ``kernels/single_costs.py`` (K6 / K7) and ``kernels/fsn_costs.py``
 (K11) time, all in parallel, and drives every user-facing path.
 
@@ -85,7 +86,11 @@ checkout (thirteen kernels: the twelve TPU kernels' and K8b, K8's backward), and
   ptxas's registers and spills; ``cli/infer``'s DCCRN enhancer (Kalman
   stage 1) on the 8 scenes one by one, kernel route (K1 + K9) against the
   plain route, cuDNN's TF32 off, its call timed with the packed weights
-  cold and warm beside K9's device time in it.
+  cold and warm beside K9's device time in it. At DCCRN's training shape
+  (16 x 501 frames) K9's ys with and without saving the gates bit for bit,
+  K9b (the LSTM backward) against its plain version, the route's gradients
+  against the plain route's (no plain loop entered), and the route's
+  forward and backward and its backward alone beside cuDNN's ``nn.LSTM``.
 - FullSubNet inference (phase 24): K11 (the joint full-band / sub-band
   LSTM recurrence) at ``FullSubNetConfig()``'s widths over 820 frames (8.2 s
   at hop 160) at B = 1 and 4 against its plain joint loop, and in turns
@@ -94,7 +99,11 @@ checkout (thirteen kernels: the twelve TPU kernels' and K8b, K8's backward), and
   weights); its producer alone and its consumers alone
   (``kernels/fsn_costs.py``); ``cli/infer``'s FullSubNet enhancer (Kalman
   stage 1) on the 8 scenes one by one, kernel route (K1 + K11) against the
-  plain route.
+  plain route. At the training shape (16 x 801 frames) K11's sequence with
+  and without saving bit for bit, K9b over the sub band and the full band
+  against its plain version, the route's gradients at B = 4 against the
+  plain joint loop's, and its forward and backward beside the cuDNN
+  composition's.
 - ATT-CCRN inference (phase 25): K10 (the int8 LSTM recurrence) at the
   bottleneck's H = 4096, T = 513 against the plain int8 loop, with the count
   of h's int8 codes that differ, its time per step, where its codes lie, the
@@ -106,12 +115,13 @@ checkout (thirteen kernels: the twelve TPU kernels' and K8b, K8's backward), and
 - Zoo training (phase 26): two_layer_gru, dccrn, fullsubnet and att_ccrn
   at their default configs and ``TrainConfig()`` (16 scenes x 8 s) through
   ``train/generic.make_adapter`` and ``train/loop.make_stateful_train_step``:
-  the first step on the kernel route (K9 twice in a DCCRN step, K11 once in
-  a FullSubNet step, K8 and K8b once in a TwoLayerGRU step) against the
+  the first step on the kernel route (K9 and K9b twice in a DCCRN step,
+  K11 once and K9b twice in a FullSubNet step, K8 and K8b once in a
+  TwoLayerGRU step; no plain LSTM loop entered) against the
   plain route, TwoLayerGRU's (no switch to the plain loop) and ATT-CCRN's
   (no kernel in a batch-16 step) against the CPU route (loss, every
-  gradient leaf, the new BatchNorm state); the launches of K8, K9, K11 and
-  K8b in validation of 8 scenes at batch 1; 3 steps timed with
+  gradient leaf, the new BatchNorm state); the launches of K8, K9, K11,
+  K8b and K9b in validation of 8 scenes at batch 1; 3 steps timed with
   train_xrt and peak memory; a checkpoint round trip; DCT-DNN and DCT-CNN
   one step against the CPU route, timed.
 - Data pipeline and CLIs (phase 27): ``cli/prepare_data`` packs 8 scenes x
@@ -130,8 +140,8 @@ checkout (thirteen kernels: the twelve TPU kernels' and K8b, K8's backward), and
 - The parallel layer (phase 28) at world size 1 on NCCL (one card; the
   multi-rank numbers are held on the CPU over gloo): a 1-rank group from
   ``parallel/mesh.distributed_init_if_needed``; LittleNet's, DCCRN's and
-  FullSubNet's train steps with the mesh against without (K8 + K8b / K9 /
-  K11 in both); ``cli/train --mesh`` and ``cli/batch_enhance --mesh --batch 8`` (K1
+  FullSubNet's train steps with the mesh against without (K8 + K8b / K9 +
+  K9b / K11 + K9b in both); ``cli/train --mesh`` and ``cli/batch_enhance --mesh --batch 8`` (K1
   / K5) against their runs without; ``parallel/tp_lstm.lstm_scan_tp`` at
   ATT-CCRN's H = 4096 against the plain scan, timed beside K10;
   ``parallel/seq_scan.pipelined_scan`` of the Kalman step; and
@@ -143,7 +153,9 @@ its path, its error against its plain version, its time, its plain
 version's time and its bound from this run's shapes; K3's rows also its
 kernel's device time, ``kernel_ms``, beside the call's; K8's, K9's and
 K11's also their launches in the zoo's training, ``train_launches``, K8b's
-in the trainers', K8's its batched numbers; K1's,
+in the trainers', K8's its batched numbers, K9's and K11's their training
+routes beside the library's, ``train``, K9b's at DCCRN's training shape
+with FullSubNet's two passes beside; K1's,
 K5's and K8's their launches on phase 27's paths, ``cli_launches``, and
 K1's, K5's, K9's, K11's and K3's on phase 28's mesh routes), the last line
 the ``ok`` JSON. Exits nonzero without a CUDA device.
@@ -207,8 +219,9 @@ K4_WAV_TOL, K4_MASK_TOL = 1e-3, 1e-3
 K4_ILL_RATIO = 2.0
 # K8 vs plain: h lies in [-1, 1]; an fp32 recursion summed in another order
 K8_TOL = 1e-5
-# gradients through K8 vs the plain route (both backwards recompute the plain
-# scan; only the forward's round-off differs): 1e-4 of each leaf's scale
+# gradients through K8 / K8b (or K9 / K11 and K9b) vs the plain route's
+# autograd: the same function in fp32 in another order, carried through
+# hundreds of reverse steps and sums over all rows: 1e-4 of each leaf's scale
 K8_GRAD_TOL = 1e-4
 # the first train step vs the same step on the CPU route: fp32 round-off of
 # STFT, GRU and backward in another order -> loss rtol 1e-4; Adam's first
@@ -461,6 +474,55 @@ def k8b_bound(b: int, t: int, h: int) -> dict:
     """K8b's: B*T*3H*H FMA (the forward's dots, transposed); g_ys, ys and
     the saved gates (4H) in, dxp (3H) and d_hn out, W_hh, h0 and dh0."""
     return bound(b * t * 3 * h * h, 4 * (b * t * 10 * h + 3 * h * h + 2 * b * h))
+
+
+def k9b_bound(rows: int, t: int, h: int) -> dict:
+    """K9b's: rows T 4H H FMA (the forward's dots, transposed); g_ys (H),
+    the saved gates and c (5H) in and dxp (4H) out a row-step, W_hh once a
+    row's group (counted once)."""
+    return bound(rows * t * 4 * h * h, 4 * (rows * t * 10 * h + 4 * h * h))
+
+
+def in_turns(fns, reps: int) -> list[list[float]]:
+    """Each of ``fns`` timed four times in turns (forwards, backwards,
+    forwards, backwards): per fn its four ms."""
+    turns = [time_ms(fn, reps) for fn in fns + fns[::-1] + fns + fns[::-1]]
+    n = len(fns)
+    return [[turns[i], turns[2 * n - 1 - i], turns[2 * n + i], turns[4 * n - 1 - i]]
+            for i in range(n)]
+
+
+class plain_entries:
+    """Counts the calls into the plain recurrences and K9b's plain version
+    that the LSTM routes reach through their modules' names (the grouped
+    scan and its loop, the joint loop, the plain backward): a route on the
+    card enters none of them (``with plain_entries() as n: ...; n[0]``)."""
+
+    def __enter__(self):
+        from aec_tpu_torch.kernels import lstm as kl
+        from aec_tpu_torch.kernels import lstm_bwd as kb
+        from aec_tpu_torch.models import fullsubnet as mf
+        from aec_tpu_torch.ops import lstm as ol
+
+        self.count = [0]
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (kl, "complex_lstm_scan"), (kl, "grouped_lstm_recurrence_plain"),
+            (ol, "grouped_lstm_recurrence_plain"), (kb, "lstm_backward_plain"),
+            (mf, "_joint_scan_hs"))]
+
+        def counted(fn):
+            def call(*a, **k):
+                self.count[0] += 1
+                return fn(*a, **k)
+            return call
+
+        for m, n, fn in self.saved:
+            setattr(m, n, counted(fn))
+        return self.count
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
 
 
 def bound(fma: float, nbytes: float, peak: float = PEAK_FP32) -> dict:
@@ -1540,6 +1602,117 @@ def lstm_phase(dev, seed: int, reps: int, smi: str, costs: list[dict]) -> dict:
     return out
 
 
+def lstm_train_phase(dev, seed: int, reps: int, smi: str) -> dict:
+    """22, training: K9 and K9b at DCCRN's training shape (B = 16 x 8 s:
+    two groups of 32 rows, T = 501, I = H = 1024): K9's ys with and without
+    saving the gates, bit for bit; K9b against its plain version on those
+    gates (1e-5 of dxp's scale); the route's gradients into both inputs and
+    the 8 parameters (``complex_lstm_scan``: K9 saving, K9b, the products)
+    against the plain route's (the grouped loop differentiated by autograd)
+    at K8's gradient bar of each leaf's scale, with both routes' launches and
+    the plain loops the route entered (none); then in turns, each four
+    times: cuDNN's nn.LSTM forward and backward (one per group over the 2B
+    rows with K9's weights, the recombination, the same cotangent), the
+    route's; the backwards alone: cuDNN's and the route's of a recorded
+    forward, K9b on saved gates; the plain versions once."""
+    from aec_tpu_torch.kernels.lstm import (
+        grouped_lstm_recurrence,
+        grouped_projection,
+        recombine,
+        stacked,
+    )
+    from aec_tpu_torch.kernels.lstm_bwd import lstm_backward, lstm_backward_plain
+    from aec_tpu_torch.ops.lstm import complex_lstm_init, complex_lstm_scan
+
+    b, t, h = 16, N_TRAIN // HOP + 1, 1024
+    g = torch.Generator().manual_seed(seed + 3)
+    params = complex_lstm_init(2 * h, 2 * h, generator=g, device=dev)
+    r, i = (torch.randn(b, t, h, generator=g).to(dev) for _ in range(2))
+    cot = [torch.randn(b, t, h, generator=g).to(dev) for _ in range(2)]
+    with torch.no_grad():
+        xp = grouped_projection(params, torch.cat([r, i], 0)).contiguous()
+        w = stacked(params, "w_hh")
+        ys = grouped_lstm_recurrence(xp, w)
+        ys_s, saved = grouped_lstm_recurrence(xp, w, save=True)
+        g_ys = torch.randn(2, 2 * b, t, 1, h, generator=g).to(dev)
+        saved5 = saved.unsqueeze(3)
+        got = lstm_backward(g_ys, saved5, w)
+        torch.cuda.synchronize()
+        want = lstm_backward_plain(g_ys, saved5, w)
+    same = torch.equal(ys, ys_s)
+    k9b_err = float((got - want).abs().max())
+    k9b_rel = k9b_err / float(want.abs().max())
+    del ys, ys_s, got, want, xp
+
+    leaves = {(grp, k): v.detach().clone().requires_grad_()
+              for grp, sub in params.items() for k, v in sub.items()}
+    tree = {grp: {k: leaves[grp, k] for k in sub} for grp, sub in params.items()}
+    rl, il = r.detach().clone().requires_grad_(), i.detach().clone().requires_grad_()
+    order = [rl, il, *leaves.values()]
+
+    def fwd_bwd(fused=None):
+        return torch.autograd.grad(complex_lstm_scan(tree, rl, il, fused=fused), order, cot)
+
+    grads, counts, entered = {}, {}, {}
+    for fused in (None, False):
+        with plain_entries() as n:
+            grads[fused], counts[fused] = drive((grouped_lstm_recurrence, lstm_backward),
+                                                lambda: fwd_bwd(fused))
+        entered[fused] = n[0]
+    route_rel = max(float((a - w_).abs().max() / w_.abs().max())
+                    for a, w_ in zip(grads[None], grads[False]))
+    del grads
+    phase("K9b vs plain", f"B = {b}, T = {t}, H = {h}, 2 groups: K9's ys with and without "
+          f"saving the gates bit-equal {same}; K9b vs its plain version max|d| / scale "
+          f"{k9b_rel:.3e} (bar {K9_TOL:g}); the route's gradients vs the plain route's, worst "
+          f"leaf {route_rel:.3e} (bar {K8_GRAD_TOL:g}); launches K9 / K9b: route {counts[None]}, "
+          f"plain route {counts[False]}; plain loops entered by the route {entered[None]}")
+    check(same, "K9's ys change with the save flag")
+    check(k9b_rel <= K9_TOL, "K9b disagrees with its plain version")
+    check(counts[None] == [1, 1] and counts[False] == [0, 0] and entered[None] == 0,
+          "complex_lstm_scan did not route to K9 and K9b at this batch")
+    check(route_rel <= K8_GRAD_TOL, "the route's gradients disagree with the plain route's")
+
+    lstms = []
+    for grp in ("real", "imag"):
+        lstm = torch.nn.LSTM(h, h, batch_first=True).to(dev)
+        with torch.no_grad():
+            for name, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                              ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                getattr(lstm, name).copy_(params[grp][key])
+        lstms.append(lstm)
+    lib_leaves = [rl, il, *(p_ for m in lstms for p_ in m.parameters())]
+
+    def lib_out():
+        return recombine(torch.stack([m(torch.cat([rl, il], 0))[0] for m in lstms]), b)
+
+    def lib_fwd_bwd():
+        return torch.autograd.grad(lib_out(), lib_leaves, cot)
+
+    pairs = in_turns([lib_fwd_bwd, fwd_bwd], reps)
+    out_lib, out_route = lib_out(), complex_lstm_scan(tree, rl, il)
+    bwd = (lambda: torch.autograd.grad(out_lib, lib_leaves, cot, retain_graph=True),
+           lambda: torch.autograd.grad(out_route, order, cot, retain_graph=True),
+           lambda: lstm_backward(g_ys, saved5, w))
+    bpairs = in_turns(list(bwd), reps)
+    del out_lib, out_route
+    t_pb = time_once(lambda: lstm_backward_plain(g_ys, saved5, w))
+    t_plain = time_once(lambda: fwd_bwd(False))
+    med = [statistics.median(p_) for p_ in pairs]
+    bmed = [statistics.median(p_) for p_ in bpairs]
+    fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)  # noqa: E731
+    k9b_b = k9b_bound(2 * 2 * b, t, h)
+    phase("time", f"DCCRN's LSTM layer, B = {b}, T = {t}, in turns (4 each, ms): forward and "
+          f"backward cuDNN nn.LSTM x 2 groups {fmt(pairs[0])}, the route (K9 + K9b + products) "
+          f"{fmt(pairs[1])}, ratio {med[1] / med[0]:.3f}; the backwards alone: cuDNN "
+          f"{fmt(bpairs[0])}, the route's {fmt(bpairs[1])}, K9b {fmt(bpairs[2])} (plain "
+          f"{t_pb:.1f}; bound {k9b_b['bound_ms']:.3f} ms, {k9b_b['bound_by']}); the plain "
+          f"route's forward and backward {t_plain:.1f} ms [{smi}]")
+    return {"k9b_err": k9b_err, "k9b_ms": bmed[2], "k9b_plain_ms": t_pb, "k9b_bound": k9b_b,
+            "route_bwd_ms": bmed[1], "lib_bwd_ms": bmed[0], "route_fwd_bwd_ms": med[1],
+            "lib_fwd_bwd_ms": med[0], "plain_fwd_bwd_ms": t_plain}
+
+
 def dccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str) -> dict:
     """23. cli/infer's DCCRN enhancer: DccrnConfig() from dccrn_init (seed
     0), saved with train/checkpoints.save under {params, model_state} and
@@ -1719,6 +1892,150 @@ def fullsubnet_phase(dev, names, s_far, s_mic, reps: int, smi: str, costs: list[
     return out
 
 
+def fullsubnet_train_phase(dev, seed: int, reps: int, smi: str) -> dict:
+    """24, training: K11 and K9b at FullSubNetConfig()'s widths and the
+    training shape (B = 16 x 8 s, T = 801 frames at hop 160): K11's
+    sequence with and without saving what the backward reads, bit for bit;
+    K9b against its plain version over the sub band (16 x 161 rows, H = 96)
+    and the full band (16 rows, H = 256) on those saved gates (1e-5 of
+    dxp's scale); at B = 4 the route's gradients into both projections and
+    the 5 weights (``fsn_joint_fused``: K11 saving, K9b twice, the products)
+    against the plain joint loop differentiated by autograd (K8's gradient
+    bar of each leaf's scale), with the launches and the plain loops the
+    route entered (none); then in turns at B = 16, each four times: the
+    library composition's forward and backward (cuDNN's nn.LSTM over the
+    full band from its input, the embedding, nn.LSTM over the B F bins,
+    K11's weights) and the route's from the same inputs (the hoisted
+    projections, K11, K9b twice, the products); the backwards alone: the
+    library's and the route's of a recorded forward, K9b over each band on
+    saved gates; the plain versions once."""
+    from aec_tpu_torch.kernels.fullsubnet import _LEAVES, fsn_joint_fused, joint_recurrence
+    from aec_tpu_torch.kernels.lstm_bwd import lstm_backward, lstm_backward_plain
+    from aec_tpu_torch.models.fullsubnet import FullSubNetConfig, _joint_scan_hs, fullsubnet_init
+
+    cfg = FullSubNetConfig()
+    b, t, f = 16, N_TRAIN // 160 + 1, cfg.n_freqs
+    hf, hs = cfg.fb_hidden, cfg.sb_hidden
+    nb = 2 * (2 * cfg.neighborhood + 1)
+    g = torch.Generator().manual_seed(seed + 5)
+    params = fullsubnet_init(cfg, generator=g, device=dev)
+    fb_p, sb_p = params["fb_lstm"], params["sb_lstm"]
+    fb_in = torch.rand(b, t, cfg.fb_input, generator=g).to(dev)
+    sb_nb = torch.rand(b, t, f, nb, generator=g).to(dev)
+    cot = torch.randn(b, t, f, hs, generator=g).to(dev)
+
+    def projections(fb_x, sb_x, p):
+        return ((fb_x @ p["fb_lstm"]["w_ih"].T + p["fb_lstm"]["b_ih"] + p["fb_lstm"]["b_hh"]),
+                (sb_x @ p["sb_lstm"]["w_ih"][:, :nb].T + p["sb_lstm"]["b_ih"]
+                 + p["sb_lstm"]["b_hh"]))
+
+    with torch.no_grad():
+        xp_fb, xp_sb = (a.contiguous() for a in projections(fb_in, sb_nb, params))
+        ys = joint_recurrence(params, xp_fb, xp_sb)
+        ys_s, save_fb, _, save_sb = joint_recurrence(params, xp_fb, xp_sb, save=True)
+        same = torch.equal(ys, ys_s)
+        del ys, ys_s
+        g_sb = cot[None]
+        g_fb = torch.randn(1, b, t, 1, hf, generator=g).to(dev)
+        save_fb5 = save_fb[None, :, :, None]
+        save_sb5 = save_sb[None]
+        k9b = {}
+        for band, gy, sv, w in (("sb", g_sb, save_sb5, sb_p["w_hh"]),
+                                ("fb", g_fb, save_fb5, fb_p["w_hh"])):
+            got = lstm_backward(gy, sv, w)
+            torch.cuda.synchronize()
+            want = lstm_backward_plain(gy, sv, w)
+            k9b[band] = float((got - want).abs().max()), float(want.abs().max())
+            del got, want
+    k9b_rel = {band: e / sc for band, (e, sc) in k9b.items()}
+    del xp_fb, xp_sb
+
+    # the route's gradients at B = 4 against the plain joint loop's
+    b4 = 4
+    xs = [v[:b4].detach().clone().requires_grad_() for v in projections(fb_in, sb_nb, params)]
+    ws = [params[a][k].detach().clone().requires_grad_() for a, k in _LEAVES]
+    tree = {}
+    for (a, k), v in zip(_LEAVES, ws):
+        tree.setdefault(a, {})[k] = v
+    grads, counts, entered = {}, {}, {}
+    for route, fn in (("kernel", lambda: fsn_joint_fused(tree, *xs)),
+                      ("plain", lambda: _joint_scan_hs(tree, *xs))):
+        with plain_entries() as n:
+            grads[route], counts[route] = drive(
+                (joint_recurrence, lstm_backward),
+                lambda: torch.autograd.grad(fn(), xs + ws, cot[:b4]))
+        entered[route] = n[0]
+    route_rel = max(float((a - w_).abs().max() / w_.abs().max())
+                    for a, w_ in zip(grads["kernel"], grads["plain"]))
+    del grads, xs, ws, tree
+    phase("K9b vs plain", f"FullSubNet B = {b}, T = {t}: K11's sequence with and without saving "
+          f"bit-equal {same}; K9b vs its plain version max|d| / scale: sub band ({b} x {f} rows, "
+          f"H {hs}) {k9b_rel['sb']:.3e}, full band ({b} rows, H {hf}) {k9b_rel['fb']:.3e} (bar "
+          f"{K9_TOL:g}); at B = {b4} the route's gradients vs the plain joint loop's, worst leaf "
+          f"{route_rel:.3e} (bar {K8_GRAD_TOL:g}); launches K11 / K9b: route {counts['kernel']}, "
+          f"plain {counts['plain']}; plain loops entered by the route {entered['kernel']}")
+    check(same, "K11's sequence changes with the save flag")
+    check(max(k9b_rel.values()) <= K9_TOL, "K9b disagrees with its plain version")
+    check(counts["kernel"] == [1, 2] and counts["plain"] == [0, 0] and entered["kernel"] == 0,
+          "fsn_joint_fused did not run K11 and K9b twice")
+    check(route_rel <= K8_GRAD_TOL, "the route's gradients disagree with the plain route's")
+
+    # times at B = 16: the library composition and the route, same inputs
+    lstms = {}
+    for name, p_, i_, h_ in (("fb", fb_p, cfg.fb_input, hf), ("sb", sb_p, cfg.sb_input, hs)):
+        lstms[name] = torch.nn.LSTM(i_, h_, batch_first=True).to(dev)
+        with torch.no_grad():
+            for attr, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                              ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                getattr(lstms[name], attr).copy_(p_[key])
+    fb_x, sb_x = fb_in.requires_grad_(), sb_nb.requires_grad_()
+    lib_leaves = [fb_x, sb_x, params["fb_out"]["w"], params["fb_out"]["b"],
+                  *lstms["fb"].parameters(), *lstms["sb"].parameters()]
+    route_params = {a: {k: v.requires_grad_() for k, v in sub.items()}
+                    for a, sub in params.items()}
+    route_leaves = [fb_x, sb_x, *(route_params[a][k] for a in ("fb_lstm", "fb_out", "sb_lstm")
+                                  for k in route_params[a])]
+    cot_t = cot.transpose(1, 2)  # the library's rows are (utterance, bin)
+
+    def lib_out():
+        fb_seq = lstms["fb"](fb_x)[0]
+        emb = torch.relu(fb_seq @ params["fb_out"]["w"].T + params["fb_out"]["b"])
+        sb_in = torch.cat([sb_x, emb[..., None]], dim=-1).transpose(1, 2)
+        return lstms["sb"](sb_in.reshape(b * f, t, cfg.sb_input))[0].reshape(b, f, t, hs)
+
+    def route_out():
+        return fsn_joint_fused(route_params, *projections(fb_x, sb_x, route_params))
+
+    pairs = in_turns([lambda: torch.autograd.grad(lib_out(), lib_leaves, cot_t),
+                      lambda: torch.autograd.grad(route_out(), route_leaves, cot)], reps)
+    o_lib, o_route = lib_out(), route_out()
+    bwd = [lambda: torch.autograd.grad(o_lib, lib_leaves, cot_t, retain_graph=True),
+           lambda: torch.autograd.grad(o_route, route_leaves, cot, retain_graph=True),
+           lambda: lstm_backward(g_sb, save_sb5, sb_p["w_hh"]),
+           lambda: lstm_backward(g_fb, save_fb5, fb_p["w_hh"])]
+    bpairs = in_turns(bwd, reps)
+    del o_lib, o_route
+    with torch.no_grad():
+        t_pb = {"sb": time_once(lambda: lstm_backward_plain(g_sb, save_sb5, sb_p["w_hh"])),
+                "fb": time_once(lambda: lstm_backward_plain(g_fb, save_fb5, fb_p["w_hh"]))}
+    med = [statistics.median(p_) for p_ in pairs]
+    bmed = [statistics.median(p_) for p_ in bpairs]
+    fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)  # noqa: E731
+    bnd = {"sb": k9b_bound(b * f, t, hs), "fb": k9b_bound(b, t, hf)}
+    phase("time", f"FullSubNet's joint recurrence, B = {b}, T = {t}, in turns (4 each, ms): "
+          f"forward and backward, the library composition (cuDNN nn.LSTM x 2 and the embedding) "
+          f"{fmt(pairs[0])}, the route (projections, K11, K9b x 2, products) {fmt(pairs[1])}, "
+          f"ratio {med[1] / med[0]:.3f}; the backwards alone: the library's {fmt(bpairs[0])}, "
+          f"the route's {fmt(bpairs[1])}, K9b sub band {fmt(bpairs[2])} (plain "
+          f"{t_pb['sb']:.1f}; bound {bnd['sb']['bound_ms']:.3f} ms, {bnd['sb']['bound_by']}), "
+          f"K9b full band {fmt(bpairs[3])} (plain {t_pb['fb']:.1f}; bound "
+          f"{bnd['fb']['bound_ms']:.4f} ms, {bnd['fb']['bound_by']}) [{smi}]")
+    return {"k9b_err": max(e for e, _ in k9b.values()), "k9b_sb_ms": bmed[2],
+            "k9b_fb_ms": bmed[3], "k9b_sb_plain_ms": t_pb["sb"], "k9b_fb_plain_ms": t_pb["fb"],
+            "k9b_sb_bound": bnd["sb"], "k9b_fb_bound": bnd["fb"], "route_bwd_ms": bmed[1],
+            "lib_bwd_ms": bmed[0], "route_fwd_bwd_ms": med[1], "lib_fwd_bwd_ms": med[0]}
+
+
 def att_ccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str, costs: list[dict]) -> dict:
     """25. K10 at ATT-CCRN's bottleneck (H = 4096, T = 513, B = 1) against the
     plain int8 loop, with the count of h's codes that differ, timed beside it
@@ -1892,14 +2209,15 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
     (make_adapter, make_optimizer at TrainConfig(),
     make_stateful_train_step) on 16 scenes x 8 s (bench config #7's
     shape): the first step on the kernel route against the plain route
-    (DCCRN: K9 against ``lstm_fused=False``; FullSubNet: K11 against
-    ``joint_kernel=False``; TwoLayerGRU's step runs K8 and K8b, and
+    (DCCRN: K9 and K9b against ``lstm_fused=False``; FullSubNet: K11 and
+    K9b against ``joint_kernel=False``; TwoLayerGRU's step runs K8 and K8b, and
     ``two_layer_gru_apply`` has no switch to the plain loop, so its card
     reference is the same route, and ATT-CCRN runs no kernel in a batch-16
     step: both are also held against the CPU route), cuDNN's TF32 off and
     deterministic: loss, every gradient leaf, the new BatchNorm state; the
     kernels' launches in that step and in validation of 8 scenes at batch 1
-    (K8, K9, K11, K8b); 3 more steps timed by the host
+    (K8, K9, K11, K8b, K9b) and the plain LSTM loops the kernel route
+    entered (none); 3 more steps timed by the host
     clock ending in a synchronize (cuDNN at its defaults, TF32 on and
     nondeterministic, as a user's run has it), train_xrt and peak memory;
     a checkpoint round trip (save_latest_best -> restore_train_tree into a
@@ -1910,6 +2228,7 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
     from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
     from aec_tpu_torch.kernels.gru import gru_backward, gru_recurrence
     from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.kernels.lstm_bwd import lstm_backward
     from aec_tpu_torch.models.dct_net import DctCnn, DctDnn
     from aec_tpu_torch.models.registry import get_model
     from aec_tpu_torch.models.tree_net import (
@@ -1937,12 +2256,13 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
     batch_c = (mic, far, near, mic - near)  # mic, far, near, echo
     batch = tuple(t.to(dev) for t in batch_c)
     audio_s = cfg.batch_size * N_TRAIN / SR
-    kernels = (gru_recurrence, grouped_lstm_recurrence, joint_recurrence, gru_backward)
-    none = (0, 0, 0, 0)
-    expect_step = {"two_layer_gru": (1, 0, 0, 1), "dccrn": (0, 2, 0, 0),
-                   "fullsubnet": (0, 0, 1, 0)}
-    expect_val = {"two_layer_gru": (8, 0, 0, 0), "dccrn": (0, 16, 0, 0),
-                  "fullsubnet": (0, 0, 8, 0)}
+    kernels = (gru_recurrence, grouped_lstm_recurrence, joint_recurrence, gru_backward,
+               lstm_backward)
+    none = (0, 0, 0, 0, 0)
+    expect_step = {"two_layer_gru": (1, 0, 0, 1, 0), "dccrn": (0, 2, 0, 0, 2),
+                   "fullsubnet": (0, 0, 1, 0, 2)}
+    expect_val = {"two_layer_gru": (8, 0, 0, 0, 0), "dccrn": (0, 16, 0, 0, 0),
+                  "fullsubnet": (0, 0, 8, 0, 0)}
     plain_kw = {"dccrn": {"lstm_fused": False}, "fullsubnet": {"joint_kernel": False}}
 
     def stepper(adapter, net, **kw):
@@ -1970,7 +2290,8 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
         net = adapter.module(*init)
         ref = copy.deepcopy(net)
         zeros = bias_keys_before_batch_norm(param_tree(net))
-        loss, grads, state, counts, opt, step = first_step(adapter, net, batch)
+        with plain_entries() as entered:
+            loss, grads, state, counts, opt, step = first_step(adapter, net, batch)
         ref_loss, ref_grads, ref_state, ref_counts, _, _ = first_step(
             adapter, ref, batch, **plain_kw.get(name, {}))
         check(np.isfinite(loss), f"{name} loss not finite")
@@ -1982,12 +2303,13 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
         # own route (the CPU route below holds it)
         want_ref = none if name in plain_kw else want_step
         phase("zoo", f"{name} step 1, batch {cfg.batch_size} x {N_TRAIN}: launches K8 / K9 / K11 / "
-              f"K8b {counts} (card reference {ref_counts}); loss {loss:.6f} vs card reference "
+              f"K8b / K9b {counts} (card reference {ref_counts}), plain LSTM loops entered "
+              f"{entered[0]}; loss {loss:.6f} vs card reference "
               f"{ref_loss:.6f} (rel {rel:.2e}, bar {STEP_LOSS_TOL:g}); worst gradient leaf "
               f"{g_leaf} {g_err:.3e} of its scale (bar {K8_GRAD_TOL:g}); {len(zeros)} biases "
               f"before a BatchNorm (exact zeros) up to {g_zero:.2e} of the largest leaf (bar "
               f"{ZERO_GRAD:g}); BatchNorm state {s_err:.3e} (bar {STATE_TOL:g})")
-        check(tuple(counts) == want_step and tuple(ref_counts) == want_ref,
+        check(tuple(counts) == want_step and tuple(ref_counts) == want_ref and entered[0] == 0,
               f"{name}'s train step did not launch its kernels as routed")
         check(rel <= STEP_LOSS_TOL and g_err <= K8_GRAD_TOL and g_zero <= ZERO_GRAD
               and s_err <= STATE_TOL,
@@ -2066,7 +2388,8 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
               f"{t_step:.1f} ms = train_xrt {xrt:.1f}; the forward alone {t_fwd:.1f} ms), "
               f"losses "
               f"{', '.join(f'{v:.5f}' for v in losses)}; peak memory {peak:.2f} GiB; "
-              f"launches K8 / K9 / K11 / K8b a step {step_counts[0]}, in validation of 8 scenes at "
+              f"launches K8 / K9 / K11 / K8b / K9b a step {step_counts[0]}, in validation of 8 "
+              f"scenes at "
               f"batch 1 {tuple(val_counts)}; cv loss {np.mean(cv):.5f} [{smi}]")
 
         with tempfile.TemporaryDirectory() as d:
@@ -2110,7 +2433,7 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         t_step = statistics.median(times)
         phase("zoo", f"{name} step 1, batch {cfg.batch_size} x {N_TRAIN}: launches K8 / K9 / K11 / "
-              f"K8b {counts}; loss {loss:.6f} vs the "
+              f"K8b / K9b {counts}; loss {loss:.6f} vs the "
               f"CPU route {c_loss:.6f} (rel {rel:.2e}, bar {STEP_LOSS_TOL:g}); worst leaf "
               f"mean|d| after the update {mean_d:.3e} (bar {STEP_PARAM_TOL:g} x lr); 3 steps "
               f"{', '.join(f'{v:.1f}' for v in times)} ms (median {t_step:.1f} ms = train_xrt "
@@ -2467,6 +2790,7 @@ def parallel_phase(dev, seed: int, reps: int, smi: str, k10_ms: float) -> dict:
     from aec_tpu_torch.kernels.gru import gru_backward, gru_recurrence
     from aec_tpu_torch.kernels.kalman import kalman_cancel_fused_batched
     from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.kernels.lstm_bwd import lstm_backward
     from aec_tpu_torch.kernels.nlms import nlms_cancel_fused_batched
     from aec_tpu_torch.linear.kalman import kalman_init, kalman_step
     from aec_tpu_torch.models.little_net import little_net_init, little_net_loss
@@ -2540,17 +2864,18 @@ def parallel_phase(dev, seed: int, reps: int, smi: str, k10_ms: float) -> dict:
             net = adapter.module(*adapter.init(generator=torch.Generator().manual_seed(seed),
                                                device=dev))
             step = make_stateful_train_step(loss_fn, make_optimizer(cfg, 1, net), m)
-            (state, loss), (n,) = drive((kernel,), lambda: step(model_state(net), *full))
+            (state, loss), n = drive((kernel, lstm_backward),
+                                     lambda: step(model_state(net), *full))
             return (float(loss), param_tree(net, lambda p: p.detach().clone()), state), n
 
         (plain, n_plain), (meshed, n_mesh), (again, _) = (stateful(None), stateful(mesh),
                                                           stateful(None))
         phase("parallel", f"c. {name} stateful step, {cfg.batch_size} x {N_TRAIN}: launches of "
-              f"its kernel "
-              f"unsharded {n_plain}, mesh {n_mesh} (want {want})")
-        check(n_plain == n_mesh == want, f"c. {name}'s step did not launch its kernel")
+              f"its kernel and K9b unsharded {n_plain}, mesh {n_mesh} (want {[want, 2]})")
+        check(n_plain == n_mesh == [want, 2], f"c. {name}'s step did not launch its kernels")
         check_steps(f"c. {name} make_stateful_train_step", meshed, plain, again, cfg.lr)
-        out[f"{name}_mesh_launches"] = n_mesh
+        out[f"{name}_mesh_launches"] = n_mesh[0]
+        out[f"{name}_mesh_k9b_launches"] = n_mesh[1]
     torch.backends.cudnn.deterministic = False
     del full
     small = tuple(t[:4, :32000].contiguous() for t in (mic, far, near, mic - near))
@@ -2725,7 +3050,7 @@ def main() -> None:
     single_builds = single_costs.start_build()  # K6 / K7 whole and without transforms
     fsn_builds = fsn_costs.start_build()  # K11 whole, its producer alone, its consumers alone
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
-                        "single_stream", "gru", "lstm", "fullsubnet", "lstm_int8")
+                        "single_stream", "gru", "lstm", "fullsubnet", "lstm_int8", "lstm_bwd")
     cost_libs = lstm_costs.finish_build(cost_builds)
     single_libs = single_costs.finish_build(single_builds)
     fsn_libs = fsn_costs.finish_build(fsn_builds)
@@ -3274,11 +3599,13 @@ def main() -> None:
     with torch.no_grad():
         step_costs = lstm_costs.costs(cost_libs, args.reps, args.seed)
     lstm = lstm_phase(dev, args.seed, args.reps, smi, step_costs)
+    lstm_train = lstm_train_phase(dev, args.seed, args.reps, smi)
     dccrn = dccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
     # 24-25. K11 and the FullSubNet path; K10 and the ATT-CCRN path
     with torch.no_grad():
         fsn_parts = fsn_costs.costs(fsn_libs, args.reps, args.seed)
     fsn = fullsubnet_phase(dev, names, s_far, s_mic, args.reps, smi, fsn_parts)
+    fsn_train = fullsubnet_train_phase(dev, args.seed, args.reps, smi)
     att = att_ccrn_phase(dev, names, s_far, s_mic, args.reps, smi, step_costs)
     # 26. zoo training: every cli/train family and the DCT nets at batch 16 x 8 s
     zoo = zoo_phase(dev, args.seed, args.reps, smi)
@@ -3344,11 +3671,19 @@ def main() -> None:
         # K11 at one 8.2 s utterance (B = 1, T = 820); launches from the FullSubNet path
         ("fullsubnet_joint", "fullsubnet.cu", "pallas_fullsubnet.py:106", fsn["launches"],
          fsn["err"], fsn["shapes"][1]["ms"], fsn["shapes"][1]["plain_ms"], fsn_bound(1, T_FSN)),
+        # K9b at DCCRN's training shape (one layer: 2 groups x 32 rows x 501
+        # steps, H = 1024) on saved gates; launches from the zoo's DCCRN and
+        # FullSubNet first steps (two each)
+        ("lstm_backward", "lstm_bwd.cu", "pallas_lstm.py:341",
+         zoo["dccrn"]["step_launches"][4] + zoo["fullsubnet"]["step_launches"][4],
+         max(lstm_train["k9b_err"], fsn_train["k9b_err"]), lstm_train["k9b_ms"],
+         lstm_train["k9b_plain_ms"], lstm_train["k9b_bound"]),
     ]
     # cuDNN's nn.GRU and nn.LSTM with the kernels' weights
     library_ms = {"gru_scan": k8["library_ms"], "gru_backward": k8b["lib_bwd_ms"],
                   "lstm_grouped": k9["library_ms"],
-                  "fullsubnet_joint": fsn["shapes"][1]["library_ms"]}
+                  "fullsubnet_joint": fsn["shapes"][1]["library_ms"],
+                  "lstm_backward": lstm_train["lib_bwd_ms"]}
     # K3's kernel alone (torch.profiler device time), beside its call's ms;
     # K5, K6, K7: the dense formulation's bound beside the FFT one, and the
     # step that ran on their paths
@@ -3397,6 +3732,26 @@ def main() -> None:
     extra["lstm_grouped"]["train_launches"]["dccrn_mesh_step"] = par["dccrn_mesh_launches"]
     extra["fullsubnet_joint"]["train_launches"]["fullsubnet_mesh_step"] = \
         par["fullsubnet_mesh_launches"]
+    # the training shapes (B = 16 x 8 s): each route's forward and backward
+    # and its backward alone beside the library's (cuDNN's nn.LSTM for the
+    # same function; for FullSubNet the two-scan composition)
+    for kernel, row in (("lstm_grouped", lstm_train), ("fullsubnet_joint", fsn_train)):
+        extra[kernel]["train"] = {k: row[k] for k in (
+            "route_fwd_bwd_ms", "lib_fwd_bwd_ms", "route_bwd_ms", "lib_bwd_ms")}
+    extra["lstm_backward"] = {
+        "train_launches": {f"{fam}_step": zoo[fam]["step_launches"][4]
+                           for fam in ("dccrn", "fullsubnet")}
+        | {f"{fam}_validation": zoo[fam]["validation_launches"][4]
+           for fam in ("dccrn", "fullsubnet")}
+        | {f"{fam}_mesh_step": par[f"{fam}_mesh_k9b_launches"] for fam in ("dccrn", "fullsubnet")},
+        "route_bwd_ms": lstm_train["route_bwd_ms"],
+        "route_fwd_bwd_ms": lstm_train["route_fwd_bwd_ms"],
+        "library_fwd_bwd_ms": lstm_train["lib_fwd_bwd_ms"],
+        # FullSubNet's two passes at B = 16, T = 801
+        **{f"fullsubnet_{band}": {"ms": fsn_train[f"k9b_{key}_ms"],
+                                  "plain_ms": fsn_train[f"k9b_{key}_plain_ms"],
+                                  **fsn_train[f"k9b_{key}_bound"]}
+           for band, key in (("sub_band", "sb"), ("full_band", "fb"))}}
     extra.setdefault("serving", {})["dryrun_launches"] = par["k3_dryrun_launches"]
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",

@@ -1184,9 +1184,9 @@ def test_complex_lstm_routes_to_k9(cuda):
 
 
 def test_lstm_kernel_gradients_equal_plain_route(cuda):
-    """The Function's backward recomputes the plain grouped scan from the
-    same inputs and cotangents, so its gradients equal the plain route's to
-    1e-5 of each leaf's scale."""
+    """The Function's backward (K9b on the gates K9 saved, and the products)
+    computes the plain route's gradients from the same inputs and
+    cotangents, to 1e-5 of each leaf's scale."""
     from aec_tpu_torch.ops.lstm import complex_lstm_scan
 
     params, r, i = _clstm_case(cuda, 1, 80, width=128)
@@ -1229,6 +1229,112 @@ def test_lstm_packed_weights_follow_in_place_changes(cuda):
         for a, w, f in zip(second, complex_lstm_scan_fused_plain(params, r, i), first):
             torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
             assert float((a - f).abs().max()) > 1e-3
+
+
+def _bwd_case(cuda, g, b, f, t, h, seed=0):
+    """K9b's inputs in its (G, B, T, F, .) layout: the gates the plain
+    saving recurrence gives over G x B F rows (W_hh at torch's init scale,
+    projections of unit scale), a random cotangent, W_hh (G, 4H, H)."""
+    from aec_tpu_torch.ops.lstm import grouped_lstm_recurrence_plain
+
+    gen = torch.Generator().manual_seed(seed)
+    w = ((torch.rand(g, 4 * h, h, generator=gen) * 2 - 1) / h ** 0.5).to(cuda)
+    xp = torch.randn(g, b * f, t, 4 * h, generator=gen).to(cuda)
+    with torch.no_grad():
+        _, saved = grouped_lstm_recurrence_plain(xp, w, save=True)
+    lay = lambda a: a.reshape(g, b, f, t, -1).transpose(2, 3).contiguous()  # noqa: E731
+    g_ys = torch.randn(g, b * f, t, h, generator=gen).to(cuda)
+    return lay(g_ys), lay(saved), w
+
+
+@pytest.mark.parametrize("g,b,f,t,h,plan_a", [
+    (1, 1, 7, 30, 16, True), (1, 16, 161, 801, 96, True),      # FullSubNet's sub band
+    (2, 4, 1, 40, 256, False), (2, 32, 1, 501, 1024, False),   # DCCRN's grouped LSTM
+    (1, 16, 1, 801, 256, False), (1, 2, 3, 20, 300, False)])  # the full band; F rows a step
+def test_lstm_backward_kernel_matches_plain(cuda, g, b, f, t, h, plan_a):
+    """K9b against its plain version at a small and a full shape of each
+    plan (DCCRN's training shape, B = 16: 2 groups x 32 rows x 501 steps
+    at H = 1024; FullSubNet's sub band at B = 16: 16 x 161 rows x 801
+    steps at H = 96, and its full band, 16 rows at H = 256): an fp32
+    reverse recursion summed in another order -> 1e-5 of dxp's scale."""
+    from aec_tpu_torch.kernels.lstm_bwd import card_plan, lstm_backward, lstm_backward_plain
+
+    g_ys, saved, w = _bwd_case(cuda, g, b, f, t, h)
+    before = lstm_backward.launches
+    with torch.no_grad():
+        got = lstm_backward(g_ys, saved, w)
+        torch.cuda.synchronize()
+        want = lstm_backward_plain(g_ys, saved, w)
+    assert lstm_backward.launches == before + 1
+    assert got.shape == (g, b, t, f, 4 * h)
+    assert (card_plan(g, b * f, h, cuda).nchunk == 1) == plan_a
+    torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+
+
+def test_lstm_backward_kernel_refuses_what_it_cannot_take(cuda):
+    """A CUDA call K9b cannot take raises and never runs the plain loop:
+    another dtype, a strided cotangent, mismatched shapes, the CPU and the
+    card mixed."""
+    from aec_tpu_torch.kernels.lstm_bwd import lstm_backward
+
+    g_ys, saved, w = _bwd_case(cuda, 2, 2, 1, 8, 16)
+    before = lstm_backward.launches
+    with pytest.raises(TypeError):
+        lstm_backward(g_ys.double(), saved.double(), w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_backward(g_ys.transpose(1, 2).contiguous().transpose(1, 2), saved, w)
+    with pytest.raises(ValueError, match="want"):
+        lstm_backward(g_ys, saved[..., :-1].contiguous(), w)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lstm_backward(g_ys, saved, w.cpu())
+    assert lstm_backward.launches == before
+
+
+@pytest.mark.parametrize("b,width", [(1, 128), (16, 2048)])
+def test_lstm_kernel_saving_gates_leaves_ys_bit_equal(cuda, b, width):
+    """K9 with its gates saved gives the same ys bit for bit, at a narrow
+    net and DCCRN's width at B = 16 (R = 32 rows); the saved gates and c
+    are the plain saving recurrence's within 1e-5."""
+    from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence, grouped_projection, stacked
+    from aec_tpu_torch.ops.lstm import grouped_lstm_recurrence_plain
+
+    params, r, i = _clstm_case(cuda, b, 80, width=width)
+    with torch.no_grad():
+        xp = grouped_projection(params, torch.cat([r, i], 0)).contiguous()
+        w = stacked(params, "w_hh")
+        ys = grouped_lstm_recurrence(xp, w)
+        ys_s, saved = grouped_lstm_recurrence(xp, w, save=True)
+        torch.cuda.synchronize()
+        _, want = grouped_lstm_recurrence_plain(xp, w, save=True)
+    assert torch.equal(ys, ys_s)
+    torch.testing.assert_close(saved, want, atol=1e-5, rtol=0)
+
+
+def test_lstm_route_at_batch_16_launches_k9_and_k9b(cuda):
+    """complex_lstm_scan's route at B = 16 (K9 saving its gates, then K9b
+    and the products) against the plain route differentiated by autograd:
+    both inputs and the 8 parameters within 1e-4 of each leaf's scale (the
+    zoo's gradient bar); launches K9 / K9b 1 / 1, the plain route 0 / 0."""
+    from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.kernels.lstm_bwd import lstm_backward
+    from aec_tpu_torch.ops.lstm import complex_lstm_scan
+
+    params, r, i = _clstm_case(cuda, 16, 70, width=256)
+    leaves = [r, i] + [params[g][k] for g in ("real", "imag")
+                       for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    for t in leaves:
+        t.requires_grad_()
+    cot = [torch.randn(16, 70, 128, device=cuda) for _ in range(2)]
+    grads, counts = {}, {}
+    for fused in (None, False):
+        before = grouped_lstm_recurrence.launches, lstm_backward.launches
+        out = complex_lstm_scan(params, r, i, fused=fused)
+        grads[fused] = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cot)), leaves)
+        counts[fused] = (grouped_lstm_recurrence.launches - before[0],
+                         lstm_backward.launches - before[1])
+    assert counts == {None: (1, 1), False: (0, 0)}
+    for a, w in zip(grads[None], grads[False]):
+        torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=0)
 
 
 def test_dccrn_enhancer_runs_k1_and_k9(cuda, scene, tmp_path):
@@ -1329,8 +1435,8 @@ def test_fullsubnet_kernel_refuses_what_it_cannot_take(cuda):
 
 def test_fullsubnet_routes_and_gradients(cuda):
     """fullsubnet_masks on a CUDA tensor runs K11 once (joint_kernel=False
-    none); the Function's gradients (recomputed through the plain loop)
-    equal the plain route's to 1e-5 of each leaf's scale."""
+    none); the Function's gradients (K9b over each band on the gates K11
+    saved) equal the plain route's to 1e-5 of each leaf's scale."""
     from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
     from aec_tpu_torch.models.fullsubnet import FullSubNetConfig, fullsubnet_masks
 
@@ -1352,6 +1458,49 @@ def test_fullsubnet_routes_and_gradients(cuda):
     assert counts == {None: 1, False: 0}
     for a, w in zip(grads[None], grads[False]):
         torch.testing.assert_close(a, w, atol=1e-5 * float(w.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("fb,sb,b,t", [(32, 16, 1, 40), (256, 96, 16, 60), (30, 18, 2, 20)])
+def test_fullsubnet_kernel_saving_leaves_ys_bit_equal(cuda, fb, sb, b, t):
+    """K11 with what the backward reads saved gives the same sub-band
+    sequence bit for bit (at a narrow net, FullSubNetConfig()'s widths at B =
+    16, and H_fb 30, padded to 32 by the wrapper); what it saves is the
+    plain saving loop's within 1e-5."""
+    from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
+    from aec_tpu_torch.models.fullsubnet import _joint_scan_hs
+
+    params, xp_fb, xp_sb = _fsn_case(cuda, fb, sb, b, t)
+    with torch.no_grad():
+        ys = joint_recurrence(params, xp_fb, xp_sb)
+        got = joint_recurrence(params, xp_fb, xp_sb, save=True)
+        torch.cuda.synchronize()
+        want = _joint_scan_hs(params, xp_fb, xp_sb, save=True)
+    assert torch.equal(ys, got[0])
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        torch.testing.assert_close(a, w, atol=1e-5 * max(1.0, float(w.abs().max())), rtol=0)
+
+
+def test_fullsubnet_route_at_batch_4_launches_k11_and_k9b_twice(cuda):
+    """fsn_joint_fused at FullSubNetConfig()'s widths, B = 4, T = 60: K11
+    saving, then K9b over the sub band and over the full band, against the
+    plain joint loop differentiated by autograd: both projections and the 5
+    weights within 1e-4 of each leaf's scale; launches K11 / K9b 1 / 2."""
+    from aec_tpu_torch.kernels.fullsubnet import _LEAVES, fsn_joint_fused, joint_recurrence
+    from aec_tpu_torch.kernels.lstm_bwd import lstm_backward
+    from aec_tpu_torch.models.fullsubnet import _joint_scan_hs
+
+    params, xp_fb, xp_sb = _fsn_case(cuda, 256, 96, 4, 60)
+    leaves = [xp_fb, xp_sb] + [params[a][k] for a, k in _LEAVES]
+    for v in leaves:
+        v.requires_grad_()
+    cot = torch.randn(4, 60, 161, 96, device=cuda)
+    before = joint_recurrence.launches, lstm_backward.launches
+    got = torch.autograd.grad(fsn_joint_fused(params, xp_fb, xp_sb), leaves, cot)
+    assert (joint_recurrence.launches - before[0], lstm_backward.launches - before[1]) == (1, 2)
+    want = torch.autograd.grad(_joint_scan_hs(params, xp_fb, xp_sb), leaves, cot)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=0)
 
 
 def _int8_case(cuda, h, b, t, seed=0):
@@ -1504,8 +1653,8 @@ def test_zoo_train_step_runs_its_kernel(cuda, scene, family):
     K11 once, the plain route (``lstm_fused=False`` / ``joint_kernel=False``)
     neither, and the kernel route's loss (rtol 1e-4), gradients and new
     BatchNorm state match the plain route's. Each gradient leaf within 1e-4
-    of its scale (K8's gradient bar; both backwards recompute the plain
-    scan), but the conv biases before a BatchNorm, whose exact gradient is
+    of its scale (K8's gradient bar; the kernel route's backward on K9b),
+    but the conv biases before a BatchNorm, whose exact gradient is
     zero (``bias_keys_before_batch_norm``), within 1e-3 of the largest
     leaf's scale in both routes; each statistic within 1e-5 of its
     BatchNorm's scale."""
