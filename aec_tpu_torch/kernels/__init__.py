@@ -26,8 +26,11 @@ PyTorch version (counterpart of ``aec_tpu/kernels``).
   W_hh held on chip, packed once per weight tensor, the gates saved for the
   backward), and its autograd Function;
 - ``lstm_bwd`` — K9b, the LSTM recurrence's backward on the gates K9 and
-  K11 save (``csrc/lstm_bwd.cu``, W_hh's columns on chip);
-- ``lstm_bwd_costs`` — a card tool that times K9b under each warp layout;
+  K11 save (``csrc/lstm_bwd.cu``, W_hh on chip, the inputs streamed by
+  TMA; by plan dxp kept in the CTA, pushed through a cluster or taken
+  from device memory, or the product split over k);
+- ``lstm_bwd_costs`` — a card tool that times K9b's step whole and with
+  each part cut out;
 - ``lstm_int8`` — K10, the int8 LSTM recurrence of ATT-CCRN's bottleneck
   (``csrc/lstm_int8.cu``, the codes held on chip, quantized and laid out
   once per weight tensor);

@@ -69,6 +69,15 @@
 // so a step is shorter than K8's. The weight gradients are plain products
 // over the B T rows, left to the wrapper (as XLA leaves them outside the
 // loop).
+//
+// K8b at H = 128 (P = 4, C = 32: 512 threads under __launch_bounds__(512),
+// so at most 128 registers a lane) cannot hold all 96 registers of W beside
+// a step's state: ptxas spilled that instantiation (PERF.md §6). There
+// the last kBwdSmemChunks float4 chunks of a lane's W (of gate n's column:
+// the packing's tail) live in shared memory, laid out as the packing is
+// (chunk-major, then thread: conflict-free), and are read each step; the
+// summation order is unchanged, so the result is bit-equal to the all-
+// register plan. H <= 64 keeps every chunk in registers.
 
 #include <cuda_runtime.h>
 
@@ -79,6 +88,9 @@
 namespace {
 
 constexpr int kMaxHidden = 128;
+// K8b at C = 32: float4 chunks of a lane's W in shared memory, the rest in
+// registers (PERF.md §6 has its time beside the all-register plan's)
+constexpr int kBwdSmemChunks = 4;
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -87,6 +99,18 @@ __device__ __forceinline__ float dot4(float4 w, float4 v, float a) {
   a = fmaf(w.y, v.y, a);
   a = fmaf(w.z, v.z, a);
   return fmaf(w.w, v.w, a);
+}
+
+// a float4 of shared memory, read where it stands in the code: the compiler
+// may not hoist it out of the step loop into registers (which a plain load
+// of a loop-invariant value invites, undoing a share of W kept in shared memory)
+__device__ __forceinline__ float4 ld_shared4(const float4* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p)))
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -240,7 +264,8 @@ gru_kernel(const float* __restrict__ xp, const float4* __restrict__ wpk,
 // j of W_g, W_hh[g H + 4 (l + P i) + e, j], zero past H (pack_gru_lanes of
 // the per-gate transpose). gys, ys (B, T, H); gates (B, T, 4H) from K8's
 // SAVE launch; h0 (B, H); out: dxp (B, T, 3H), dhn (B, T, H), dh0 (B, H).
-template <int P, int C>
+// SM: the packing's last SM chunks (gate n's) in dynamic shared memory.
+template <int P, int C, int SM>
 __global__ void __launch_bounds__(P == 1 ? 32 : 4 * kMaxHidden)
 gru_bwd_kernel(const float* __restrict__ gys, const float* __restrict__ gates,
                const float* __restrict__ ys, const float* __restrict__ h0,
@@ -248,10 +273,13 @@ gru_bwd_kernel(const float* __restrict__ gys, const float* __restrict__ gates,
                float* __restrict__ dhn, float* __restrict__ dh0, int t_steps, int hidden) {
   static_assert(P == 1 || P == 4, "one lane or a team of four per unit");
   constexpr int C4 = C / 4;
+  constexpr int NR = 3 * C4 - SM;  // chunks in registers
+  static_assert(SM >= 0 && SM <= C4, "shared chunks come from gate n's column");
   // steps of inputs loaded ahead into registers (P = 4: 16 warps, 128 registers a lane)
   constexpr int kAhead = P == 1 ? 2 : 1;
   // [dr^, dz^, d_hn] of a step by unit, double-buffered, zero past H
   __shared__ __align__(16) float dbuf[2][3][P * C];
+  extern __shared__ float4 wsm[];  // (SM, threads)
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int j = tid / P, l = tid % P;
   const bool live = j < hidden;
@@ -261,13 +289,12 @@ gru_bwd_kernel(const float* __restrict__ gys, const float* __restrict__ gates,
   const float* yrow = ys + row * t_steps * hidden + u;
   const float* gt = gates + row * t_steps * 4 * hidden + u;
 
-  float4 w[3][C4];
+  float4 w[NR > 0 ? NR : 1];
 #pragma unroll
-  for (int g = 0; g < 3; ++g)
+  for (int k = 0; k < NR; ++k) w[k] = wpk_t[k * nthr + tid];
 #pragma unroll
-    for (int i = 0; i < C4; ++i) w[g][i] = wpk_t[(g * C4 + i) * nthr + tid];
+  for (int k = 0; k < SM; ++k) wsm[k * nthr + tid] = wpk_t[(NR + k) * nthr + tid];
   for (int i = tid; i < 2 * 3 * P * C; i += nthr) (&dbuf[0][0][0])[i] = 0.f;
-
   // the inputs of step t: g_ys, r, z, n, hn, h_{t-1} (h0 at t = 0)
   const auto load = [&](int t, float* q) {
     if (t < 0) return;
@@ -335,8 +362,10 @@ gru_bwd_kernel(const float* __restrict__ gys, const float* __restrict__ gates,
     for (int i = 0; i < C4; ++i)
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
+        const int k = g * C4 + i;  // the chunk's place in the packing
         const float4 v = reinterpret_cast<const float4*>(dbuf[t & 1][g])[l + P * i];
-        acc[g][i & 1] = dot4(w[g][i], v, acc[g][i & 1]);
+        const float4 wk = k < NR ? w[k < NR ? k : 0] : ld_shared4(wsm + (k - NR) * nthr + tid);
+        acc[g][i & 1] = dot4(wk, v, acc[g][i & 1]);
       }
     float s = ((acc[0][0] + acc[0][1]) + (acc[1][0] + acc[1][1])) + (acc[2][0] + acc[2][1]);
     if constexpr (P == 4) {  // the team's sum, the same bits in every lane
@@ -372,8 +401,18 @@ template <int P, int C>
 cudaError_t launch_bwd(const float* gys, const float* gates, const float* ys, const float* h0,
                        const float* wpk_t, float* dxp, float* dhn, float* dh0, int batch,
                        int t_steps, int hidden, cudaStream_t stream) {
-  gru_bwd_kernel<P, C><<<batch, units_of<P>(hidden) * P, 0, stream>>>(
-      gys, gates, ys, h0, reinterpret_cast<const float4*>(wpk_t), dxp, dhn, dh0, t_steps, hidden);
+  constexpr int SM = P == 4 && C == 32 ? kBwdSmemChunks : 0;
+  const int threads = units_of<P>(hidden) * P;
+  const size_t smem = size_t(SM) * threads * sizeof(float4);
+  auto kernel = gru_bwd_kernel<P, C, SM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<batch, threads, smem, stream>>>(gys, gates, ys, h0,
+                                           reinterpret_cast<const float4*>(wpk_t), dxp, dhn, dh0,
+                                           t_steps, hidden);
   return cudaGetLastError();
 }
 

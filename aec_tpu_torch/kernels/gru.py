@@ -177,6 +177,47 @@ def gru_recurrence_split(xp: torch.Tensor, packed: torch.Tensor, b_hn: torch.Ten
     return torch.stack(hs, dim=1)
 
 
+def gru_backward_split(g_ys: torch.Tensor, gates: torch.Tensor, ys: torch.Tensor,
+                       h0: torch.Tensor, packed_t: torch.Tensor):
+    """K8b's arithmetic in the kernel's summation order, from its packed
+    weights ``packed_t`` (:func:`pack_gru_lanes` of W_hh's per-gate
+    transpose, wherever a lane keeps a chunk: registers or, at H = 128, the
+    shared tail of gate n's column): each lane's partial of sum_g W_g^T d_g
+    over its float4 chunks l + P i into two accumulators a gate by the
+    parity of i, the gates' pairs added ((r + z) + n), a team of four summed
+    as the kernel's xor shuffles do, (s0 + s1) + (s2 + s3), then z dh added.
+    A model for the CPU tests (fp32, no fused multiply-add): the same
+    contract as :func:`gru_backward_plain`."""
+    b, t_steps, hidden = g_ys.shape
+    p, c, units = lane_plan(hidden)
+    c4 = c // 4
+    w = packed_t.reshape(3, c4, units, p, 4)  # [g, i, j, l, e]
+    carry = h0.new_zeros((b, hidden))
+    dxps, dhns = [], []
+    for t in range(t_steps - 1, -1, -1):
+        dh = carry + g_ys[:, t]
+        r, z, n, hn = torch.split(gates[:, t], hidden, dim=-1)
+        hp = ys[:, t - 1] if t > 0 else h0
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dz = dh * (hp - n) * z * (1.0 - z)
+        dr = dn * hn * r * (1.0 - r)
+        dhn = dn * r
+        d = F.pad(torch.stack([dr, dz, dhn], dim=1), (0, p * c - hidden))
+        d = d.reshape(b, 3, c4, p, 4)  # float4 chunk i P + l of gate g at [:, g, i, l]
+        acc = [h0.new_zeros((b, 3, units, p)) for _ in range(2)]
+        for i in range(c4):
+            prod = w[:, i][None] * d[:, :, i][:, :, None]  # (b, 3, units, p, 4)
+            a = acc[i % 2]
+            acc[i % 2] = (((a + prod[..., 0]) + prod[..., 1]) + prod[..., 2]) + prod[..., 3]
+        s = acc[0] + acc[1]
+        s = (s[:, 0] + s[:, 1]) + s[:, 2]  # (b, units, p)
+        s = (s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3]) if p == 4 else s[..., 0]
+        carry = s[:, :hidden] + z * dh
+        dxps.append(torch.cat([dr, dz, dn], dim=-1))
+        dhns.append(dhn)
+    return torch.stack(dxps[::-1], dim=1), torch.stack(dhns[::-1], dim=1), carry
+
+
 def folded_projection(params: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """``x W_ih^T + b_ih + [b_hr; b_hz; 0]`` (B, T, 3H): the hoisted input
     projection with the hidden bias's additive halves folded in (they add to

@@ -5,8 +5,9 @@
 Runs ``aec_tpu_torch`` (never JAX): builds the eleven CUDA sources in the
 checkout (fourteen kernels: the twelve TPU kernels', K8b, K8's backward,
 and K9b, the LSTM backward), and the cut variants that ``kernels/lstm_costs.py``
-(K9, K10), ``kernels/single_costs.py`` (K6 / K7) and ``kernels/fsn_costs.py``
-(K11) time, all in parallel, and drives every user-facing path.
+(K9, K10), ``kernels/single_costs.py`` (K6 / K7), ``kernels/fsn_costs.py``
+(K11) and ``kernels/lstm_bwd_costs.py`` (K9b) time, all in parallel, and
+drives every user-facing path.
 
 - Offline Kalman (phases 4, 5, 7): each kernel against its plain PyTorch
   version at the main path's full shape (batch 256 x 131,072 samples =
@@ -52,7 +53,9 @@ and K9b, the LSTM backward), and the cut variants that ``kernels/lstm_costs.py``
   backward) against its plain version, and the route's gradients against
   the plain route's; the recurrence and the whole forward beside cuDNN's
   ``nn.GRU`` in turns, with the ratios, and at the batches the route's
-  forward and its forward and backward (K8 + K8b) beside cuDNN's; LittleNet's
+  forward and its forward and backward (K8 + K8b) beside cuDNN's, and at
+  H = 128 K8b beside cuDNN's backward alone with ptxas's registers and
+  spills for K8b's plan there; LittleNet's
   GRU gradients at 1 and 16 x 501 through K8 and K8b against the plain
   route; the trainer of a width-1 LittleNet at ``TrainConfig()``: 5 steps
   at batch 16 x 8 s (K8 and K8b once each; the first against the CPU
@@ -90,7 +93,10 @@ and K9b, the LSTM backward), and the cut variants that ``kernels/lstm_costs.py``
   (16 x 501 frames) K9's ys with and without saving the gates bit for bit,
   K9b (the LSTM backward) against its plain version, the route's gradients
   against the plain route's (no plain loop entered), and the route's
-  forward and backward and its backward alone beside cuDNN's ``nn.LSTM``.
+  forward and backward and its backward alone beside cuDNN's ``nn.LSTM``;
+  K9b's split there (``kernels/lstm_bwd_costs.py``: µs a step whole and
+  without its dots, its staging of dxp, its waits, its cells) beside
+  143f1cb's design's.
 - FullSubNet inference (phase 24): K11 (the joint full-band / sub-band
   LSTM recurrence) at ``FullSubNetConfig()``'s widths over 820 frames (8.2 s
   at hop 160) at B = 1 and 4 against its plain joint loop, and in turns
@@ -103,7 +109,7 @@ and K9b, the LSTM backward), and the cut variants that ``kernels/lstm_costs.py``
   and without saving bit for bit, K9b over the sub band and the full band
   against its plain version, the route's gradients at B = 4 against the
   plain joint loop's, and its forward and backward beside the cuDNN
-  composition's.
+  composition's; K9b's split over each band beside 143f1cb's design's.
 - ATT-CCRN inference (phase 25): K10 (the int8 LSTM recurrence) at the
   bottleneck's H = 4096, T = 513 against the plain int8 loop, with the count
   of h's int8 codes that differ, its time per step, where its codes lie, the
@@ -248,6 +254,18 @@ LARGEST_L = {"K1": (24, 39), "K12": (24, 39), "K5": (27, 43), "K6": (29, 56), "K
              "K4": (23, 38), "K3-kalman": (23, 38), "K3-nlms": (26, 43)}
 # K9 vs plain: h lies in [-1, 1]; an fp32 recursion summed in another order
 K9_TOL = 1e-5
+# K9b's split at 143f1cb (the design before the TMA inputs, the cluster
+# exchange and the split plan): µs a step whole and with each part cut
+# out, kernels/lstm_bwd_costs.py on NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md §6); phases 22 and 24 print this run's split beside it
+K9B_PARENT_US = {
+    "dccrn": {"full": 60.93, "no_dots": 19.79, "no_stage": 43.89, "no_wait": 59.33,
+              "no_cells": 62.96},
+    "fullsubnet_sub_band": {"full": 16.75, "no_dots": 6.32, "no_stage": 15.89, "no_wait": 16.67,
+                            "no_cells": 12.55},
+    "fullsubnet_full_band": {"full": 8.79, "no_dots": 4.23, "no_stage": 6.59, "no_wait": 8.52,
+                             "no_cells": 7.60}}
+K8_REGS: dict[str, str] = {}  # ptxas's lines of K8's and K8b's instantiations, set by main()
 # the DCCRN enhancer, kernel route vs plain route: K1's round-off enters
 # DCCRN's input, which its convolutions and recurrence carry to the wav
 DCCRN_WAV_TOL = 1e-3
@@ -449,20 +467,29 @@ def stage2_bounds(batch: int, n: int, erb_terms: int) -> tuple[dict, dict]:
 
 def k8_registers(log: str) -> list[tuple[str, str]]:
     """K8's and K8b's one-CTA instantiations in the gru build log: (the
-    kernel, its lanes per unit P and weights per lane and gate C, ptxas's
-    registers and spill line)."""
+    kernel, its lanes per unit P and weights per lane and gate C, for K8b
+    the chunks of W a lane keeps in shared memory, ptxas's registers and
+    spill line)."""
     out, plan, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"gru_(bwd_)?kernelILi(\d+)ELi(\d+)E(Lb1)?", line)
+        m = re.search(r"gru_(bwd_)?kernelILi(\d+)ELi(\d+)E(?:Li(\d+)E)?(Lb1)?", line)
         if m:
-            kernel = "K8b" if m.group(1) else "K8 saving the gates" if m.group(4) else "K8"
+            kernel = "K8b" if m.group(1) else "K8 saving the gates" if m.group(5) else "K8"
             plan, spill = f"{kernel} P = {m.group(2)}, C = {m.group(3)}", ""
+            if m.group(4):  # K8b's float4 chunks of W a lane in shared memory
+                plan += f", {m.group(4)} chunks of W in shared memory"
         elif plan and "spill" in line:
             spill = line.split(":")[-1].strip()
         elif plan and "registers" in line:
             out.append((plan, f"{line.split(':', 1)[1].strip()}; {spill}"))
             plan = None
     return out
+
+
+def k8b_h128_registers() -> str:
+    """ptxas's line for K8b's H = 128 instantiation (P = 4, C = 32)."""
+    return next((f"{k}: {v}" for k, v in K8_REGS.items() if k.startswith("K8b P = 4, C = 32")),
+                "not found")
 
 
 def gru_bound(b: int, t: int, h: int) -> dict:
@@ -887,6 +914,9 @@ def gru_batch_phase(params, x, h0, gru, reps: int, smi: str, seed: int) -> dict:
           f"{fmt(bpairs[0])}, the route's {fmt(bpairs[2])}, K8b {fmt(bpairs[1])} (plain "
           f"{t_pb:.2f}); the plain route's forward and backward {t_plain:.1f} ms; K8b's bound "
           f"{k8b_bound(b, t, h)['bound_ms']:.5f} ms [{smi}]")
+    if h == 128:  # the plan with gate n's tail chunks of W in shared memory
+        phase("K8b at H = 128", f"B = {b}, T = {t}: K8b {bmed[1]:.4f} ms, cuDNN's backward alone "
+              f"{bmed[0]:.4f} ms; {k8b_h128_registers()} [{smi}]")
     return {"k8b_err": k8b_err, "route_fwd_ms": med[1], "lib_fwd_ms": med[0],
             "route_fwd_bwd_ms": med[3], "lib_fwd_bwd_ms": med[2], "lib_bwd_ms": bmed[0],
             "k8b_ms": bmed[1], "route_bwd_ms": bmed[2], "k8b_plain_ms": t_pb,
@@ -1602,7 +1632,22 @@ def lstm_phase(dev, seed: int, reps: int, smi: str, costs: list[dict]) -> dict:
     return out
 
 
-def lstm_train_phase(dev, seed: int, reps: int, smi: str) -> dict:
+def k9b_split(rows: list[dict], path: str, smi: str) -> dict:
+    """Phase 22 / 24's line of ``kernels/lstm_bwd_costs.py`` for ``path``:
+    this run's µs a step, whole and cut, beside 143f1cb's (K9B_PARENT_US);
+    -> this run's µs a step by variant."""
+    from aec_tpu_torch.kernels.lstm_bwd_costs import report
+
+    row = next(r for r in rows if r["path"] == path)
+    parent = K9B_PARENT_US[path]
+    phase("K9b split", f"{report(row)}; 143f1cb's design: " + ", ".join(
+        f"{v} {us:.2f} us" for v, us in parent.items()) + f" [{smi}]")
+    check(all(math.isfinite(v) and v > 0 for v in row["us_per_step"].values()),
+          f"K9b's split at {path}")
+    return row["us_per_step"]
+
+
+def lstm_train_phase(dev, seed: int, reps: int, smi: str, bwd_costs: list[dict]) -> dict:
     """22, training: K9 and K9b at DCCRN's training shape (B = 16 x 8 s:
     two groups of 32 rows, T = 501, I = H = 1024): K9's ys with and without
     saving the gates, bit for bit; K9b against its plain version on those
@@ -1708,7 +1753,9 @@ def lstm_train_phase(dev, seed: int, reps: int, smi: str) -> dict:
           f"{fmt(bpairs[0])}, the route's {fmt(bpairs[1])}, K9b {fmt(bpairs[2])} (plain "
           f"{t_pb:.1f}; bound {k9b_b['bound_ms']:.3f} ms, {k9b_b['bound_by']}); the plain "
           f"route's forward and backward {t_plain:.1f} ms [{smi}]")
-    return {"k9b_err": k9b_err, "k9b_ms": bmed[2], "k9b_plain_ms": t_pb, "k9b_bound": k9b_b,
+    split = k9b_split(bwd_costs, "dccrn", smi)
+    return {"k9b_split_us": {"dccrn": split}, "k9b_err": k9b_err, "k9b_ms": bmed[2],
+            "k9b_plain_ms": t_pb, "k9b_bound": k9b_b,
             "route_bwd_ms": bmed[1], "lib_bwd_ms": bmed[0], "route_fwd_bwd_ms": med[1],
             "lib_fwd_bwd_ms": med[0], "plain_fwd_bwd_ms": t_plain}
 
@@ -1892,7 +1939,7 @@ def fullsubnet_phase(dev, names, s_far, s_mic, reps: int, smi: str, costs: list[
     return out
 
 
-def fullsubnet_train_phase(dev, seed: int, reps: int, smi: str) -> dict:
+def fullsubnet_train_phase(dev, seed: int, reps: int, smi: str, bwd_costs: list[dict]) -> dict:
     """24, training: K11 and K9b at FullSubNetConfig()'s widths and the
     training shape (B = 16 x 8 s, T = 801 frames at hop 160): K11's
     sequence with and without saving what the backward reads, bit for bit;
@@ -2030,7 +2077,9 @@ def fullsubnet_train_phase(dev, seed: int, reps: int, smi: str) -> dict:
           f"{t_pb['sb']:.1f}; bound {bnd['sb']['bound_ms']:.3f} ms, {bnd['sb']['bound_by']}), "
           f"K9b full band {fmt(bpairs[3])} (plain {t_pb['fb']:.1f}; bound "
           f"{bnd['fb']['bound_ms']:.4f} ms, {bnd['fb']['bound_by']}) [{smi}]")
-    return {"k9b_err": max(e for e, _ in k9b.values()), "k9b_sb_ms": bmed[2],
+    split = {band: k9b_split(bwd_costs, band, smi)
+             for band in ("fullsubnet_sub_band", "fullsubnet_full_band")}
+    return {"k9b_split_us": split, "k9b_err": max(e for e, _ in k9b.values()), "k9b_sb_ms": bmed[2],
             "k9b_fb_ms": bmed[3], "k9b_sb_plain_ms": t_pb["sb"], "k9b_fb_plain_ms": t_pb["fb"],
             "k9b_sb_bound": bnd["sb"], "k9b_fb_bound": bnd["fb"], "route_bwd_ms": bmed[1],
             "lib_bwd_ms": bmed[0], "route_fwd_bwd_ms": med[1], "lib_fwd_bwd_ms": med[0]}
@@ -2998,7 +3047,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
-    from aec_tpu_torch.kernels import _build, fsn_costs, lstm_costs, single_costs
+    from aec_tpu_torch.kernels import _build, fsn_costs, lstm_bwd_costs, lstm_costs, single_costs
     from aec_tpu_torch.kernels.kalman import (
         kalman_cancel_fused,
         kalman_cancel_fused_batched,
@@ -3049,18 +3098,21 @@ def main() -> None:
     cost_builds = lstm_costs.start_build()  # K9 and K10 whole and without their dots
     single_builds = single_costs.start_build()  # K6 / K7 whole and without transforms
     fsn_builds = fsn_costs.start_build()  # K11 whole, its producer alone, its consumers alone
+    bwd_builds = lstm_bwd_costs.start_build()  # K9b whole and with each part of its step cut
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
                         "single_stream", "gru", "lstm", "fullsubnet", "lstm_int8", "lstm_bwd")
     cost_libs = lstm_costs.finish_build(cost_builds)
     single_libs = single_costs.finish_build(single_builds)
     fsn_libs = fsn_costs.finish_build(fsn_builds)
+    bwd_libs = lstm_bwd_costs.finish_build(bwd_builds)
     build_s = time.perf_counter() - t0
     phase("build", f"{build_s:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for src, log in sorted(logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 phase("build", f"{src}: {line.strip()}")
-    for plan, regs in k8_registers(logs.get("gru", "")):
+    K8_REGS.update(k8_registers(logs.get("gru", "")))
+    for plan, regs in K8_REGS.items():
         phase("build", f"{plan}: {regs}")
 
     cfg = KalmanConfig()
@@ -3598,14 +3650,15 @@ def main() -> None:
     limits_phase(dev, net, args.seed, smi)
     with torch.no_grad():
         step_costs = lstm_costs.costs(cost_libs, args.reps, args.seed)
+        bwd_costs = lstm_bwd_costs.costs(bwd_libs, args.reps, args.seed)
     lstm = lstm_phase(dev, args.seed, args.reps, smi, step_costs)
-    lstm_train = lstm_train_phase(dev, args.seed, args.reps, smi)
+    lstm_train = lstm_train_phase(dev, args.seed, args.reps, smi, bwd_costs)
     dccrn = dccrn_phase(dev, names, s_far, s_mic, args.reps, smi)
     # 24-25. K11 and the FullSubNet path; K10 and the ATT-CCRN path
     with torch.no_grad():
         fsn_parts = fsn_costs.costs(fsn_libs, args.reps, args.seed)
     fsn = fullsubnet_phase(dev, names, s_far, s_mic, args.reps, smi, fsn_parts)
-    fsn_train = fullsubnet_train_phase(dev, args.seed, args.reps, smi)
+    fsn_train = fullsubnet_train_phase(dev, args.seed, args.reps, smi, bwd_costs)
     att = att_ccrn_phase(dev, names, s_far, s_mic, args.reps, smi, step_costs)
     # 26. zoo training: every cli/train family and the DCT nets at batch 16 x 8 s
     zoo = zoo_phase(dev, args.seed, args.reps, smi)
@@ -3724,7 +3777,11 @@ def main() -> None:
                            "two_layer_gru_step": zoo["two_layer_gru"]["step_launches"][3],
                            "cached_trainer": data["k8b_cached"]},
         "route_bwd_ms": k8b["route_bwd_ms"], "route_fwd_bwd_ms": k8b["route_fwd_bwd_ms"],
-        "library_fwd_bwd_ms": k8b["lib_fwd_bwd_ms"]}
+        "library_fwd_bwd_ms": k8b["lib_fwd_bwd_ms"],
+        # B = 16 x 501 at H = 128 (gate n's tail chunks of W in shared
+        # memory): K8b, cuDNN's backward alone, ptxas's line
+        "h128": {k: gru["shapes"][(16, 501, 128)][k] for k in ("k8b_ms", "lib_bwd_ms")}
+        | {**k8b_bound(16, 501, 128), "registers": k8b_h128_registers()}}
     # phase 28's mesh routes at world size 1: batch_enhance --mesh, the
     # stateful steps with the mesh, the dry run's serving step
     extra["kalman_batched"]["cli_launches"]["batch_enhance_mesh"] = par["kalman_mesh_launches"]
@@ -3745,6 +3802,8 @@ def main() -> None:
            for fam in ("dccrn", "fullsubnet")}
         | {f"{fam}_mesh_step": par[f"{fam}_mesh_k9b_launches"] for fam in ("dccrn", "fullsubnet")},
         "route_bwd_ms": lstm_train["route_bwd_ms"],
+        # µs a step whole and with each part cut (kernels/lstm_bwd_costs.py)
+        "split_us": {**lstm_train["k9b_split_us"], **fsn_train["k9b_split_us"]},
         "route_fwd_bwd_ms": lstm_train["route_fwd_bwd_ms"],
         "library_fwd_bwd_ms": lstm_train["lib_fwd_bwd_ms"],
         # FullSubNet's two passes at B = 16, T = 801

@@ -642,7 +642,8 @@ def _saved_case(cuda, b, t, h, seed=0):
     return torch.randn(b, t, h, generator=g).to(cuda), gates, ys, h0, params["w_hh"]
 
 
-@pytest.mark.parametrize("b,t,h", [(1, 1001, 32), (16, 501, 32), (16, 501, 64), (8, 501, 128)])
+@pytest.mark.parametrize("b,t,h", [(1, 1001, 32), (16, 501, 32), (16, 501, 64), (8, 501, 128),
+                                   (16, 501, 128)])
 def test_gru_backward_kernel_matches_plain(cuda, b, t, h):
     """K8b against its plain version on the gates K8 saved, a random
     cotangent at every step: dxp, d_hn and dh0 each within 1e-4 of its
@@ -1247,11 +1248,11 @@ def _bwd_case(cuda, g, b, f, t, h, seed=0):
     return lay(g_ys), lay(saved), w
 
 
-@pytest.mark.parametrize("g,b,f,t,h,plan_a", [
-    (1, 1, 7, 30, 16, True), (1, 16, 161, 801, 96, True),      # FullSubNet's sub band
-    (2, 4, 1, 40, 256, False), (2, 32, 1, 501, 1024, False),   # DCCRN's grouped LSTM
-    (1, 16, 1, 801, 256, False), (1, 2, 3, 20, 300, False)])  # the full band; F rows a step
-def test_lstm_backward_kernel_matches_plain(cuda, g, b, f, t, h, plan_a):
+@pytest.mark.parametrize("g,b,f,t,h,mode", [
+    (1, 1, 7, 30, 16, "local"), (1, 16, 161, 801, 96, "local"),     # FullSubNet's sub band
+    (2, 4, 1, 40, 256, "cluster"), (2, 32, 1, 501, 1024, "split"),  # DCCRN's grouped LSTM
+    (1, 16, 1, 801, 256, "cluster"), (1, 2, 3, 20, 300, "cluster")])  # the full band; F rows
+def test_lstm_backward_kernel_matches_plain(cuda, g, b, f, t, h, mode):
     """K9b against its plain version at a small and a full shape of each
     plan (DCCRN's training shape, B = 16: 2 groups x 32 rows x 501 steps
     at H = 1024; FullSubNet's sub band at B = 16: 16 x 161 rows x 801
@@ -1267,7 +1268,54 @@ def test_lstm_backward_kernel_matches_plain(cuda, g, b, f, t, h, plan_a):
         want = lstm_backward_plain(g_ys, saved, w)
     assert lstm_backward.launches == before + 1
     assert got.shape == (g, b, t, f, 4 * h)
-    assert (card_plan(g, b * f, h, cuda).nchunk == 1) == plan_a
+    assert card_plan(g, b * f, h, cuda).mode == mode
+    torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("g,b,f,t,h,mode,what", [
+    (2, 5, 1, 30, 1024, "split", "5 rows: one pass of 16 rows, 11 of them empty"),
+    (2, 18, 1, 12, 1024, "split", "18 rows: two passes of 16"),
+    (1, 5, 1, 20, 1200, "grid", "H = 1200, past the split plan: blocks of one row"),
+    (2, 3, 1, 20, 2048, "grid", "H = 2048, some of W from L2"),
+    (1, 3, 1, 20, 256, "cluster", "3 rows over a cluster of 16"),
+    (1, 4, 161, 9, 96, "local", "sub-band runs of 5 rows crossing sequences of 161"),
+    (2, 4, 1, 1, 1024, "split", "T = 1"),
+    (1, 16, 1, 1, 256, "cluster", "T = 1"),
+    (1, 3, 7, 1, 96, "local", "T = 1"),
+    (2, 4, 1, 20, 1000, "split", "H = 1000 over 63 chunks of 16 units"),
+    (1, 4, 1, 20, 300, "cluster", "H = 300 over 15 chunks of 20 units"),
+    (1, 4, 1, 20, 200, "cluster", "H = 200 over 13 chunks of 16 units, the last padded"),
+    (1, 3, 1, 20, 30, "local", "H = 30, padded to 32 with zero units")])
+def test_lstm_backward_kernel_at_edge_shapes(cuda, g, b, f, t, h, mode, what):
+    """K9b against its plain version where its plans meet their edges,
+    within 1e-5 of dxp's scale."""
+    from aec_tpu_torch.kernels.lstm_bwd import card_plan, lstm_backward, lstm_backward_plain
+
+    g_ys, saved, w = _bwd_case(cuda, g, b, f, t, h)
+    with torch.no_grad():
+        got = lstm_backward(g_ys, saved, w)
+        torch.cuda.synchronize()
+        want = lstm_backward_plain(g_ys, saved, w)
+    assert card_plan(g, b * f, h, cuda).mode == mode, what
+    assert got.shape == (g, b, t, f, 4 * h)
+    torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0, msg=what)
+
+
+@pytest.mark.parametrize("mode", ["local", "cluster", "grid", "split"])
+@pytest.mark.parametrize("g,b,f,t,h", [(2, 3, 1, 20, 32), (1, 3, 5, 9, 64)])
+def test_lstm_backward_kernel_takes_every_plan(cuda, mode, g, b, f, t, h):
+    """Each exchange (``_plan(mode, ...)``) at small shapes, the kernel
+    against its plain version within 1e-5 of dxp's scale."""
+    from aec_tpu_torch.kernels import lstm_bwd as kb
+
+    g_ys, saved, w = _bwd_case(cuda, g, b, f, t, h)
+    props = torch.cuda.get_device_properties(cuda)
+    plan = kb._plan(mode, g, b * f, h, props.multi_processor_count,
+                    props.shared_memory_per_block_optin)
+    with torch.no_grad():
+        got = kb.launch(plan, g_ys, saved, list(w))
+        torch.cuda.synchronize()
+        want = kb.lstm_backward_plain(g_ys, saved, w)
     torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
 
 

@@ -21,10 +21,12 @@ from aec_tpu_torch.kernels.gru import (
     folded_projection,
     gru_backward,
     gru_backward_plain,
+    gru_backward_split,
     gru_recurrence,
     gru_recurrence_plain,
     pack_gru_lanes,
     packed_lanes,
+    unpack_gru_lanes,
 )
 from aec_tpu_torch.models import little_net as little_net_mod
 from aec_tpu_torch.models.little_net import little_net_init, little_net_loss
@@ -159,6 +161,45 @@ def test_packed_lanes_are_cached_per_weight_version(hidden):
     assert again is not k8 and torch.equal(again, pack_gru_lanes(w))
     clear_cache()
     assert packed_lanes(w) is not again
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 128])
+def test_backward_model_in_the_kernels_order_matches_plain_and_jax(rng, monkeypatch, hidden):
+    """K8b's layout and summation order (gru_backward_split, from the packing
+    of W_hh's per-gate transpose, which at H = 128 the kernel splits between
+    registers and shared memory): the packing round-trips, the model agrees
+    with gru_backward_plain within 1e-5 of each output's scale over 60
+    reverse steps, and the fused route with the model in K8b's place agrees
+    with JAX's custom VJP (pallas_gru.py:159-166) within 1e-5 of each leaf's
+    scale."""
+    w_hh = (rng.uniform(-1, 1, (3 * hidden, hidden)) / np.sqrt(hidden)).astype(np.float32)
+    w = torch.from_numpy(w_hh)
+    w_t = w.reshape(3, hidden, hidden).transpose(1, 2).reshape(3 * hidden, hidden)
+    packed = pack_gru_lanes(w_t)
+    assert torch.equal(unpack_gru_lanes(packed, hidden), w_t)
+    b, t = 3, 60
+    xp = torch.from_numpy(rng.standard_normal((b, t, 3 * hidden)).astype(np.float32))
+    b_hn = torch.from_numpy((0.1 * rng.standard_normal(hidden)).astype(np.float32))
+    h0 = torch.from_numpy((0.5 * rng.standard_normal((b, hidden))).astype(np.float32))
+    g_ys = torch.from_numpy(rng.standard_normal((b, t, hidden)).astype(np.float32))
+    ys, gates = gru_recurrence_plain(xp, w, b_hn, h0, save=True)
+    got = gru_backward_split(g_ys, gates, ys, h0, packed)
+    for a, want in zip(got, gru_backward_plain(g_ys, gates, ys, h0, w)):
+        assert float((a - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    def modeled(g_ys, gates, ys, h0, w_hh):
+        w_t = w_hh.reshape(3, hidden, hidden).transpose(1, 2).reshape(3 * hidden, hidden)
+        modeled.calls += 1
+        return gru_backward_split(g_ys, gates, ys, h0, pack_gru_lanes(w_t))
+
+    modeled.calls = 0
+    import aec_tpu_torch.kernels.gru as kg
+    monkeypatch.setattr(kg, "gru_backward_plain", modeled)
+    params, x, h0n, gy, g_h = _case(rng, 2, 66, 32, hidden)
+    got = _port_grads(params, x, h0n, gy, g_h, fused=True)
+    assert modeled.calls == 1
+    err, leaf = _worst_of_scale(got, _jax_grads(params, x, h0n, gy, g_h))
+    assert err <= 1e-5, f"{leaf} off JAX's custom VJP by {err:.3e} of its scale"
 
 
 def test_wide_backward_recomputes_the_plain_scan(rng):
