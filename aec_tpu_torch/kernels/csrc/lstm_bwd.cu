@@ -124,6 +124,21 @@ constexpr int kSplitRows = 16;  // split: rows a pass of the dots (sums a column
 // on the H100: fewer spills beside the 32 sums of a pass; PERF.md §6)
 constexpr int kSplitRegs = 48;
 
+// A build for kernels/lstm_bwd_costs.py's cut variants holds only the
+// instantiations of the plans it times: AEC_KEEP is then a mask over (mode,
+// columns a warp CW, rows a sweep RT), bit mode * 20 + log2(CW) * 4 +
+// log2(RT), the split plan's bit 60 + log2(CW); a launch of any other
+// instantiation returns cudaErrorInvalidValue. The route's build keeps all.
+constexpr int log2i(int v) { return v <= 1 ? 0 : 1 + log2i(v / 2); }
+constexpr bool kept(int mode, int cw, int rt) {
+#ifdef AEC_KEEP
+  const int bit = mode == kSplit ? 60 + log2i(cw) : mode * 20 + log2i(cw) * 4 + log2i(rt);
+  return (static_cast<unsigned long long>(AEC_KEEP) >> bit) & 1ull;
+#else
+  return mode >= 0 && cw > 0 && rt > 0;
+#endif
+}
+
 struct BwdArgs {
   const float* __restrict__ g_ys;   // (G, B, T, F, H)
   const float* __restrict__ saved;  // (G, B, T, F, 5H): i, f, g, o, c of each step
@@ -792,28 +807,36 @@ inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int ctas, in
 template <int CPT>
 cudaError_t split_launch(const BwdArgs& a, float* part, int ctas, size_t smem, int device,
                          cudaStream_t stream) {
-  auto kernel = lstm_bwd_split_kernel<CPT>;
-  cudaError_t err = set_smem(kernel, smem, 1, device);
-  if (err != cudaSuccess) return err;
-  BwdArgs args = a;
-  void* params[] = {&args, &part};
-  return coop_launch(kernel, params, ctas, smem, device, stream);
+  if constexpr (!kept(kSplit, CPT, 1)) {
+    return cudaErrorInvalidValue;
+  } else {
+    auto kernel = lstm_bwd_split_kernel<CPT>;
+    cudaError_t err = set_smem(kernel, smem, 1, device);
+    if (err != cudaSuccess) return err;
+    BwdArgs args = a;
+    void* params[] = {&args, &part};
+    return coop_launch(kernel, params, ctas, smem, device, stream);
+  }
 }
 
 template <int MODE, int CW, int RT>
 cudaError_t bwd_launch(const BwdArgs& a, int ctas, size_t smem, int device, cudaStream_t stream) {
-  auto kernel = lstm_bwd_kernel<MODE, CW, RT>;
-  cudaError_t err = set_smem(kernel, smem, MODE == kCluster ? a.nchunk : 1, device);
-  if (err != cudaSuccess) return err;
-  BwdArgs args = a;
-  void* params[] = {&args};
-  if (MODE == kGrid) return coop_launch(kernel, params, ctas, smem, device, stream);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(attr, ctas, MODE == kCluster ? a.nchunk : 1, smem, stream);
-  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), params);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  if constexpr (!kept(MODE, CW, RT)) {
+    return cudaErrorInvalidValue;
+  } else {
+    auto kernel = lstm_bwd_kernel<MODE, CW, RT>;
+    cudaError_t err = set_smem(kernel, smem, MODE == kCluster ? a.nchunk : 1, device);
+    if (err != cudaSuccess) return err;
+    BwdArgs args = a;
+    void* params[] = {&args};
+    if (MODE == kGrid) return coop_launch(kernel, params, ctas, smem, device, stream);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        cluster_config(attr, ctas, MODE == kCluster ? a.nchunk : 1, smem, stream);
+    err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), params);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
 }
 
 // rows a sweep: one where a call of the dots takes one row, two where the
@@ -847,16 +870,20 @@ cudaError_t bwd_launch_mode(const BwdArgs& a, int cw, int sweep, int ctas, size_
 // the clusters of `cluster` CTAs of `smem` bytes the card places at once
 template <int CW>
 int clusters_of(int cluster, size_t smem, int device) {
-  auto kernel = lstm_bwd_kernel<kCluster, CW, 1>;
-  if (set_smem(kernel, smem, cluster, device) != cudaSuccess) return 0;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(attr, cluster, cluster, smem, nullptr);
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
-    cudaGetLastError();  // clear the refusal: the answer is none
+  if constexpr (!kept(kCluster, CW, 1)) {
     return 0;
+  } else {
+    auto kernel = lstm_bwd_kernel<kCluster, CW, 1>;
+    if (set_smem(kernel, smem, cluster, device) != cudaSuccess) return 0;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(attr, cluster, cluster, smem, nullptr);
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();  // clear the refusal: the answer is none
+      return 0;
+    }
+    return n;
   }
-  return n;
 }
 
 }  // namespace

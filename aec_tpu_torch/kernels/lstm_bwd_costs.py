@@ -5,7 +5,8 @@ whole and with parts of its step cut out.
 
 Builds ``csrc/lstm_bwd.cu`` into ``_build/lstm_bwd_costs/`` as it is and
 with one part of the step cut out (:data:`VARIANTS`, each a macro the
-source reads and no route defines):
+source reads and no route defines), each build holding only the kernels
+of the plans it times (``-DAEC_KEEP``, :func:`keep_mask`):
 
 - ``no_dots`` (``-DAEC_NO_DOTS``): the products of dxp(t + 1) with W_hh;
 - ``no_stage`` (``-DAEC_NO_STAGE``): the staging of dxp(t + 1) into shared
@@ -48,6 +49,7 @@ import argparse
 import ctypes
 import dataclasses
 import subprocess
+import time
 
 import torch
 
@@ -61,15 +63,51 @@ SHAPES = (("dccrn", 2, 32, 1, 501, 1024), ("fullsubnet_sub_band", 1, 16, 161, 80
           ("fullsubnet_full_band", 1, 16, 1, 801, 256))
 
 
+def instantiation(plan: lstm_bwd.BackwardPlan) -> tuple[int, int, int]:
+    """(mode, columns a warp, rows a sweep) of the kernel ``plan`` launches,
+    as ``csrc/lstm_bwd.cu``'s ``bwd_launch_cw`` picks the rows a sweep: 1
+    for one row, 2 for the grid plan's 2-row rounds (where 32 / CW > 2),
+    else min(32 / CW, 8); the split plan's kernel has no rows a sweep (1)."""
+    mode = lstm_bwd.MODES.index(plan.mode)
+    if plan.mode == "split":
+        return mode, plan.cw, 1
+    sweep = plan.round_rows if plan.mode == "grid" else plan.block_rows
+    cap = min(32 // plan.cw, 8)
+    rt = 1 if sweep <= 1 else 2 if plan.mode == "grid" and cap > 2 and sweep <= 2 else cap
+    return mode, plan.cw, rt
+
+
+def keep_mask(sms: int, smem_optin: int) -> int:
+    """The ``AEC_KEEP`` mask of the instantiations :func:`costs` launches on
+    a card of ``sms`` SMs and ``smem_optin`` bytes of shared memory a CTA:
+    the three shapes' plans at every cluster width ``card_plan`` may narrow
+    to (bit mode * 20 + log2(cw) * 4 + log2(rt), the split plan's 60 +
+    log2(cw))."""
+    bits = 0
+    for _, g, b, f, _, h in SHAPES:
+        for widest in range(lstm_bwd.MAX_CLUSTER, 1, -1):
+            mode, cw, rt = instantiation(lstm_bwd.backward_plan(
+                g, b * f, h, sms, smem_optin, max_cluster=widest))
+            lg_cw, lg_rt = cw.bit_length() - 1, rt.bit_length() - 1
+            bits |= 1 << (60 + lg_cw if mode == lstm_bwd.MODES.index("split")
+                          else mode * 20 + lg_cw * 4 + lg_rt)
+    return bits
+
+
 def start_build() -> dict:
-    """Start compiling every variant, one ``nvcc`` each, all at once;
-    :func:`finish_build` waits for them."""
+    """Start compiling every variant, one ``nvcc`` each, all at once, each
+    holding only the instantiations :func:`costs` launches on this card
+    (:func:`keep_mask`; the route's build holds all); :func:`finish_build`
+    waits for them."""
     root = _build.BUILD / "lstm_bwd_costs"
+    props = torch.cuda.get_device_properties(0)
+    mask = keep_mask(props.multi_processor_count, props.shared_memory_per_block_optin)
+    keep = f"-DAEC_KEEP={mask:#x}ULL"
     procs = {}
     for variant, defines in VARIANTS.items():
         out = root / variant / "lib.so"
         out.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-I", str(_build.CSRC), "-o",
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *defines, keep, "-I", str(_build.CSRC), "-o",
                str(out), str(_build.CSRC / "lstm_bwd.cu")]
         procs[variant] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
@@ -183,8 +221,12 @@ def main() -> None:
         raise SystemExit("lstm_bwd_costs: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
     libs = finish_build(start_build())
-    for line in registers(libs["full"][1]):
+    kernels = registers(libs["full"][1])
+    print(f"K9b cost variants: {len(libs)} built in {time.perf_counter() - t0:.1f} s, "
+          f"{len(kernels)} kernels each [{smi}]", flush=True)
+    for line in kernels:
         print(f"K9b ptxas {line}", flush=True)
     with torch.no_grad():
         for row in costs(libs, args.reps):

@@ -171,6 +171,7 @@ def little_net_loss(
     asym_weight: float = 0.0,
     gain_norm: bool = False,
     sisnr_weight: float = 0.0,
+    per_scene: bool = False,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training objective ``sum |near_erb^0.5 - est_erb^0.5|^2 / (T * E)``,
     summed over the batch -> (loss, {"wav", "est_erb"}).
@@ -183,7 +184,15 @@ def little_net_loss(
     waveform through the convex gain; ``sisnr_weight`` subtracts ``w / 10``
     times the mean SI-SNR of the output against the near end over scenes
     whose raw near end is active.
+
+    ``per_scene`` returns each scene's loss, (B,), in place of their sum:
+    the loss JAX's ``vmap`` of a batch-1 call gives, from one batched
+    forward. It needs ``normalize=False`` and ``sisnr_weight=0``, the terms
+    whose statistics span the batch.
     """
+    if per_scene and (normalize or sisnr_weight):
+        raise ValueError("per_scene needs normalize=False and sisnr_weight=0: "
+                         "the pseudo-norm and the SI-SNR mean span the batch")
     # activity decided on the RAW near end: the pseudo-norm shifts a silent
     # scene to a constant that would otherwise count as active
     near_act = (torch.mean(near * near, dim=-1) > 1e-8).to(torch.float32)
@@ -193,10 +202,14 @@ def little_net_loss(
     near_erb = stft_mod.magnitude(stft_mod.stft(near, cfg)) @ erb  # [B, T, E]
     t, e = near_erb.shape[-2], near_erb.shape[-1]
     diff = torch.sqrt(near_erb + sqrt_eps) - torch.sqrt(out["est_erb"] + sqrt_eps)
-    loss = torch.sum(diff * diff) / (t * e)
+
+    def total(x):
+        return torch.sum(x, dim=(-2, -1)) if per_scene else torch.sum(x)
+
+    loss = total(diff * diff) / (t * e)
     if asym_weight:
         under = torch.relu(diff)  # near above the estimate: removed near end
-        loss = loss + asym_weight * torch.sum(under * under) / (t * e)
+        loss = loss + asym_weight * total(under * under) / (t * e)
     if sisnr_weight:
         from aec_tpu_torch.train.metrics import si_snr_rows
 

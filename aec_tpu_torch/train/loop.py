@@ -39,6 +39,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Callable
@@ -82,6 +83,20 @@ def make_lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], 
     return schedule
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule``: ``init_value * ((1 - alpha) * 0.5 *
+    (1 + cos(pi * min(count, decay_steps) / decay_steps)) + alpha)``."""
+    if decay_steps <= 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        frac = min(count, decay_steps) / decay_steps
+        return init_value * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
+
+    return schedule
+
+
 class Optimizer:
     """``optax.chain([clip_by_global_norm(clip_norm)], adam(schedule))`` of
     the JAX loop on ``torch.optim.Adam``, whose update equals optax's
@@ -89,11 +104,14 @@ class Optimizer:
     ``lr`` is set to ``schedule(count)`` before each step, ``count`` being
     the updates done so far, as optax evaluates the schedule before counting.
     Clipping is optax's: ``g / norm * clip_norm`` unless ``norm < clip_norm``
-    (not ``clip_grad_norm_``, which adds 1e-6 to the norm)."""
+    (not ``clip_grad_norm_``, which adds 1e-6 to the norm). ``schedule``, a
+    callable of the update count, replaces the config's stepped decay (e.g.
+    :func:`cosine_decay_schedule`)."""
 
-    def __init__(self, cfg: TrainConfig, steps_per_epoch: int, net: nn.Module):
+    def __init__(self, cfg: TrainConfig, steps_per_epoch: int, net: nn.Module,
+                 schedule: Callable[[int], float] | None = None):
         self.net = net
-        self.schedule = make_lr_schedule(cfg, steps_per_epoch)
+        self.schedule = schedule or make_lr_schedule(cfg, steps_per_epoch)
         self.clip_norm = cfg.clip_norm
         self.adam = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
         self.count = 0

@@ -152,6 +152,17 @@ drives every user-facing path.
   ATT-CCRN's H = 4096 against the plain scan, timed beside K10;
   ``parallel/seq_scan.pipelined_scan`` of the Kalman step; and
   ``parallel/dryrun.dryrun_multichip(1)`` in a process of its own (K3).
+- The examples (phase 29, ``aec_tpu_torch/examples``): ``train_synthetic``
+  through its ``main`` at 64 scenes x 4 s made on the card, 6 steps, then
+  2 steps each of ``--width 4``, ``--balance`` and ``--asym 3 --sisnr
+  0.2`` (K1, K8 and K8b once a step, K1 and K8 twice an evaluation), each
+  checkpoint loaded by ``cli/infer.load_params`` through
+  ``two_stage_cancel``; a step's split by the host clock (synthesis, stage
+  1, the loss's forward and backward, the update) and its device busy
+  share; stage 1 against its plain version and each recipe's step against
+  the CPU route on one set of draws; ``demo_two_stage`` (K6 + K2) against
+  its CPU run; ``serving_loop`` at 128 sessions x 50 blocks (K3) against
+  ``serving_step_plain``.
 
 One line per phase; the first failure exits nonzero (nothing is caught).
 The second-to-last line is the ``kernels`` JSON (each kernel's launches on
@@ -163,7 +174,8 @@ in the trainers', K8's its batched numbers, K9's and K11's their training
 routes beside the library's, ``train``, K9b's at DCCRN's training shape
 with FullSubNet's two passes beside; K1's,
 K5's and K8's their launches on phase 27's paths, ``cli_launches``, and
-K1's, K5's, K9's, K11's and K3's on phase 28's mesh routes), the last line
+K1's, K5's, K9's, K11's and K3's on phase 28's mesh routes; K1's, K8's,
+K8b's, K6's, K2's and K3's on phase 29's examples, ``examples_launches``), the last line
 the ``ok`` JSON. Exits nonzero without a CUDA device.
 """
 
@@ -308,6 +320,14 @@ ZOO = ("two_layer_gru", "dccrn", "fullsubnet", "att_ccrn")
 # same kernels
 CACHE_UTTS, CACHE_LEN, CACHE_STEP_TOL = 1024, 160000, 0.55
 DATA_UTTS, CACHED_TOL = 64, 1e-6
+# the examples (phase 29): train_synthetic at its defaults' batch (64 scenes
+# x 4 s) for 6 steps, then 2 steps of each other recipe; the demo's 8 s scene;
+# serving_loop's 128 sessions x 50 blocks. The demo on the card within the
+# north-star 0.1 dB of its CPU run (ERLE_TOL_DB).
+EX_BATCH, EX_SECONDS, EX_STEPS, EX_RECIPE_STEPS = 64, 4.0, 6, 2
+EX_RECIPES = {"default": (), "width4": ("--width", "4"), "balance": ("--balance",),
+              "asym_sisnr": ("--asym", "3", "--sisnr", "0.2")}
+DEMO_SECONDS, SERVE_STREAMS, SERVE_BLOCKS = 8.0, 128, 50
 
 # The least time the card could take (PERF.md section 2): the larger of the
 # fp32 operations over the FFMA peak and the bytes over the HBM rate, from
@@ -3036,11 +3056,234 @@ def parallel_phase(dev, seed: int, reps: int, smi: str, k10_ms: float) -> dict:
     return out
 
 
+def examples_phase(dev, seed: int, reps: int, smi: str) -> dict:
+    """29. The examples (``aec_tpu_torch/examples``) through their entry
+    points: (a) ``train_synthetic.main`` at 64 scenes x 4 s, 6 steps of the
+    default recipe (K1, K8 and K8b once a step; K1 and K8 twice an
+    evaluation, at step 0, the last and the end), then 2 steps of
+    ``--width 4``, ``--balance`` and ``--asym 3 --sisnr 0.2``; each
+    checkpoint loads in ``cli/infer.load_params`` and runs through
+    ``two_stage_cancel`` on the card; (b) the step split by the host clock
+    after a synchronize (synthesis, stage 1, the loss's forward and
+    backward, the update) and the device's busy share (torch.profiler); (c)
+    on one set of draws, stage 1 against its plain version (K1's bar) and,
+    fed the same linear output, each recipe's kernel step against the CPU
+    route (the train-step bars); (d) ``demo_two_stage`` on the card (K6 +
+    K2) against its CPU run within 0.1 dB; (e) ``serving_loop`` at 128
+    sessions x 50 blocks (K3 a block) against ``serving_step_plain`` on the
+    same blocks (K3's bar), block latency and the live ERLE."""
+    from aec_tpu_torch.cli.infer import load_params
+    from aec_tpu_torch.configs import KalmanConfig
+    from aec_tpu_torch.dsp.erb import erb_filterbank
+    from aec_tpu_torch.dsp.stft import StftConfig
+    from aec_tpu_torch.examples import demo_two_stage as demo
+    from aec_tpu_torch.examples import serving_loop as sl
+    from aec_tpu_torch.examples import train_synthetic as ts
+    from aec_tpu_torch.kernels.gru import gru_backward, gru_recurrence
+    from aec_tpu_torch.kernels.kalman import (
+        kalman_cancel_fused,
+        kalman_cancel_fused_batched,
+        kalman_cancel_plain,
+    )
+    from aec_tpu_torch.kernels.serving import serving_erle, serving_step_fused, serving_step_plain
+    from aec_tpu_torch.kernels.stage2 import little_net_apply_fused
+    from aec_tpu_torch.models.little_net import little_net_init
+    from aec_tpu_torch.pipeline.two_stage import two_stage_cancel
+    from aec_tpu_torch.train.loop import make_train_step
+
+    t_phase = time.perf_counter()
+    train_kernels = (kalman_cancel_fused_batched, gru_recurrence, gru_backward)
+    kcfg, scfg = KalmanConfig(), StftConfig()
+    n = int(EX_SECONDS * SR) // 256 * 256
+    erb_d = torch.as_tensor(erb_filterbank(), device=dev)
+    erb_c = torch.from_numpy(erb_filterbank())
+    lr = 3e-3  # the script's default
+    out = {}
+
+    # (a) the entry point, each recipe, its checkpoint through two_stage_cancel
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    far, mic, near = ts.synthesize_scenes(ts.scene_draws(gen, 16, n), n)
+    with tempfile.TemporaryDirectory() as d:
+        for name, recipe in EX_RECIPES.items():
+            steps = EX_STEPS if not recipe else EX_RECIPE_STEPS
+            ck = os.path.join(d, "little_net.npz")
+            argv = ["--steps", str(steps), "--batch", str(EX_BATCH), "--seconds", str(EX_SECONDS),
+                    "--seed", str(seed), "--out", ck, "--device", "cuda", *recipe]
+            t0 = time.perf_counter()
+            _, counts = drive(train_kernels, lambda: ts.main(argv))
+            wall = time.perf_counter() - t0
+            evals = 3 if steps > 1 else 2  # step 0, the last step, the end
+            want = [steps + 2 * evals, steps + 2 * evals, steps]
+            with open(ck[:-4] + ".json") as f:
+                info = json.load(f)
+            net = load_params(ck, device=dev)
+            width = int(recipe[1]) if recipe[:1] == ("--width",) else 1
+            (res, k_two) = drive((kalman_cancel_fused_batched, little_net_apply_fused,
+                                  gru_recurrence),
+                                 lambda: two_stage_cancel(net, far, mic, erb_d)["wav"])
+            ok = res.shape == mic.shape and bool(torch.isfinite(res).all()) and (
+                net.hidden == 32 * width)
+            phase("examples", f"train_synthetic {name} ({' '.join(recipe)}), {steps} steps at "
+                  f"{EX_BATCH} x {n}: "
+                  f"launches K1 / K8 / K8b {counts} (want {want}); report "
+                  + ", ".join(f"{k} {v}" for k, v in info.items() if k != "steps")
+                  + f"; {wall:.2f} s with the evaluations; the checkpoint through "
+                  f"two_stage_cancel 16 x {n}: launches K1 / K2 / K8 {k_two}, finite {ok} "
+                  f"[{smi}]")
+            check(counts == want, f"train_synthetic {name} did not launch K1 / K8 / K8b {want}")
+            check(all(np.isfinite(v) for v in info.values()), f"train_synthetic {name} report")
+            # a width-1 net's stage 2 is K2 (K8 its phase B); a wider one's the
+            # offline apply, its GRU on K8, as JAX routes wider checkpoints
+            check(ok and k_two == ([1, 1, 1] if width == 1 else [1, 0, 1]),
+                  f"train_synthetic {name}'s checkpoint on two_stage_cancel")
+            out.setdefault("main_launches", {})[name] = counts
+
+    # (b) the step split, the default recipe; its device busy share
+    net = little_net_init(generator=torch.Generator().manual_seed(seed), device=dev)
+    opt = ts.recipe_optimizer(net, lr, 1500)
+    loss_fn = ts.recipe_loss()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    parts, step_counts = [], []
+
+    def timed_step():
+        marks = [time.perf_counter()]
+        far, mic, near = ts.synthesize_scenes(ts.scene_draws(gen, EX_BATCH, n), n)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        lin = ts.linear_output(kcfg, far, mic, scfg)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        opt.adam.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(net, lin, far, near, erb_d, scfg, sqrt_eps=1e-12)
+        loss.backward()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        opt.update()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])], float(loss.detach())
+
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        (ms, loss), counts = drive(train_kernels, timed_step)
+        check(np.isfinite(loss), "train_synthetic step loss")
+        parts.append(ms)
+        step_counts.append(counts)
+    check(all(c == [1, 1, 1] for c in step_counts), f"a train_synthetic step did not launch K1, "
+          f"K8 and K8b once each: {step_counts}")
+    split = [statistics.median(p[i] for p in parts[1:]) for i in range(4)]
+    step_ms = statistics.median(sum(p) for p in parts[1:])
+    busy, top = step_profile(lambda: timed_step())
+    xrt = EX_BATCH * n / SR / (step_ms / 1e3)
+    phase("examples", f"train_synthetic step, {EX_BATCH} x {n} (median of {reps}, host clock): "
+          f"{step_ms:.2f} ms = {xrt:.1f} audio s a wall s; synthesis {split[0]:.2f}, stage 1 "
+          f"(K1) {split[1]:.2f}, loss forward + backward (K8, K8b) {split[2]:.2f}, update "
+          f"{split[3]:.2f} ms; launches K1 / K8 / K8b a step {step_counts[0]}; device busy "
+          f"{busy:.2f} ms of a step ({busy / step_ms:.0%}); top kernels "
+          + "; ".join(f"{k} {v:.2f} ms x {c}" for k, v, c in top) + f" [{smi}]")
+    out.update(step_ms=step_ms, split_ms=split, xrt=xrt, busy_ms=busy,
+               step_launches=step_counts[0])
+
+    # (c) on one set of draws: stage 1 against its plain version, then each
+    #     recipe's kernel step against the CPU route fed the same linear output
+    far, mic, near = ts.synthesize_scenes(ts.scene_draws(gen, EX_BATCH, n), n)
+    with torch.no_grad():
+        lin, k1_count = drive((kalman_cancel_fused_batched,),
+                              lambda: ts.linear_output(kcfg, far, mic, scfg))
+        lin_p = kalman_cancel_plain(kcfg, far, mic, block=scfg.hop)["wav"]
+    scale = float(mic.abs().max())
+    k1_err = float((lin - lin_p).abs().max())
+    phase("examples", f"stage 1 on {EX_BATCH} x {n} scenes: launches K1 {k1_count}; max|d| from "
+          f"the plain version {k1_err:.3e} (bar {K1_TOL:g} x max|mic| = {K1_TOL * scale:.3e})")
+    check(k1_count == [1] and k1_err <= K1_TOL * scale, "train_synthetic's stage 1 disagrees "
+          "with its plain version")
+    far_c, near_c, lin_c = far.cpu(), near.cpu(), lin.cpu()
+    for name, recipe in EX_RECIPES.items():
+        flags = dict(zip(recipe[::2], recipe[1::2])) if "--balance" not in recipe else {}
+        width = int(flags.get("--width", 1))
+        loss_fn = ts.recipe_loss("--balance" in recipe, float(flags.get("--asym", 0.0)),
+                                 float(flags.get("--sisnr", 0.0)))
+        nets = [little_net_init(width=width, generator=torch.Generator().manual_seed(seed),
+                                device=where) for where in (dev, "cpu")]
+        steps = [make_train_step(loss_fn, ts.recipe_optimizer(m, lr, 1500), scfg=scfg)
+                 for m in nets]
+        loss_k, counts = drive(train_kernels[1:], lambda: float(steps[0](lin, far, near, erb_d)))
+        loss_c = float(steps[1](lin_c, far_c, near_c, erb_c))
+        rel = abs(loss_k / loss_c - 1.0)
+        mean_d = max(float((p.detach().cpu() - q.detach()).abs().mean())
+                     for p, q in zip(nets[0].parameters(), nets[1].parameters()))
+        phase("examples", f"step {name} on the same linear output: launches K8 / K8b {counts}; "
+              f"loss {loss_k:.6f} (CPU route {loss_c:.6f}, rel {rel:.2e}, bar {STEP_LOSS_TOL:g}); "
+              f"worst leaf mean|d| after the update {mean_d:.3e} (bar {STEP_PARAM_TOL:g} x lr = "
+              f"{STEP_PARAM_TOL * lr:.1e})")
+        check(counts == [1, 1], f"the {name} step did not launch K8 and K8b once")
+        check(rel <= STEP_LOSS_TOL and mean_d <= STEP_PARAM_TOL * lr,
+              f"the {name} step disagrees with the CPU route")
+    out["k1_err"] = k1_err
+
+    # (d) demo_two_stage: one utterance through K6 + K2, against its CPU run
+    model = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints",
+                         "little_net_synthetic.npz")
+    scene = demo.make_scene(DEMO_SECONDS)
+    (rep, _), demo_counts = drive((kalman_cancel_fused, little_net_apply_fused),
+                                  lambda: demo.run_demo(load_params(model, device=dev), scene,
+                                                        DEMO_SECONDS, dev))
+    rep_c, _ = demo.run_demo(load_params(model, device="cpu"), scene, DEMO_SECONDS, "cpu")
+    worst = max(abs(rep[k] - rep_c[k]) for k in rep if k != "xrt")
+    phase("examples", f"demo_two_stage {DEMO_SECONDS:g} s: launches K6 / K2 {demo_counts}; card "
+          f"{rep}; CPU {rep_c}; worst |card - CPU| {worst:.2f} dB (bar {ERLE_TOL_DB} dB); xrt "
+          f"{rep['xrt']} [{smi}]")
+    check(demo_counts == [5, 5], "demo_two_stage did not run K6 and K2 on each of its 5 calls")
+    check(worst <= ERLE_TOL_DB, "demo_two_stage on the card disagrees with its CPU run")
+    out.update(demo_launches=demo_counts, demo_xrt=rep["xrt"])
+
+    # (e) serving_loop: K3 a block, against serving_step_plain on the same blocks
+    net = sl.load_net(dev)
+    far, mic = sl.make_sessions(SERVE_STREAMS, SERVE_BLOCKS)
+    (o_k, lat, st), k3_counts = drive((serving_step_fused,), lambda: sl.serve(net, far, mic, dev))
+    o_p, _, _ = sl.serve(net, far, mic, dev, step=serving_step_plain)
+    rel = max(float(np.abs(o_k[:, b:b + HOP] - o_p[:, b:b + HOP]).max())
+              / max(float(np.abs(o_p[:, b:b + HOP]).max()), 1e-9)
+              for b in range(0, o_p.shape[-1] - HOP, HOP))
+    lat_ms = np.asarray(lat[1:]) * 1e3
+    live = serving_erle(st).cpu().numpy()
+    half = mic.shape[-1] // 2
+    tail = 10 * np.log10((mic[:, half:] ** 2).mean() / max((o_k[:, half:] ** 2).mean(), 1e-12))
+    p50, p99 = float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 99))
+    phase("examples", f"serving_loop {SERVE_STREAMS} sessions x {SERVE_BLOCKS} blocks: launches "
+          f"K3 {k3_counts}; worst block max|d| / scale from serving_step_plain {rel:.3e} (bar "
+          f"{K3_TOL:g}); block latency p50 {p50:.3f} ms / p99 {p99:.3f} ms; tail ERLE "
+          f"{tail:.1f} dB; live ERLE min {live.min():.1f} / median {np.median(live):.1f} / max "
+          f"{live.max():.1f} dB [{smi}]")
+    check(k3_counts == [SERVE_BLOCKS], "serving_loop did not run K3 once a block")
+    check(rel <= K3_TOL and bool(np.isfinite(live).all()), "serving_loop disagrees with "
+          "serving_step_plain")
+    out.update(k3_launches=k3_counts[0], serve_p50_ms=p50, serve_p99_ms=p99)
+    phase("examples", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def examples_extras(extra: dict, ex: dict) -> None:
+    """Phase 29's launches into the kernels line's rows, as
+    ``examples_launches``: K1's, K8's and K8b's in a train_synthetic step
+    and in each recipe's run of its ``main`` (steps and evaluations), K6's
+    and K2's in the demo, K3's in the serving loop."""
+    for kernel, i in (("kalman_batched", 0), ("gru_scan", 1), ("gru_backward", 2)):
+        extra.setdefault(kernel, {})["examples_launches"] = {
+            "train_synthetic_step": ex["step_launches"][i],
+            **{f"train_synthetic_{k}": v[i] for k, v in ex["main_launches"].items()}}
+    for kernel, launches in (("kalman_single", {"demo_two_stage": ex["demo_launches"][0]}),
+                             ("stage2", {"demo_two_stage": ex["demo_launches"][1]}),
+                             ("serving", {"serving_loop": ex["k3_launches"]})):
+        extra.setdefault(kernel, {})["examples_launches"] = launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # 1. a CUDA device, or nothing
     if not torch.cuda.is_available():
@@ -3666,8 +3909,10 @@ def main() -> None:
     data = data_phase(dev, args.seed, smi)
     # 28. the parallel layer at world size 1 on NCCL
     par = parallel_phase(dev, args.seed, args.reps, smi, att["ms"])
+    # 29. the examples: train_synthetic, demo_two_stage, serving_loop
+    ex = examples_phase(dev, args.seed, args.reps, smi)
 
-    # 29. the kernels of the paths, with this run's numbers; bounds from
+    # 30. the kernels of the paths, with this run's numbers; bounds from
     #     this run's shapes (module top); library_ms where PyTorch calls
     #     compute the same function (cuDNN's GRU for K8, its LSTM for K9,
     #     its LSTM twice and the embedding for K11), else null (no PyTorch
@@ -3812,6 +4057,9 @@ def main() -> None:
                                   **fsn_train[f"k9b_{key}_bound"]}
            for band, key in (("sub_band", "sb"), ("full_band", "fb"))}}
     extra.setdefault("serving", {})["dryrun_launches"] = par["k3_dryrun_launches"]
+    examples_extras(extra, ex)
+    phase("total", f"{time.perf_counter() - t_start:.1f} s, the build's {build_s:.1f} s "
+          f"included [{smi}]")
     print(json.dumps({"kernels": [
         {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"aec_tpu/kernels/{tpu}", "launches": n, "max_abs_err": err, "ms": ms,
@@ -3820,7 +4068,7 @@ def main() -> None:
          **extra.get(kernel, {})}
         for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
     ]}), flush=True)
-    # 30. the result
+    # 31. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1869,3 +1869,82 @@ def test_batch_enhance_launches_its_stage1_kernel(cuda, scene, tmp_path, h5_file
         want = read_wav(str(tmp_path / "cpu" / f"{k}_enhanced.wav"))[0]
         assert got.shape == want.shape and np.isfinite(got).all()
         assert float(np.abs(got - want).max()) <= 1e-3 * mic_scale, k
+
+
+def _synthetic_step(dev, width=1, b=4, n=64 * 256):
+    """A train_synthetic step's pieces on ``dev``: its scenes (drawn and
+    made on the card), a fresh net of ``width`` and its step (the default
+    recipe, the script's optimizer)."""
+    from aec_tpu_torch.examples import train_synthetic as ts
+    from aec_tpu_torch.train.loop import make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    far, mic, near = ts.synthesize_scenes(ts.scene_draws(gen, b, n), n)
+    net = little_net_init(width=width, generator=torch.Generator().manual_seed(0), device=dev)
+    step = make_train_step(ts.recipe_loss(), ts.recipe_optimizer(net, 3e-3, 100))
+    return (far, mic, near), net, step
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_train_synthetic_step_launches_k1_k8_k8b_once(cuda, width):
+    """One train_synthetic step on the card (4 scenes x 65 frames): stage 1
+    on K1, the loss's GRU on K8 forward and K8b backward, once each; the
+    loss and the updated net within the train-step bars (loss rtol 1e-4,
+    each leaf's mean |d| <= 1e-3 lr) of the CPU route fed the same linear
+    output."""
+    from aec_tpu_torch.examples import train_synthetic as ts
+
+    (far, mic, near), net, step = _synthetic_step(cuda, width)
+    _, cpu_net, cpu_step = _synthetic_step("cpu", width)
+    erb = torch.as_tensor(erb_filterbank(), device=cuda)
+    before = (kalman_cancel_fused_batched.launches, gru_recurrence.launches,
+              gru_backward.launches)
+    lin = ts.linear_output(KalmanConfig(), far, mic)
+    loss = float(step(lin, far, near, erb))
+    torch.cuda.synchronize()
+    after = (kalman_cancel_fused_batched.launches, gru_recurrence.launches, gru_backward.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    cpu_loss = float(cpu_step(lin.cpu(), far.cpu(), near.cpu(), erb.cpu()))
+    assert np.isfinite(loss) and abs(loss / cpu_loss - 1.0) <= 1e-4, (loss, cpu_loss)
+    for p, q in zip(net.parameters(), cpu_net.parameters()):
+        assert float((p.detach().cpu() - q.detach()).abs().mean()) <= 1e-3 * 3e-3
+
+
+@pytest.mark.parametrize("missing", ["K1", "K8", "K8b"])
+def test_train_synthetic_step_raises_without_its_kernels(cuda, monkeypatch, missing):
+    """A train_synthetic step on the card whose kernel cannot be had (its
+    library fails to build: K1, K8; K8b's launch fails) raises; it never
+    falls back to a plain version."""
+    from aec_tpu_torch.examples import train_synthetic as ts
+    from aec_tpu_torch.kernels import gru as kgru
+    from aec_tpu_torch.kernels import kalman as kkalman
+
+    def unavailable(*args, **kwargs):
+        raise RuntimeError(f"{missing} is unavailable")
+
+    (far, mic, near), _, step = _synthetic_step(cuda)
+    erb = torch.as_tensor(erb_filterbank(), device=cuda)
+    target = {"K1": (kkalman, "_lib"), "K8": (kgru, "_lib"), "K8b": (kgru, "gru_backward")}
+    monkeypatch.setattr(*target[missing], unavailable)
+    with pytest.raises(RuntimeError, match=f"{missing} is unavailable"):
+        step(ts.linear_output(KalmanConfig(), far, mic), far, near, erb)
+        torch.cuda.synchronize()
+
+
+def test_serving_loop_first_block_on_k3(cuda):
+    """serving_loop on the card: every block one K3 launch, the first
+    included; the outputs within K3's bar (1e-3 of each block's scale) of
+    serving_step_plain on the same blocks."""
+    from aec_tpu_torch.examples import serving_loop as sl
+    from aec_tpu_torch.kernels.serving import serving_step_fused, serving_step_plain
+
+    net = sl.load_net(cuda)
+    far, mic = sl.make_sessions(8, 3)
+    before = serving_step_fused.launches
+    got, lat, _ = sl.serve(net, far, mic, cuda)
+    assert serving_step_fused.launches - before == 3 and len(lat) == 3
+    want, _, _ = sl.serve(net, far, mic, cuda, step=serving_step_plain)
+    for t in range(2):
+        blk = slice(t * sl.HOP, (t + 1) * sl.HOP)
+        scale = max(float(np.abs(want[:, blk]).max()), 1e-9)
+        assert float(np.abs(got[:, blk] - want[:, blk]).max()) <= 1e-3 * scale, t

@@ -421,3 +421,26 @@ def test_fullsubnet_module_gradients_use_the_fused_route(rng):
                                                          list(leaves.values()))))
     err, leaf = _worst_of_scale(list(grads[None].values()), grads[False])
     assert err <= 1e-5, f"{leaf} off the plain route by {err:.3e} of its scale"
+
+
+def test_cost_variants_keep_the_plans_they_time():
+    """``lstm_bwd_costs.keep_mask`` on the H100 keeps the kernel of every
+    plan ``costs`` times (each shape at every cluster width ``card_plan``
+    may narrow to) and nothing else; ``instantiation`` picks the rows a
+    sweep as ``csrc/lstm_bwd.cu``'s ``bwd_launch_cw`` does."""
+    from aec_tpu_torch.kernels import lstm_bwd_costs as kc
+
+    def bit(mode, cw, rt):
+        lg_cw, lg_rt = cw.bit_length() - 1, rt.bit_length() - 1
+        return 60 + lg_cw if mode == kb.MODES.index("split") else mode * 20 + lg_cw * 4 + lg_rt
+
+    want = {kc.instantiation(kb.backward_plan(g, b * f, h, *H100, max_cluster=w))
+            for _, g, b, f, _, h in kc.SHAPES for w in range(kb.MAX_CLUSTER, 1, -1)}
+    assert want == {(3, 2, 1), (0, 8, 4), (1, 4, 8), (3, 1, 1)}
+    assert kc.keep_mask(*H100) == sum(1 << bit(*k) for k in want)
+    plan = kb._plan("grid", 2, 32, 1024, *H100, cw=4)
+    for rows, rt in ((1, 1), (2, 2), (3, 8)):  # a grid plan's rounds: 1, 2, else min(32 / CW, 8)
+        assert kc.instantiation(types.SimpleNamespace(
+            mode="grid", cw=plan.cw, round_rows=rows, block_rows=plan.block_rows)) == (2, 4, rt)
+    local = types.SimpleNamespace(mode="local", cw=16, round_rows=0, block_rows=20)
+    assert kc.instantiation(local) == (0, 16, 2)  # 32 / 16 rows a sweep, no 2-row special case
