@@ -46,10 +46,8 @@
 // A batch of B rows runs on B SMs in the same time.
 //
 // Wider nets (H > 128, whose W_hh no longer fits one SM's registers: 3 MB at
-// H = 512) take the wide path, the same recurrence on one persistent grid of
-// co-resident CTAs (grid_scan.cuh): each CTA owns U hidden
-// units and their 3 gate columns of W_hh^T, read from L2 every step, and one
-// grid barrier ends each step.
+// H = 512) take the wide path, gru_wide.cu: both kernels on one persistent
+// grid of co-resident CTAs, W_hh on chip across the time loop.
 //
 // Kernel K8b, the backward of the recurrence (gru_bwd_kernel), the
 // counterpart of the custom VJP's _bwd (aec_tpu/kernels/pallas_gru.py:159),
@@ -82,8 +80,6 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
-
-#include "grid_scan.cuh"
 
 namespace {
 
@@ -429,8 +425,6 @@ cudaError_t by_lane_plan(int hidden, F&& f) {
 
 }  // namespace
 
-extern "C" int aec_gru_max_hidden() { return kMaxHidden; }
-
 // xp (batch, t_steps, 3H): x W_ih^T + b_ih + [b_hr; b_hz; 0]; wpk W_hh packed
 // for the lanes (kernels/gru.py pack_gru_lanes, whose lane plan this
 // dispatch repeats); b_hn (H); h0 (batch, H); ys (batch, t_steps, H); gates
@@ -467,28 +461,4 @@ extern "C" int aec_gru_backward(const float* gys, const float* gates, const floa
     return launch_bwd<decltype(p)::value, decltype(c)::value>(gys, gates, ys, h0, wpk_t, dxp, dhn,
                                                               dh0, batch, t_steps, hidden, s);
   });
-}
-
-// units per CTA of the wide path's launch plan at this shape
-extern "C" int aec_gru_units(int rows, int hidden, int device) {
-  aec_grid::GridPlan<aec_grid::GruCell> p{};
-  if (aec_grid::grid_plan(1, rows, hidden, device, &p) != cudaSuccess) return -1;
-  return p.units;
-}
-
-// The wide path (H > kMaxHidden): xp (batch, t_steps, 3H) as aec_gru's; wp
-// (nchunk, H, 3U) packed W_hh^T; b_hn (H); hbuf (2, batch, H) with h0 in [0];
-// ys (batch, t_steps, H).
-extern "C" int aec_gru_grid(const float* xp, const float* wp, const float* b_hn, float* hbuf,
-                            float* ys, int batch, int t_steps, int hidden, int units, int device,
-                            void* stream) {
-  using namespace aec_grid;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  GridPlan<GruCell> p{};
-  err = grid_plan(1, batch, hidden, device, &p);
-  if (err != cudaSuccess) return err;
-  if (p.units != units) return cudaErrorInvalidValue;  // W_hh^T packed for another plan
-  const GridArgs a{xp, wp, b_hn, ys, hbuf, batch, t_steps, hidden, p.units, p.nchunk};
-  return grid_launch(a, p, device, static_cast<cudaStream_t>(stream));
 }

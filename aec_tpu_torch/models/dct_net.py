@@ -14,9 +14,13 @@ The reference's two DCT experiments, as the JAX package realizes them:
 The functions keep the JAX package's names and signatures on dicts of
 tensors (layouts as JAX's, conv kernels HWIO), so a JAX tree carries over
 leaf for leaf; :class:`DctDnn` and :class:`DctCnn` hold the same trees as
-modules. No kernel: the CNN's GRU routes as ``ops.gru.gru_scan`` does (its H =
-512 is past K8's register path, so K8's wide path on a CUDA tensor at batch
-1, T >= 64, the plain loop at a larger batch).
+modules. No kernel of their own: the CNN's GRU routes as ``ops.gru.gru_scan``
+does. Its H = 512 is past K8's register path, so a CUDA tensor at T >= 64
+takes K8's wide path forward and K8b's backward at every batch the wide
+plan holds (to 36 rows: the training batch of 16 and batch-1 validation).
+JAX routes its kernel at batch 1 only (``aec_tpu/ops/gru.py:108``), where
+its other route is a compiled ``lax.scan``; the port's is an eager loop of
+~6 launches a frame, so it routes wider.
 """
 
 from __future__ import annotations

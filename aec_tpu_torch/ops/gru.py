@@ -18,7 +18,7 @@ from typing import TypedDict
 
 import torch
 
-from aec_tpu_torch.kernels.gru import MAX_HIDDEN
+from aec_tpu_torch.kernels.gru import MAX_HIDDEN, wide_fits
 
 
 class GruParams(TypedDict):
@@ -70,25 +70,28 @@ def gru_cell(params: dict[str, torch.Tensor], h: torch.Tensor,
 def kernel_route(b: int, t: int, hidden: int, device_type: str) -> bool:
     """Whether ``gru_scan(fused=None)`` takes the fused route (K8, and K8b
     in the backward): a CUDA tensor with ``T >= 64`` at any B where K8 holds
-    W_hh in registers (H <= 128), and at B == 1 above that (the wide path,
-    whose backward recomputes the plain scan).
+    W_hh in registers (H <= 128), and above that wherever the wide path's
+    plan holds both K8 and K8b (``kernels.gru.wide_fits``, a pure function
+    of B and H: the DCT-CNN's H = 512 to B = 36).
 
     JAX routes its kernel at ``B == 1`` only (``aec_tpu/ops/gru.py:108``),
     because on a TPU v5e at batch 256 x 513 frames XLA's compiled
     ``lax.scan`` beat the Pallas kernel (0.53 ms against 1.49). The port has
     no compiled loop to fall back on: its plain route is an eager loop of
-    ~6 launches a frame forward and ~10 backward. On an H100 80GB HBM3 at
-    700 W, H = 32 (``chip_smoke.py`` phase 16): before this route, at B = 8
-    x 501 frames K8's recurrence took 0.228-0.271 ms, its whole forward
-    0.341-0.498, cuDNN's ``nn.GRU`` 0.329-0.424 and the plain loop users got
-    77.8-111.7; at B = 16 0.210-0.283, 0.309-0.534, 0.289-0.461 and
-    64.2-116.0. With this route (two runs, medians of four turns): at B = 8
-    the forward 0.330-0.489 ms against cuDNN's 0.356-0.488, the forward and
-    backward (K8 + K8b) 1.70-1.75 against cuDNN's 1.71-2.04 and the plain
-    loop's 364-415; at B = 16 0.329-0.465 against 0.354-0.484, and
-    1.27-1.69 against 1.51-1.99 and 354-400.
+    ~6 launches a frame forward and ~10 backward, hundreds of ms at a
+    training batch, so it routes wider, at every width its kernels hold. On
+    an H100 80GB HBM3 at 700 W, H = 32 (``chip_smoke.py`` phase 16): before
+    the route took B > 1, at B = 8 x 501 frames K8's recurrence took
+    0.228-0.271 ms, its whole forward 0.341-0.498, cuDNN's ``nn.GRU``
+    0.329-0.424 and the plain loop users got 77.8-111.7; at B = 16
+    0.210-0.283, 0.309-0.534, 0.289-0.461 and 64.2-116.0. With the route (two
+    runs, medians of four turns): at B = 8 the forward 0.330-0.489 ms
+    against cuDNN's 0.356-0.488, the forward and backward (K8 + K8b)
+    1.70-1.75 against cuDNN's 1.71-2.04 and the plain loop's 364-415; at B
+    = 16 0.329-0.465 against 0.354-0.484, and 1.27-1.69 against 1.51-1.99
+    and 354-400. ``PERF.md`` has the wide path's numbers.
     """
-    return device_type == "cuda" and t >= 64 and (b == 1 or hidden <= MAX_HIDDEN)
+    return device_type == "cuda" and t >= 64 and (hidden <= MAX_HIDDEN or wide_fits(b, hidden))
 
 
 def gru_scan(
@@ -99,7 +102,8 @@ def gru_scan(
 
     ``fused=None`` routes by :func:`kernel_route`: the fused route (kernel
     K8 forward and K8b backward, ``kernels/gru.py``) on a CUDA tensor at T
-    >= 64 and H <= 128 (any B) or B == 1, the plain loop otherwise. An
+    >= 64 wherever the kernels' plans hold the shape (any B to H = 128, the
+    wide path above), the plain loop otherwise. An
     explicit ``fused=True`` on a CPU tensor runs the fused route's autograd
     Function over the kernels' plain versions (JAX runs its kernel in
     interpret mode there); ``fused=False`` is the plain loop.

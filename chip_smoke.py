@@ -79,7 +79,13 @@ drives every user-facing path.
   the composition's fp64 evaluation, with TF32 products as the control;
   on the bulk_delay scene at block 160 (three seeds, K4 twice), where
   every fp32 evaluation's mask lies farthest from fp64.
-- K8 wide (phase 16): H = 64, 128, 129 and 512 beside cuDNN's ``nn.GRU``.
+- K8's and K8b's wide path (phase 16, ``csrc/gru_wide.cu``): K8 at B = 1 x
+  1001 at H = 129 and 512 and at the DCT-CNN's training batch, 16 x 501 at
+  H = 512, against its plain version, its ys with and without saving the
+  gates bit for bit, beside cuDNN's ``nn.GRU``; K8b there against its plain
+  version and the route's gradients against the plain route's, beside
+  cuDNN's forward and backward; both kernels whole and without their dots
+  (``kernels/gru_wide_costs.py``).
 - DCCRN inference (phases 22-23): K9 (the grouped complex LSTM) at
   ``DccrnConfig()``'s width (I = H = 1024 per part, T = 513) at B = 1 and
   16 (the largest B routed) against its plain version, beside the plain
@@ -129,7 +135,8 @@ drives every user-facing path.
   gradient leaf, the new BatchNorm state); the launches of K8, K9, K11,
   K8b and K9b in validation of 8 scenes at batch 1; 3 steps timed with
   train_xrt and peak memory; a checkpoint round trip; DCT-DNN and DCT-CNN
-  one step against the CPU route, timed.
+  one step against the CPU route, timed (the DCT-CNN's H = 512 GRU on the
+  wide K8 and K8b, once each a step, no plain GRU loop entered).
 - Data pipeline and CLIs (phase 27): ``cli/prepare_data`` packs 8 scenes x
   8 s (train and test); an int16 ``pipeline/device_cache`` of 1,024 x 10 s
   (983 MB) built through ``_build``: its rate, its peak memory in assembly
@@ -175,7 +182,9 @@ routes beside the library's, ``train``, K9b's at DCCRN's training shape
 with FullSubNet's two passes beside; K1's,
 K5's and K8's their launches on phase 27's paths, ``cli_launches``, and
 K1's, K5's, K9's, K11's and K3's on phase 28's mesh routes; K1's, K8's,
-K8b's, K6's, K2's and K3's on phase 29's examples, ``examples_launches``), the last line
+K8b's, K6's, K2's and K3's on phase 29's examples, ``examples_launches``;
+the wide K8's and K8b's rows, ``gru_scan_wide`` and ``gru_backward_wide``,
+at the DCT-CNN's training shape with their launches in its step), the last line
 the ``ok`` JSON. Exits nonzero without a CUDA device.
 """
 
@@ -542,20 +551,25 @@ def in_turns(fns, reps: int) -> list[list[float]]:
 class plain_entries:
     """Counts the calls into the plain recurrences and K9b's plain version
     that the LSTM routes reach through their modules' names (the grouped
-    scan and its loop, the joint loop, the plain backward): a route on the
-    card enters none of them (``with plain_entries() as n: ...; n[0]``)."""
+    scan and its loop, the joint loop, the plain backward), and into the
+    GRU's plain loop (a step of ``ops.gru.gru_scan``'s loop) and K8's and
+    K8b's plain versions: a route on the card enters none of them (``with
+    plain_entries() as n: ...; n[0]``)."""
 
     def __enter__(self):
+        from aec_tpu_torch.kernels import gru as kg
         from aec_tpu_torch.kernels import lstm as kl
         from aec_tpu_torch.kernels import lstm_bwd as kb
         from aec_tpu_torch.models import fullsubnet as mf
+        from aec_tpu_torch.ops import gru as og
         from aec_tpu_torch.ops import lstm as ol
 
         self.count = [0]
         self.saved = [(m, n, getattr(m, n)) for m, n in (
             (kl, "complex_lstm_scan"), (kl, "grouped_lstm_recurrence_plain"),
             (ol, "grouped_lstm_recurrence_plain"), (kb, "lstm_backward_plain"),
-            (mf, "_joint_scan_hs"))]
+            (mf, "_joint_scan_hs"), (og, "gru_cell"), (kg, "gru_recurrence_plain"),
+            (kg, "gru_backward_plain"))]
 
         def counted(fn):
             def call(*a, **k):
@@ -762,14 +776,16 @@ def leaves(tree) -> list[np.ndarray]:
     return out
 
 
-def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
+def gru_phase(dev, seed: int, reps: int, smi: str, wide_libs: dict) -> dict:
     """16. K8 vs its plain version and beside cuDNN's nn.GRU (same weights,
     fp32) at one 16 s utterance (B = 1, T = 1001) for H = 32, 64 and 128 (one
-    CTA per row, W_hh in registers) and 129 and 512 (the wide path on a grid
-    of CTAs), and at the batches users run, B = 8 (``batch_enhance --batch
-    8``) and 16 (the training batch), T = 501, H = 32, and B = 16 at H = 64
-    (TwoLayerGRU) and 128, where ``gru_scan`` routes to K8 and K8b
-    (:func:`gru_batch_phase`). Timed in turns: cuDNN, the recurrence alone
+    CTA per row, W_hh in registers) and 129 and 512 (the wide path, its ys
+    also with the gates saved, bit for bit), and at the batches users run, B
+    = 8 (``batch_enhance --batch 8``) and 16 (the training batch), T = 501,
+    H = 32, and B = 16 at H = 64 (TwoLayerGRU), 128 and 512 (the DCT-CNN's
+    GRU, on the wide path), where ``gru_scan`` routes to K8 and K8b
+    (:func:`gru_batch_phase`); then the wide kernels whole and without
+    their dots (``kernels/gru_wide_costs.py``). Timed in turns: cuDNN, the recurrence alone
     (``gru_recurrence`` on the folded projection), the whole forward
     ``gru_scan_fused`` (projection and recurrence: the same function as
     ``nn.GRU(x, h0)``), cuDNN; then the same four with calls back to back
@@ -780,12 +796,15 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
         gru_recurrence_plain,
         gru_scan_fused,
     )
+    from aec_tpu_torch.kernels import gru_wide_costs
     from aec_tpu_torch.ops.gru import gru_init
 
     g = torch.Generator().manual_seed(seed)
-    out = {"err": 0.0, "bwd_err": 0.0, "shapes": {}}
+    out = {"err": 0.0, "bwd_err": 0.0, "wide_err": 0.0, "wide_bwd_err": 0.0, "shapes": {}}
     for b, t, h in ((1, 1001, 32), (1, 1001, 64), (1, 1001, 128), (1, 1001, 129),
-                    (1, 1001, 512), (8, 501, 32), (16, 501, 32), (16, 501, 64), (16, 501, 128)):
+                    (1, 1001, 512), (8, 501, 32), (16, 501, 32), (16, 501, 64), (16, 501, 128),
+                    (16, 501, 512)):
+        wide = "wide_" if h > 128 else ""
         params = gru_init(2 * BANDS, h, generator=g, device=dev)
         x = torch.randn(b, t, 2 * BANDS, generator=g).to(dev)
         h0 = torch.zeros(b, h, device=dev)
@@ -800,6 +819,9 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
             lib = gru(x, h0[None])[0]
             torch.cuda.synchronize()
             check(ys.shape == (b, t, h) and bool(torch.isfinite(ys).all()), "K8 output")
+            if wide and b == 1:  # the batches check it in gru_batch_phase
+                check(torch.equal(ys, gru_recurrence(xp, params["w_hh"], b_hn, h0, save=True)[0]),
+                      "the wide K8's ys change with the save flag")
             err = float((ys - want).abs().max())
             lib_err = float((lib - want).abs().max())
             turns = [time_ms(fn, reps) for fn in (
@@ -828,13 +850,17 @@ def gru_phase(dev, seed: int, reps: int, smi: str) -> dict:
               f"time): recurrence {piped[1]:.4f} ms, whole forward {piped[2]:.4f} ms; cuDNN "
               f"{piped[0]:.4f} / {piped[3]:.4f} ms; ratio to cuDNN {piped[1] / p_lib:.3f}, "
               f"{piped[2] / p_lib:.3f} [{smi}]")
-        out["err"] = max(out["err"], err)
+        out[wide + "err"] = max(out[wide + "err"], err)
         out["shapes"][(b, t, h)] = {"ms": t_k, "fused_ms": t_f, "plain_ms": t_p,
                                     "library_ms": t_lib}
         if b > 1:
             row = gru_batch_phase(params, x, h0, gru, reps, smi, seed + b + h)
-            out["bwd_err"] = max(out["bwd_err"], row.pop("k8b_err"))
+            out[wide + "bwd_err"] = max(out[wide + "bwd_err"], row.pop("k8b_err"))
             out["shapes"][(b, t, h)].update(row)
+    with torch.no_grad():
+        out["wide_costs"] = gru_wide_costs.costs(wide_libs, reps, seed)
+    for row in out["wide_costs"]:
+        phase("K8 wide costs", f"{gru_wide_costs.report(row)} [{smi}]")
     return out
 
 
@@ -2291,8 +2317,9 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
     nondeterministic, as a user's run has it), train_xrt and peak memory;
     a checkpoint round trip (save_latest_best -> restore_train_tree into a
     fresh net: params, opt_state and model_state bit-equal). Then DCT-DNN
-    and DCT-CNN: one step against the CPU route (no kernel: the DCT-CNN's
-    H = 512 GRU keeps the plain loop at B > 1), and the step timed."""
+    and DCT-CNN: one step against the CPU route (the DCT-CNN's H = 512 GRU
+    on the wide K8 and K8b once each, no plain GRU loop entered; the DCT-DNN
+    runs no kernel), and the step timed."""
     from aec_tpu_torch.configs import TrainConfig
     from aec_tpu_torch.kernels.fullsubnet import joint_recurrence
     from aec_tpu_torch.kernels.gru import gru_backward, gru_recurrence
@@ -2480,6 +2507,7 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
 
     # DCT-DNN and DCT-CNN (no adapter, no CLI in either package): their
     # registry loss on the denoising contract (noisy mic -> clean near end)
+    expect_dct = {"dct_dnn": none, "dct_cnn": (1, 0, 0, 1, 0)}
     for name, cls in (("dct_dnn", DctDnn), ("dct_cnn", DctCnn)):
         spec = get_model(name)
         nets = [cls(spec.init(generator=torch.Generator().manual_seed(seed), device=d))
@@ -2489,8 +2517,14 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
             opt = make_optimizer(cfg, 1, n)
             steps.append(make_stateful_train_step(
                 lambda p, s, m, f, ne, e: (spec.loss(p, m, ne)[0], {"state": s}), opt))
-        loss, counts = drive(kernels, lambda: float(steps[0]({}, *batch)[1]))
-        check(tuple(counts) == none, f"{name}'s step launched a kernel: {counts}")
+        wide = (gru_recurrence.wide_launches, gru_backward.wide_launches)
+        with plain_entries() as entered:
+            loss, counts = drive(kernels, lambda: float(steps[0]({}, *batch)[1]))
+        wide = (gru_recurrence.wide_launches - wide[0], gru_backward.wide_launches - wide[1])
+        check(tuple(counts) == expect_dct[name] and entered[0] == 0
+              and wide == tuple(expect_dct[name][::3]),
+              f"{name}'s step did not launch its kernels as routed: {counts}, wide {wide}, "
+              f"plain GRU or LSTM loops entered {entered[0]}")
         c_loss = float(steps[1]({}, *batch_c)[1])
         rel = abs(loss / c_loss - 1.0)
         mean_d = max(float((p.detach().cpu() - q.detach()).abs().mean())
@@ -2502,14 +2536,16 @@ def zoo_phase(dev, seed: int, reps: int, smi: str) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         t_step = statistics.median(times)
         phase("zoo", f"{name} step 1, batch {cfg.batch_size} x {N_TRAIN}: launches K8 / K9 / K11 / "
-              f"K8b / K9b {counts}; loss {loss:.6f} vs the "
+              f"K8b / K9b {counts} (on the wide path {wide}), plain loops entered "
+              f"{entered[0]}; loss {loss:.6f} vs the "
               f"CPU route {c_loss:.6f} (rel {rel:.2e}, bar {STEP_LOSS_TOL:g}); worst leaf "
               f"mean|d| after the update {mean_d:.3e} (bar {STEP_PARAM_TOL:g} x lr); 3 steps "
               f"{', '.join(f'{v:.1f}' for v in times)} ms (median {t_step:.1f} ms = train_xrt "
               f"{audio_s / (t_step / 1e3):.1f}) [{smi}]")
         check(rel <= STEP_LOSS_TOL and mean_d <= STEP_PARAM_TOL * cfg.lr,
               f"{name}'s step disagrees with the CPU route")
-        out[name] = {"step_ms": t_step, "train_xrt": audio_s / (t_step / 1e3)}
+        out[name] = {"step_ms": t_step, "train_xrt": audio_s / (t_step / 1e3),
+                     "step_launches": tuple(counts), "wide_launches": wide}
     torch.backends.cudnn.deterministic = False
     wall = time.perf_counter() - t_phase
     phase("zoo", f"phase wall time {wall:.1f} s")
@@ -3290,7 +3326,14 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
-    from aec_tpu_torch.kernels import _build, fsn_costs, lstm_bwd_costs, lstm_costs, single_costs
+    from aec_tpu_torch.kernels import (
+        _build,
+        fsn_costs,
+        gru_wide_costs,
+        lstm_bwd_costs,
+        lstm_costs,
+        single_costs,
+    )
     from aec_tpu_torch.kernels.kalman import (
         kalman_cancel_fused,
         kalman_cancel_fused_batched,
@@ -3342,12 +3385,15 @@ def main() -> None:
     single_builds = single_costs.start_build()  # K6 / K7 whole and without transforms
     fsn_builds = fsn_costs.start_build()  # K11 whole, its producer alone, its consumers alone
     bwd_builds = lstm_bwd_costs.start_build()  # K9b whole and with each part of its step cut
+    wide_builds = gru_wide_costs.start_build()  # K8 / K8b wide, whole and without their dots
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
-                        "single_stream", "gru", "lstm", "fullsubnet", "lstm_int8", "lstm_bwd")
+                        "single_stream", "gru", "gru_wide", "lstm", "fullsubnet", "lstm_int8",
+                        "lstm_bwd")
     cost_libs = lstm_costs.finish_build(cost_builds)
     single_libs = single_costs.finish_build(single_builds)
     fsn_libs = fsn_costs.finish_build(fsn_builds)
     bwd_libs = lstm_bwd_costs.finish_build(bwd_builds)
+    wide_libs = gru_wide_costs.finish_build(wide_builds)
     build_s = time.perf_counter() - t0
     phase("build", f"{build_s:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for src, log in sorted(logs.items()):
@@ -3821,7 +3867,7 @@ def main() -> None:
 
     t_main = N // HOP
     # 16-18. K8 against its plain version and cuDNN; its gradients; the trainer
-    gru = gru_phase(dev, args.seed, args.reps, smi)
+    gru = gru_phase(dev, args.seed, args.reps, smi, wide_libs)
     trained = trainer_phase(dev, args.seed, args.reps, smi)
 
     # 19. the wide-net single-utterance route: the width-4 checkpoint on the 8
@@ -3920,6 +3966,7 @@ def main() -> None:
     n_serve = len(names)  # K3's row: the streamed scenes' shape, where its launches come from
     k8 = gru["shapes"][(1, 1001, BANDS)]
     k8b = gru["shapes"][(16, 501, BANDS)]  # a LittleNet train step's GRU
+    k8w = gru["shapes"][(16, 501, 512)]  # the DCT-CNN's train step's GRU
     k9 = lstm["shapes"][1]
     # K9 per layer at B = 1: 2 groups x 2 rows x 4H x H FMA per frame; xp in,
     # W_hh read, ys out
@@ -3958,6 +4005,14 @@ def main() -> None:
         # saved gates; launches from the trainer's 5 steps
         ("gru_backward", "gru.cu", "pallas_gru.py:159", trained["k8b_steps"], gru["bwd_err"],
          k8b["k8b_ms"], k8b["k8b_plain_ms"], k8b_bound(16, 501, BANDS)),
+        # the wide path (H > 128) at the DCT-CNN's training shape (B = 16, T =
+        # 501, H = 512; K8 saving the gates there in the route, timed here
+        # without); launches from the zoo's DCT-CNN step
+        ("gru_scan_wide", "gru_wide.cu", "pallas_gru.py:65", zoo["dct_cnn"]["wide_launches"][0],
+         gru["wide_err"], k8w["ms"], k8w["plain_ms"], gru_bound(16, 501, 512)),
+        ("gru_backward_wide", "gru_wide.cu", "pallas_gru.py:159",
+         zoo["dct_cnn"]["wide_launches"][1], gru["wide_bwd_err"], k8w["k8b_ms"],
+         k8w["k8b_plain_ms"], k8b_bound(16, 501, 512)),
         ("kalman_batched_spectra", "kalman_batched.cu", "pallas_kalman.py:303", k12_launches,
          k12_err, t_k12, t_p12, stage1_bounds(BATCH, analysis=False)[0]),
         # K9 at one 8.2 s utterance (B = 1, T = 513); launches from the DCCRN path
@@ -3979,6 +4034,7 @@ def main() -> None:
     ]
     # cuDNN's nn.GRU and nn.LSTM with the kernels' weights
     library_ms = {"gru_scan": k8["library_ms"], "gru_backward": k8b["lib_bwd_ms"],
+                  "gru_scan_wide": k8w["library_ms"], "gru_backward_wide": k8w["lib_bwd_ms"],
                   "lstm_grouped": k9["library_ms"],
                   "fullsubnet_joint": fsn["shapes"][1]["library_ms"],
                   "lstm_backward": lstm_train["lib_bwd_ms"]}
@@ -4057,6 +4113,21 @@ def main() -> None:
                                   **fsn_train[f"k9b_{key}_bound"]}
            for band, key in (("sub_band", "sb"), ("full_band", "fb"))}}
     extra.setdefault("serving", {})["dryrun_launches"] = par["k3_dryrun_launches"]
+    # the wide path at B = 1 x 1001 (validation and inference), the route's
+    # forward and backward beside cuDNN's at 16 x 501, the DCT-CNN's step,
+    # and both kernels whole and without their dots (µs a step)
+    wide_costs = {f"{r['kernel']} {r['shape']}": r["us_per_step"] for r in gru["wide_costs"]}
+    extra["gru_scan_wide"] = {
+        **{f"B1xT1001xH{h}": {k: gru["shapes"][(1, 1001, h)][k]
+                              for k in ("ms", "plain_ms", "library_ms")} | gru_bound(1, 1001, h)
+           for h in (129, 512)},
+        "route_fwd_ms": k8w["route_fwd_ms"], "library_fwd_ms": k8w["lib_fwd_ms"],
+        "train_launches": {"dct_cnn_step": zoo["dct_cnn"]["wide_launches"][0]},
+        "dct_cnn_step_ms": zoo["dct_cnn"]["step_ms"], "us_per_step": wide_costs}
+    extra["gru_backward_wide"] = {
+        "route_bwd_ms": k8w["route_bwd_ms"], "route_fwd_bwd_ms": k8w["route_fwd_bwd_ms"],
+        "library_fwd_bwd_ms": k8w["lib_fwd_bwd_ms"],
+        "train_launches": {"dct_cnn_step": zoo["dct_cnn"]["wide_launches"][1]}}
     examples_extras(extra, ex)
     phase("total", f"{time.perf_counter() - t_start:.1f} s, the build's {build_s:.1f} s "
           f"included [{smi}]")

@@ -21,6 +21,7 @@ from aec_tpu_torch.kernels.gru import (
     gru_recurrence,
     gru_scan_fused,
     gru_scan_fused_plain,
+    wide_fits,
 )
 from aec_tpu_torch.kernels.kalman import (
     kalman_cancel_fused,
@@ -563,11 +564,11 @@ def test_gru_kernel_matches_plain(cuda, b, h):
     torch.testing.assert_close(ys, want, atol=1e-5, rtol=0)
     torch.testing.assert_close(ys, scan, atol=1e-5, rtol=0)
     # gru_scan's own route at T >= 64 (ops.gru.kernel_route) takes K8 at any
-    # B to H = 128 and at B == 1 at any width; (2, 300) stays on the plain loop
+    # B to H = 128 and wherever the wide plan holds above (every case here)
     with torch.no_grad():
         routed, _ = gru_scan(params, x, h0)
     routes = kernel_route(b, 101, h, "cuda")
-    assert routes == (b == 1 or h <= 128)
+    assert routes == (h <= 128 or wide_fits(b, h)) and routes
     assert gru_recurrence.launches == before + 1 + routes
     if routes:
         torch.testing.assert_close(routed, ys, atol=0, rtol=0)
@@ -730,10 +731,106 @@ def test_gru_backward_kernel_refuses_what_it_cannot_take(cuda):
         gru_backward(g_ys, gates, ys, h0.cpu(), w_hh)
     with pytest.raises(ValueError, match="want"):
         gru_backward(g_ys, gates[..., :96].contiguous(), ys, h0, w_hh)
-    wide = torch.zeros(2, 9, 160, device=cuda)
-    with pytest.raises(ValueError, match="H <= 128"):
-        gru_backward(wide, torch.zeros(2, 9, 640, device=cuda), wide, wide[:, 0].contiguous(),
-                     torch.zeros(480, 160, device=cuda))
+    # the wide path (H > 128) refuses what its plan cannot hold: K8b's
+    # vectors of 37 rows at H = 512 past a CTA's shared memory, and at H =
+    # 2048 more columns a CTA than its 16 warps
+    wide = torch.zeros(37, 9, 512, device=cuda)
+    with pytest.raises(ValueError, match="K8b's wide plan cannot hold B = 37, H = 512"):
+        gru_backward(wide, torch.zeros(37, 9, 2048, device=cuda), wide, wide[:, 0].contiguous(),
+                     torch.zeros(1536, 512, device=cuda))
+    huge = torch.zeros(1, 9, 2048, device=cuda)
+    with pytest.raises(ValueError, match="K8's wide plan cannot hold B = 1, H = 2048"):
+        gru_recurrence(torch.zeros(1, 9, 6144, device=cuda), torch.zeros(6144, 2048, device=cuda),
+                       torch.zeros(2048, device=cuda), huge[:, 0].contiguous())
+
+
+@pytest.mark.parametrize("b,t,h", [(1, 1001, 129), (1, 1001, 512), (16, 501, 512),
+                                   (8, 200, 300), (9, 200, 300)])
+def test_gru_wide_kernel_matches_plain(cuda, b, t, h):
+    """K8's wide path (H > 128) against its plain recurrence at a 16 s
+    utterance (B = 1, T = 1001), the DCT-CNN's training batch (16 x 501) and
+    both sides of the exchange's switch (8 rows in words with their step, 9
+    by a counter): 1e-5 absolute; ys bit-equal with and without saving the
+    gates, the gates within 1e-5 of the plain version's; one launch each,
+    counted as the wide path's."""
+    from aec_tpu_torch.kernels.gru import folded_projection, gru_recurrence_plain
+
+    params, x, h0 = _gru_case(cuda, b, t, h, seed=b + t + h)
+    xp, b_hn = folded_projection(params, x), params["b_hh"][2 * h:]
+    before = gru_recurrence.launches, gru_recurrence.wide_launches
+    with torch.no_grad():
+        ys = gru_recurrence(xp, params["w_hh"], b_hn, h0)
+        ys_s, gates = gru_recurrence(xp, params["w_hh"], b_hn, h0, save=True)
+        torch.cuda.synchronize()
+        want, want_gates = gru_recurrence_plain(xp, params["w_hh"], b_hn, h0, save=True)
+    assert (gru_recurrence.launches - before[0], gru_recurrence.wide_launches - before[1]) == (2, 2)
+    assert ys.shape == (b, t, h) and bool(torch.isfinite(ys).all())
+    assert torch.equal(ys, ys_s)
+    torch.testing.assert_close(ys, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(gates, want_gates, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t", [1, 63, 501])
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("h", [129, 300, 512])
+def test_gru_wide_backward_kernel_matches_plain(cuda, h, b, t):
+    """K8b's wide path against its plain version on the gates K8's wide
+    path saved, a random cotangent at every step: dxp, d_hn and dh0 each
+    within 1e-4 of its scale (K8's gradient bar)."""
+    args = _saved_case(cuda, b, t, h, seed=b + t + h)
+    before = gru_backward.launches, gru_backward.wide_launches
+    got = gru_backward(*args)
+    torch.cuda.synchronize()
+    assert (gru_backward.launches - before[0], gru_backward.wide_launches - before[1]) == (1, 1)
+    want = gru_backward_plain(*args)
+    for name, a, w in zip(("dxp", "d_hn", "dh0"), got, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("b,t,h", [(16, 501, 512), (3, 100, 300), (1, 200, 129)])
+def test_gru_wide_route_gradients_match_plain_route(cuda, b, t, h):
+    """gru_scan's own route above H = 128 (the DCT-CNN's GRU at 16 x 501,
+    H = 512, among them): the wide K8 once forward, the wide K8b once
+    backward, no plain loop; every gradient leaf within 1e-4 of its scale of
+    the plain route's."""
+    params, x, h0 = _gru_case(cuda, b, t, h, i=512 if h == 512 else 64)
+    leaves = [x, h0, *params.values()]
+    for a in leaves:
+        a.requires_grad_()
+    cot = torch.randn(b, t, h, generator=torch.Generator().manual_seed(3)).to(cuda)
+    before = gru_recurrence.wide_launches, gru_backward.wide_launches
+    ys, _ = gru_scan(params, x, h0)
+    got = torch.autograd.grad((ys * cot).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (gru_recurrence.wide_launches - before[0], gru_backward.wide_launches - before[1]) \
+        == (1, 1)
+    ys2, _ = gru_scan(params, x, h0, fused=False)
+    want = torch.autograd.grad((ys2 * cot).sum(), leaves)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=0)
+
+
+def test_gru_wide_kernels_follow_an_in_place_weight_change(cuda):
+    """The wide path packs W_hh once per weight tensor and plan: after an
+    in-place change the next launches use the new weights."""
+    from aec_tpu_torch.kernels.gru import folded_projection, gru_recurrence_plain
+
+    params, x, h0 = _gru_case(cuda, 2, 70, 300)
+    xp, b_hn = folded_projection(params, x), params["b_hh"][600:]
+    g = torch.randn(2, 70, 300, generator=torch.Generator().manual_seed(5)).to(cuda)
+    ys, gates = gru_recurrence(xp, params["w_hh"], b_hn, h0, save=True)
+    gru_backward(g, gates, ys, h0, params["w_hh"])
+    with torch.no_grad():
+        params["w_hh"].mul_(0.8)
+        ys, gates = gru_recurrence(xp, params["w_hh"], b_hn, h0, save=True)
+        got = gru_backward(g, gates, ys, h0, params["w_hh"])
+        torch.cuda.synchronize()
+        want_ys = gru_recurrence_plain(xp, params["w_hh"], b_hn, h0)
+        want = gru_backward_plain(g, gates, ys, h0, params["w_hh"])
+    torch.testing.assert_close(ys, want_ys, atol=1e-5, rtol=0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-4 * float(w.abs().max()), rtol=0)
 
 
 def test_batch_one_loss_backward_launches_gru_kernel(cuda, scene):

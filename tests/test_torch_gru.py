@@ -17,12 +17,16 @@ from aec_tpu_torch.kernels.gru import (
     gru_recurrence,
     gru_recurrence_plain,
     gru_recurrence_split,
+    gru_recurrence_wide_split,
     gru_scan_fused,
     gru_scan_fused_plain,
     lane_plan,
-    pack_gate_columns,
     pack_gru_lanes,
+    pack_wide,
     unpack_gru_lanes,
+    unpack_wide,
+    wide_columns,
+    wide_plan,
 )
 from aec_tpu_torch.ops.gru import gru_init, gru_scan
 
@@ -147,23 +151,64 @@ def test_gru_init_orthogonal_and_bounded(orthogonal):
             assert float(w.abs().max()) <= bound
 
 
-@pytest.mark.parametrize("groups,gates,hidden,units", [(1, 3, 7, 3), (2, 4, 10, 4), (1, 3, 8, 8)])
-def test_pack_gate_columns_layout(groups, gates, hidden, units):
-    """The wide paths' per-CTA weight slices (K8 above H = 128, K9):
-    packed[g, c, k, gate * U + j] = W_hh[g][gate * H + c * U + j, k], zero
-    past H."""
-    w = torch.randn(groups, gates * hidden, hidden)
-    packed = pack_gate_columns(w, gates, units)
-    nchunk = -(-hidden // units)
-    assert tuple(packed.shape) == (groups, nchunk, hidden, gates * units)
-    for g in range(groups):
-        for c in range(nchunk):
-            for gate in range(gates):
-                for j in range(units):
-                    unit = c * units + j
-                    col = packed[g, c, :, gate * units + j]
-                    want = w[g, gate * hidden + unit] if unit < hidden else torch.zeros(hidden)
-                    assert torch.equal(col, want)
+@pytest.mark.parametrize("rows,hidden,backward", [(1, 129, False), (1, 129, True),
+                                                  (3, 160, False), (16, 300, True),
+                                                  (2, 512, False), (16, 512, True)])
+def test_pack_wide_layout(rows, hidden, backward):
+    """The wide path's columns and their packing (K8 and K8b above H =
+    128): forward column g U + j of CTA c is row g H + c U + j of W_hh,
+    backward column j is column c U + j of W_hh; quad j cw + i of thread
+    (ks ncg + cg) 32 + l holds quad l + 32 (ks pps + j) of column cg cw + i;
+    unpack(pack) is the columns, zero past H and in the idle warps."""
+    plan = wide_plan(rows, hidden, backward)
+    w = torch.randn(3 * hidden, hidden, generator=torch.Generator().manual_seed(hidden))
+    cols = wide_columns(w, plan)
+    assert tuple(cols.shape) == (plan.nchunk, plan.ncg * plan.cw, plan.kp)
+    u = plan.units
+    for c in (0, plan.nchunk - 1):
+        for j in range(u):
+            unit = c * u + j
+            if backward:
+                want = [w[:, unit]] if unit < hidden else [torch.zeros(3 * hidden)]
+            else:
+                want = [w[g * hidden + unit] if unit < hidden else torch.zeros(hidden)
+                        for g in range(3)]
+            for g, col in enumerate(want):
+                k = col.shape[0]
+                assert torch.equal(cols[c, g * u + j, :k], col)
+                assert not cols[c, g * u + j, k:].any()
+    assert not cols[:, plan.columns:].any()
+    packed = pack_wide(w, plan)
+    assert tuple(packed.shape) == (plan.nchunk, plan.pps * plan.cw, 512, 4)
+    assert torch.equal(unpack_wide(packed, plan), cols)
+    quads = cols.reshape(plan.nchunk, plan.ncg * plan.cw, plan.kp // 4, 4)
+    for warp in range(plan.ks * plan.ncg):
+        ks, cg = divmod(warp, plan.ncg)
+        for lane in (0, 31):
+            for j in range(plan.pps):
+                for i in range(plan.cw):
+                    got = packed[:, j * plan.cw + i, warp * 32 + lane]
+                    assert torch.equal(got, quads[:, cg * plan.cw + i, lane + 32 * (ks * plan.pps + j)])
+    assert not packed[:, :, plan.ks * plan.ncg * 32:].any()
+
+
+@pytest.mark.parametrize("b,hidden", [(2, 160), (3, 300)])
+def test_wide_split_model_matches_plain_and_jax(rng, b, hidden):
+    """The plain-torch model of the wide K8's summation order (each lane's
+    quads in k order, a tree over the warp, the slices in order), from
+    pack_wide's weights, against K8's plain recurrence (1e-6) and JAX's
+    fused kernel in interpret mode (2e-6, the JAX suite's bar)."""
+    _, x, h0, jp, tp = _case(rng, b, 12, 16, hidden)
+    xp = folded_projection(tp, torch.from_numpy(x))
+    b_hn = tp["b_hh"][2 * hidden:]
+    plan = wide_plan(b, hidden, False)
+    got = gru_recurrence_wide_split(xp, pack_wide(tp["w_hh"], plan), b_hn,
+                                    torch.from_numpy(h0), plan)
+    want = gru_recurrence_plain(xp, tp["w_hh"], b_hn, torch.from_numpy(h0))
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    jax_ys, _ = _gru_scan_fused_fwd(jp, jnp.asarray(x), jnp.asarray(h0), interpret=True,
+                                    unroll=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_ys), atol=2e-6)
 
 
 LANE_WIDTHS = [1, 7, 32, 64, 100, 128]

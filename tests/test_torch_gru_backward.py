@@ -22,11 +22,17 @@ from aec_tpu_torch.kernels.gru import (
     gru_backward,
     gru_backward_plain,
     gru_backward_split,
+    gru_backward_wide_split,
     gru_recurrence,
     gru_recurrence_plain,
+    gru_recurrence_wide_split,
     pack_gru_lanes,
+    pack_wide,
     packed_lanes,
+    packed_wide,
     unpack_gru_lanes,
+    wide_fits,
+    wide_plan,
 )
 from aec_tpu_torch.models import little_net as little_net_mod
 from aec_tpu_torch.models.little_net import little_net_init, little_net_loss
@@ -202,14 +208,89 @@ def test_backward_model_in_the_kernels_order_matches_plain_and_jax(rng, monkeypa
     assert err <= 1e-5, f"{leaf} off JAX's custom VJP by {err:.3e} of its scale"
 
 
-def test_wide_backward_recomputes_the_plain_scan(rng):
-    """Above H = 128 (K8's wide path, no K8b) the fused route's backward
-    recomputes the plain scan: equal to the plain loop's gradients."""
-    params, x, h0, g_ys, g_h = _case(rng, 1, 12, 16, 160)
+@pytest.mark.parametrize("b,t,h", [(2, 70, 160), (3, 12, 300)])
+def test_wide_backward_matches_jax_custom_vjp_and_plain_loop(rng, b, t, h):
+    """Above H = 128 (the wide path) the fused route saves the gates and
+    runs K8b's plain version on them, as at every width: every leaf within
+    1e-5 of its scale of JAX's custom VJP (its kernel in interpret mode) and
+    of the plain loop's autograd."""
+    params, x, h0, g_ys, g_h = _case(rng, b, t, 16, h)
     got = _port_grads(params, x, h0, g_ys, g_h, fused=True)
-    want = _port_grads(params, x, h0, g_ys, g_h, fused=False)
-    for name, a, w in zip(NAMES, got, want):
-        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6, msg=name)
+    plain = [a.numpy() for a in _port_grads(params, x, h0, g_ys, g_h, fused=False)]
+    for want, what in ((_jax_grads(params, x, h0, g_ys, g_h), "JAX"), (plain, "plain loop")):
+        err, leaf = _worst_of_scale(got, want)
+        assert err <= 1e-5, f"{leaf} off {what} by {err:.3e} of its scale"
+
+
+@pytest.mark.parametrize("b,t,h", [(2, 40, 160), (3, 12, 300)])
+def test_wide_models_in_the_kernels_order_match_plain_and_jax(rng, monkeypatch, b, t, h):
+    """The wide path's summation order (gru_recurrence_wide_split,
+    gru_backward_wide_split, from pack_wide's weights): the backward model
+    within 1e-5 of each output's scale of gru_backward_plain, the forward
+    model's saved-gate contract unchanged (ys the plain version's to 1e-6),
+    and the fused route with both models in K8's and K8b's places within
+    1e-5 of each leaf's scale of JAX's custom VJP."""
+    w = torch.from_numpy((rng.uniform(-1, 1, (3 * h, h)) / np.sqrt(h)).astype(np.float32))
+    xp = torch.from_numpy(rng.standard_normal((b, t, 3 * h)).astype(np.float32))
+    b_hn = torch.from_numpy((0.1 * rng.standard_normal(h)).astype(np.float32))
+    h0 = torch.from_numpy((0.5 * rng.standard_normal((b, h))).astype(np.float32))
+    g_ys = torch.from_numpy(rng.standard_normal((b, t, h)).astype(np.float32))
+    ys, gates = gru_recurrence_plain(xp, w, b_hn, h0, save=True)
+    bwd = wide_plan(b, h, True)
+    got = gru_backward_wide_split(g_ys, gates, ys, h0, pack_wide(w, bwd), bwd)
+    for a, want in zip(got, gru_backward_plain(g_ys, gates, ys, h0, w)):
+        assert float((a - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    calls = []
+
+    def forward(xp, w_hh, b_hn, h0, *, save=False):
+        calls.append("K8")
+        plan = wide_plan(h0.shape[0], h0.shape[-1], False)
+        ys = gru_recurrence_wide_split(xp, pack_wide(w_hh, plan), b_hn, h0, plan)
+        plain_ys, gates = gru_recurrence_plain(xp, w_hh, b_hn, h0, save=True)
+        torch.testing.assert_close(ys, plain_ys, atol=1e-6, rtol=0)
+        return (ys, gates) if save else ys
+
+    def backward(g_ys, gates, ys, h0, w_hh):
+        calls.append("K8b")
+        plan = wide_plan(h0.shape[0], h0.shape[-1], True)
+        return gru_backward_wide_split(g_ys, gates, ys, h0, pack_wide(w_hh, plan), plan)
+
+    import aec_tpu_torch.kernels.gru as kg
+    monkeypatch.setattr(kg, "gru_recurrence_plain", forward)
+    monkeypatch.setattr(kg, "gru_backward_plain", backward)
+    params, x, h0n, gy, g_h = _case(rng, b, t, 16, h)
+    got = _port_grads(params, x, h0n, gy, g_h, fused=True)
+    assert calls == ["K8", "K8b"]
+    err, leaf = _worst_of_scale(got, _jax_grads(params, x, h0n, gy, g_h))
+    assert err <= 1e-5, f"{leaf} off JAX's custom VJP by {err:.3e} of its scale"
+
+
+def test_wide_saved_gates_leave_the_forward_bit_equal(rng):
+    """At H > 128 K8's plain version with the gates saved gives the same
+    ys, bit for bit (the kernels' contract at every width)."""
+    params, x, h0, _, _ = _case(rng, 2, 9, 16, 160)
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    xp, h0t = folded_projection(tp, torch.from_numpy(x)), torch.from_numpy(h0)
+    ys = gru_recurrence_plain(xp, tp["w_hh"], tp["b_hh"][320:], h0t)
+    ys_s, gates = gru_recurrence_plain(xp, tp["w_hh"], tp["b_hh"][320:], h0t, save=True)
+    assert torch.equal(ys, ys_s) and gates.shape == (2, 9, 640)
+
+
+def test_packed_wide_is_cached_per_weight_version():
+    """The wide path's packings (forward and backward plans) are built once
+    per weight tensor and again after an in-place change."""
+    clear_cache()
+    w = torch.randn(3 * 160, 160, generator=torch.Generator().manual_seed(160))
+    fwd, bwd = wide_plan(16, 160, False), wide_plan(16, 160, True)
+    a, b = packed_wide(w, fwd), packed_wide(w, bwd)
+    assert torch.equal(a, pack_wide(w, fwd)) and torch.equal(b, pack_wide(w, bwd))
+    assert packed_wide(w, fwd) is a and packed_wide(w, bwd) is b
+    with torch.no_grad():
+        w.mul_(0.5)
+    again = packed_wide(w, fwd)
+    assert again is not a and torch.equal(again, pack_wide(w, fwd))
+    clear_cache()
 
 
 def test_little_net_loss_gradient_fused_matches_plain(rng, monkeypatch):
@@ -236,15 +317,20 @@ def test_little_net_loss_gradient_fused_matches_plain(rng, monkeypatch):
     (8, 501, 32, "cuda", True),    # batch_enhance --batch 8
     (16, 501, 64, "cuda", True),   # a TwoLayerGRU train step
     (16, 501, 128, "cuda", True),  # K8's widest register path
-    (16, 501, 129, "cuda", False),  # the wide path keeps JAX's B == 1
-    (16, 501, 512, "cuda", False),  # the DCT-CNN's step
+    (16, 501, 129, "cuda", True),  # the wide path (K8 and K8b) at a training batch
+    (16, 501, 512, "cuda", True),  # the DCT-CNN's step
     (1, 501, 512, "cuda", True),   # ... and its batch-1 validation
+    (36, 501, 512, "cuda", True),  # the widest batch the wide plan holds at H = 512
+    (37, 501, 512, "cuda", False),  # K8b's vectors past a CTA's shared memory
+    (1, 501, 2048, "cuda", False),  # more columns a CTA than its warps
     (16, 63, 32, "cuda", False),   # a short scan
     (1, 1001, 32, "cpu", False),   # a CPU tensor never launches
     (16, 501, 32, "cpu", False),
 ])
 def test_route_decision(b, t, h, device, want):
     assert kernel_route(b, t, h, device) is want
+    if device == "cuda" and t >= 64 and h > 128:
+        assert wide_fits(b, h) is want
 
 
 def test_route_on_cpu_is_the_plain_loop(rng):
