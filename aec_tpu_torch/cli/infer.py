@@ -37,6 +37,7 @@ from aec_tpu_torch.pipeline.audio_io import write_wav
 from aec_tpu_torch.pipeline.datasets import EvalLoader
 from aec_tpu_torch.pipeline.h5io import read_filelist
 from aec_tpu_torch.train import checkpoints
+from aec_tpu_torch.utils import profiling
 from aec_tpu_torch.utils.tools import get_logger, num_params
 
 
@@ -74,7 +75,9 @@ def _make_enhancer(
     the CPU). ``normalize`` is the reference Tester's in-forward pseudo-norm,
     LittleNet only. ``lstm_dtype`` is ATT-CCRN's bottleneck recurrence:
     "auto" is int8 on a CUDA device (kernel K10) and f32 elsewhere, as JAX's
-    is int8 on the TPU only."""
+    is int8 on the TPU only. Spans (``utils/profiling``): ``enhance`` around
+    a call, ``enhance.stage1`` (the alignment and the linear canceller) and
+    ``enhance.net`` inside it."""
     if model != "little_net" and model_file.endswith(".pt"):
         raise ValueError(
             f".pt checkpoint interop is little_net-only (reference .pt files hold Little_net "
@@ -119,10 +122,13 @@ def _make_enhancer(
 
         @torch.no_grad()
         def enhance(far, mic):
-            far = prealign(far, mic)
-            lin = stage1_fn(far, mic)
-            return apply_fn(params, lin, far, erb, scfg, normalize=normalize,
-                            gain_norm=gain_norm)["wav"]
+            with profiling.span("enhance"):
+                with profiling.span("enhance.stage1"):
+                    far = prealign(far, mic)
+                    lin = stage1_fn(far, mic)
+                with profiling.span("enhance.net"):
+                    return apply_fn(params, lin, far, erb, scfg, normalize=normalize,
+                                    gain_norm=gain_norm)["wav"]
 
         return enhance, params
 
@@ -168,8 +174,12 @@ def _make_enhancer(
 
     @torch.no_grad()
     def enhance(far, mic):
-        far = prealign(far, mic)
-        return post(stage1_fn(far, mic), far)
+        with profiling.span("enhance"):
+            with profiling.span("enhance.stage1"):
+                far = prealign(far, mic)
+                lin = stage1_fn(far, mic)
+            with profiling.span("enhance.net"):
+                return post(lin, far)
 
     return enhance, params
 

@@ -12,6 +12,7 @@ or a ``copy_`` into a weight makes the next call prepare again (an in-place
 change through ``.data`` bypasses the version counter: call
 :func:`clear_cache` after one). An entry holds the parameters it was made
 from, so no other tensor can take their addresses while it lives.
+``prepare.builds`` counts the launches built because the cache had no entry.
 
 Model. :func:`hop_model` is a plain-torch model of the hop on FFTs, which
 ``serving.serving_step_modeled`` and ``two_stage.two_stage_fused_modeled``
@@ -153,7 +154,11 @@ def prepare(net: LittleNet, erb: torch.Tensor, kcfg, scfg: StftConfig,
     _CACHE[key] = out
     while len(_CACHE) > CACHE_SIZE:
         _CACHE.popitem(last=False)
+    prepare.builds += 1
     return out
+
+
+prepare.builds = 0
 
 
 # ---------------------------------------------------------------- plain-torch model

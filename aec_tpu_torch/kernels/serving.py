@@ -50,6 +50,7 @@ from aec_tpu_torch.kernels import _build, hop
 from aec_tpu_torch.kernels.hop import MONITOR_SMOOTH
 from aec_tpu_torch.models.little_net import LittleNet
 from aec_tpu_torch.pipeline.streaming import _check_stage1, _stream_step_core
+from aec_tpu_torch.utils import profiling
 
 ServingState = dict[str, torch.Tensor]
 
@@ -363,32 +364,39 @@ def serving_step_fused(
     :func:`serving_step_plain`. ``steps`` counts the launches on FFTs and on
     the dense hop. The net's weights and ``erb`` are prepared once
     (:func:`kernels.hop.prepare`: pass ``erb`` as a float32 tensor on the
-    card, or it is copied there and prepared again on every call).
+    card, or it is copied there and prepared again on every call, which
+    ``hop.prepare.builds`` counts). Spans (``utils/profiling``):
+    ``serving.step``, and on the card ``serving.prepare`` and
+    ``serving.launch`` (the ctypes call) inside it.
     """
-    if far.device.type == "cpu":
-        return serving_step_plain(net, state, far, mic, erb, kcfg, scfg, normalize=normalize,
-                                  gain_norm=gain_norm, stage1=stage1)
-    _check_serving_stage1(stage1)
-    kcfg = _filter_cfg(kcfg, stage1)
-    dev = far.device
-    erb = torch.as_tensor(erb, dtype=torch.float32, device=dev)
-    lib, nlms = _lib(), int(stage1 == "nlms")
-    prep = hop.prepare(
-        net, erb, kcfg, scfg, dev,
-        lambda fft: lib.aec_serving_smem(scfg.hop, kcfg.n_blocks, erb.shape[-1], nlms, int(fft)),
-        "the serving kernel")
-    kb, ptrs = _check(state, far, mic, kcfg, scfg, erb.shape[-1], stage1)
-    out = torch.empty_like(far)
-    err = lib.aec_serving(
-        prep.ref, nlms, far.data_ptr(), mic.data_ptr(), out.data_ptr(),
-        (ctypes.c_void_p * len(_KEYS))(*ptrs),
-        far.shape[0], kb, int(gain_norm), int(normalize), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "serving")
-    serving_step_fused.steps[prep.step] += 1
-    serving_step_fused.launches += 1
-    return state, out
+    with profiling.span("serving.step"):
+        if far.device.type == "cpu":
+            return serving_step_plain(net, state, far, mic, erb, kcfg, scfg, normalize=normalize,
+                                      gain_norm=gain_norm, stage1=stage1)
+        _check_serving_stage1(stage1)
+        kcfg = _filter_cfg(kcfg, stage1)
+        dev = far.device
+        erb = torch.as_tensor(erb, dtype=torch.float32, device=dev)
+        lib, nlms = _lib(), int(stage1 == "nlms")
+        with profiling.span("serving.prepare"):
+            prep = hop.prepare(
+                net, erb, kcfg, scfg, dev,
+                lambda fft: lib.aec_serving_smem(scfg.hop, kcfg.n_blocks, erb.shape[-1], nlms,
+                                                 int(fft)),
+                "the serving kernel")
+        kb, ptrs = _check(state, far, mic, kcfg, scfg, erb.shape[-1], stage1)
+        out = torch.empty_like(far)
+        with profiling.span("serving.launch"):
+            err = lib.aec_serving(
+                prep.ref, nlms, far.data_ptr(), mic.data_ptr(), out.data_ptr(),
+                (ctypes.c_void_p * len(_KEYS))(*ptrs),
+                far.shape[0], kb, int(gain_norm), int(normalize), dev.index,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(err, "serving")
+        serving_step_fused.steps[prep.step] += 1
+        serving_step_fused.launches += 1
+        return state, out
 
 
 serving_step_fused.launches = 0

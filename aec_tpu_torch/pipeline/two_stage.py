@@ -17,6 +17,9 @@ Routing follows the JAX package, decided by the tensors' device:
   other STFT geometries take the offline ``models.little_net_apply`` for
   stage 2, as the JAX package routes them off its stage-2 kernel.
 - CPU tensors: the plain versions of both stages.
+
+Spans (``utils/profiling``): ``two_stage`` around a call and, off K4,
+``two_stage.stage1`` and ``two_stage.stage2`` inside it.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from aec_tpu_torch.dsp.stft import StftConfig
 from aec_tpu_torch.linear.kalman import kalman_cancel
 from aec_tpu_torch.linear.nlms import nlms_cancel
 from aec_tpu_torch.models.little_net import LittleNet, little_net_apply
+from aec_tpu_torch.utils import profiling
 
 
 def _route_single_kernel(
@@ -83,51 +87,54 @@ def two_stage_cancel(
     """
     if quality not in ("parity", "fast"):
         raise ValueError(f"quality must be 'parity' or 'fast', got {quality!r}")
-    erb = torch.as_tensor(erb, dtype=torch.float32, device=far.device)
-    std_width = params.hidden == erb.shape[-1]
-    if far.ndim == 2 and std_width and _route_single_kernel(
-        on_cuda=far.is_cuda, stage1=stage1, lin_cfg=lin_cfg, fast_legacy=fast,
-        quality=quality, normalize=normalize, scfg=scfg, n=far.shape[-1],
-    ):
-        from aec_tpu_torch.kernels.two_stage import two_stage_fused
+    with profiling.span("two_stage"):
+        erb = torch.as_tensor(erb, dtype=torch.float32, device=far.device)
+        std_width = params.hidden == erb.shape[-1]
+        if far.ndim == 2 and std_width and _route_single_kernel(
+            on_cuda=far.is_cuda, stage1=stage1, lin_cfg=lin_cfg, fast_legacy=fast,
+            quality=quality, normalize=normalize, scfg=scfg, n=far.shape[-1],
+        ):
+            from aec_tpu_torch.kernels.two_stage import two_stage_fused
 
-        return two_stage_fused(params, far, mic, erb, kcfg=lin_cfg or KalmanConfig(),
-                               scfg=scfg, gain_norm=gain_norm)
-    if stage1 == "kalman":
-        lin_cfg = lin_cfg or KalmanConfig()
-        if not isinstance(lin_cfg, KalmanConfig):
-            raise TypeError(f"stage1='kalman' needs a KalmanConfig, got {lin_cfg!r}")
-        linear_wav = kalman_cancel(lin_cfg, far, mic, block=scfg.hop)["wav"]
-    elif stage1 == "nlms":
-        lin_cfg = lin_cfg or NlmsConfig()
-        if not isinstance(lin_cfg, NlmsConfig):
-            raise TypeError(f"stage1='nlms' needs an NlmsConfig, got {lin_cfg!r}")
-        linear_wav = nlms_cancel(lin_cfg, far, mic, block=scfg.hop)["wav"]
-    elif stage1 == "none":
-        linear_wav = mic
-    else:
-        raise ValueError(f"stage1 must be 'kalman', 'nlms' or 'none', got {stage1!r}")
+            return two_stage_fused(params, far, mic, erb, kcfg=lin_cfg or KalmanConfig(),
+                                   scfg=scfg, gain_norm=gain_norm)
+        with profiling.span("two_stage.stage1"):
+            if stage1 == "kalman":
+                lin_cfg = lin_cfg or KalmanConfig()
+                if not isinstance(lin_cfg, KalmanConfig):
+                    raise TypeError(f"stage1='kalman' needs a KalmanConfig, got {lin_cfg!r}")
+                linear_wav = kalman_cancel(lin_cfg, far, mic, block=scfg.hop)["wav"]
+            elif stage1 == "nlms":
+                lin_cfg = lin_cfg or NlmsConfig()
+                if not isinstance(lin_cfg, NlmsConfig):
+                    raise TypeError(f"stage1='nlms' needs an NlmsConfig, got {lin_cfg!r}")
+                linear_wav = nlms_cancel(lin_cfg, far, mic, block=scfg.hop)["wav"]
+            elif stage1 == "none":
+                linear_wav = mic
+            else:
+                raise ValueError(f"stage1 must be 'kalman', 'nlms' or 'none', got {stage1!r}")
 
-    batched = linear_wav.ndim == 2
-    lw = linear_wav if batched else linear_wav[None]
-    fw = far if batched else far[None]
-    if (
-        lw.is_cuda
-        and std_width
-        and lw.shape[-1] % scfg.hop == 0
-        and scfg.win_len == 2 * scfg.hop
-        and scfg.fft_len == scfg.win_len
-    ):
-        from aec_tpu_torch.kernels.stage2 import little_net_apply_fused_wav
+        with profiling.span("two_stage.stage2"):
+            batched = linear_wav.ndim == 2
+            lw = linear_wav if batched else linear_wav[None]
+            fw = far if batched else far[None]
+            if (
+                lw.is_cuda
+                and std_width
+                and lw.shape[-1] % scfg.hop == 0
+                and scfg.win_len == 2 * scfg.hop
+                and scfg.fft_len == scfg.win_len
+            ):
+                from aec_tpu_torch.kernels.stage2 import little_net_apply_fused_wav
 
-        out = little_net_apply_fused_wav(
-            params, lw, fw, erb, scfg, normalize=normalize, gain_norm=gain_norm
-        )
-    else:
-        out = little_net_apply(
-            params, lw, fw, erb, scfg, normalize=normalize, gain_norm=gain_norm
-        )
-    wav, mask = out["wav"], out["mask"]
-    if not batched:
-        wav, mask = wav[0], mask[0]
-    return {"wav": wav, "linear_wav": linear_wav, "mask": mask}
+                out = little_net_apply_fused_wav(
+                    params, lw, fw, erb, scfg, normalize=normalize, gain_norm=gain_norm
+                )
+            else:
+                out = little_net_apply(
+                    params, lw, fw, erb, scfg, normalize=normalize, gain_norm=gain_norm
+                )
+        wav, mask = out["wav"], out["mask"]
+        if not batched:
+            wav, mask = wav[0], mask[0]
+        return {"wav": wav, "linear_wav": linear_wav, "mask": mask}

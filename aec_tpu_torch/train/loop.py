@@ -32,6 +32,10 @@ K9 at B <= 16 and FullSubNet's joint recurrence on K11, so a DCCRN or
 FullSubNet train step at the default batch of 16 runs its kernel forward,
 saving the gates, and its backward on K9b (the counterpart of the loop XLA
 compiles from the JAX custom VJPs' recompute).
+
+Spans (``utils/profiling``): ``train.step`` around a step, and inside it
+``train.forward``, ``train.backward`` (``loss.backward()`` on the calling
+thread) and ``train.update`` (Adam's).
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from aec_tpu_torch.parallel.mesh import (
 )
 from aec_tpu_torch.pipeline.datasets import EvalLoader, TrainLoader
 from aec_tpu_torch.train import checkpoints
+from aec_tpu_torch.utils import profiling
 from aec_tpu_torch.utils.tools import count_frames, get_logger, loss_log, num_params
 from aec_tpu_torch.utils.weights import leaf_pairs, load_jax, param_tree, to_jax
 
@@ -194,7 +199,8 @@ def _global_update(optimizer: Optimizer, mesh, forward_backward) -> tuple:
         loss, aux = forward_backward()
         if group is not None:
             loss = sum_gradients(list(optimizer.net.parameters()), loss, group)
-    optimizer.update()
+    with profiling.span("train.update"):
+        optimizer.update()
     return loss.detach(), aux
 
 
@@ -213,11 +219,14 @@ def make_train_step(
 
     def step(mic, ref, near, erb):
         def forward_backward():
-            loss, aux = loss_fn(net, mic, ref, near, erb, scfg, sqrt_eps=sqrt_eps)
-            loss.backward()
+            with profiling.span("train.forward"):
+                loss, aux = loss_fn(net, mic, ref, near, erb, scfg, sqrt_eps=sqrt_eps)
+            with profiling.span("train.backward"):
+                loss.backward()
             return loss, aux
 
-        return _global_update(optimizer, mesh, forward_backward)[0]
+        with profiling.span("train.step"):
+            return _global_update(optimizer, mesh, forward_backward)[0]
 
     return step
 
@@ -238,12 +247,15 @@ def make_stateful_train_step(loss_fn: Callable, optimizer: Optimizer, mesh=None)
 
     def step(model_state, *batch):
         def forward_backward():
-            loss, aux = loss_fn(functional_params(net), model_state, *batch)
-            loss.backward()
+            with profiling.span("train.forward"):
+                loss, aux = loss_fn(functional_params(net), model_state, *batch)
+            with profiling.span("train.backward"):
+                loss.backward()
             return loss, aux
 
-        loss, aux = _global_update(optimizer, mesh, forward_backward)
-        return map_tree(aux["state"], torch.Tensor.detach), loss
+        with profiling.span("train.step"):
+            loss, aux = _global_update(optimizer, mesh, forward_backward)
+            return map_tree(aux["state"], torch.Tensor.detach), loss
 
     return step
 

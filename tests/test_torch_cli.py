@@ -256,11 +256,10 @@ def test_profile_counts_equal_jax(capsys):
 
 def test_profiling_utilities(tmp_path):
     """flops: FlopCounterMode's count of a matmul (2 m n k), bytes not
-    counted; timed: a positive median; trace: a Chrome trace file."""
+    counted; trace: a Chrome trace file."""
     a, b = torch.ones(8, 16), torch.ones(16, 4)
     cost = profiling.flops(torch.matmul, a, b)
     assert cost["flops"] == 2 * 8 * 16 * 4 and np.isnan(cost["bytes_accessed"])
-    assert profiling.timed(torch.matmul, a, b, iters=3) > 0
     with profiling.trace(str(tmp_path / "tr")):
         torch.matmul(a, b)
     with open(str(tmp_path / "tr" / "trace.json")) as f:
