@@ -14,9 +14,9 @@
 // other geometry of those kernels runs the same algebra on real FFTs:
 // stage1_fft.cuh (the stage-1 steps), stage2_fft.cuh (one LittleNet frame,
 // and the pieces K2's phases share), hop.cuh (the two-stage hop of K3 and
-// K4) and single_stream.cu (one utterance on one CTA), which reuse this
-// header's geometry, carving, filter parameters, stage-2 state and the
-// hop's hand-off.
+// K4) and stage1_warp.cuh (K1 and K6 / K7, every transform in one warp),
+// which reuse this header's geometry, carving, filter parameters, stage-2
+// state and the hop's hand-off.
 //
 // Geometry. As the JAX kernels read it from the config and the shapes, so
 // these take it at run time (Geom): the stage-1 block B (== the stage-2 hop;

@@ -1,7 +1,8 @@
-// CTA-wide real FFTs over shared memory, for the stage-1 FFT steps of K1,
-// K12, K5 and K3 (stage1_fft.cuh), the analysis and synthesis phases of K2
-// and the one-frame stage 2 of K3 and K4 (stage2_fft.cuh); and the same
-// schedule run by one warp on one transform, for K6 / K7 (single_stream.cu).
+// CTA-wide real FFTs over shared memory, for the stage-1 FFT steps of K12,
+// K5 and K3 (stage1_fft.cuh), the analysis and synthesis phases of K2 and
+// the one-frame stage 2 of K3 and K4 (stage2_fft.cuh); and the same
+// schedule run by one warp on one transform, for the step of K1 and K6 / K7
+// (stage1_warp.cuh).
 //
 // A real transform of length N = 2B is a complex FFT of length M = B over
 // the even / odd samples packed as (re, im), and a split of its M outputs
@@ -257,7 +258,7 @@ __device__ __forceinline__ SArr fft(const RunPlan& p, const G& q, int L, const S
 // ---------------------------------------------------------------- one warp's transforms
 
 // The same schedule run by the 32 lanes of one warp on one transform (the
-// single-stream kernels, single_stream.cu): a pass is a loop strided by the
+// step of K1 and K6 / K7, stage1_warp.cuh): a pass is a loop strided by the
 // warp over its butterflies, and a __syncwarp takes the place of the CTA
 // barrier, so a transform costs no __syncthreads. src(0, i) is read by the
 // first pass; the buffers alternate as fft's do. One warp issues every

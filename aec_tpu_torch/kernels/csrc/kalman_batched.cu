@@ -5,45 +5,52 @@
 // time-domain far blocks in, the far-frame analysis done in the kernel.
 // K12 replaces aec_tpu/kernels/pallas_kalman.py:303 kalman_filter_fused_batched
 // (pallas_call at :349), its batch-in-sublanes predecessor, which takes the
-// far-frame spectra x_ri (B, T, 2K) computed outside: the same kernel with
-// kSpectraIn, which loads each step's spectrum into the ring slot in place of
-// the analysis and then runs the same step.
+// far-frame spectra x_ri (B, T, 2K) computed outside: the CTA-wide kernel
+// with kSpectraIn, which loads each step's spectrum into the ring slot in
+// place of the analysis and then runs its step.
 //
 // Design. On the TPU the grid ran in order and the batch tile rode the 128
 // lanes. Here CTAs run in parallel and in no order, so the time loop moves
 // INSIDE the CTA and the parallel axis is the utterance: one CTA per
-// utterance walks all T blocks with its whole filter state (W re/im, P, the
-// far-spectrum ring: 5 x L x K fp32) resident in shared memory, so the only
-// device-memory traffic is the far blocks (or spectra) and mic blocks in and
-// the cancelled blocks out. Two CTAs fit an SM (~101 KB each at the default
-// geometry).
+// utterance (blockIdx.x) walks all T blocks with its whole filter state (W,
+// P, the far-spectrum ring: 5 x L x K fp32) resident in shared memory, so
+// the only device-memory traffic is the far blocks (or spectra) and mic
+// blocks in and the cancelled blocks out.
 //
-// The step. Each block update is the far-frame analysis (K1 only), predict,
-// echo estimate, echo synthesis, residual analysis, gain, the factored
+// K1's step. Each block update is the far-frame analysis, predict, echo
+// estimate, echo synthesis, residual analysis, gain, the factored
 // constraint (irfft head of each partition's gradient, then the rfft of
 // [head || 0]) and the covariance update. On the TPU the transforms were
 // dense products with DFT bases, natural for its matrix unit; on this card
 // they are real FFTs of length 2B in shared memory (fft.cuh): 3 + 2L
-// transforms a step, L of them side by side in each pass, ~0.35 M flops a
-// step at the default geometry against 6.3 M for the dense products, and no
-// basis stream. The FFT step is stage1_fft.cuh's kalman_block_step_fft
-// (shared with K3 and K4); its layout does not grow over the dense step's,
-// so the largest L stays 24 at B = 256 and 39 at B = 160. A block with a
-// prime factor other than 2, 3 and 5 (e.g. 224 = 2^5 7) keeps the dense
-// step of bl_common.cuh (kalman_block_step, bases read from L2); the wrapper
-// picks the step from the geometry (kernels/kalman.py) and counts which one
-// ran.
+// transforms a step, ~0.35 M flops at the default geometry against 6.3 M
+// for the dense products, and no basis stream. K1 runs stage1_warp.cuh's
+// step, the one K6 / K7 run (single_stream.cu): every transform belongs to
+// one warp, each of the L constraint pairs is one job a warp, the next
+// block's analysis runs beside the echo synthesis, and a step has four CTA
+// barriers. Its CTA is 10 warps, so at the default geometry two CTAs share
+// an SM (~103 KB of shared memory and at most 96 registers a thread each);
+// the largest L is 34 at B = 256 and 61 at B = 160. A block with a prime
+// factor other than 2, 3 and 5 (e.g. 224 = 2^5 7) keeps the dense step of
+// bl_common.cuh (kalman_block_step, bases read from L2); the wrapper picks
+// the step from the geometry (kernels/kalman.py) and counts which one ran.
 //
-// What bounds it. The FFT step is latency-bound as a batch of one: 21
-// barriers a step, each after a pass of a few shared-memory loads and
-// stores per thread, with 32-320 of the 544 threads busy in a transform's
-// passes. At batch 256 two CTAs share each SM. Each block's inputs are
-// loaded into registers during the step before. The dense step is
-// L2-bandwidth bound (its bases, ~2.1 MB, re-read every step of every CTA).
-// The default geometry is compiled with constant sizes and the constant
-// radix plan 8, 8, 4; any other at run time.
+// K12's step. Its spectra in, K12 runs stage1_fft.cuh's CTA-wide
+// kalman_block_step_fft (shared with K3 and K4): the transforms of a step
+// side by side in CTA-wide passes, ~21 barriers a step, each after a pass
+// of a few shared-memory loads and stores per thread with 32-320 of the
+// 544 threads busy; its layout holds L 24 at B = 256 and 39 at B = 160.
+//
+// What bounds it. K1's step is bound by its SM's issue in phase 4 (the
+// constraint jobs, ~1,600 instructions a lane each; stage1_warp.cuh): ~5.5
+// us a step to a batch of 132, one utterance an SM, and ~8 us for a pair
+// above it, two utterances sharing the SM's four schedulers. Each
+// block's inputs are loaded into registers during the step before. The
+// dense step is L2-bandwidth bound (its bases, ~2.1 MB, re-read every step
+// of every CTA). The default geometry is compiled with constant sizes and
+// the constant radix plan 8, 8, 4; any other at run time.
 
-#include "stage1_fft.cuh"
+#include "stage1_warp.cuh"
 
 using namespace aec;
 
@@ -64,7 +71,8 @@ struct DenseStep {
   }
 };
 
-// the FFT step, on the radix plan and the twiddle table
+// K12's FFT step, stage1_fft.cuh's CTA-wide one, on the radix plan and the
+// twiddle table
 template <class Plan>
 struct FftStep {
   using Smem = KalmanFftSmem;
@@ -155,10 +163,10 @@ int launch_dense(const float* far, const float* mic, float* e, int batch, int t_
   });
 }
 
-template <bool kSpectraIn>
-int launch_fft(const float* far, const float* mic, float* e, int batch, int t_blocks, int block,
-               int n_blocks, const float* tw, const int* radix, int n_pass,
-               const KalmanParams& kp, int device, void* stream) {
+// f(geometry, plan): the default geometry with its compiled plan, or the
+// run-time geometry with the host's plan radix[n_pass]
+template <class F>
+cudaError_t with_plan(int block, int n_blocks, const int* radix, int n_pass, int device, F&& f) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   RunPlan plan{};
@@ -167,12 +175,35 @@ int launch_fft(const float* far, const float* mic, float* e, int batch, int t_bl
   return with_geom(block, n_blocks, -1, [&](auto q) -> cudaError_t {
     if constexpr (std::is_same_v<decltype(q), DefaultGeom>) {
       if (!is_default_plan(plan)) return cudaErrorInvalidValue;
-      return launch<kSpectraIn>(far, mic, e, batch, t_blocks, q, FftStep<DefaultPlan>{{}, tw},
-                                kp, device, stream);
+      return f(q, DefaultPlan{});
     } else {
-      return launch<kSpectraIn>(far, mic, e, batch, t_blocks, q, FftStep<RunPlan>{plan, tw}, kp,
-                                device, stream);
+      return f(q, plan);
     }
+  });
+}
+
+// K1's step: stage1_warp.cuh's, one CTA per utterance, the batch on blockIdx.x
+template <class G, class Plan>
+__global__ void __launch_bounds__(kStepThreads, 2)
+kalman_batched_kernel_warp(const float* __restrict__ far, const float* __restrict__ mic,
+                           float* __restrict__ e, int t_blocks, G q, Plan plan,
+                           const float* __restrict__ tw, KalmanParams kp) {
+  const size_t off = static_cast<size_t>(blockIdx.x) * t_blocks * q.block;
+  warp_stage1<false>(far + off, mic + off, e + off, t_blocks, q, plan, tw, kp, NlmsParams{});
+}
+
+// f(kernel, geometry, plan, shared memory) on the instantiation of
+// kalman_batched_kernel_warp for this geometry and the host's plan, after
+// raising its shared memory
+template <class F>
+cudaError_t with_warp_kernel(int block, int n_blocks, const int* radix, int n_pass, int device,
+                             F&& f) {
+  return with_plan(block, n_blocks, radix, n_pass, device, [&](auto q, auto plan) -> cudaError_t {
+    auto kernel = kalman_batched_kernel_warp<decltype(q), decltype(plan)>;
+    const size_t smem = smem_bytes<WarpStepSmem<false>>(q);
+    const cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem, device);
+    if (err != cudaSuccess) return err;
+    return f(kernel, q, plan, smem);
   });
 }
 
@@ -183,7 +214,7 @@ extern "C" long long aec_kalman_smem(int block, int n_blocks) {
   return static_cast<long long>(smem_bytes<KalmanSmem>(make_geom(block, n_blocks, 0)));
 }
 
-// ... and the FFT step's
+// ... and K12's FFT step's
 extern "C" long long aec_kalman_fft_smem(int block, int n_blocks) {
   return static_cast<long long>(smem_bytes<KalmanFftSmem>(make_geom(block, n_blocks, 0)));
 }
@@ -210,18 +241,53 @@ extern "C" int aec_kalman_batched_spectra(const float* x_ri, const float* mic, f
                             inv_head, kp, device, stream);
 }
 
-// The FFT step: tw (B, 2) the twiddle table, radix[n_pass] the plan of
-// kernels/fft_plan.py; spectra_in selects K12's input (x = x_ri).
-extern "C" int aec_kalman_batched_fft(const float* x, const float* mic, float* e, int batch,
-                                      int t_blocks, int block, int n_blocks, const float* tw,
-                                      const int* radix, int n_pass, int spectra_in, float a,
-                                      float a2, float one_minus_a2, float q_min, float obs,
-                                      float one_minus_obs, float floor_, float init_p,
-                                      int device, void* stream) {
+// K12's FFT step: x_ri the far-frame spectra, tw (B, 2) the twiddle table,
+// radix[n_pass] the plan of kernels/fft_plan.py.
+extern "C" int aec_kalman_batched_spectra_fft(const float* x_ri, const float* mic, float* e,
+                                              int batch, int t_blocks, int block, int n_blocks,
+                                              const float* tw, const int* radix, int n_pass,
+                                              float a, float a2, float one_minus_a2, float q_min,
+                                              float obs, float one_minus_obs, float floor_,
+                                              float init_p, int device, void* stream) {
   const KalmanParams kp{a, a2, one_minus_a2, q_min, obs, one_minus_obs, floor_, init_p};
-  if (spectra_in)
-    return launch_fft<true>(x, mic, e, batch, t_blocks, block, n_blocks, tw, radix, n_pass, kp,
-                            device, stream);
-  return launch_fft<false>(x, mic, e, batch, t_blocks, block, n_blocks, tw, radix, n_pass, kp,
-                           device, stream);
+  return with_plan(block, n_blocks, radix, n_pass, device, [&](auto q, auto plan) {
+    return launch<true>(x_ri, mic, e, batch, t_blocks, q, FftStep<decltype(plan)>{plan, tw}, kp,
+                        device, stream);
+  });
+}
+
+// K1's warp-owned step (stage1_warp.cuh): far blocks x, tw (B, 2) the
+// twiddle table, radix[n_pass] the plan of kernels/fft_plan.py.
+extern "C" int aec_kalman_batched_warp(const float* x, const float* mic, float* e, int batch,
+                                       int t_blocks, int block, int n_blocks, const float* tw,
+                                       const int* radix, int n_pass, float a, float a2,
+                                       float one_minus_a2, float q_min, float obs,
+                                       float one_minus_obs, float floor_, float init_p,
+                                       int device, void* stream) {
+  const KalmanParams kp{a, a2, one_minus_a2, q_min, obs, one_minus_obs, floor_, init_p};
+  return with_warp_kernel(block, n_blocks, radix, n_pass, device,
+                          [&](auto kernel, auto q, auto plan, size_t smem) -> cudaError_t {
+    if (batch == 0 || t_blocks == 0) return cudaSuccess;
+    kernel<<<batch, kStepThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, mic, e, t_blocks,
+                                                                             q, plan, tw, kp);
+    return cudaGetLastError();
+  });
+}
+
+// ... its shared memory of one CTA at this geometry, bytes (K6's layout)
+extern "C" long long aec_kalman_warp_smem(int block, int n_blocks) {
+  return static_cast<long long>(smem_bytes<WarpStepSmem<false>>(make_geom(block, n_blocks, 0)));
+}
+
+// ... and how many of its CTAs one SM holds at this geometry (radix[n_pass]
+// as above), or minus a cudaError_t
+extern "C" int aec_kalman_warp_ctas(int block, int n_blocks, const int* radix, int n_pass,
+                                    int device) {
+  int ctas = 0;
+  const cudaError_t err = with_warp_kernel(block, n_blocks, radix, n_pass, device,
+                                           [&](auto kernel, auto, auto, size_t smem) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, reinterpret_cast<const void*>(kernel), kStepThreads, smem);
+  });
+  return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }

@@ -1,8 +1,9 @@
 // The stage-1 block updates on real FFTs in shared memory, for both filters.
 //
-// kalman_block_step_fft is K1 / K12's step (kalman_batched.cu) and the
-// Kalman stage 1 of K3 and K4 (hop.cuh); nlms_block_step_fft is K5's
-// (nlms_batched.cu) and K3-NLMS's.
+// kalman_block_step_fft is K12's step (kalman_batched.cu) and the Kalman
+// stage 1 of K3 and K4 (hop.cuh); nlms_block_step_fft is K5's
+// (nlms_batched.cu) and K3-NLMS's. K1 and K6 / K7 run the same algebra with
+// every transform in one warp (stage1_warp.cuh).
 // Each keeps the filter algebra of its dense counterpart in bl_common.cuh
 // (kalman_block_step, nlms_block_step) line for line and replaces the dense
 // DFT products by real FFTs of length 2B (fft.cuh): the far-frame analysis,

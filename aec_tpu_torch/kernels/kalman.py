@@ -4,23 +4,26 @@ K1 replaces ``aec_tpu/kernels/pallas_kalman.py:492``
 (``kalman_filter_fused_batched_bl``, ``pallas_call`` at ``:573``; wrapper
 ``kalman_cancel_fused_batched_bl`` at ``:611``). The kernel is
 ``csrc/kalman_batched.cu``: one CTA per utterance walks all blocks with the
-filter state in shared memory, its transforms real FFTs in shared memory
-(``csrc/fft.cuh``; the plan and twiddles from :mod:`kernels.fft_plan`). A
-block with a prime factor other than 2, 3 and 5 takes the kernel's dense
-step (``csrc/bl_common.cuh``, DFT bases read from L2) instead; the wrappers
-count which step ran in ``steps``. The source's header has the reckoning.
+filter state in shared memory, on the step of ``csrc/stage1_warp.cuh``
+that K6 shares: real FFTs in shared memory, every transform in one warp
+(``csrc/fft.cuh``; the plan and twiddles from :mod:`kernels.fft_plan`),
+four CTA barriers a step. A block with a prime factor other than 2, 3 and
+5 takes the kernel's dense step (``csrc/bl_common.cuh``, DFT bases read
+from L2) instead; the wrappers count which step ran in ``steps``. The
+source's header has the reckoning.
 
 K12 replaces ``aec_tpu/kernels/pallas_kalman.py:303``
 (``kalman_filter_fused_batched``, ``pallas_call`` at ``:349``), the filter-
 level entry that takes far-frame spectra: the same source, instantiated to
-load each step's spectrum in place of the in-kernel analysis.
+load each step's spectrum in place of the in-kernel analysis, on the
+CTA-wide FFT step of ``csrc/stage1_fft.cuh``.
 
 K6 replaces ``aec_tpu/kernels/pallas_kalman.py:150`` (``kalman_filter_fused``,
 ``pallas_call`` at ``:178``; wrapper ``kalman_cancel_fused`` at ``:646``),
 the single-stream kernel, ``csrc/single_stream.cu`` (the same source is K7,
 the NLMS single-stream kernel of ``kernels/nlms.py``). Where the block has a
-radix plan it runs one utterance on one CTA, K1's FFT step with every
-transform in one warp and four CTA barriers a step; a block without one
+radix plan it runs one utterance on one CTA, the step of
+``csrc/stage1_warp.cuh`` that K1 shares; a block without one
 takes the dense route, one thread-block cluster of 16 CTAs that split the
 bins. ``steps`` counts which ran (:func:`step_for` picks it).
 
@@ -57,17 +60,24 @@ FFT_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_in
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("kalman_batched")
+    return bind_batched(_build.load("kalman_batched"))
+
+
+def bind_batched(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/kalman_batched.cu``) with its entries'
+    argument and result types set."""
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.aec_kalman_batched, lib.aec_kalman_batched_spectra):
         fn.argtypes = [p, p, p, i, i, *KALMAN_ARGTYPES, i, p]
         fn.restype = ctypes.c_int
-    lib.aec_kalman_batched_fft.argtypes = [p, p, p, i, i, i, i, p, ctypes.POINTER(i), i, i,
-                                           *[ctypes.c_float] * 8, i, p]
-    lib.aec_kalman_batched_fft.restype = ctypes.c_int
-    for fn in (lib.aec_kalman_smem, lib.aec_kalman_fft_smem):
+    for fn in (lib.aec_kalman_batched_spectra_fft, lib.aec_kalman_batched_warp):
+        fn.argtypes = [p, p, p, i, i, *FFT_ARGTYPES, i, p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.aec_kalman_smem, lib.aec_kalman_fft_smem, lib.aec_kalman_warp_smem):
         fn.argtypes = [i, i]
         fn.restype = ctypes.c_longlong
+    lib.aec_kalman_warp_ctas.argtypes = [i, i, ctypes.POINTER(i), i, i]
+    lib.aec_kalman_warp_ctas.restype = ctypes.c_int
     return lib
 
 
@@ -143,12 +153,15 @@ def fft_operands(cfg, device: torch.device, block: int) -> list:
 
 
 def launch_batched(cfg: KalmanConfig, x: torch.Tensor, mic: torch.Tensor, e: torch.Tensor,
-                   block: int, spectra_in: bool) -> str:
+                   block: int, spectra_in: bool, lib: ctypes.CDLL | None = None) -> str:
     """Launch K1 (far blocks ``x``) or K12 (far-frame spectra ``x``) over
     ``mic`` (batch, T * block; K12: batch, T, block) into ``e``: the step of
-    :func:`step_for`. Returns the step that ran, ``"fft"`` or ``"dense"``.
-    Raises if one CTA cannot hold the step's shared memory."""
-    lib, dev = _lib(), x.device
+    :func:`step_for`, which for K1's FFT step is ``csrc/stage1_warp.cuh``'s
+    (every transform in one warp, shared with K6). Returns the step that
+    ran: ``"warp"`` (K1), ``"fft"`` (K12) or ``"dense"``. Raises if one CTA
+    cannot hold the step's shared memory. ``lib`` is another build of the
+    source (``single_costs``)."""
+    lib, dev = lib or _lib(), x.device
     batch, t_blocks = mic.shape[0], mic.shape[1] if spectra_in else mic.shape[-1] // block
     step = step_for(block)
     what = "the batched Kalman kernel"
@@ -157,11 +170,15 @@ def launch_batched(cfg: KalmanConfig, x: torch.Tensor, mic: torch.Tensor, e: tor
         _build.check_smem(lib.aec_kalman_smem(block, cfg.n_blocks), dev, what)
         entry = lib.aec_kalman_batched_spectra if spectra_in else lib.aec_kalman_batched
         err = entry(*head, *stage1_operands(cfg, dev, block), dev.index, _build.stream_of(x))
-    else:
+    elif spectra_in:
         _build.check_smem(lib.aec_kalman_fft_smem(block, cfg.n_blocks), dev, what)
-        ops = fft_operands(cfg, dev, block)  # spectra_in goes between the plan and the constants
-        err = lib.aec_kalman_batched_fft(*head, *ops[:5], int(spectra_in), *ops[5:], dev.index,
-                                         _build.stream_of(x))
+        err = lib.aec_kalman_batched_spectra_fft(*head, *fft_operands(cfg, dev, block), dev.index,
+                                                 _build.stream_of(x))
+    else:
+        step = "warp"
+        _build.check_smem(lib.aec_kalman_warp_smem(block, cfg.n_blocks), dev, what)
+        err = lib.aec_kalman_batched_warp(*head, *fft_operands(cfg, dev, block), dev.index,
+                                          _build.stream_of(x))
     _build.check(err, "kalman_batched")
     return step
 
@@ -219,8 +236,10 @@ def kalman_cancel_fused_batched(
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain loop. ``n`` is zero-padded to a block multiple and the output is
-    cut back to ``n``. ``steps`` counts the launches of the FFT step and of
-    the dense step (a block with a prime factor other than 2, 3, 5).
+    cut back to ``n``. ``steps`` counts the launches of the warp-owned FFT
+    step (``"warp"``), of the CTA-wide one (``"fft"``, which K1 no longer
+    takes) and of the dense step (a block with a prime factor other than 2,
+    3, 5).
     """
     if far.device.type == "cpu":
         return {"wav": kalman_cancel_plain(cfg, far, mic, block=block)["wav"]}
@@ -234,7 +253,7 @@ def kalman_cancel_fused_batched(
 
 
 kalman_cancel_fused_batched.launches = 0
-kalman_cancel_fused_batched.steps = {"fft": 0, "dense": 0}
+kalman_cancel_fused_batched.steps = {"warp": 0, "fft": 0, "dense": 0}
 
 
 def kalman_cancel_fused(

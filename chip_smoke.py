@@ -1179,7 +1179,8 @@ def geometry_phase(dev, net, names, s_far, s_mic, smi: str) -> None:
                 f"{k} {v:.3e}" for k, v in errs.items()) + f" (bar {bar:.3e}); steps " + ", ".join(
                 f"{k} {st}" for k, st in zip(("K1", "K12", "K5", "K6", "K7"), steps)))
             check(max(errs.values()) <= bar, f"a stage-1 kernel disagrees at {tag}")
-            check(steps == [{"fft": c, "dense": 0} for c in (1, 1, 1, 2, 2)],
+            check(steps == [{"warp": 1, "fft": 0, "dense": 0}]
+                  + [{"fft": c, "dense": 0} for c in (1, 1, 2, 2)],
                   f"K1, K12, K5, K6 or K7 did not run the FFT step at {tag}")
 
             lin_b = kalman_cancel_plain(kc, far, mic, block=hop)["wav"].reshape(len(names), -1, hop)
@@ -1309,7 +1310,8 @@ def dense_step_phase(dev, net, s_far, s_mic) -> None:
     phase("geometry", f"L = 4, block {block}: " + ", ".join(
         f"{k} {e:.3e}" for k, e in zip(names, errs)) + f" vs plain (bar {bar:.3e}); steps "
         + ", ".join(f"{k} {st}" for k, st in zip(names, steps)))
-    check(steps == [{"fft": 0, "dense": c} for c in (1, 1, 1, 2, 2)],
+    check(steps == [{"warp": 0, "fft": 0, "dense": 1}]
+          + [{"fft": 0, "dense": c} for c in (1, 1, 2, 2)],
           "K1, K12, K5, K6 or K7 did not take the dense step at block 224")
     check(max(errs) <= bar, "the dense step disagrees with the plain loops at block 224")
 
@@ -3469,7 +3471,8 @@ def main() -> None:
     phase("main path", f"two_stage_cancel 8 x {N}: launches K1 {launches[0]} (steps {k1_steps}), "
           f"K2 {launches[1]} (transforms {k2_tr}), K8 {launches[2]} (K2's phase B)")
     check(all(n > 0 for n in launches), "the main path did not go through every kernel")
-    check(k1_steps == {"fft": launches[0], "dense": 0}, "K1 did not run its FFT step")
+    check(k1_steps == {"warp": launches[0], "fft": 0, "dense": 0},
+          "K1 did not run its warp-owned FFT step")
     check(k2_tr == {"fft": launches[1], "dense": 0} and launches[2] == launches[1],
           "K2 did not run its FFT phases with one K8 launch each")
     out = {k: v.cpu().numpy() for k, v in out.items()}

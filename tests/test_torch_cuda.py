@@ -7,6 +7,7 @@ card and without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import ctypes
 import os
 
 import numpy as np
@@ -23,6 +24,8 @@ from aec_tpu_torch.kernels.gru import (
     gru_scan_fused_plain,
     wide_fits,
 )
+from aec_tpu_torch.kernels import kalman as kalman_kernels
+from aec_tpu_torch.kernels.fft_plan import radix_plan
 from aec_tpu_torch.kernels.kalman import (
     kalman_cancel_fused,
     kalman_cancel_fused_batched,
@@ -83,11 +86,11 @@ def test_kalman_kernel_matches_plain(cuda, scene):
 
 
 def test_kalman_kernel_refuses_what_it_cannot_take(cuda, scene):
-    """Refusals at real limits only: 30 partitions at block 256 need more
-    shared memory than one CTA has (24 fit); another dtype; a strided input."""
+    """Refusals at real limits only: 40 partitions at block 256 need more
+    shared memory than one CTA has (34 fit); another dtype; a strided input."""
     far, mic = (t.to(cuda) for t in scene(2, 8 * 256))
     with pytest.raises(ValueError, match="shared memory"):
-        kalman_cancel_fused_batched(KalmanConfig(n_blocks=30), far, mic)
+        kalman_cancel_fused_batched(KalmanConfig(n_blocks=40), far, mic)
     with pytest.raises(TypeError):
         kalman_cancel_fused_batched(KalmanConfig(), far.double(), mic.double())
     with pytest.raises(ValueError):
@@ -478,8 +481,8 @@ def test_stage1_kernels_refuse_what_they_cannot_take(cuda, scene):
              (kalman_cancel_fused, KalmanConfig, far[0], mic[0]),
              (nlms_cancel_fused, NlmsConfig, far[0], mic[0]))
     for fn, cfg, f, m in cases:
-        with pytest.raises(ValueError, match="shared memory"):  # above 27 (K5), 29 (K6), 36 (K7)
-            fn(cfg(n_blocks=40), f, m)
+        with pytest.raises(ValueError, match="shared memory"):  # above 27 (K5), 34 (K6), 43 (K7)
+            fn(cfg(n_blocks=48), f, m)
         with pytest.raises(ValueError, match="CUDA"):  # no silent plain run
             fn(cfg(), f, m.cpu())
         with pytest.raises(ValueError, match="contiguous"):
@@ -881,12 +884,12 @@ def test_spectra_kernel_matches_k1_and_plain(cuda, scene):
 @pytest.mark.parametrize("block", [256, 160, 224])
 def test_batched_kalman_steps_match_plain(cuda, scene, block, n_blocks, batch):
     """K1 and K12 against their plain loops at a batch of one, three and
-    256, blocks 256 and 160 (the FFT step) and 224 = 2^5 7 (the dense step),
-    1 to 16 partitions: 1e-3 of max|mic|; ``steps`` says which step ran."""
+    256, blocks 256 and 160 (K1's warp-owned FFT step, K12's CTA-wide one)
+    and 224 = 2^5 7 (the dense step), 1 to 16 partitions: 1e-3 of max|mic|;
+    ``steps`` says which step ran."""
     cfg = KalmanConfig(n_blocks=n_blocks)
     far, mic = (t.to(cuda) for t in scene(batch, 24 * block + 37))
     bar = 1e-3 * float(mic.abs().max())
-    step = "dense" if block == 224 else "fft"
     n = 24 * block
     x_ri = ols.far_end_spectra(far[:, :n].contiguous(), block).contiguous()
     d_blocks = mic[:, :n].reshape(batch, -1, block).contiguous()
@@ -897,7 +900,8 @@ def test_batched_kalman_steps_match_plain(cuda, scene, block, n_blocks, batch):
         torch.cuda.synchronize()
         want = kalman_cancel_plain(cfg, far, mic, block=block)["wav"]
         want12 = kalman_filter_fused_batched_plain(cfg, x_ri, d_blocks, block=block)
-    for fn, was in zip((kalman_cancel_fused_batched, kalman_filter_fused_batched), before):
+    for fn, was, step in zip((kalman_cancel_fused_batched, kalman_filter_fused_batched), before,
+                             ("dense", "dense") if block == 224 else ("warp", "fft")):
         assert fn.steps[step] == was[step] + 1
         assert sum(fn.steps.values()) == sum(was.values()) + 1
     torch.testing.assert_close(got, want, atol=bar, rtol=0)
@@ -956,25 +960,73 @@ def test_single_stream_steps_match_plain(cuda, scene, which, block, n_blocks):
                                         (224, "dense"), (112, "dense"), (1, "dense")])
 def test_batched_kalman_step_selection(cuda, scene, block, step):
     """The wrappers take the FFT step for a block >= 2 whose only prime
-    factors are 2, 3 and 5, the dense step for any other, and count it in
-    ``steps``; either agrees with the plain loop."""
+    factors are 2, 3 and 5 (K1 its warp-owned form), the dense step for any
+    other, and count it in ``steps``; either agrees with the plain loop."""
     cfg = KalmanConfig(n_blocks=3)
     far, mic = (t.to(cuda) for t in scene(2, 12 * block))
     x_ri = ols.far_end_spectra(far, block).contiguous()
     d_blocks = mic.reshape(2, -1, block)
-    for fn, args in ((kalman_cancel_fused_batched, (far, mic)),
-                     (kalman_filter_fused_batched, (x_ri, d_blocks))):
+    for fn, args, fft in ((kalman_cancel_fused_batched, (far, mic), "warp"),
+                          (kalman_filter_fused_batched, (x_ri, d_blocks), "fft")):
         was = dict(fn.steps)
         with torch.no_grad():
             out = fn(cfg, *args, block=block)
         torch.cuda.synchronize()
         assert {k: v - was[k] for k, v in fn.steps.items()} == {
-            "fft": int(step == "fft"), "dense": int(step == "dense")}
+            **dict.fromkeys(was, 0), fft if step == "fft" else "dense": 1}
         assert bool(torch.isfinite(out["wav"] if isinstance(out, dict) else out).all())
     want = kalman_cancel_plain(cfg, far, mic, block=block)["wav"]
     with torch.no_grad():
         got = kalman_cancel_fused_batched(cfg, far, mic, block=block)["wav"]
     torch.testing.assert_close(got, want, atol=1e-3 * float(mic.abs().max()), rtol=0)
+
+
+# ---------------------------------------------------------------- K1 on the warp-owned step
+
+TEN_S = 625 * 256  # 10 s at 16 kHz
+
+
+@pytest.mark.parametrize("batch,n_blocks,block,n", [
+    (1, 10, 256, TEN_S), (3, 10, 256, TEN_S), (133, 10, 256, TEN_S), (256, 10, 256, TEN_S),
+    (5, 10, 160, 1000 * 160 + 37), (4, 24, 256, 200 * 256 + 11), (3, 10, 224, 200 * 224 + 5)])
+def test_k1_warp_step_matches_plain(cuda, scene, batch, n_blocks, block, n):
+    """K1 against the plain loop at the default geometry at batches of one,
+    three, 133 (two CTAs on some SM) and 256 x 10 s; at block 160 (the
+    run-time plan); at L = 24, block 256 (the largest L of the CTA-wide
+    step); and at block 224, which keeps the dense step: 1e-3 of max|mic|,
+    and ``steps`` says which step ran."""
+    cfg = KalmanConfig(n_blocks=n_blocks)
+    far, mic = (t.to(cuda) for t in scene(batch, n))
+    step = "dense" if block == 224 else "warp"
+    was = dict(kalman_cancel_fused_batched.steps)
+    with torch.no_grad():
+        got = kalman_cancel_fused_batched(cfg, far, mic, block=block)["wav"]
+        torch.cuda.synchronize()
+        want = kalman_cancel_plain(cfg, far, mic, block=block)["wav"]
+    assert {k: v - was[k] for k, v in kalman_cancel_fused_batched.steps.items()} == {
+        **dict.fromkeys(was, 0), step: 1}
+    torch.testing.assert_close(got, want, atol=1e-3 * float(mic.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("block", [256, 160])
+def test_k1_at_batch_one_is_k6(cuda, scene, block):
+    """K1 as a batch of one runs K6's step (``csrc/stage1_warp.cuh``) on the
+    same utterance: the two agree to round-off."""
+    cfg = KalmanConfig()
+    far, mic = (t.to(cuda)[0].contiguous() for t in scene(1, 300 * block + 19))
+    with torch.no_grad():
+        k1 = kalman_cancel_fused_batched(cfg, far[None], mic[None], block=block)["wav"][0]
+        k6 = kalman_cancel_fused(cfg, far, mic, block=block)["wav"]
+    torch.testing.assert_close(k1, k6, atol=1e-6 * float(mic.abs().max()), rtol=0)
+
+
+def test_k1_holds_two_ctas_an_sm(cuda):
+    """At the default geometry an SM holds two of K1's CTAs: its shared
+    memory and its registers (at most 80 a thread) fit twice."""
+    plan = radix_plan(256)
+    ctas = kalman_kernels._lib().aec_kalman_warp_ctas(256, 10, (ctypes.c_int * len(plan))(*plan),
+                                                      len(plan), torch.cuda.current_device())
+    assert ctas == 2
 
 
 def test_entry_points_default_to_the_card(cuda):
