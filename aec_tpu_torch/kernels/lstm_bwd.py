@@ -53,6 +53,7 @@ import torch.nn.functional as F
 
 from aec_tpu_torch.kernels import _build
 from aec_tpu_torch.kernels.lstm import LANES, REG_QUADS, THREADS, WARPS, packed_weights
+from aec_tpu_torch.ops.lstm import count_plain
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -83,6 +84,7 @@ def lstm_backward_plain(g_ys: torch.Tensor, saved: torch.Tensor,
     each step's pre-activations [i, f, g, o] (that is, of the hoisted
     projection)."""
     hidden = g_ys.shape[-1]
+    count_plain(g_ys, g_ys.shape[2])
     carry_h = carry_c = torch.zeros_like(g_ys[:, :, 0])
     out = []
     for t in range(g_ys.shape[2] - 1, -1, -1):

@@ -30,6 +30,18 @@ def lstm_init(
             for k, s in shapes.items()}
 
 
+def count_plain(x: torch.Tensor, steps: int) -> None:
+    """Count ``steps`` frames of a plain recurrence loop (one launch chain a
+    frame) run on a CUDA tensor: ``count_plain.steps``, read by
+    ``utils/profiling.counters`` as ``lstm.plain_steps``; 0 while every
+    recurrence on the card takes its kernel."""
+    if x.is_cuda:
+        count_plain.steps += steps
+
+
+count_plain.steps = 0
+
+
 def quantize_rows_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization, ``w ~= w_q * scale[:, None]``:
     (int8 codes, fp32 per-row scale). Rows of ``w_hh`` are gate-output
@@ -69,6 +81,7 @@ def lstm_int8_recurrence_plain(
     which holds 127 * 127 * H exactly for any H a net has). Kernel K10's
     plain version."""
     w_q_t = w_q.T.to(torch.float64)  # (H, 4H) integer codes, exact
+    count_plain(xp, xp.shape[1])
     h, c, hs = h0, c0, []
     for i in range(xp.shape[1]):
         h_q = torch.round(torch.clamp(h * 127.0, -127.0, 127.0))
@@ -155,6 +168,7 @@ def lstm_scan(
         def step(h, c, xp_t):
             return lstm_cell(params, h, c, xp_t)
 
+    count_plain(x, t)
     h, c, hs = h0, c0, []
     for i in range(t):
         h, c = step(h, c, x_proj[:, i])
@@ -199,6 +213,7 @@ def grouped_lstm_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor, save: bo
     h = xp.new_zeros((g, r, hidden))
     c = xp.new_zeros((g, r, hidden))
     w_t = w_hh.transpose(1, 2)
+    count_plain(xp, t)
     hs, saved = [], []
     for i in range(t):
         h, c, *act = lstm_gates(xp[:, :, i] + torch.matmul(h, w_t), c, save)

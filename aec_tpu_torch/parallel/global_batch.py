@@ -47,6 +47,16 @@ def data_group():
     return _GROUP.get()
 
 
+def collectives() -> None:
+    """Count one collective over the data group (``collectives.count``, read
+    by ``utils/profiling.counters`` as ``global_batch.collectives``): each
+    :func:`all_sum` forward and backward and each :func:`sum_gradients`."""
+    collectives.count += 1
+
+
+collectives.count = 0
+
+
 class _AllSum(torch.autograd.Function):
     """Sum over the group's ranks; the backward sums the cotangents over
     them (each rank's cotangent is its share's)."""
@@ -56,12 +66,14 @@ class _AllSum(torch.autograd.Function):
         ctx.group = group
         y = x.detach().clone()
         dist.all_reduce(y, group=group)
+        collectives()
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
+        collectives()
         return g, None
 
 
@@ -110,6 +122,7 @@ def sum_gradients(params: list[torch.nn.Parameter], loss: torch.Tensor, group) -
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1).to(grads[0].dtype)])
     dist.all_reduce(flat, group=group)
+    collectives()
     offset = 0
     for p in params:
         n = p.numel()

@@ -55,7 +55,11 @@ class ModelAdapter:
     module: Callable[[Any, Any], nn.Module] | None = None
 
 
-def make_adapter(name: str, scfg: StftConfig = StftConfig()) -> ModelAdapter:
+def make_adapter(name: str, scfg: StftConfig = StftConfig(), *,
+                 model_cfg=None) -> ModelAdapter:
+    """The adapter of family ``name``; ``model_cfg`` (DCCRN's or
+    FullSubNet's: ``FullSubNetConfig.published()``, say) replaces the
+    family's default configuration."""
     if name in ("little_net", "two_layer_gru"):
         from aec_tpu_torch.models.registry import get_model
 
@@ -87,7 +91,7 @@ def make_adapter(name: str, scfg: StftConfig = StftConfig()) -> ModelAdapter:
             dccrn_loss_v1,
         )
 
-        cfg = DccrnConfig()
+        cfg = model_cfg or DccrnConfig()
 
         def init(generator=None, device="cuda"):
             return dccrn_init(cfg, generator=generator, device=device)
@@ -112,14 +116,14 @@ def make_adapter(name: str, scfg: StftConfig = StftConfig()) -> ModelAdapter:
             fullsubnet_loss,
         )
 
-        cfg = FullSubNetConfig()
+        cfg = model_cfg or FullSubNetConfig()
 
         def init(generator=None, device="cuda"):
             return fullsubnet_init(cfg, generator=generator, device=device), {}
 
         def loss(params, state, mic, far, near, echo, train, *, joint_kernel=None):
             value, _ = fullsubnet_loss(params, mic, far, near, echo, cfg,
-                                       joint_kernel=joint_kernel)
+                                       joint_kernel=joint_kernel, train=train)
             return value, state
 
         def enhance(params, state, mic, far):

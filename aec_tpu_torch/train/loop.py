@@ -198,7 +198,8 @@ def _global_update(optimizer: Optimizer, mesh, forward_backward) -> tuple:
     with global_batch(mesh) as group:
         loss, aux = forward_backward()
         if group is not None:
-            loss = sum_gradients(list(optimizer.net.parameters()), loss, group)
+            with profiling.span("train.allreduce"):
+                loss = sum_gradients(list(optimizer.net.parameters()), loss, group)
     with profiling.span("train.update"):
         optimizer.update()
     return loss.detach(), aux
@@ -221,7 +222,7 @@ def make_train_step(
         def forward_backward():
             with profiling.span("train.forward"):
                 loss, aux = loss_fn(net, mic, ref, near, erb, scfg, sqrt_eps=sqrt_eps)
-            with profiling.span("train.backward"):
+            with profiling.span("train.backward", lend=True):
                 loss.backward()
             return loss, aux
 
@@ -249,7 +250,7 @@ def make_stateful_train_step(loss_fn: Callable, optimizer: Optimizer, mesh=None)
         def forward_backward():
             with profiling.span("train.forward"):
                 loss, aux = loss_fn(functional_params(net), model_state, *batch)
-            with profiling.span("train.backward"):
+            with profiling.span("train.backward", lend=True):
                 loss.backward()
             return loss, aux
 

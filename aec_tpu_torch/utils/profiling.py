@@ -7,10 +7,14 @@
   two-stage pipeline (``two_stage``, ``two_stage.stage1``,
   ``two_stage.stage2``), K3's serving step (``serving.step``,
   ``serving.prepare``, ``serving.launch``), the inference enhancer
-  (``enhance``, ``enhance.stage1``, ``enhance.net``) and the train steps
-  (``train.step``, ``train.forward``, ``train.backward``, ``train.update``);
+  (``enhance``, ``enhance.stage1``, ``enhance.net``), the train steps
+  (``train.step``, ``train.forward``, ``train.backward``, ``train.update``,
+  ``train.allreduce``: the gradient sum of a data-parallel step) and
+  FullSubNet's bands (``fsn.fb``, ``fsn.sb``, ``fsn.head``);
 - :func:`counters` — every kernel wrapper's ``launches``,
-  ``wide_launches``, ``steps[...]`` and ``hop.prepare.builds`` in one flat
+  ``wide_launches``, ``steps[...]`` and ``hop.prepare.builds``, the frames
+  run on plain recurrence loops on the card (``lstm.plain_steps``) and the
+  data-parallel collectives (``global_batch.collectives``) in one flat
   dict;
 - :func:`collect`, :func:`collected`, :func:`reset` — turn the spans on
   without the profiler, read what they recorded, clear it;
@@ -56,6 +60,7 @@ COUNTED = {
     "lstm": ("grouped_lstm_recurrence",),
     "lstm_bwd": ("lstm_backward",),
     "lstm_int8": ("lstm_int8_recurrence",),
+    "lstm_rows": ("rows_recurrence", "rows_backward"),
     "nlms": ("nlms_cancel_fused_batched", "nlms_cancel_fused"),
     "serving": ("serving_step_fused",),
     "stage2": ("little_net_apply_fused",),
@@ -97,7 +102,10 @@ def counters() -> dict[str, int]:
                 fn = getattr(module, name)
                 _reads.append((fn, [(a, f"{mod}.{name}.{a}") for a in _SCALARS if hasattr(fn, a)],
                                f"{mod}.{name}.steps." if hasattr(fn, "steps") else None))
-    out = {}
+    from aec_tpu_torch.ops.lstm import count_plain
+    from aec_tpu_torch.parallel.global_batch import collectives
+
+    out = {"lstm.plain_steps": count_plain.steps, "global_batch.collectives": collectives.count}
     for fn, scalars, steps in _reads:
         for attr, key in scalars:
             out[key] = getattr(fn, attr)
@@ -132,25 +140,31 @@ class Record(NamedTuple):
 class _Span:
     """An open span: the context :func:`span` returns while tracing is on."""
 
-    __slots__ = ("name", "start_ns", "id", "parent", "request", "before")
+    __slots__ = ("name", "start_ns", "id", "parent", "request", "before", "lend", "lent")
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, lend: bool = False):
+        self.name, self.lend = name, lend
 
     def __enter__(self):
+        global _lent
         stack = _stack()
-        parent = stack[-1] if stack else None
+        parent = stack[-1] if stack else _lent
         self.id = next(_ids)
         if parent is None:
             self.parent, self.request, self.before = None, self.id, counters()
         else:
             self.parent, self.request, self.before = parent.id, parent.request, None
         stack.append(self)
+        if self.lend:
+            self.lent, _lent = _lent, self
         self.start_ns = time.time_ns()
 
     def __exit__(self, *exc):
+        global _lent
         end = time.time_ns()
         _stack().pop()
+        if self.lend:
+            _lent = self.lent
         before = self.before
         if before is not None:
             before = tuple((k, v - before.get(k, 0)) for k, v in counters().items()
@@ -196,6 +210,7 @@ _store = _Store(RING_CAP)
 _ids = itertools.count(1)
 _local = threading.local()
 _collecting = 0  # depth of :func:`collect` blocks
+_lent = None  # the span lent to spans that open on a thread with none open
 _collect_lock = threading.Lock()
 
 
@@ -208,13 +223,16 @@ def _stack() -> list:
         return _local.stack
 
 
-def span(name: str):
+def span(name: str, lend: bool = False):
     """A context manager around one layer's work: records a :class:`Record`
     while a ``torch.profiler`` records or inside :func:`collect`, and is a
     shared no-op otherwise. Spans nest by thread; a root span also records
-    the counters' change (:func:`counters`)."""
+    the counters' change (:func:`counters`). With ``lend`` the span is also
+    the parent of spans opened, while it is open, on threads that have none
+    open: autograd runs a CUDA backward on its own thread, so the spans of
+    ``loss.backward()``'s Functions nest under the caller's span."""
     if _collecting or _autograd_profiler._is_profiler_enabled:
-        return _Span(name)
+        return _Span(name, lend)
     return _OFF
 
 

@@ -116,6 +116,13 @@ drives every user-facing path.
   against its plain version, the route's gradients at B = 4 against the
   plain joint loop's, and its forward and backward beside the cuDNN
   composition's; K9b's split over each band beside 143f1cb's design's.
+- FullSubNet at its published widths (phase 24b, ``--phase fsn_published``
+  runs it alone): K13 forward and backward against the plain versions at
+  the sub band's 2,048 training rows and 257 inference rows (503 frames, H
+  = 384), the full band's 16 rows at H = 512 on K9 / K9b; K13 timed beside
+  cuDNN's ``nn.LSTM`` with its bound; the ``fullsubnet.train`` cell's
+  training step at 16 x 8 s with its launches (K13 twice forward and twice
+  backward, K9 and K9b twice), no frame on a plain loop, its ms and peak.
 - ATT-CCRN inference (phase 25): K10 (the int8 LSTM recurrence) at the
   bottleneck's H = 4096, T = 513 against the plain int8 loop, with the count
   of h's int8 codes that differ, its time per step, where its codes lie, the
@@ -184,7 +191,9 @@ K5's and K8's their launches on phase 27's paths, ``cli_launches``, and
 K1's, K5's, K9's, K11's and K3's on phase 28's mesh routes; K1's, K8's,
 K8b's, K6's, K2's and K3's on phase 29's examples, ``examples_launches``;
 the wide K8's and K8b's rows, ``gru_scan_wide`` and ``gru_backward_wide``,
-at the DCT-CNN's training shape with their launches in its step), the last line
+at the DCT-CNN's training shape with their launches in its step; K13's
+rows, ``lstm_rows`` and ``lstm_rows_backward``, at the published sub band's
+training rows with their launches in its step, and K9's and K9b's there), the last line
 the ``ok`` JSON. Exits nonzero without a CUDA device.
 """
 
@@ -2133,6 +2142,142 @@ def fullsubnet_train_phase(dev, seed: int, reps: int, smi: str, bwd_costs: list[
             "lib_bwd_ms": bmed[0], "route_fwd_bwd_ms": med[1], "lib_fwd_bwd_ms": med[0]}
 
 
+def fsn_published_phase(dev, seed: int, reps: int, smi: str) -> dict:
+    """24b, FullSubNet at its published widths (``FullSubNetConfig.published()``,
+    the ``fullsubnet.train`` cell's model): K13 (``kernels/lstm_rows``) forward,
+    with and without saving bit for bit, and backward against the plain
+    recurrence and K9b's plain backward at the sub band's training rows
+    (2,048 x 503 frames, H = 384, 63 inputs) and at inference's (1 x 257
+    rows, the second layer's 384 inputs); the full band's 16 rows x 503 at H
+    = 512 through the same layer route on K9 and K9b, one launch each; the
+    tolerances of ``tests/test_torch_lstm_rows.py``. K13's forward and
+    backward timed in turns beside cuDNN's ``nn.LSTM`` on the same rows
+    (``kernels/lstm_rows_costs.py``), with its card bound (``counts/k13``'s
+    FMAs over the fp32 peak). Then the main path: the cell's training step
+    (``make_adapter("fullsubnet", model_cfg=...)``, ``make_stateful_train_step``,
+    Adam) at 16 x 8 s, the counters zeroed just before: K13's and K9 / K9b's
+    launches a step, ``lstm.plain_steps`` (0), the step's ms (median of
+    ``reps``, CUDA events) and peak memory."""
+    from aec_tpu_torch.configs import TrainConfig
+    from aec_tpu_torch.kernels import lstm_rows, lstm_rows_costs
+    from aec_tpu_torch.kernels.lstm import grouped_lstm_recurrence
+    from aec_tpu_torch.kernels.lstm_bwd import lstm_backward, lstm_backward_plain
+    from aec_tpu_torch.models.fullsubnet import FullSubNetConfig
+    from aec_tpu_torch.ops.lstm import count_plain, grouped_lstm_recurrence_plain
+    from aec_tpu_torch.train.generic import make_adapter
+    from aec_tpu_torch.train.loop import Optimizer, make_stateful_train_step
+
+    fwd_atol, bwd_rtol = 2e-5, 1e-4  # tests/test_torch_lstm_rows.py's FWD_ATOL, BWD_RTOL
+    cfg = FullSubNetConfig.published()
+    t = N_TRAIN // cfg.stft.hop + 1 + 2  # frames with the look-ahead: 503
+    g = torch.Generator(device=dev).manual_seed(seed + 26)
+
+    def layer(rows, hidden, inputs):
+        b = hidden ** -0.5
+        w_hh = (torch.rand(4 * hidden, hidden, generator=g, device=dev) * 2 - 1) * b
+        w_ih = (torch.rand(4 * hidden, inputs, generator=g, device=dev) * 2 - 1) * b
+        x = torch.rand(rows, t, inputs, generator=g, device=dev) * 2
+        return (x.reshape(rows * t, -1) @ w_ih.T).reshape(rows, t, -1).contiguous(), w_hh
+
+    errs, launched = {}, {}
+    for name, rows, hidden, inputs in (("sb_train", 2048, cfg.sb_hidden, cfg.sb_input),
+                                       ("sb_infer", cfg.n_freqs, cfg.sb_hidden, cfg.sb_hidden),
+                                       ("fb_train", 16, cfg.fb_hidden, cfg.n_freqs)):
+        xp, w_hh = layer(rows, hidden, inputs)
+        kernels = ((lstm_rows.rows_recurrence, lstm_rows.rows_backward) if rows > lstm_rows.FEW_ROWS
+                   else (grouped_lstm_recurrence, lstm_backward))
+        before = [k.launches for k in kernels]
+        with torch.no_grad():
+            ys, saved = lstm_rows._recurrence(xp, w_hh, True)
+            same = torch.equal(ys, lstm_rows._recurrence(xp, w_hh, False))
+            want, want_s = grouped_lstm_recurrence_plain(xp[None], w_hh[None], True)
+            e_ys = float((ys - want[0]).abs().max())
+            e_c = float((saved - want_s[0]).abs().max())
+            del want, want_s
+            g_ys = torch.randn(rows, t, hidden, generator=g, device=dev) * 1e-3
+            dxp = lstm_rows._backward(g_ys, saved, w_hh)
+            ref = lstm_backward_plain(g_ys[None, :, :, None], saved[None, :, :, None],
+                                      w_hh[None])[0, :, :, 0]
+            e_dxp = float((dxp - ref).abs().max() / ref.abs().max())
+        torch.cuda.synchronize()
+        launched[name] = [k.launches - n for k, n in zip(kernels, before)]
+        errs[name] = {"ys": e_ys, "c": e_c, "dxp": e_dxp}
+        del xp, w_hh, ys, saved, g_ys, dxp, ref
+        phase("K13 vs plain" if rows > lstm_rows.FEW_ROWS else "K9 / K9b vs plain",
+              f"{name}: {rows} rows x {t} frames, H = {hidden}: ys with and without saving "
+              f"bit-equal {same}; max|d| ys {e_ys:.3e} (bar {fwd_atol:g}), c {e_c:.3e} (bar "
+              f"{50 * fwd_atol:g}); dxp over its scale {e_dxp:.3e} (bar {bwd_rtol:g}); launches "
+              f"forward, backward {launched[name]} (2 and 1 expected)")
+        check(same, f"{name}: the layer's ys change with the save flag")
+        check(e_ys <= fwd_atol and e_c <= 50 * fwd_atol and e_dxp <= bwd_rtol,
+              f"{name}: the layer route disagrees with the plain versions")
+        check(launched[name] == [2, 1], f"{name}: the layer route did not take its kernels")
+
+    k13 = lstm_rows_costs.costs(2048, t, cfg.sb_hidden, cfg.sb_hidden, reps)  # cuDNN's backward too
+    h = cfg.sb_hidden  # counts/k13.forward: rows T 4H H FMA, 10H a row-step and W_hh moved
+    k13_bound = bound(2048 * t * 4 * h * h, 4 * (2048 * t * 10 * h + 4 * h * h))
+    phase("time", f"K13 a layer at 2048 x {t}, H = {cfg.sb_hidden} (median of {reps} in turns, "
+          f"ms): forward saving {k13['k13_fwd']['ms']:.2f}, backward {k13['k13_bwd']['ms']:.2f}; "
+          f"cuDNN nn.LSTM forward {k13['cudnn_fwd']['ms']:.2f}, backward "
+          f"{k13['cudnn_bwd']['ms']:.2f}; bound {k13_bound['bound_ms']:.2f} ms "
+          f"({k13_bound['bound_by']}) [{smi}]")
+
+    # the main path: the cell's training step, its counters zeroed just before
+    adapter = make_adapter("fullsubnet", model_cfg=cfg)
+    net = adapter.module(*adapter.init(generator=torch.Generator().manual_seed(seed), device=dev))
+    opt = Optimizer(TrainConfig(lr=1e-5, batch_size=16), 593, net)
+
+    def loss_fn(p, st, *b):
+        loss, new_state = adapter.loss(p, st, *b, True)
+        return loss, {"state": new_state}
+
+    step = make_stateful_train_step(loss_fn, opt)
+    gb = torch.Generator(device=dev).manual_seed(seed + 27)
+    batch = [torch.randn(16, N_TRAIN, generator=gb, device=dev) * 0.1 for _ in range(4)]
+    step({}, *batch)  # warm-up: the kernels' load and W_hh's first packing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counted = (lstm_rows.rows_recurrence, lstm_rows.rows_backward, grouped_lstm_recurrence,
+               lstm_backward)
+    for k in counted:
+        k.launches = 0
+    count_plain.steps = 0
+    loss = float(step({}, *batch)[1])
+    step_launches = [k.launches for k in counted]
+    plain = count_plain.steps
+    step_ms = time_ms(lambda: step({}, *batch), reps)
+    peak = torch.cuda.max_memory_allocated()
+    phase("fullsubnet published", f"a training step at 16 x {N_TRAIN / SR:g} s: loss {loss:.4e}; "
+          f"launches K13 forward / backward, K9 / K9b {step_launches} ([2, 2, 2, 2] expected); "
+          f"frames on plain loops {plain}; {step_ms:.1f} ms a step (median of {reps}), peak "
+          f"{peak / 1e9:.2f} GB [{smi}]")
+    check(math.isfinite(loss), "the published step's loss is not finite")
+    check(step_launches == [2, 2, 2, 2] and plain == 0,
+          "the published step did not run both bands on their kernels")
+    del net, opt, step, batch
+    return {"errs": errs, "launches": launched, "step_launches": step_launches,
+            "plain_steps": plain, "step_ms": step_ms, "peak_bytes": peak, "k13": k13,
+            "k13_bound": k13_bound}
+
+
+def fsn_published_rows(pub: dict) -> tuple[list, dict, dict]:
+    """K13's rows of the kernels JSON from :func:`fsn_published_phase`
+    (launches a published training step, the error at the training rows,
+    the layer's ms at 2,048 x 503, H = 384, and its bound), cuDNN's times
+    beside them, and their extras (the step's launches, ms and peak, the
+    errors at every shape)."""
+    k13, launches, errs = pub["k13"], pub["step_launches"], pub["errs"]
+    rows = [("lstm_rows", "lstm_rows.cu", None, launches[0], errs["sb_train"]["ys"],
+             k13["k13_fwd"]["ms"], None, pub["k13_bound"]),
+            ("lstm_rows_backward", "lstm_rows.cu", None, launches[1], errs["sb_train"]["dxp"],
+             k13["k13_bwd"]["ms"], None, pub["k13_bound"])]
+    library_ms = {"lstm_rows": k13["cudnn_fwd"]["ms"], "lstm_rows_backward": k13["cudnn_bwd"]["ms"]}
+    step = {"fullsubnet_published_step": {"k13": launches[:2], "k9_k9b": launches[2:],
+                                          "plain_steps": pub["plain_steps"]},
+            "step_ms": pub["step_ms"], "peak_bytes": pub["peak_bytes"], "errs": errs}
+    return rows, library_ms, {"lstm_rows": step, "lstm_rows_backward": step}
+
+
 def att_ccrn_phase(dev, names, s_far, s_mic, reps: int, smi: str, costs: list[dict]) -> dict:
     """25. K10 at ATT-CCRN's bottleneck (H = 4096, T = 513, B = 1) against the
     plain int8 loop, with the count of h's codes that differ, timed beside it
@@ -3316,16 +3461,63 @@ def examples_extras(extra: dict, ex: dict) -> None:
         extra.setdefault(kernel, {})["examples_launches"] = launches
 
 
+def phase_alone(seed: int, reps: int) -> None:
+    """``--phase fsn_published``: build K13, K9 and K9b, run
+    :func:`fsn_published_phase`, print its kernels JSON and the ``ok``
+    line."""
+    from aec_tpu_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    logs = _build.build("lstm_rows", "lstm", "lstm_bwd")
+    phase("build", f"{time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
+    for src, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                phase("build", f"{src}: {line.strip()}")
+    rows, library_ms, extra = fsn_published_rows(fsn_published_phase(dev, seed, reps, smi))
+    print_kernels(rows, library_ms, {}, extra)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def print_kernels(rows: list, library_ms: dict, kernel_ms: dict, extra: dict) -> None:
+    """The kernels JSON line: a row (kernel, source, the TPU kernel it
+    replaces or None, launches, error, ms, plain ms, bound) each."""
+    print(json.dumps({"kernels": [
+        {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
+         "replaces": f"aec_tpu/kernels/{tpu}" if tpu else None, "launches": n,
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+         "library_ms": library_ms.get(kernel),
+         **({"kernel_ms": kernel_ms[kernel]} if kernel in kernel_ms else {}),
+         **extra.get(kernel, {})}
+        for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
+    ]}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--phase", choices=["fsn_published"],
+                    help="run this phase alone (its kernels built first) and print its rows")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
     # 1. a CUDA device, or nothing
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    if args.phase:
+        phase_alone(args.seed, args.reps)
+        return
     from aec_tpu_torch.configs import KalmanConfig, NlmsConfig
     from aec_tpu_torch.dsp.erb import erb_filterbank
     from aec_tpu_torch.kernels import (
@@ -3390,7 +3582,7 @@ def main() -> None:
     wide_builds = gru_wide_costs.start_build()  # K8 / K8b wide, whole and without their dots
     logs = _build.build("kalman_batched", "stage2", "serving", "two_stage", "nlms_batched",
                         "single_stream", "gru", "gru_wide", "lstm", "fullsubnet", "lstm_int8",
-                        "lstm_bwd")
+                        "lstm_bwd", "lstm_rows")
     cost_libs = lstm_costs.finish_build(cost_builds)
     single_libs = single_costs.finish_build(single_builds)
     fsn_libs = fsn_costs.finish_build(fsn_builds)
@@ -3951,6 +4143,8 @@ def main() -> None:
         fsn_parts = fsn_costs.costs(fsn_libs, args.reps, args.seed)
     fsn = fullsubnet_phase(dev, names, s_far, s_mic, args.reps, smi, fsn_parts)
     fsn_train = fullsubnet_train_phase(dev, args.seed, args.reps, smi, bwd_costs)
+    pub_rows, pub_library, pub_extra = fsn_published_rows(
+        fsn_published_phase(dev, args.seed, args.reps, smi))
     att = att_ccrn_phase(dev, names, s_far, s_mic, args.reps, smi, step_costs)
     # 26. zoo training: every cli/train family and the DCT nets at batch 16 x 8 s
     zoo = zoo_phase(dev, args.seed, args.reps, smi)
@@ -4132,16 +4326,17 @@ def main() -> None:
         "library_fwd_bwd_ms": k8w["lib_fwd_bwd_ms"],
         "train_launches": {"dct_cnn_step": zoo["dct_cnn"]["wide_launches"][1]}}
     examples_extras(extra, ex)
+    # K13 (FullSubNet's published sub band), and K9 / K9b's launches in its step
+    rows += pub_rows
+    library_ms.update(pub_library)
+    extra.update(pub_extra)
+    extra["lstm_grouped"]["train_launches"]["fullsubnet_published_step"] = \
+        pub_extra["lstm_rows"]["fullsubnet_published_step"]["k9_k9b"][0]
+    extra["lstm_backward"]["train_launches"]["fullsubnet_published_step"] = \
+        pub_extra["lstm_rows"]["fullsubnet_published_step"]["k9_k9b"][1]
     phase("total", f"{time.perf_counter() - t_start:.1f} s, the build's {build_s:.1f} s "
           f"included [{smi}]")
-    print(json.dumps({"kernels": [
-        {"name": kernel, "route": "cuda", "source": f"aec_tpu_torch/kernels/csrc/{src}",
-         "replaces": f"aec_tpu/kernels/{tpu}", "launches": n, "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms, **bnd, "library_ms": library_ms.get(kernel),
-         **({"kernel_ms": kernel_ms[kernel]} if kernel in kernel_ms else {}),
-         **extra.get(kernel, {})}
-        for kernel, src, tpu, n, err, ms, plain_ms, bnd in rows
-    ]}), flush=True)
+    print_kernels(rows, library_ms, kernel_ms, extra)
     # 31. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
